@@ -1,0 +1,170 @@
+"""Query engine: text / image / k-shot-prototype search over a gallery.
+
+Counterpart of mmrs_tpu/search/engine.py for the flat bf16 gallery on one
+device (code/search_image.py:320-390). Every query goes through the fused
+cosine top-k (ops/topk.py: the CUDA kernel on a GPU). Scores follow the
+reference's `100. * feat @ ref.T` convention (code/search_image.py:105-117)
+via the configured logit scale. The int8/int4 galleries (ROADMAP A.6), IVF
+(A.7) and the sharded gallery (A.12) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from mmrs_tpu_torch.config import SearchConfig
+from mmrs_tpu_torch.index.gallery import GalleryIndex
+from mmrs_tpu_torch.ops.normalize import l2_normalize
+from mmrs_tpu_torch.ops.topk import cosine_topk
+from mmrs_tpu_torch.search.prototypes import build_prototype
+from mmrs_tpu_torch.utils.stats import StageStats
+
+UPLOAD_CHUNK = 131072  # host->device staging rows (bounds host RSS)
+
+
+@dataclass
+class SearchHit:
+    path: str
+    score: float
+    rank: int
+    cls: str
+
+
+def _to_device_chunked(embeddings, dtype: torch.dtype, device: torch.device,
+                       chunk: int = UPLOAD_CHUNK) -> torch.Tensor:
+    """Upload a (possibly memmapped) [N, D] host array chunk by chunk, cast
+    to `dtype` and L2-normalize each chunk on the device (normalization is
+    per row, so this equals normalizing the whole `dtype` gallery)."""
+    n, d = embeddings.shape
+    out = torch.empty((n, d), dtype=dtype, device=device)
+    for a in range(0, n, chunk):
+        rows = torch.from_numpy(np.array(embeddings[a:a + chunk]))
+        out[a:a + chunk] = l2_normalize(rows.to(device).to(dtype))
+    return out
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.asarray(x)).to(device)
+
+
+class SearchEngine:
+    """Holds the gallery on the device and answers queries."""
+
+    def __init__(
+        self,
+        index: GalleryIndex,
+        config: Optional[SearchConfig] = None,
+        mesh=None,
+        quantize=False,
+        device=None,
+    ):
+        self.index = index
+        self.config = config or SearchConfig()
+        self.stats = StageStats()
+        if mesh is not None:
+            raise NotImplementedError(
+                "the sharded gallery (mesh=) is ported with ROADMAP A.12")
+        if quantize not in (False, None, ""):
+            raise NotImplementedError(
+                "int8/int4 galleries (quantize=) are ported with ROADMAP A.6")
+        if self.config.ann not in ("none", "", None):
+            raise NotImplementedError(
+                "IVF search (ann=) is ported with ROADMAP A.7")
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.gallery = _to_device_chunked(index.embeddings, torch.bfloat16,
+                                          self.device)
+
+    # -- core ---------------------------------------------------------------
+
+    def query_vectors(self, vectors, top_k: Optional[int] = None
+                      ) -> List[List[SearchHit]]:
+        """vectors [Q, D] (unnormalized ok). Returns hits per query."""
+        k = min(top_k or self.config.top_k, len(self.index))
+        q = l2_normalize(_as_tensor(vectors, self.device))
+        q = q.to(self.gallery.dtype)
+        with self.stats.timed("topk", count=q.shape[0]):
+            vals, idxs = cosine_topk(q, self.gallery, k)
+            vals = vals.cpu().numpy()
+            idxs = idxs.cpu().numpy()
+        scale = self.config.logit_scale
+        out: List[List[SearchHit]] = []
+        for qi in range(vals.shape[0]):
+            hits: List[SearchHit] = []
+            for j in range(idxs.shape[1]):
+                r = int(idxs[qi, j])
+                if r < 0:
+                    continue    # sentinel: k exceeded the gallery rows
+                hits.append(SearchHit(
+                    path=self.index.paths[r],
+                    score=float(vals[qi, j] * scale),
+                    rank=len(hits),
+                    cls=self.index.classes[r],
+                ))
+            out.append(hits)
+        return out
+
+    # -- query flavors (the reference's entry points) -------------------------
+
+    def query_text(self, text_embeds, top_k=None):
+        """Text->image search: embeds from the matching text tower."""
+        return self.query_vectors(text_embeds, top_k)
+
+    def query_image(self, image_embeds, top_k=None):
+        """Reference-image->image search."""
+        return self.query_vectors(image_embeds, top_k)
+
+    def query_prototype(self, shot_embeds, strategy: Optional[str] = None,
+                        text_embed=None, top_k=None):
+        """K-shot prototype search."""
+        proto = build_prototype(_as_tensor(shot_embeds, self.device),
+                                strategy=strategy or self.config.prototype,
+                                text_embed=text_embed)
+        return self.query_vectors(proto[None, :], top_k)
+
+    def device_similarities(self, vectors) -> torch.Tensor:
+        """UNscaled cosine rows [Q, N] f32 against the device gallery:
+        bf16 operands, f32 products and sums, computed chunk by chunk so
+        that no f32 copy of the whole gallery is made."""
+        q = l2_normalize(_as_tensor(vectors, self.device))
+        q = q.to(self.gallery.dtype).float()
+        n = self.gallery.shape[0]
+        sims = torch.empty((q.shape[0], n), dtype=torch.float32,
+                           device=self.device)
+        for a in range(0, n, UPLOAD_CHUNK):
+            rows = self.gallery[a:a + UPLOAD_CHUNK]
+            sims[:, a:a + UPLOAD_CHUNK] = q @ rows.float().T
+        return sims
+
+    def sweep_class(self, vector, positives: np.ndarray,
+                    thresholds: Optional[np.ndarray] = None,
+                    calib_config=None):
+        """Threshold calibration against the whole gallery on the device:
+        the [N] sims and the (tp, fp, fn) reductions stay there, only the
+        [T] counts come back. Thresholds apply to SCALED sims
+        (config.logit_scale), as the reference's threshold tables."""
+        from mmrs_tpu_torch.config import CalibrationConfig
+        from mmrs_tpu_torch.search.calibrate import (_sweep_counts,
+                                                     grid_thresholds,
+                                                     result_from_counts)
+
+        cfg = calib_config or CalibrationConfig()
+        vec = _as_tensor(vector, self.device)
+        sims = self.device_similarities(vec[None, :])[0]
+        sims = sims * self.config.logit_scale
+        pos = torch.from_numpy(np.asarray(positives, bool)).to(self.device)
+        if thresholds is None:
+            thresholds = grid_thresholds(cfg, float(sims.min()),
+                                         float(sims.max()),
+                                         scale=self.config.logit_scale)
+        thr = torch.from_numpy(np.asarray(thresholds, np.float32)).to(
+            self.device)
+        tp, fp, fn = _sweep_counts(sims, pos, thr)
+        return result_from_counts(thresholds, tp, fp, fn)

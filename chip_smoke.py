@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's search paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -7,14 +7,25 @@ Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
   1. environment: torch/CUDA versions, the card's name and power limit;
      whether PIL, yaml and regex import here;
-  2. build: the CUDA kernels (nvcc, sm_90a) and the Triton kernel, from
-     the sources in mmrs_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version at main-path shapes;
-  4. end to end through the port's public path at ViT-B/32 width (random
-     weights from a seed): build_towers -> build_index over 4096 seeded
-     synthetic images -> SearchEngine image / prototype / text queries ->
-     sweep_class; then a 1,048,576 x 512 gallery queried at Q=8;
-  5. launch counts: every kernel ran during phase 4;
+  2. build: the CUDA kernels (one nvcc per source, all at once, sm_90a;
+     each kernel's registers, shared memory and spills) and the Triton
+     kernel, from the sources in mmrs_tpu_torch/csrc;
+  3. each kernel against its plain PyTorch version at main-path shapes:
+     K1-K3 as before, K4/K5 (int8/int4 top-k over a 1,048,576 x 512
+     gallery, ids and values equal), K6 (fused int8 MLP at the ViT-B/32
+     serving shape, nonzero biases, equal in every element);
+  4. end to end through the port's public paths at ViT-B/32 width (random
+     weights from a seed), each with the kernel launch counts set to 0
+     just before it and read just after:
+     a. bf16: build_towers -> build_index over 4096 seeded synthetic images
+        -> SearchEngine image / prototype / text queries -> sweep_class;
+        then a 1,048,576 x 512 gallery queried at Q=8;
+     b. quantized: build_towers(dtype int8) -> build_index over the same
+        images -> SearchEngine(quantize int8 / int4) image and prototype
+        queries (hits equal to the plain top-k) -> sweep_class; then the
+        1M gallery behind int8 and int4 engines at Q=8;
+  5. launch counts: every kernel of each path ran during its phase 4 run;
+     phase 4's answers against the plain versions on the same inputs;
   6. times (CUDA events, after warm-up), kernel and plain version in turns.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -24,6 +35,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -41,6 +53,11 @@ DIM = 512                     # ViT-B/32 embed_dim
 EMBED_BATCH = 224             # serving batch for the embed throughput
 SMOKE_IMAGES = 4096
 SMOKE_CLASSES = 8
+# largest |quantized score - exact cosine| tolerated: mmrs_tpu's bounds
+# (tests/test_quant.py, tests/test_quant4.py)
+QUANT_SCORE_ERR = {"int8": 0.02, "int4": 0.04}
+# least c0 prototype precision@10 on every gallery; chance is 10/8 = 1.25
+PROTO_MIN = 6
 
 
 def say(*parts) -> None:
@@ -80,6 +97,22 @@ def time_pair(kernel_fn, plain_fn, iters: int = 10, warmup: int = 3):
     p1, k1, k2, p2 = one(plain_fn), one(kernel_fn), one(kernel_fn), \
         one(plain_fn)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def ptxas_lines(log_path: str):
+    """(kernel, usage) per compiled kernel from nvcc's -Xptxas -v output."""
+    name = "?"
+    with open(log_path, encoding="utf-8") as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                m = re.search(r"(\w+?_kernel)(?:I(?:Li(\d+)E|(f)|13__nv_"
+                              r"(bfloat16)))?", line)
+                name = m.group(1) + "".join(
+                    f"<{a}>" for a in m.groups()[1:] if a) if m else "?"
+            elif "Used" in line:
+                yield name, line.split(":", 1)[1].strip()
+            elif "spill" in line and "0 bytes spill stores" not in line:
+                yield name, line.strip()
 
 
 def launched(kernels, call, what: str):
@@ -128,8 +161,14 @@ class SyntheticImages:
     image_size: int = 224
     stack: str = "openai"
     num_workers: int = 0
+    cache: dict = dataclasses.field(default_factory=dict)  # name -> pixels
 
     def image(self, name: str, cls: str) -> np.ndarray:
+        if name not in self.cache:
+            self.cache[name] = self._draw(name, cls)
+        return self.cache[name]
+
+    def _draw(self, name: str, cls: str) -> np.ndarray:
         s = self.image_size
 
         def coarse(*key):
@@ -164,18 +203,27 @@ def main() -> int:
     from mmrs_tpu_torch.config import Config, ModelConfig, SearchConfig
     from mmrs_tpu_torch.index.gallery import GalleryIndex, build_index
     from mmrs_tpu_torch.models import clip
+    from mmrs_tpu_torch.models.layers import QLinear
     from mmrs_tpu_torch.ops import _cuda
     from mmrs_tpu_torch.ops.attention import mha_short_seq
+    from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
     from mmrs_tpu_torch.ops.normalize import l2_normalize
     from mmrs_tpu_torch.ops.preprocess import normalize_images
+    from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
+    from mmrs_tpu_torch.ops.quant4 import cosine_topk_int4, quantize_rows_int4
     from mmrs_tpu_torch.ops.topk import cosine_topk
     from mmrs_tpu_torch.pipeline import build_towers
     from mmrs_tpu_torch.search import calibrate
     from mmrs_tpu_torch.search.engine import SearchEngine
+    from mmrs_tpu_torch.search.prototypes import build_prototype
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     card = card_line()
+    kernels = (cosine_topk, mha_short_seq, normalize_images,
+               cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused)
+    quant_topk = {"int8": (cosine_topk_quantized, quantize_rows),
+                  "int4": (cosine_topk_int4, quantize_rows_int4)}
 
     # ---- 1. environment --------------------------------------------------
     have = {}
@@ -197,17 +245,16 @@ def main() -> int:
     _cuda.library()
     log = _cuda.library_path()[:-3] + ".log"
     if os.path.exists(log):
-        with open(log, encoding="utf-8") as f:
-            for line in f:
-                if "Used" in line or "spill" in line:
-                    say("  ptxas:", line.strip())
+        for name, usage in ptxas_lines(log):
+            say(f"  ptxas {name}: {usage}")
     t1 = time.perf_counter()
     normalize_images(torch.zeros((1, 224, 224, 3), dtype=torch.uint8,
                                  device=dev))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t1
-    say(f"phase 2 build: nvcc {nvcc_s:.2f} s (0 = already built), triton "
-        f"{triton_s:.2f} s, total {time.perf_counter() - t0:.2f} s")
+    say(f"phase 2 build: nvcc {nvcc_s:.2f} s for {len(_cuda.CUDA_SOURCES)} "
+        f"sources in parallel (0 = already built), triton {triton_s:.2f} s, "
+        f"total {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. kernels against their plain versions ---------------------------
     errs = {}
@@ -238,22 +285,39 @@ def main() -> int:
 
         g = torch.randn((GALLERY_ROWS, DIM), device=dev, generator=gen)
         g = (g / g.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        packed = {mode: quant(g.float())
+                  for mode, (_, quant) in quant_topk.items()}
         errs["cosine_topk"] = 0.0
+        # K4 / K5 must equal their plain versions exactly, or the run stops
+        errs["cosine_topk_quantized"] = errs["cosine_topk_int4"] = 0.0
         for nq in (1, 8, 64):
             rows = torch.randint(0, GALLERY_ROWS, (nq,), device=dev,
                                  generator=gen)
             qv = g[rows].float() + 0.05 * torch.randn((nq, DIM), device=dev,
                                                       generator=gen)
-            qv = (qv / qv.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+            qv = qv / qv.norm(dim=1, keepdim=True)
             for k in (10, 100):
-                vals, ids = cosine_topk(qv, g, k)
-                rv, ri = cosine_topk(qv, g, k + 1, impl="torch")
+                vals, ids = cosine_topk(qv.to(torch.bfloat16), g, k)
+                rv, ri = cosine_topk(qv.to(torch.bfloat16), g, k + 1,
+                                     impl="torch")
                 e = topk_agree(vals, ids, rv, ri)
                 check(bool((ids[:, 0] == rows.int()).all()),
                       "top-1 is not the query's source row")
                 errs["cosine_topk"] = max(errs["cosine_topk"], e)
                 say(f"phase 3 K1 cosine_topk N={GALLERY_ROWS} D={DIM} Q={nq}"
                     f" k={k}: max|dv| {e:.3e}, ids agree")
+                for mode, (fn, _) in quant_topk.items():
+                    vals, ids = fn(qv, *packed[mode], k)
+                    rv, ri = fn(qv, *packed[mode], k, impl="torch")
+                    check(torch.equal(ids, ri) and torch.equal(vals, rv),
+                          f"{fn.__name__} Q={nq} k={k}: kernel != plain "
+                          f"(ids differ at {int((ids != ri).sum())}, max|dv|"
+                          f" {float((vals - rv).abs().max())})")
+                    check(bool((ids[:, 0] == rows.int()).all()),
+                          f"{fn.__name__}: top-1 is not the source row")
+                    say(f"phase 3 {'K4' if mode == 'int8' else 'K5'} "
+                        f"{fn.__name__} {mode} N={GALLERY_ROWS} D={DIM} "
+                        f"Q={nq} k={k}: ids and values equal to plain")
         tie = torch.randn((1000, DIM), device=dev, generator=gen)
         tie[500] = tie[20]
         tie[900] = tie[20]
@@ -263,78 +327,138 @@ def main() -> int:
         check(ids[0, :3].tolist() == [20, 500, 900] and torch.equal(ids, ri),
               f"tie rule: kernel {ids.tolist()} plain {ri.tolist()}")
         say(f"phase 3 K1 tie case: ids {ids[0].tolist()} (lowest row first)")
-        del g, px
+        for mode, (fn, quant) in quant_topk.items():
+            tp = quant(tie.float())
+            vals, ids = fn(tie[20:21].float(), *tp, 5)
+            rv, ri = fn(tie[20:21].float(), *tp, 5, impl="torch")
+            check(ids[0, :3].tolist() == [20, 500, 900]
+                  and torch.equal(ids, ri) and torch.equal(vals, rv),
+                  f"{mode} tie rule: kernel {ids.tolist()} plain "
+                  f"{ri.tolist()}")
+            say(f"phase 3 {fn.__name__} tie case: ids {ids[0].tolist()}, "
+                f"values {vals[0, :3].tolist()} (lowest row first)")
 
-    # ---- 4. end to end -----------------------------------------------------
+        towers8 = build_towers(Config(model=ModelConfig(
+            image_tower="vit_b32", dtype="int8"), seed=SEED), device=dev)
+        check(isinstance(towers8.params.visual.blocks[0].mlp.w1, QLinear),
+              "dtype int8 did not quantize the vision tower")
+        # K6 on the tower's int8 weights with seeded nonzero biases (the
+        # random tower's are zero) and two rows of exact ties (max |x| = 127
+        # makes the row scale 1.0, so x.5 codes test rounding half to even).
+        # Kernel and plain run the same f32 operations in the same order, so
+        # they must be equal: a kernel that drops a bias, rounds h to bf16
+        # or rounds half away from zero differs in whole rows.
+        mlp = towers8.params.visual.blocks[0].mlp
+        x = torch.randn((EMBED_BATCH * 50, 768), device=dev, generator=gen)
+        ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -3.5],
+                            device=dev).repeat(768 // 8)
+        x[0], x[1] = ties, -ties
+        x = x.to(torch.bfloat16)
+        b1, b2 = (0.3 * torch.randn(lin.bias.shape, device=dev, generator=gen)
+                  for lin in (mlp.w1, mlp.w2))
+        errs["mlp_int8_fused"] = 0.0
+        for act in ("quick_gelu", "gelu"):
+            args = (x, mlp.w1.q, mlp.w1.s, b1, mlp.w2.q, mlp.w2.s, b2)
+            out = mlp_int8_fused(*args, act=act).float()
+            ref = mlp_int8_fused(*args, act=act, impl="torch").float()
+            d = float((out - ref).abs().max())
+            check(torch.equal(out, ref),
+                  f"mlp_int8_fused {act}: kernel != plain in "
+                  f"{int((out != ref).sum())} elements, max|d| {d}")
+            errs["mlp_int8_fused"] = max(errs["mlp_int8_fused"], d)
+            say(f"phase 3 K6 mlp_int8_fused {act} [{x.shape[0]},768]->3072 "
+                f"bf16, biases N(0, 0.3), tie rows: equal to plain in every "
+                f"element")
+        del g, px, packed, x
+
+    # ---- 4a. end to end: bf16 ---------------------------------------------
     cfg = Config(model=ModelConfig(image_tower="vit_b32", dtype="bfloat16"),
                  seed=SEED)
     towers = build_towers(cfg, device=dev)
     model = towers.params
-    for fn in (normalize_images, mha_short_seq, cosine_topk):
+    for fn in kernels:
         fn.launches = 0
     t0 = time.perf_counter()
     samples = [(f"synthetic/c{i % SMOKE_CLASSES}/{i:05d}",
                 f"c{i % SMOKE_CLASSES}") for i in range(SMOKE_IMAGES)]
     ds = SyntheticImages(samples)
-    with tempfile.TemporaryDirectory() as tmp:
-        idx = launched(
-            (normalize_images, mha_short_seq),
-            lambda: build_index(ds, towers.image_encode,
-                                os.path.join(tmp, "idx"),
-                                batch_size=cfg.gallery.batch_size),
-            "build_index")
-        check(len(idx) == SMOKE_IMAGES and idx.dim == DIM,
-              f"index has {len(idx)} rows of dim {idx.dim}")
-        check(bool(np.isfinite(idx.embeddings).all()), "non-finite rows")
-        engine = SearchEngine(idx, SearchConfig(), device=dev)
+    picks = list(range(0, SMOKE_IMAGES, SMOKE_IMAGES // 8))
+    qpx = np.stack([ds.image(*samples[i]) for i in picks])
+    tmp = tempfile.TemporaryDirectory()
+    idx = launched(
+        (normalize_images, mha_short_seq),
+        lambda: build_index(ds, towers.image_encode,
+                            os.path.join(tmp.name, "idx"),
+                            batch_size=cfg.gallery.batch_size),
+        "build_index")
+    check(len(idx) == SMOKE_IMAGES and idx.dim == DIM,
+          f"index has {len(idx)} rows of dim {idx.dim}")
+    check(bool(np.isfinite(idx.embeddings).all()), "non-finite rows")
+    engine = SearchEngine(idx, SearchConfig(), device=dev)
 
-        picks = list(range(0, SMOKE_IMAGES, SMOKE_IMAGES // 8))
-        qpx = np.stack([ds.image(*samples[i]) for i in picks])
-        qvec = launched((normalize_images, mha_short_seq),
-                        lambda: towers.image_encode(qpx), "image_encode")
-        hits = launched((cosine_topk,),
-                        lambda: engine.query_image(qvec, top_k=10),
-                        "query_image")
-        for i, h in zip(picks, hits):
-            check(len(h) == 10 and samples[i][0] in [x.path for x in h[:3]],
-                  f"image query {i}: own path not in the top 3")
-        self_top1 = sum(h[0].path == samples[i][0]
-                        for i, h in zip(picks, hits))
-        shots = idx.embeddings[[i for i in range(40) if i % 8 == 0]]
-        proto_hits = launched(
-            (cosine_topk,), lambda: engine.query_prototype(shots, top_k=10),
-            "query_prototype")[0]
-        same = sum(h.cls == "c0" for h in proto_hits)
+    qvec = launched((normalize_images, mha_short_seq),
+                    lambda: towers.image_encode(qpx), "image_encode")
+    hits = launched((cosine_topk,),
+                    lambda: engine.query_image(qvec, top_k=10),
+                    "query_image")
+    for i, h in zip(picks, hits):
+        check(len(h) == 10 and samples[i][0] in [x.path for x in h[:3]],
+              f"image query {i}: own path not in the top 3")
+    self_top1 = sum(h[0].path == samples[i][0] for i, h in zip(picks, hits))
+    shots = idx.embeddings[[i for i in range(40) if i % 8 == 0]]
+    proto_hits = launched(
+        (cosine_topk,), lambda: engine.query_prototype(shots, top_k=10),
+        "query_prototype")[0]
+    same = sum(h.cls == "c0" for h in proto_hits)
+    check(same >= PROTO_MIN, f"prototype c0 precision@10 {same}/10")
 
-        ids = np.random.default_rng(SEED).integers(1, 49406, (4, 77))
-        lengths = [5, 9, 12, 20]
-        tokens = np.zeros((4, 77), np.int64)
-        for r, n in enumerate(lengths):
-            tokens[r, 0] = 49406
-            tokens[r, 1:n + 1] = ids[r, :n]
-            tokens[r, n + 1] = 49407      # EOT: the max id
-        tvec = clip.encode_text(model, torch.from_numpy(tokens).to(dev))
-        check(bool(torch.isfinite(tvec).all()), "non-finite text embeds")
-        text_hits = launched((cosine_topk,),
-                             lambda: engine.query_text(tvec, top_k=10),
-                             "query_text")
-        check(all(len(h) == 10 and np.isfinite([x.score for x in h]).all()
-                  for h in text_hits), "text query hits")
+    ids = np.random.default_rng(SEED).integers(1, 49406, (4, 77))
+    lengths = [5, 9, 12, 20]
+    tokens = np.zeros((4, 77), np.int64)
+    for r, n in enumerate(lengths):
+        tokens[r, 0] = 49406
+        tokens[r, 1:n + 1] = ids[r, :n]
+        tokens[r, n + 1] = 49407      # EOT: the max id
+    tvec = clip.encode_text(model, torch.from_numpy(tokens).to(dev))
+    check(bool(torch.isfinite(tvec).all()), "non-finite text embeds")
+    text_hits = launched((cosine_topk,),
+                         lambda: engine.query_text(tvec, top_k=10),
+                         "query_text")
+    check(all(len(h) == 10 and np.isfinite([x.score for x in h]).all()
+              for h in text_hits), "text query hits")
 
-        labels = np.asarray([c == "c0" for c in idx.classes])
-        proto = torch.from_numpy(
-            np.asarray(idx.embeddings[np.flatnonzero(labels)[:10]])).mean(0)
-        res = engine.sweep_class(proto, labels)
+    def sweep_equals_host(eng, what):
+        labels = np.asarray([c == "c0" for c in eng.index.classes])
+        proto = torch.from_numpy(np.asarray(
+            eng.index.embeddings[np.flatnonzero(labels)[:10]])).mean(0)
+        res = eng.sweep_class(proto, labels)
         host = calibrate.sweep(
-            engine.device_similarities(proto[None])[0].cpu().numpy()
-            * engine.config.logit_scale, labels)
+            eng.device_similarities(proto[None])[0].cpu().numpy()
+            * eng.config.logit_scale, labels)
         check(0.0 <= res.best_f1 <= 1.0 and np.isfinite(res.best_threshold),
-              "sweep_class result")
+              f"{what} sweep_class result")
         check(abs(res.best_threshold - host.best_threshold) <= 1e-3
               and abs(res.best_f1 - host.best_f1) <= 1e-9,
-              f"device sweep {res.best_threshold}/{res.best_f1} vs host "
-              f"{host.best_threshold}/{host.best_f1}")
-    say(f"phase 4 e2e ViT-B/32 bf16: index {len(idx)}x{idx.dim}, image "
+              f"{what} device sweep {res.best_threshold}/{res.best_f1} vs "
+              f"host {host.best_threshold}/{host.best_f1}")
+        return res
+
+    def hits_equal_plain(eng, fn, hits, q, what):
+        """A quantized engine's hits equal fn's plain version on the same
+        gallery and queries (q as query_vectors receives them): the same
+        rows in the same order with the same scores."""
+        with torch.inference_mode():
+            rv, ri = fn(l2_normalize(q), eng.gallery, eng.gallery_scales,
+                        len(hits[0]), impl="torch")
+        rv, scale = rv.cpu().numpy(), eng.config.logit_scale
+        want = [[(eng.index.paths[r], float(rv[i, j] * scale))
+                 for j, r in enumerate(row)]
+                for i, row in enumerate(ri.tolist())]
+        check([[(x.path, x.score) for x in h] for h in hits] == want,
+              f"{what}: engine hits != the plain top-k")
+
+    res = sweep_equals_host(engine, "bf16")
+    say(f"phase 4a e2e ViT-B/32 bf16: index {len(idx)}x{idx.dim}, image "
         f"self-top1 {self_top1}/8, prototype c0 precision@10 {same}/10, text "
         f"hits ok, calibrate c0 thr {res.best_threshold:.4f} f1 "
         f"{res.best_f1:.4f} (= host sweep), "
@@ -358,31 +482,145 @@ def main() -> int:
                         "1M query_vectors")
     check(all(h[0].path == f"row/{s}" for s, h in zip(src, big_hits)),
           "1M query: top-1 is not the source row")
-    say(f"phase 4 e2e 1M x 512 gallery (f16 host -> bf16 device), Q=8: "
+    say(f"phase 4a e2e 1M x 512 gallery (f16 host -> bf16 device), Q=8: "
         f"top-1 = source row for 8/8, {time.perf_counter() - t0:.1f} s")
+    # read before anything else launches a kernel
+    launches_bf16 = {fn.__name__: fn.launches for fn in kernels}
+
+    # ---- 4b. end to end: int8 tower, int8 / int4 galleries ----------------
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    idx8 = launched(
+        (normalize_images, mha_short_seq, mlp_int8_fused),
+        lambda: build_index(ds, towers8.image_encode,
+                            os.path.join(tmp.name, "idx8"),
+                            batch_size=cfg.gallery.batch_size),
+        "int8 build_index")
+    check(len(idx8) == SMOKE_IMAGES and idx8.dim == DIM
+          and bool(np.isfinite(idx8.embeddings).all()), "int8 index rows")
+    e8 = np.asarray(idx8.embeddings, np.float32)
+    e16 = np.asarray(idx.embeddings, np.float32)
+    tower_cos = float((e8 * e16).sum(1).min())
+    qvec8 = launched((normalize_images, mha_short_seq, mlp_int8_fused),
+                     lambda: towers8.image_encode(qpx), "int8 image_encode")
+    quant_report = []
+    row_of = {p: r for r, p in enumerate(idx8.paths)}
+    for mode, (fn, _) in quant_topk.items():
+        eng = SearchEngine(idx8, SearchConfig(), quantize=mode, device=dev)
+        hits = launched((fn,), lambda: eng.query_image(qvec8, top_k=10),
+                        f"{mode} query_image")
+        hits_equal_plain(eng, fn, hits, torch.from_numpy(qvec8).to(dev),
+                         f"{mode} query_image")
+        # random towers map every image near one direction (nearest other
+        # image at cosine ~0.998): int8's score error stays below that gap,
+        # int4's (rms ~0.006) does not. Every query's hits must be the best
+        # rows up to the mode's error bound (mmrs_tpu's: 0.02 int8, 0.04
+        # int4); int8 must also find the query image in its top 3
+        bound = QUANT_SCORE_ERR[mode]
+        ranks = []
+        for i, qv8, h in zip(picks, qvec8, hits):
+            check(len(h) == 10, f"{mode} image query {i}: {len(h)} hits")
+            exact = e8[[row_of[x.path] for x in h]] @ qv8
+            err = float(np.abs(np.asarray([x.score for x in h])
+                               / eng.config.logit_scale - exact).max())
+            check(err <= bound and exact[0] >= float(e8[i] @ qv8) - bound,
+                  f"{mode} image query {i}: hit scores off the exact "
+                  f"cosines by {err}, top-1 exact {exact[0]}")
+            paths = [x.path for x in h]
+            ranks.append(paths.index(samples[i][0]) if samples[i][0] in paths
+                         else ">9")
+            check(mode != "int8" or samples[i][0] in paths[:3],
+                  f"int8 image query {i}: own path not in the top 3")
+        top1 = sum(r == 0 for r in ranks)
+        shots8 = idx8.embeddings[[i for i in range(40) if i % 8 == 0]]
+        proto_hits = launched(
+            (fn,), lambda: eng.query_prototype(shots8, top_k=10),
+            f"{mode} query_prototype")
+        proto = build_prototype(torch.from_numpy(np.asarray(shots8)).to(dev),
+                                strategy=eng.config.prototype)
+        hits_equal_plain(eng, fn, proto_hits, proto[None, :],
+                         f"{mode} query_prototype")
+        prec = sum(h.cls == "c0" for h in proto_hits[0])
+        check(prec >= PROTO_MIN,
+              f"{mode} prototype c0 precision@10 {prec}/10")
+        res8 = sweep_equals_host(eng, mode)
+        quant_report.append(
+            f"{mode} gallery: image and prototype hits = plain top-10, image "
+            f"self-rank {ranks} (top-1 {top1}/8; hit scores within {bound} "
+            f"of exact), prototype c0 "
+            f"precision@10 {prec}/10, calibrate c0 thr "
+            f"{res8.best_threshold:.4f} f1 {res8.best_f1:.4f} (= host sweep)")
+    say(f"phase 4b e2e ViT-B/32 int8 tower: index {len(idx8)}x{idx8.dim}, "
+        f"embed cosine to the bf16 tower min {tower_cos:.6f}; "
+        + "; ".join(quant_report) + f"; {time.perf_counter() - t0:.1f} s")
+    check(tower_cos >= 0.99,
+          f"int8 tower embed cosine to bf16 {tower_cos} < 0.99")
+
+    t0 = time.perf_counter()
+    big_quant = {}
+    for mode, (fn, _) in quant_topk.items():
+        eng = SearchEngine(big, SearchConfig(), quantize=mode, device=dev)
+        hits = launched((fn,), lambda: eng.query_vectors(qbig, top_k=10),
+                        f"1M {mode} query_vectors")
+        check(all(h[0].path == f"row/{s}" for s, h in zip(src, hits)),
+              f"1M {mode} query: top-1 is not the source row")
+        big_quant[mode] = eng
+    say(f"phase 4b e2e 1M x 512 gallery behind int8 ("
+        f"{big_quant['int8'].gallery.nbytes / 2 ** 20:.0f} MiB) and int4 ("
+        f"{big_quant['int4'].gallery.nbytes / 2 ** 20:.0f} MiB) engines, "
+        f"Q=8: top-1 = source row for 8/8 each, "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches_quant = {fn.__name__: fn.launches for fn in kernels}
+    tmp.cleanup()
 
     # ---- 5. launch counts --------------------------------------------------
-    # read before any comparison below launches a kernel outside the path
-    launches = {fn.__name__: fn.launches
-                for fn in (cosine_topk, mha_short_seq, normalize_images)}
-    say(f"phase 5 launches during phase 4: {json.dumps(launches)}")
-    check(all(n > 0 for n in launches.values()), "a kernel never launched")
+    say(f"phase 5 launches during phase 4a (bf16): "
+        f"{json.dumps(launches_bf16)}")
+    say(f"phase 5 launches during phase 4b (quantized): "
+        f"{json.dumps(launches_quant)}")
+    for fn in (cosine_topk, mha_short_seq, normalize_images):
+        check(launches_bf16[fn.__name__] > 0,
+              f"{fn.__name__} never launched in phase 4a")
+    for fn in (mha_short_seq, normalize_images, cosine_topk_quantized,
+               cosine_topk_int4, mlp_int8_fused):
+        check(launches_quant[fn.__name__] > 0,
+              f"{fn.__name__} never launched in phase 4b")
+    launches = {name: launches_bf16[name] for name in
+                ("cosine_topk", "mha_short_seq", "normalize_images")}
+    launches.update({name: launches_quant[name] for name in
+                     ("cosine_topk_quantized", "cosine_topk_int4",
+                      "mlp_int8_fused")})
 
     # phase 4's answers against the plain versions on the same inputs
     with torch.inference_mode():
         for vec in (qvec, tvec):
             q = l2_normalize(torch.as_tensor(vec, device=dev).float())
-            q = q.to(torch.bfloat16)
-            vals, kid = cosine_topk(q, engine.gallery, 10)
-            rv, ri = cosine_topk(q, engine.gallery, 11, impl="torch")
+            vals, kid = cosine_topk(q.to(torch.bfloat16), engine.gallery, 10)
+            rv, ri = cosine_topk(q.to(torch.bfloat16), engine.gallery, 11,
+                                 impl="torch")
             topk_agree(vals, kid, rv, ri)
+            for mode, (fn, _) in quant_topk.items():
+                eng = big_quant[mode]
+                vals, kid = fn(q, eng.gallery, eng.gallery_scales, 10)
+                rv, ri = fn(q, eng.gallery, eng.gallery_scales, 10,
+                            impl="torch")
+                check(torch.equal(kid, ri) and torch.equal(vals, rv),
+                      f"1M {mode} engine top-10 != plain")
         ref = clip.encode_image(
             model, normalize_images(torch.from_numpy(qpx).to(dev),
                                     impl="torch"), attn_impl="torch")
         cos = float((torch.from_numpy(qvec).to(dev) * ref).sum(1).min())
         check(cos >= 0.999, f"kernel-path embed cosine to plain {cos}")
+        ref8 = clip.encode_image(
+            towers8.params, normalize_images(torch.from_numpy(qpx).to(dev),
+                                             impl="torch"),
+            attn_impl="torch", mlp_impl="torch")
+        cos8 = float((torch.from_numpy(qvec8).to(dev) * ref8).sum(1).min())
+        check(cos8 >= 0.999, f"int8 kernel-path embed cosine to plain {cos8}")
     say(f"phase 5 checks: engine top-10 = plain top-10 (image, text "
-        f"queries); image embed cosine to plain path >= {cos:.6f}")
+        f"queries; bf16 ids where separated, int8/int4 exactly); image "
+        f"embed cosine to plain path: bf16 >= {cos:.6f}, int8 >= {cos8:.6f}")
 
     # ---- 6. times ----------------------------------------------------------
     times = {}
@@ -402,21 +640,38 @@ def main() -> int:
         times["cosine_topk"] = time_pair(
             lambda: cosine_topk(qb, big_engine.gallery, 10),
             lambda: cosine_topk(qb, big_engine.gallery, 10, impl="torch"))
-        embed_ms, embed_plain_ms = time_pair(
-            lambda: towers.encode_fn(px),
-            lambda: clip.encode_image(
-                model, normalize_images(px, impl="torch"),
-                attn_impl="torch"), iters=5, warmup=2)
+        for mode, (fn, _) in quant_topk.items():
+            eng = big_quant[mode]
+            times[fn.__name__] = time_pair(
+                lambda: fn(qb.float(), eng.gallery, eng.gallery_scales, 10),
+                lambda: fn(qb.float(), eng.gallery, eng.gallery_scales, 10,
+                           impl="torch"))
+        mlp = towers8.params.visual.blocks[0].mlp
+        x = torch.randn((EMBED_BATCH * 50, 768), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        args = (x, mlp.w1.q, mlp.w1.s, mlp.w1.bias, mlp.w2.q, mlp.w2.s,
+                mlp.w2.bias)
+        times["mlp_int8_fused"] = time_pair(
+            lambda: mlp_int8_fused(*args),
+            lambda: mlp_int8_fused(*args, impl="torch"), iters=20)
+        embed = {}
+        for name, tw in (("bf16", towers), ("int8", towers8)):
+            embed[name] = time_pair(
+                lambda: tw.encode_fn(px),
+                lambda: clip.encode_image(
+                    tw.params, normalize_images(px, impl="torch"),
+                    attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)
     say(f"phase 6 times on {card}:")
     for name, (kms, pms) in times.items():
         say(f"  {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
-    say(f"  ViT-B/32 embed batch {EMBED_BATCH}: kernels "
-        f"{EMBED_BATCH / embed_ms * 1e3:.1f} img/s ({embed_ms:.3f} ms), "
-        f"plain {EMBED_BATCH / embed_plain_ms * 1e3:.1f} img/s "
-        f"({embed_plain_ms:.3f} ms)")
-    say(f"  top-10 over {GALLERY_ROWS}x{DIM} bf16 at Q=8: kernel "
-        f"{times['cosine_topk'][0]:.4f} ms, plain "
-        f"{times['cosine_topk'][1]:.4f} ms")
+    for name, (kms, pms) in embed.items():
+        say(f"  ViT-B/32 {name} embed batch {EMBED_BATCH}: kernels "
+            f"{EMBED_BATCH / kms * 1e3:.1f} img/s ({kms:.3f} ms), plain "
+            f"{EMBED_BATCH / pms * 1e3:.1f} img/s ({pms:.3f} ms)")
+    say(f"  top-10 over {GALLERY_ROWS}x{DIM} at Q=8: bf16 kernel "
+        f"{times['cosine_topk'][0]:.4f} ms, int8 kernel "
+        f"{times['cosine_topk_quantized'][0]:.4f} ms, int4 kernel "
+        f"{times['cosine_topk_int4'][0]:.4f} ms")
 
     meta = {
         "cosine_topk": ("cuda", "mmrs_tpu_torch/csrc/cosine_topk.cu",
@@ -426,6 +681,12 @@ def main() -> int:
         "normalize_images": ("triton",
                              "mmrs_tpu_torch/csrc/normalize_triton.py",
                              "mmrs_tpu/ops/preprocess.py:84"),
+        "cosine_topk_quantized": ("cuda", "mmrs_tpu_torch/csrc/quant_topk.cu",
+                                  "mmrs_tpu/ops/quant.py:93"),
+        "cosine_topk_int4": ("cuda", "mmrs_tpu_torch/csrc/quant_topk.cu",
+                             "mmrs_tpu/ops/quant4.py:149"),
+        "mlp_int8_fused": ("cuda", "mmrs_tpu_torch/csrc/mlp_int8.cu",
+                           "mmrs_tpu/ops/mlp_int8.py:62"),
     }
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,

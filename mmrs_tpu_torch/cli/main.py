@@ -3,12 +3,15 @@
   mmrs-torch index build --root DIR --out DIR [--config cfg.yaml]
   mmrs-torch search      --index DIR (--image PATH... | --text "query"
                          --merges FILE) [-k 10] [--prototype mean]
+                         [--gallery-quant int8|int4]
   mmrs-torch calibrate   --index DIR --positive-class NAME [--shots 10]
+                         [--gallery-quant int8|int4]
 
 The flags and output lines are those of the same `mmrs` subcommands
-(mmrs_tpu/cli/main.py) for the flat bf16 gallery. The towers and the
-gallery live on the GPU when there is one; the kernels build there on
-first use.
+(mmrs_tpu/cli/main.py) for the flat gallery on one device, bf16 or
+quantized (`--gallery-quant`; `--gallery-int8` is the older spelling of
+`--gallery-quant int8`). The towers and the gallery live on the GPU when
+there is one; the kernels build there on first use.
 """
 
 from __future__ import annotations
@@ -25,6 +28,26 @@ def _load_config(path: Optional[str]):
     from mmrs_tpu_torch import config as config_mod
 
     return config_mod.load(path) if path else config_mod.Config()
+
+
+def _quant_mode(args) -> str:
+    """--gallery-quant (preferred) / --gallery-int8 (back-compat) -> the
+    SearchEngine quantize mode."""
+    mode = getattr(args, "gallery_quant", "") or ""
+    if not mode and getattr(args, "gallery_int8", False):
+        mode = "int8"
+    return mode
+
+
+def _add_quant_flags(parser) -> None:
+    parser.add_argument("--gallery-int8", action="store_true",
+                        help="int8 gallery rows + per-row scales: half the "
+                             "device memory (same as --gallery-quant int8)")
+    parser.add_argument("--gallery-quant", choices=("int8", "int4"),
+                        default="",
+                        help="gallery residency ladder: int8 (2x rows per "
+                             "device) or int4 (4x rows, packed nibbles); "
+                             "supersedes --gallery-int8")
 
 
 def cmd_index_build(args) -> int:
@@ -51,7 +74,7 @@ def cmd_search(args) -> int:
 
     cfg = _load_config(args.config)
     idx = GalleryIndex.load(args.index)
-    engine = SearchEngine(idx, cfg.search)
+    engine = SearchEngine(idx, cfg.search, quantize=_quant_mode(args))
     tokenizer = None
     if args.merges:
         from mmrs_tpu_torch.models.tokenizer import CLIPTokenizer
@@ -96,7 +119,7 @@ def cmd_calibrate(args) -> int:
 
     cfg = _load_config(args.config)
     idx = GalleryIndex.load(args.index)
-    engine = SearchEngine(idx, cfg.search)
+    engine = SearchEngine(idx, cfg.search, quantize=_quant_mode(args))
     labels = np.asarray([c == args.positive_class for c in idx.classes])
     if not labels.any():
         print(f"no rows of class {args.positive_class!r}", file=sys.stderr)
@@ -139,6 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--prototype")
     s.add_argument("--config")
     s.add_argument("--merges", help="CLIP BPE merges file for --text")
+    _add_quant_flags(s)
     s.set_defaults(fn=cmd_search)
 
     c = sub.add_parser("calibrate")
@@ -147,6 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--shots", type=int, default=10)
     c.add_argument("--prototype", default="mean")
     c.add_argument("--config")
+    _add_quant_flags(c)
     c.set_defaults(fn=cmd_calibrate)
     return p
 

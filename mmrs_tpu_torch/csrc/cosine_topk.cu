@@ -25,42 +25,16 @@
 // earlier rows first), and rows past N enter as (-inf, -1), its sentinel.
 // Tensor cores, TMA and a persistent grid are later work.
 
-#include "common.cuh"
+#include "topk_common.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int kChunk = 256;      // gallery rows per scan block
-constexpr int kThreads = 256;    // 8 warps per block, both passes
-constexpr int kMergeWidth = 1024;  // candidates sorted per merge block
-
-// "a ranks before b": higher score first, equal scores by lower row id.
-__device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
-
-// Sorts independent segments of `len` entries (a power of two) best-first.
-// The segments tile sv/si[0, total). Every thread of the block must call it.
-__device__ void sort_segments(float* sv, int* si, int len, int total) {
-  for (int size = 2; size <= len; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < total / 2; t += blockDim.x) {
-        const int i = 2 * stride * (t / stride) + (t % stride);
-        const int l = i + stride;
-        const bool up = ((i & (len - 1)) & size) == 0;
-        const float a = sv[i], b = sv[l];
-        const int ia = si[i], ib = si[l];
-        const bool swap = up ? before(b, ib, a, ia) : before(a, ia, b, ib);
-        if (swap) {
-          sv[i] = b; sv[l] = a;
-          si[i] = ib; si[l] = ia;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
+using mmrs::kChunk;
+using mmrs::kMergeWidth;
+using mmrs::kThreads;
+using mmrs::sort_segments;
 
 template <int QT>
 __global__ void __launch_bounds__(kThreads)
@@ -123,15 +97,7 @@ topk_scan_kernel(const uint16_t* __restrict__ q,   // [Q, D] bf16 bits
   }
   __syncthreads();
   sort_segments(sv, si, kChunk, QT * kChunk);
-
-  for (int e = threadIdx.x; e < QT * k; e += kThreads) {
-    const int qi = e / k, j = e - qi * k;
-    if (q0 + qi < Q) {
-      const size_t o = ((size_t)(q0 + qi) * n_chunks + chunk) * k + j;
-      part_v[o] = sv[qi * kChunk + j];
-      part_i[o] = si[qi * kChunk + j];
-    }
-  }
+  mmrs::write_partials(sv, si, QT, q0, Q, chunk, n_chunks, k, part_v, part_i);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -46,10 +46,12 @@ class CLIP(nn.Module):
 @torch.inference_mode()
 def encode_image(model: CLIP, images: torch.Tensor,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 normalize: bool = True, attn_impl: str = "auto"
-                 ) -> torch.Tensor:
-    """[B, H, W, 3] CLIP-normalized images -> [B, embed_dim] f32."""
-    feats = model.visual(images, compute_dtype, attn_impl)
+                 normalize: bool = True, attn_impl: str = "auto",
+                 mlp_impl: str = "auto") -> torch.Tensor:
+    """[B, H, W, 3] CLIP-normalized images -> [B, embed_dim] f32.
+    `attn_impl` / `mlp_impl` select the attention and int8-MLP kernels'
+    implementation ("auto" or "torch", as in ops/)."""
+    feats = model.visual(images, compute_dtype, attn_impl, mlp_impl)
     return l2_normalize(feats) if normalize else feats
 
 

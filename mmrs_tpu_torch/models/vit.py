@@ -3,7 +3,10 @@
 Counterpart of mmrs_tpu/models/vit.py. The patch-embedding convolution is
 a patchify reshape plus one matmul, with the same (h, w, c) flatten order
 as the JAX package, so its `patch_kernel` [P*P*3, W] loads unchanged (as
-the transposed `patch_embed` weight). Output contract as OpenAI CLIP:
+the transposed `patch_embed` weight). In the int8 tower the patch
+embedding is a `QLinear` (its input quantized per row in the input's own
+dtype, as `dense(x, QTensor, None)` in the JAX package); `proj` stays
+unquantized. Output contract as OpenAI CLIP:
 ln_post over the CLS token, then `proj` -> [B, embed_dim] f32,
 unnormalized.
 """
@@ -60,7 +63,8 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor,     # [B, H, W, 3], normalized
                 compute_dtype: torch.dtype = torch.bfloat16,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto", mlp_impl: str = "auto"
+                ) -> torch.Tensor:
         cd = compute_dtype
         x = dense(patchify(images, self.cfg.patch_size), self.patch_embed, cd)
         cls = self.class_embedding.to(cd).expand(x.shape[0], 1, -1)
@@ -68,6 +72,6 @@ class VisionTransformer(nn.Module):
         x = x + self.positional_embedding.to(cd)[None]
         x = self.ln_pre(x)
         for blk in self.blocks:
-            x = blk(x, None, cd, attn_impl)
+            x = blk(x, None, cd, attn_impl, mlp_impl)
         cls_tok = self.ln_post(x[:, 0, :])
         return project(cls_tok, self.proj, cd)                 # f32

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written GPU kernels.
 
-CUDA C++ (`csrc/*.cu`): nvcc compiles every source into one shared library
-with a plain C interface for `sm_90a` (Hopper), loaded with ctypes. The
-build runs on first use, from the package's own sources, into `_build/`
-next to them, keyed by a hash of the sources and flags, so a fresh checkout
-builds once and later processes reuse the library.
+CUDA C++ (`csrc/*.cu`): one nvcc process per source, all started
+together, compiles each to an object for `sm_90a` (Hopper); one more links
+them into a shared library with a plain C interface, loaded with ctypes.
+The build runs on first use, from the package's own sources, into
+`_build/` next to them, keyed by a hash of the sources and flags, so a
+fresh checkout builds once and later processes reuse the library.
 
 Triton (`csrc/*_triton.py`): loaded as a module from its file on first
 use; Triton compiles the kernel at its first launch.
@@ -30,9 +31,11 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu", "quant_topk.cu",
+                "mlp_int8.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +48,12 @@ _SIGNATURES = {
     "mmrs_topk_merge": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
     "mmrs_mha_short_seq": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
                            _I),
+    "mmrs_topk_scan_q8": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+                          _I),
+    "mmrs_topk_scan_q4": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                           _P), _I),
+    "mmrs_mlp_int8": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P), _I),
 }
 
 
@@ -75,7 +84,7 @@ def library_path() -> str:
 
 def build() -> float:
     """Compile the CUDA sources if the current library is missing; returns
-    the seconds spent (0.0 when it was already built). The compiler's
+    the seconds spent (0.0 when it was already built). The compilers'
     output (`-Xptxas -v`: registers, shared memory, spills per kernel) is
     kept beside the library as `<name>.log`."""
     path = library_path()
@@ -83,16 +92,36 @@ def build() -> float:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in CUDA_SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in CUDA_SOURCES:
+        obj = f"{tmp}.{src}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+               os.path.join(CSRC_DIR, src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:            # wait for every compiler
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
     with open(path[:-3] + ".log", "w", encoding="utf-8") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     return seconds
 

@@ -19,7 +19,7 @@ the gallery has fewer than k rows the missing places are (-inf, -1).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -28,15 +28,15 @@ from mmrs_tpu_torch.ops import _cuda
 NEG_INF = float("-inf")
 MAX_K = 256           # the scan keeps at most one 256-row chunk per list
 MAX_DIM = 2048        # staged queries must fit the scan block's shared memory
-CHUNK_ROWS = 256      # csrc/cosine_topk.cu kChunk; checked at first load
-MERGE_WIDTH = 1024    # csrc/cosine_topk.cu kMergeWidth; checked at first load
+CHUNK_ROWS = 256      # csrc/topk_common.cuh kChunk; checked at first load
+MERGE_WIDTH = 1024    # csrc/topk_common.cuh kMergeWidth; checked at first load
 
 
-def _cosine_topk_torch(queries: torch.Tensor, gallery: torch.Tensor, k: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 scores, stable descending sort (lowest row first among equal
-    scores), first k columns; padded with (-inf, -1) past the gallery."""
-    scores = queries.float() @ gallery.float().T
+def sorted_topk(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain top-k of every scan here: stable descending sort of the
+    f32 scores [Q, N] (lowest row first among equal scores), first k
+    columns; padded with (-inf, -1) past the gallery."""
     vals, idxs = torch.sort(scores, dim=1, descending=True, stable=True)
     vals, idxs = vals[:, :k], idxs[:, :k].to(torch.int32)
     short = k - vals.shape[1]
@@ -45,6 +45,11 @@ def _cosine_topk_torch(queries: torch.Tensor, gallery: torch.Tensor, k: int
         vals = torch.cat([vals, vals.new_full((q, short), NEG_INF)], dim=1)
         idxs = torch.cat([idxs, idxs.new_full((q, short), -1)], dim=1)
     return vals, idxs
+
+
+def _cosine_topk_torch(queries: torch.Tensor, gallery: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return sorted_topk(queries.float() @ gallery.float().T, k)
 
 
 def scan_plan(q: int, n: int, k: int) -> Tuple[int, int, int, list]:
@@ -68,7 +73,7 @@ def _library():
     built = (lib.mmrs_topk_chunk_rows(), lib.mmrs_topk_merge_width())
     if built != (CHUNK_ROWS, MERGE_WIDTH):
         raise RuntimeError(
-            f"csrc/cosine_topk.cu has (kChunk, kMergeWidth) = {built}, but "
+            f"csrc/topk_common.cuh has (kChunk, kMergeWidth) = {built}, but "
             f"ops/topk.py plans for {(CHUNK_ROWS, MERGE_WIDTH)}")
     return lib
 
@@ -87,39 +92,64 @@ def _check_kernel_inputs(queries: torch.Tensor, gallery: torch.Tensor, k: int
     if d % 8 or d > MAX_DIM:
         raise ValueError(f"cosine_topk kernel needs D % 8 == 0 and D <= "
                          f"{MAX_DIM}, got D={d}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"cosine_topk kernel supports 1 <= k <= {MAX_K}, "
-                         f"got k={k}")
-    if not (1 <= q <= 65535 and 1 <= n < 2 ** 31):
-        raise ValueError(f"cosine_topk kernel needs 1 <= Q <= 65535 and "
-                         f"1 <= N < 2^31, got Q={q}, N={n}")
+    check_scan_shapes("cosine_topk", q, n, k)
     if queries.data_ptr() % 16 or gallery.data_ptr() % 16:
         raise ValueError("cosine_topk kernel needs 16-byte aligned rows")
+
+
+def scan_and_merge(q: int, n: int, k: int, device: torch.device,
+                   scan: Callable[[int, int, int, int], int], what: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a gallery scan kernel and the merge passes that reduce its
+    per-chunk partials to the top k. `scan(qt, part_v, part_i, stream)`
+    launches the scan (pointers as ints) and returns its CUDA error code;
+    it writes the best k of each 256-row chunk, sorted, into partials
+    [Q, n_chunks, k] (f32 values, int32 ids), the format `mmrs_topk_merge`
+    reads. Every gallery scan (bf16, int8, int4) shares this plumbing."""
+    lib = _library()
+    qt, n_chunks, per, lists = scan_plan(q, n, k)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        vals = torch.empty((q, n_chunks, k), dtype=torch.float32,
+                           device=device)
+        idxs = torch.empty((q, n_chunks, k), dtype=torch.int32,
+                           device=device)
+        _cuda.check(scan(qt, vals.data_ptr(), idxs.data_ptr(), stream),
+                    f"{what} scan")
+        for s, groups in zip(lists, lists[1:]):
+            nv = torch.empty((q, groups, k), dtype=torch.float32,
+                             device=device)
+            ni = torch.empty((q, groups, k), dtype=torch.int32,
+                             device=device)
+            _cuda.check(lib.mmrs_topk_merge(
+                vals.data_ptr(), idxs.data_ptr(), q, s, k, per,
+                nv.data_ptr(), ni.data_ptr(), stream), f"{what} merge")
+            vals, idxs = nv, ni
+    return vals.view(q, k), idxs.view(q, k)
+
+
+def check_scan_shapes(name: str, q: int, n: int, k: int) -> None:
+    """Limits every gallery scan kernel shares (one 256-row chunk per
+    partial list, the grid's query tiles)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name} kernel supports 1 <= k <= {MAX_K}, "
+                         f"got k={k}")
+    if not (1 <= q <= 65535 and 1 <= n < 2 ** 31):
+        raise ValueError(f"{name} kernel needs 1 <= Q <= 65535 and "
+                         f"1 <= N < 2^31, got Q={q}, N={n}")
 
 
 def _cosine_topk_cuda(queries: torch.Tensor, gallery: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kernel_inputs(queries, gallery, k)
-    lib = _library()
     (q, d), n = queries.shape, gallery.shape[0]
-    qt, n_chunks, per, lists = scan_plan(q, n, k)
-    dev = queries.device
-    with torch.cuda.device(dev):
-        stream = _cuda.stream_of(queries)
-        vals = torch.empty((q, n_chunks, k), dtype=torch.float32, device=dev)
-        idxs = torch.empty((q, n_chunks, k), dtype=torch.int32, device=dev)
-        _cuda.check(lib.mmrs_topk_scan(
-            queries.data_ptr(), gallery.data_ptr(), q, n, d, k, qt,
-            vals.data_ptr(), idxs.data_ptr(), stream), "cosine_topk scan")
-        cosine_topk.launches += 1
-        for s, groups in zip(lists, lists[1:]):
-            nv = torch.empty((q, groups, k), dtype=torch.float32, device=dev)
-            ni = torch.empty((q, groups, k), dtype=torch.int32, device=dev)
-            _cuda.check(lib.mmrs_topk_merge(
-                vals.data_ptr(), idxs.data_ptr(), q, s, k, per,
-                nv.data_ptr(), ni.data_ptr(), stream), "cosine_topk merge")
-            vals, idxs = nv, ni
-    return vals.view(q, k), idxs.view(q, k)
+    out = scan_and_merge(
+        q, n, k, queries.device,
+        lambda qt, pv, pi, stream: _library().mmrs_topk_scan(
+            queries.data_ptr(), gallery.data_ptr(), q, n, d, k, qt, pv, pi,
+            stream), "cosine_topk")
+    cosine_topk.launches += 1
+    return out
 
 
 def cosine_topk(

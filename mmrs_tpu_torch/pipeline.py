@@ -4,7 +4,8 @@ Counterpart of mmrs_tpu/pipeline.py for the CLIP pair. Encoders are plain
 callables `pixels_u8 [B,S,S,3] -> np.ndarray [B,D]`, so index build, search
 and calibration compose as in the JAX package. On a CUDA device the image
 path runs the normalize kernel (Triton) and the towers' attention kernel
-(CUDA); on the CPU it runs their plain PyTorch versions.
+(CUDA), and with `model.dtype: int8` the fused int8 MLP kernel (CUDA); on
+the CPU it runs their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -21,9 +22,13 @@ from mmrs_tpu_torch.models import clip
 from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
 from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
                                            CLIP_TEXT_TINY, IMAGE_TOWERS)
+from mmrs_tpu_torch.models.quantize import quantize_clip_visual
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# "int8": the bf16 compute mix with an int8 vision tower (models/quantize.py)
+# and a bf16 text tower, as mmrs_tpu/pipeline.py
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.bfloat16}
 
 
 @dataclass
@@ -55,9 +60,6 @@ def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
     if cfg.model.text_tower == "taiyi_roberta":
         raise NotImplementedError(
             "the Taiyi RoBERTa text tower is ported with ROADMAP A.5")
-    if cfg.model.dtype == "int8":
-        raise NotImplementedError(
-            "int8 towers are ported with ROADMAP A.6 (quantized serving)")
     if cfg.model.dtype not in _DTYPES:
         raise ValueError(f"unknown model dtype {cfg.model.dtype!r}")
     compute_dtype = _DTYPES[cfg.model.dtype]
@@ -72,11 +74,14 @@ def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
     else:
         model = CLIP(ccfg, generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(device).eval().requires_grad_(False)
-    # matmul weights are stored in the compute dtype once; LayerNorm
-    # parameters and embeddings stay f32 and are cast where they are used
+    if cfg.model.dtype == "int8":     # from the f32 weights, before the cast
+        quantize_clip_visual(model)
+    # float matmul weights are stored in the compute dtype once; biases,
+    # LayerNorm parameters and embeddings stay f32 (a bias is added to the
+    # f32 sums before the one rounding, as in the JAX package's `dense`)
     for m in model.modules():
         if isinstance(m, nn.Linear):
-            m.to(compute_dtype)
+            m.weight.data = m.weight.data.to(compute_dtype)
 
     def encode_fn(images_u8: torch.Tensor, normalize: bool = True
                   ) -> torch.Tensor:

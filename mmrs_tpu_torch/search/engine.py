@@ -1,11 +1,14 @@
 """Query engine: text / image / k-shot-prototype search over a gallery.
 
-Counterpart of mmrs_tpu/search/engine.py for the flat bf16 gallery on one
-device (code/search_image.py:320-390). Every query goes through the fused
-cosine top-k (ops/topk.py: the CUDA kernel on a GPU). Scores follow the
-reference's `100. * feat @ ref.T` convention (code/search_image.py:105-117)
-via the configured logit scale. The int8/int4 galleries (ROADMAP A.6), IVF
-(A.7) and the sharded gallery (A.12) are not ported yet and raise.
+Counterpart of mmrs_tpu/search/engine.py for the flat gallery on one
+device (code/search_image.py:320-390), with its residency ladder: bf16
+rows (the rank-parity default), int8 rows + per-row scales (half the
+device memory) or packed int4 rows + scales (a quarter). Every query goes
+through the gallery's fused top-k scan (ops/topk.py, ops/quant.py,
+ops/quant4.py: CUDA kernels on a GPU). Scores follow the reference's
+`100. * feat @ ref.T` convention (code/search_image.py:105-117) via the
+configured logit scale. IVF (ROADMAP A.7) and the sharded gallery (A.12)
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import torch
 from mmrs_tpu_torch.config import SearchConfig
 from mmrs_tpu_torch.index.gallery import GalleryIndex
 from mmrs_tpu_torch.ops.normalize import l2_normalize
+from mmrs_tpu_torch.ops.quant import (cosine_topk_quantized, quantize_rows,
+                                      scores_q8)
+from mmrs_tpu_torch.ops.quant4 import (cosine_topk_int4, quantize_rows_int4,
+                                       similarities_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
 from mmrs_tpu_torch.search.prototypes import build_prototype
 from mmrs_tpu_torch.utils.stats import StageStats
@@ -47,6 +54,28 @@ def _to_device_chunked(embeddings, dtype: torch.dtype, device: torch.device,
     return out
 
 
+def _quantize_gallery_chunked(embeddings, mode: str, device: torch.device,
+                              chunk: int = UPLOAD_CHUNK):
+    """Upload, L2-normalize and quantize chunk by chunk, so the peak device
+    memory while the engine is built is the packed gallery plus one chunk
+    (the full bf16 gallery is never resident). Each chunk takes the JAX
+    package's chain: rows cast to bf16, L2-normalized in bf16, then
+    quantized from f32, so codes and scales are bit-identical to it."""
+    n, d = embeddings.shape
+    if mode == "int4":
+        gal = torch.empty((n, d // 2), dtype=torch.uint8, device=device)
+        quantize = quantize_rows_int4
+    else:
+        gal = torch.empty((n, d), dtype=torch.int8, device=device)
+        quantize = quantize_rows
+    scales = torch.empty((n,), dtype=torch.float32, device=device)
+    for a in range(0, n, chunk):
+        rows = torch.from_numpy(np.array(embeddings[a:a + chunk]))
+        rows = l2_normalize(rows.to(device).to(torch.bfloat16))
+        gal[a:a + chunk], scales[a:a + chunk] = quantize(rows)
+    return gal, scales
+
+
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
@@ -70,17 +99,26 @@ class SearchEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded gallery (mesh=) is ported with ROADMAP A.12")
-        if quantize not in (False, None, ""):
-            raise NotImplementedError(
-                "int8/int4 galleries (quantize=) are ported with ROADMAP A.6")
+        if quantize is True:
+            quantize = "int8"
+        elif quantize in (False, None):
+            quantize = ""
+        if quantize not in ("", "int8", "int4"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        self.quantized = quantize
         if self.config.ann not in ("none", "", None):
             raise NotImplementedError(
                 "IVF search (ann=) is ported with ROADMAP A.7")
         if device is None:
             device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
-        self.gallery = _to_device_chunked(index.embeddings, torch.bfloat16,
-                                          self.device)
+        self.gallery_scales = None
+        if quantize:
+            self.gallery, self.gallery_scales = _quantize_gallery_chunked(
+                index.embeddings, quantize, self.device)
+        else:
+            self.gallery = _to_device_chunked(index.embeddings,
+                                              torch.bfloat16, self.device)
 
     # -- core ---------------------------------------------------------------
 
@@ -89,9 +127,16 @@ class SearchEngine:
         """vectors [Q, D] (unnormalized ok). Returns hits per query."""
         k = min(top_k or self.config.top_k, len(self.index))
         q = l2_normalize(_as_tensor(vectors, self.device))
-        q = q.to(self.gallery.dtype)
         with self.stats.timed("topk", count=q.shape[0]):
-            vals, idxs = cosine_topk(q, self.gallery, k)
+            if self.quantized == "int4":
+                vals, idxs = cosine_topk_int4(q, self.gallery,
+                                              self.gallery_scales, k)
+            elif self.quantized:
+                vals, idxs = cosine_topk_quantized(q, self.gallery,
+                                                   self.gallery_scales, k)
+            else:
+                vals, idxs = cosine_topk(q.to(self.gallery.dtype),
+                                         self.gallery, k)
             vals = vals.cpu().numpy()
             idxs = idxs.cpu().numpy()
         scale = self.config.logit_scale
@@ -130,17 +175,29 @@ class SearchEngine:
         return self.query_vectors(proto[None, :], top_k)
 
     def device_similarities(self, vectors) -> torch.Tensor:
-        """UNscaled cosine rows [Q, N] f32 against the device gallery:
-        bf16 operands, f32 products and sums, computed chunk by chunk so
-        that no f32 copy of the whole gallery is made."""
+        """UNscaled cosine rows [Q, N] f32 against the device gallery,
+        computed chunk by chunk so that no f32 (or unpacked) copy of the
+        whole gallery is made: bf16 operands with f32 sums, or the int8 /
+        int4 scores of the quantized top-k scans."""
         q = l2_normalize(_as_tensor(vectors, self.device))
-        q = q.to(self.gallery.dtype).float()
+        if self.quantized == "int8":
+            q_q, q_scale = quantize_rows(q)
+        elif not self.quantized:
+            q = q.to(self.gallery.dtype).float()
         n = self.gallery.shape[0]
         sims = torch.empty((q.shape[0], n), dtype=torch.float32,
                            device=self.device)
         for a in range(0, n, UPLOAD_CHUNK):
             rows = self.gallery[a:a + UPLOAD_CHUNK]
-            sims[:, a:a + UPLOAD_CHUNK] = q @ rows.float().T
+            if self.quantized == "int4":
+                part = similarities_int4(
+                    q, rows, self.gallery_scales[a:a + UPLOAD_CHUNK])
+            elif self.quantized:
+                part = scores_q8(q_q, q_scale, rows,
+                                 self.gallery_scales[a:a + UPLOAD_CHUNK])
+            else:
+                part = q @ rows.float().T
+            sims[:, a:a + UPLOAD_CHUNK] = part
         return sims
 
     def sweep_class(self, vector, positives: np.ndarray,

@@ -17,7 +17,8 @@ from mmrs_tpu.ops import attention as j_attention
 from mmrs_tpu.ops import normalize as j_normalize
 from mmrs_tpu.ops import preprocess as j_preprocess
 from mmrs_tpu.ops import topk as j_topk
-from mmrs_tpu_torch.ops import _cuda, attention, normalize, preprocess, topk
+from mmrs_tpu_torch.ops import (_cuda, attention, mlp_int8, normalize,
+                                preprocess, quant, quant4, topk)
 
 torch.set_num_threads(2)
 
@@ -163,6 +164,23 @@ def test_kernel_paths_refuse_cpu_tensors():
         preprocess._normalize_triton(torch.zeros((1, 4, 4, 3),
                                                  dtype=torch.uint8),
                                      torch.bfloat16)
+
+
+def test_quantized_kernel_paths_refuse_cpu_tensors():
+    """The same for the int8 / int4 scans (K4, K5) and the int8 MLP (K6)."""
+    q = torch.zeros((2, 64), dtype=torch.int8)
+    packed = torch.zeros((2, 32), dtype=torch.uint8)
+    s = torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant._topk_quant_cuda(q, s, q, s, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant4._topk_int4_cuda(q, s, s, packed, s, 1)
+    w1, w2 = torch.zeros((128, 64), dtype=torch.int8), torch.zeros(
+        (64, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_int8._mlp_int8_cuda(torch.zeros((2, 64)), w1, torch.ones(128),
+                                torch.zeros(128), w2, torch.ones(64),
+                                torch.zeros(64), "gelu")
 
 
 def test_unknown_impl_raises():

@@ -76,8 +76,35 @@ def test_text_tower_f32_matches_jax(pair):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+_BIASES = ("bq", "bk", "bv", "bo", "b1", "b2")
+
+
+def with_seeded_biases(params, seed: int, std: float = 0.3):
+    """A numpy copy of a CLIP tree whose attention and MLP biases are
+    N(0, std) from numpy (`clip.init` zeroes them; real CLIP checkpoints
+    do not)."""
+    rng = np.random.default_rng(seed)
+    out = jax.tree.map(np.asarray, params)
+    for tower in ("visual", "text"):
+        blocks = out[tower]["blocks"]
+        for group in ("attn", "mlp"):
+            for name, leaf in blocks[group].items():
+                if name in _BIASES:
+                    blocks[group][name] = (rng.standard_normal(leaf.shape)
+                                           * std).astype(leaf.dtype)
+    return out
+
+
 def test_towers_bf16_cosine_to_jax(pair):
-    params, model = pair
+    _bf16_cosine_to_jax(*pair)
+
+
+def test_towers_bf16_cosine_to_jax_with_nonzero_biases(pair):
+    params = with_seeded_biases(pair[0], seed=8)
+    _bf16_cosine_to_jax(params, convert_jax.from_jax_params(params, T_CFG))
+
+
+def _bf16_cosine_to_jax(params, model):
     x, toks = _images(3), _tokens(4)
     ji = np.asarray(j_clip.encode_image(params, jnp.asarray(x), J_CFG,
                                         attn_impl="pallas_interpret"))
@@ -145,8 +172,11 @@ def test_npz_with_bf16_leaves_loads_identically(pair, tmp_path):
 
 
 def test_int8_checkpoints_are_refused(tmp_path):
+    """An int8 weight is a pair of arrays (codes and scales; the int8
+    towers load them, tests/test_torch_quantized_tower.py): a checkpoint
+    that holds only one half of a pair is refused, as mmrs_tpu refuses it."""
     path = str(tmp_path / "q.npz")
-    np.savez(path, **{"visual/proj@int8q": np.zeros((2, 2), np.int8),
-                      "visual/proj@int8s": np.ones((2,), np.float32)})
-    with pytest.raises(NotImplementedError, match="A.6"):
+    np.savez(path, **{"visual/blocks/mlp/w1@int8q": np.zeros((2, 2), np.int8),
+                      "visual/proj": np.ones((2, 2), np.float32)})
+    with pytest.raises(ValueError, match="missing half"):
         checkpoint.load_npz(path)

@@ -13,7 +13,10 @@ nonzero exit and no result line:
   3. each kernel against its plain PyTorch version at main-path shapes:
      K1-K3 as before, K4/K5 (int8/int4 top-k over a 1,048,576 x 512
      gallery, ids and values equal), K6 (fused int8 MLP at the ViT-B/32
-     serving shape, nonzero biases, equal in every element);
+     serving shape, nonzero biases, equal in every element), K7/K8 (the
+     IVF bucket probes over bf16 / int8 / int4 buckets of a clustered
+     1,048,576 x 512 gallery at C = 1024, built on the card: K8 equal,
+     K7 values within 1e-5 and ids equal where scores are separated);
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -24,6 +27,12 @@ nonzero exit and no result line:
         images -> SearchEngine(quantize int8 / int4) image and prototype
         queries (hits equal to the plain top-k) -> sweep_class; then the
         1M gallery behind int8 and int4 engines at Q=8;
+     c. IVF: SearchEngine(ann="ivf") over phase 4a's index for bf16, int8
+        and int4 buckets, image and prototype (mean, cluster, robust_mean)
+        queries (hits = the plain IVF top-k), the saved sidecar loaded by a
+        second engine with k-means disabled (same hits), ann_target_recall
+        0.95; then the clustered 1M gallery: nprobe = C against flat K1
+        (bf16) and K5 (int4), recall@10 at nprobe = 128, sidecar load;
   5. launch counts: every kernel of each path ran during its phase 4 run;
      phase 4's answers against the plain versions on the same inputs;
   6. times (CUDA events, after warm-up), kernel and plain version in turns.
@@ -58,6 +67,13 @@ SMOKE_CLASSES = 8
 QUANT_SCORE_ERR = {"int8": 0.02, "int4": 0.04}
 # least c0 prototype precision@10 on every gallery; chance is 10/8 = 1.25
 PROTO_MIN = 6
+# IVF over the clustered 1M gallery: auto_clusters(1M) and auto_nprobe(1024)
+IVF_CLUSTERS = 1024
+IVF_NPROBE = 128
+IVF_CHUNK = 65536             # build streaming rows
+IVF_ANCHORS = 8192            # bench_ivf.py's clustered data
+IVF_DUPS = (77, 500_000, 1_000_000)   # the last two are copies of the first
+IVF_RUNGS = {"": "bf16", "int8": "int8", "int4": "int4"}
 
 
 def say(*parts) -> None:
@@ -105,8 +121,8 @@ def ptxas_lines(log_path: str):
     with open(log_path, encoding="utf-8") as f:
         for line in f:
             if "Compiling entry function" in line:
-                m = re.search(r"(\w+?_kernel)(?:I(?:Li(\d+)E|(f)|13__nv_"
-                              r"(bfloat16)))?", line)
+                m = re.search(r"(\w+?_kernel)(?:I(?:Li(\d+)E|Lb(\d)E|(f)|"
+                              r"13__nv_(bfloat16)))?", line)
                 name = m.group(1) + "".join(
                     f"<{a}>" for a in m.groups()[1:] if a) if m else "?"
             elif "Used" in line:
@@ -148,6 +164,46 @@ def topk_agree(vals, ids, ref_vals, ref_ids, tol: float = 1e-3,
     check(not bool(bad.any()),
           f"top-k ids differ at {int(bad.sum())} well-separated places")
     return err
+
+
+def clustered_gallery(dev, seed: int) -> torch.Tensor:
+    """[GALLERY_ROWS, DIM] bf16 unit rows clustered like bench_ivf.py's:
+    IVF_ANCHORS unit anchors plus noise of sigma 0.9 / sqrt(D) per
+    coordinate (same-anchor pairs at cosine ~0.55), made on the card from
+    a seed. Rows IVF_DUPS[1:] are copies of row IVF_DUPS[0]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    anchors = torch.randn((IVF_ANCHORS, DIM), device=dev, generator=g)
+    anchors /= anchors.norm(dim=1, keepdim=True)
+    out = torch.empty((GALLERY_ROWS, DIM), dtype=torch.bfloat16, device=dev)
+    for a in range(0, GALLERY_ROWS, IVF_CHUNK):
+        which = torch.randint(0, IVF_ANCHORS, (IVF_CHUNK,), device=dev,
+                              generator=g)
+        x = anchors[which] + 0.9 / DIM ** 0.5 * torch.randn(
+            (IVF_CHUNK, DIM), device=dev, generator=g)
+        out[a:a + IVF_CHUNK] = (x / x.norm(dim=1, keepdim=True)).to(
+            torch.bfloat16)
+    out[list(IVF_DUPS[1:])] = out[IVF_DUPS[0]].clone()
+    return out
+
+
+def probe_call(ivf, queries, probe):
+    """(wrapper, its arguments before k) of the bucket probe for an index's
+    rung: K8 takes the int8 query codes, K7 the bf16 queries."""
+    from mmrs_tpu_torch.index.ivf import probe_buckets, probe_buckets_q4
+    from mmrs_tpu_torch.ops.quant4 import prep_queries
+
+    if ivf.quant == "int4":
+        return probe_buckets_q4, (*prep_queries(queries.float()), probe,
+                                  ivf.buckets, ivf.bucket_ids,
+                                  ivf.bucket_scales)
+    return probe_buckets, (queries.to(torch.bfloat16), probe, ivf.buckets,
+                           ivf.bucket_ids, ivf.bucket_scales)
+
+
+def recall_at(ids: torch.Tensor, exact: torch.Tensor) -> float:
+    got, want = ids.tolist(), exact.tolist()
+    return sum(len(set(a) & set(b)) for a, b in zip(got, want)) / float(
+        len(want) * len(want[0]))
 
 
 @dataclasses.dataclass
@@ -201,7 +257,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mmrs_tpu_torch.config import Config, ModelConfig, SearchConfig
+    from mmrs_tpu_torch.index import ivf as ivf_mod
     from mmrs_tpu_torch.index.gallery import GalleryIndex, build_index
+    from mmrs_tpu_torch.index.ivf import probe_buckets, probe_buckets_q4
     from mmrs_tpu_torch.models import clip
     from mmrs_tpu_torch.models.layers import QLinear
     from mmrs_tpu_torch.ops import _cuda
@@ -221,7 +279,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     card = card_line()
     kernels = (cosine_topk, mha_short_seq, normalize_images,
-               cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused)
+               cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused,
+               probe_buckets, probe_buckets_q4)
     quant_topk = {"int8": (cosine_topk_quantized, quantize_rows),
                   "int4": (cosine_topk_int4, quantize_rows_int4)}
 
@@ -370,6 +429,87 @@ def main() -> int:
                 f"bf16, biases N(0, 0.3), tie rows: equal to plain in every "
                 f"element")
         del g, px, packed, x
+
+        # K7 / K8: the IVF bucket probes over a clustered 1M x 512 gallery,
+        # indexed at C = 1024 for every rung from one set of centroids
+        t0 = time.perf_counter()
+        ivf_gal = clustered_gallery(dev, SEED)
+
+        def ivf_chunks():
+            return (ivf_gal[a:a + IVF_CHUNK]
+                    for a in range(0, GALLERY_ROWS, IVF_CHUNK))
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cents = ivf_mod.train_centroids(ivf_gal[::4], IVF_CLUSTERS,
+                                        device=dev)
+        torch.cuda.synchronize()
+        ivf_build_s = {"train": time.perf_counter() - t1}
+        ivfs = {}
+        for mode in IVF_RUNGS:
+            ivfs[mode] = ivf_mod.build_ivf_streaming(
+                ivf_chunks, GALLERY_ROWS, DIM, n_clusters=IVF_CLUSTERS,
+                chunk=IVF_CHUNK, centroids=cents, quantize=mode, device=dev)
+            ivf_build_s[mode] = ivfs[mode].build_seconds
+        say(f"phase 3 IVF index {GALLERY_ROWS}x{DIM} C={IVF_CLUSTERS}: cap "
+            + ", ".join(f"{IVF_RUNGS[m]} {v.bucket_cap} (spill "
+                        f"{int((v.spill_ids >= 0).sum())})"
+                        for m, v in ivfs.items())
+            + f", {time.perf_counter() - t0:.1f} s")
+        errs["probe_buckets"] = errs["probe_buckets_q4"] = 0.0
+        for nq in (1, 8, 64):
+            rows = torch.randint(0, GALLERY_ROWS, (nq,), device=dev,
+                                 generator=gen)
+            qv = ivf_gal[rows].float() + 0.02 * torch.randn(
+                (nq, DIM), device=dev, generator=gen)
+            qv = qv / qv.norm(dim=1, keepdim=True)
+            for nprobe in (IVF_NPROBE, IVF_CLUSTERS):
+                for mode, ivf in ivfs.items():
+                    fn, args = probe_call(
+                        ivf, qv, ivf_mod.probe_lists(qv, ivf, nprobe))
+                    # the plain top-(k+1) begins with the plain top-k
+                    rv, ri = fn(*args, 101, impl="torch")
+                    for k in (10, 100):
+                        vals, ids = fn(*args, k)
+                        if mode == "int4":
+                            check(torch.equal(ids, ri[:, :k])
+                                  and torch.equal(vals, rv[:, :k]),
+                                  f"K8 Q={nq} nprobe={nprobe} k={k}: kernel "
+                                  f"!= plain (ids differ at "
+                                  f"{int((ids != ri[:, :k]).sum())})")
+                        else:
+                            errs["probe_buckets"] = max(
+                                errs["probe_buckets"],
+                                topk_agree(vals, ids, rv, ri, tol=1e-5))
+                say(f"phase 3 K7 probe_buckets (bf16, int8) / K8 "
+                    f"probe_buckets_q4 C={IVF_CLUSTERS} Q={nq} "
+                    f"nprobe={nprobe} k=10,100: K7 max|dv| "
+                    f"{errs['probe_buckets']:.3e}, ids agree where "
+                    f"separated; K8 ids and values equal to plain")
+        # equal scores: rows IVF_DUPS share row 77's bucket and come back
+        # in slot order, after an earlier-probed bucket
+        for mode, ivf in ivfs.items():
+            home = int((ivf.bucket_ids == IVF_DUPS[0]).nonzero()[0, 0])
+            in_home = [r for r in IVF_DUPS
+                       if bool((ivf.bucket_ids[home] == r).any())]
+            check(len(in_home) >= 2, f"{mode}: duplicated rows spilled")
+            probe = torch.tensor([[(home + 1) % IVF_CLUSTERS, home]],
+                                 dtype=torch.int32, device=dev)
+            fn, args = probe_call(ivf, ivf_gal[IVF_DUPS[0]:IVF_DUPS[0] + 1],
+                                  probe)
+            vals, ids = fn(*args, 8)
+            rv, ri = fn(*args, 9, impl="torch")
+            check(ids[0, :len(in_home)].tolist() == in_home
+                  and ri[0, :len(in_home)].tolist() == in_home,
+                  f"{mode} probe tie rule: kernel {ids.tolist()} plain "
+                  f"{ri.tolist()}")
+            if mode == "int4":
+                check(torch.equal(ids, ri[:, :8])
+                      and torch.equal(vals, rv[:, :8]), "K8 tie case")
+            else:
+                topk_agree(vals, ids, rv, ri, tol=1e-5)
+            say(f"phase 3 {fn.__name__} {IVF_RUNGS[mode]} tie case: ids "
+                f"{ids[0].tolist()} (equal rows in slot order)")
 
     # ---- 4a. end to end: bf16 ---------------------------------------------
     cfg = Config(model=ModelConfig(image_tower="vit_b32", dtype="bfloat16"),
@@ -572,6 +712,150 @@ def main() -> int:
         f"Q=8: top-1 = source row for 8/8 each, "
         f"{time.perf_counter() - t0:.1f} s")
     launches_quant = {fn.__name__: fn.launches for fn in kernels}
+
+    # ---- 4c. end to end: IVF ------------------------------------------------
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    row_of = {p: r for r, p in enumerate(idx.paths)}
+
+    def ivf_hits_equal_plain(eng, hits, q, what):
+        """An IVF engine's hits against the plain IVF top-k on the same
+        index and queries (q as query_vectors receives them): int4 the same
+        rows, order and scores; bf16 / int8 (f32 sums in another order)
+        scores within 1e-5 and rows equal where scores are separated."""
+        k, scale = len(hits[0]), eng.config.logit_scale
+        check(all(len(h) == k for h in hits), f"{what}: short hit lists")
+        with torch.inference_mode():
+            rv, ri = ivf_mod.ivf_topk(l2_normalize(q.float()), eng.ivf,
+                                      k=k + 1, nprobe=eng.config.ann_nprobe,
+                                      impl="torch")
+        if eng.ivf.quant == "int4":
+            rvn = rv.cpu().numpy()
+            want = [[(eng.index.paths[r], float(rvn[i, j] * scale))
+                     for j, r in enumerate(row[:k])]
+                    for i, row in enumerate(ri.tolist())]
+            check([[(x.path, x.score) for x in h] for h in hits] == want,
+                  f"{what}: engine hits != the plain IVF top-k")
+            return
+        vals = torch.tensor([[x.score / scale for x in h] for h in hits],
+                            device=dev)
+        ids = torch.tensor([[row_of[x.path] for x in h] for h in hits],
+                           dtype=torch.int32, device=dev)
+        topk_agree(vals, ids, rv, ri, tol=1e-5)
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the saved sidecar was not used")
+
+    sidecar = os.path.join(idx.directory, "ivf")
+    shots_t = torch.from_numpy(np.asarray(shots)).to(dev)
+    ivf_report = []
+    for mode in IVF_RUNGS:
+        fn = probe_buckets_q4 if mode == "int4" else probe_buckets
+        eng = SearchEngine(idx, SearchConfig(ann="ivf"), quantize=mode,
+                           device=dev)
+        check(eng.ivf.quant == mode and eng.gallery is None
+              and ivf_mod.sidecar_meta(sidecar)["quant"] == mode,
+              f"{IVF_RUNGS[mode]} IVF engine / sidecar")
+        hits = launched((fn,), lambda: eng.query_image(qvec, top_k=10),
+                        f"IVF {mode} query_image")
+        ivf_hits_equal_plain(eng, hits, torch.from_numpy(qvec).to(dev),
+                             f"IVF {mode} query_image")
+        self1 = sum(h[0].path == samples[i][0] for i, h in zip(picks, hits))
+        precs = []
+        for strategy in ("mean", "cluster", "robust_mean"):
+            ph = launched((fn,), lambda: eng.query_prototype(
+                shots, strategy=strategy, top_k=10),
+                f"IVF {mode} {strategy} query_prototype")
+            c = eng.config
+            proto = build_prototype(shots_t, strategy=strategy,
+                                    cluster_k=c.cluster_k,
+                                    balance_ratio=c.cluster_balance_ratio,
+                                    outlier_percentile=c.outlier_percentile)
+            ivf_hits_equal_plain(eng, ph, proto[None, :],
+                                 f"IVF {mode} {strategy} query_prototype")
+            precs.append(sum(h.cls == "c0" for h in ph[0]))
+        # a second engine loads the saved sidecar: no k-means, same hits
+        train = ivf_mod.train_centroids
+        ivf_mod.train_centroids = refuse
+        try:
+            eng2 = SearchEngine(idx, SearchConfig(ann="ivf"), quantize=mode,
+                                device=dev)
+        finally:
+            ivf_mod.train_centroids = train
+        hits2 = eng2.query_image(qvec, top_k=10)
+        check([[(x.path, x.score) for x in h] for h in hits2]
+              == [[(x.path, x.score) for x in h] for h in hits],
+              f"IVF {mode}: the loaded sidecar serves other hits")
+        ivf_report.append(
+            f"{IVF_RUNGS[mode]} (C={eng.ivf.n_clusters} cap "
+            f"{eng.ivf.bucket_cap} nprobe {eng.config.ann_nprobe or 'auto'}):"
+            f" image and prototype hits = plain IVF top-10, image self-top1 "
+            f"{self1}/8, prototype c0 precision@10 mean/cluster/robust_mean "
+            f"{precs}, sidecar load = build")
+    eng_t = SearchEngine(idx, SearchConfig(ann="ivf", ann_target_recall=0.95),
+                         device=dev)
+    tuned = ivf_mod.sidecar_meta(sidecar)["tuned"]
+    check(tuned["nprobe"] == eng_t.config.ann_nprobe
+          and (tuned["recall"] >= 0.95
+               or tuned["nprobe"] == eng_t.ivf.n_clusters),
+          f"ann_target_recall: {tuned}")
+    say(f"phase 4c e2e IVF over the ViT-B/32 index {len(idx)}x{idx.dim}: "
+        + "; ".join(ivf_report) + f"; ann_target_recall 0.95 -> nprobe "
+        f"{tuned['nprobe']} (recall {tuned['recall']:.4f}, curve "
+        f"{tuned['curve']}), {time.perf_counter() - t0:.1f} s")
+
+    # the clustered 1M gallery: nprobe = C is the flat scan; recall at 128
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        flat16 = torch.cat([l2_normalize(c.float()).to(torch.bfloat16)
+                            for c in ivf_chunks()])
+        flat4 = [quantize_rows_int4(l2_normalize(c.float()))
+                 for c in ivf_chunks()]
+        flat4 = (torch.cat([p for p, _ in flat4]),
+                 torch.cat([s for _, s in flat4]))
+        rows = torch.randint(0, GALLERY_ROWS, (64,), device=dev,
+                             generator=gen)
+        qc = ivf_gal[rows].float() + 0.02 * torch.randn((64, DIM), device=dev,
+                                                        generator=gen)
+        qc = qc / qc.norm(dim=1, keepdim=True)
+        ev, ei = cosine_topk(qc.to(torch.bfloat16), flat16, 11)
+        recall = {}
+        for mode, ivf in ivfs.items():
+            fn = probe_buckets_q4 if mode == "int4" else probe_buckets
+            vals, ids = launched((fn,), lambda: ivf_mod.ivf_topk(
+                qc, ivf, k=10, nprobe=IVF_CLUSTERS), f"1M IVF {mode} nprobe=C")
+            if mode == "":
+                topk_agree(vals, ids, ev, ei, tol=1e-5)
+            elif mode == "int4":
+                fv, fi = cosine_topk_int4(qc, *flat4, 10)
+                check(torch.equal(ids, fi) and torch.equal(vals, fv),
+                      f"1M IVF int4 at nprobe=C != flat K5 (ids differ at "
+                      f"{int((ids != fi).sum())})")
+            full = recall_at(ids, ei[:, :10])
+            _, ids = launched((fn,), lambda: ivf_mod.ivf_topk(
+                qc, ivf, k=10, nprobe=IVF_NPROBE), f"1M IVF {mode}")
+            recall[IVF_RUNGS[mode]] = (recall_at(ids, ei[:, :10]), full)
+        side = os.path.join(tmp.name, "ivf1m")
+        ivf_mod.save_ivf(side, ivfs[""])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loaded = ivf_mod.load_ivf(side, make_chunks=ivf_chunks,
+                                  n=GALLERY_ROWS, d=DIM, chunk=IVF_CHUNK,
+                                  device=dev)
+        torch.cuda.synchronize()
+        ivf_load_s = time.perf_counter() - t1
+        check(torch.equal(loaded.buckets, ivfs[""].buckets)
+              and torch.equal(loaded.bucket_ids, ivfs[""].bucket_ids)
+              and torch.equal(loaded.spill, ivfs[""].spill),
+              "1M sidecar load != build")
+        del loaded
+    say(f"phase 4c e2e clustered 1M x 512, C={IVF_CLUSTERS}, Q=64: nprobe=C "
+        f"ids = flat K1 where separated (bf16), = flat K5 exactly (int4); "
+        f"recall@10 vs the exact bf16 scan at nprobe={IVF_NPROBE} (and at "
+        f"C): {json.dumps(recall)}; sidecar save + load = build "
+        f"({ivf_load_s:.2f} s load), {time.perf_counter() - t0:.1f} s")
+    launches_ivf = {fn.__name__: fn.launches for fn in kernels}
     tmp.cleanup()
 
     # ---- 5. launch counts --------------------------------------------------
@@ -586,11 +870,17 @@ def main() -> int:
                cosine_topk_int4, mlp_int8_fused):
         check(launches_quant[fn.__name__] > 0,
               f"{fn.__name__} never launched in phase 4b")
+    say(f"phase 5 launches during phase 4c (IVF): {json.dumps(launches_ivf)}")
+    for fn in (probe_buckets, probe_buckets_q4):
+        check(launches_ivf[fn.__name__] > 0,
+              f"{fn.__name__} never launched in phase 4c")
     launches = {name: launches_bf16[name] for name in
                 ("cosine_topk", "mha_short_seq", "normalize_images")}
     launches.update({name: launches_quant[name] for name in
                      ("cosine_topk_quantized", "cosine_topk_int4",
                       "mlp_int8_fused")})
+    launches.update({name: launches_ivf[name] for name in
+                     ("probe_buckets", "probe_buckets_q4")})
 
     # phase 4's answers against the plain versions on the same inputs
     with torch.inference_mode():
@@ -661,6 +951,24 @@ def main() -> int:
                 lambda: clip.encode_image(
                     tw.params, normalize_images(px, impl="torch"),
                     attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)
+        # the bucket probes alone at Q=8, nprobe=128, k=10; then IVF top-10
+        # end to end (centroid scores, probe, spill, merge) beside flat K1
+        probe_ms = {}
+        for mode, ivf in ivfs.items():
+            fn, args = probe_call(ivf, qc[:8],
+                                  ivf_mod.probe_lists(qc[:8], ivf, IVF_NPROBE))
+            probe_ms[IVF_RUNGS[mode]] = time_pair(
+                lambda: fn(*args, 10), lambda: fn(*args, 10, impl="torch"))
+        times["probe_buckets"] = probe_ms["bf16"]
+        times["probe_buckets_q4"] = probe_ms["int4"]
+        ivf_ms = {}
+        for nq in (1, 8):
+            for mode, ivf in ivfs.items():
+                ivf_ms[(IVF_RUNGS[mode], nq)] = time_pair(
+                    lambda: ivf_mod.ivf_topk(qc[:nq], ivf, k=10,
+                                             nprobe=IVF_NPROBE),
+                    lambda: cosine_topk(qc[:nq].to(torch.bfloat16), flat16,
+                                        10))
     say(f"phase 6 times on {card}:")
     for name, (kms, pms) in times.items():
         say(f"  {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
@@ -672,6 +980,24 @@ def main() -> int:
         f"{times['cosine_topk'][0]:.4f} ms, int8 kernel "
         f"{times['cosine_topk_quantized'][0]:.4f} ms, int4 kernel "
         f"{times['cosine_topk_int4'][0]:.4f} ms")
+    for rung, (kms, pms) in probe_ms.items():
+        say(f"  IVF bucket probe {rung} ({'K8' if rung == 'int4' else 'K7'})"
+            f" Q=8 nprobe={IVF_NPROBE} k=10, clustered 1M x 512 C="
+            f"{IVF_CLUSTERS}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+    for (rung, nq), (ims, fms) in ivf_ms.items():
+        say(f"  IVF top-10 {rung} Q={nq} nprobe={IVF_NPROBE}: {ims:.4f} ms "
+            f"(kernel path, end to end); flat K1 bf16 top-10 over the same "
+            f"1M rows: {fms:.4f} ms")
+    say(f"  IVF build 1M x 512 C={IVF_CLUSTERS}: train_centroids "
+        f"{ivf_build_s['train']:.3f} s (262,144-row sample, 10 iterations); "
+        + "; ".join(f"{IVF_RUNGS[m]} assign {ivf_build_s[m]['assign']:.3f} "
+                    f"s, fill {ivf_build_s[m]['fill']:.3f} s"
+                    for m in IVF_RUNGS)
+        + f"; sidecar load (bf16, device chunks) {ivf_load_s:.3f} s")
+    say("  IVF residency: " + "; ".join(
+        f"{IVF_RUNGS[m]} {v.hbm_bytes() / 2 ** 20:.1f} MiB (buckets "
+        f"{v.buckets.nbytes / 2 ** 20:.1f} MiB, cap {v.bucket_cap}, spill "
+        f"{v.spill.nbytes / 2 ** 20:.1f} MiB)" for m, v in ivfs.items()))
 
     meta = {
         "cosine_topk": ("cuda", "mmrs_tpu_torch/csrc/cosine_topk.cu",
@@ -687,6 +1013,10 @@ def main() -> int:
                              "mmrs_tpu/ops/quant4.py:149"),
         "mlp_int8_fused": ("cuda", "mmrs_tpu_torch/csrc/mlp_int8.cu",
                            "mmrs_tpu/ops/mlp_int8.py:62"),
+        "probe_buckets": ("cuda", "mmrs_tpu_torch/csrc/ivf_probe.cu",
+                          "mmrs_tpu/index/ivf.py:623"),
+        "probe_buckets_q4": ("cuda", "mmrs_tpu_torch/csrc/ivf_probe.cu",
+                             "mmrs_tpu/index/ivf.py:812"),
     }
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,

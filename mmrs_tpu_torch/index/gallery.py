@@ -12,7 +12,9 @@ code/search_image.py:142-165) with an mmap-able sharded store:
 
 Interrupted builds resume at the last COMPLETE shard (SURVEY.md §5
 checkpoint story): each shard is written atomically (tmp + rename) and the
-manifest is rewritten after every shard.
+manifest is rewritten after every shard. `update_index` appends shards for
+new images; `compact_index` drops rows and shrinks the IVF sidecar under
+`<dir>/ivf` to match (index/ivf.py), best-effort.
 """
 
 from __future__ import annotations
@@ -248,3 +250,163 @@ def build_index(
     ds = dataclasses.replace(dataset, samples=dataset.samples[done_samples:])
     _stream_into(out_dir, shards, ds, encode_fn, batch_size, shard_rows)
     return GalleryIndex.load(out_dir)
+
+
+def update_index(
+    dataset: FolderDataset,
+    encode_fn: Callable[[np.ndarray], np.ndarray],
+    out_dir: str,
+    batch_size: int = 256,
+    shard_rows: int = 65536,
+) -> GalleryIndex:
+    """Incremental update (SURVEY §7 'index/ ... incremental update'): embed
+    only paths NOT already in the index and append them as new shards.
+    Existing shards are untouched, so updates are as cheap as the new data;
+    deleted files stay until `compact_index` drops them."""
+    man_path = os.path.join(out_dir, "manifest.json")
+    with open(man_path, encoding="utf-8") as f:
+        shards = json.load(f)["shards"]
+    have = set()
+    for s in shards:
+        with open(os.path.join(out_dir, s["meta"]), encoding="utf-8") as f:
+            have.update(m[0] for m in json.load(f))
+    new = [smp for smp in dataset.samples if smp[0] not in have]
+    log.info("index update: %d existing rows, %d new images",
+             len(have), len(new))
+    ds = dataclasses.replace(dataset, samples=new)
+    _stream_into(out_dir, shards, ds, encode_fn, batch_size, shard_rows)
+    return GalleryIndex.load(out_dir)
+
+
+def compact_index(
+    out_dir: str,
+    keep: Optional[Callable[[str, str], bool]] = None,
+    drop_missing: bool = True,
+) -> GalleryIndex:
+    """Drop rows whose (path, class) fails `keep` (default: keep all) or
+    whose file no longer exists (`drop_missing`) — the index side of the
+    governance deletions (dedup/leakage/normalize remove files; the index
+    must follow). Shards are rewritten atomically in place; untouched
+    shards are left as-is."""
+    man_path = os.path.join(out_dir, "manifest.json")
+    with open(man_path, encoding="utf-8") as f:
+        man = json.load(f)
+    new_shards: List[dict] = []
+    dim = man["embed_dim"]
+    dropped = 0
+    # rewritten shards get FRESH ids past every existing one — reusing
+    # positional ids could overwrite a kept shard's file mid-compaction
+    # (ids are parsed from names: repeated compactions keep growing them)
+    next_id = _next_shard_id(man["shards"])
+    stale_files: List[str] = []
+    global_mask: List[bool] = []     # kept-row mask in global row order
+    masks: List[List[bool]] = []     # per-shard, computed before any rewrite
+    for s in man["shards"]:
+        with open(os.path.join(out_dir, s["meta"]), encoding="utf-8") as f:
+            meta = [(m[0], m[1]) for m in json.load(f)]
+        mask = []
+        for p, c in meta:
+            ok = keep(p, c) if keep is not None else True
+            if ok and drop_missing and not os.path.exists(p):
+                ok = False
+            mask.append(ok)
+        global_mask += mask
+        masks.append(mask)
+    # Validate the ANN sidecar against the OLD gallery while it is still
+    # loadable: a stale sidecar whose n_total happens to match (gallery
+    # re-embedded in place at the same row count) must NOT be renumbered
+    # and restamped with a fresh fingerprint — its cluster assignments
+    # belong to the old embedding space. Checked here, consumed after the
+    # rewrite (post-rewrite the old rows are gone and unverifiable).
+    sidecar = os.path.join(out_dir, "ivf")
+    shrink_ok = True
+    if (not all(global_mask)
+            and os.path.exists(os.path.join(sidecar, "ivf.json"))):
+        shrink_ok = _sidecar_matches_old_gallery(out_dir, man, sidecar)
+    for s, mask in zip(man["shards"], masks):
+        with open(os.path.join(out_dir, s["meta"]), encoding="utf-8") as f:
+            meta = [(m[0], m[1]) for m in json.load(f)]
+        if all(mask):
+            new_shards.append(s)
+            continue
+        dropped += mask.count(False)
+        stale_files += [s["data"], s["meta"]]
+        sel = np.asarray(mask, bool)
+        kept_meta = [m for m, k in zip(meta, mask) if k]
+        if not kept_meta:
+            continue                      # whole shard gone
+        rows = np.asarray(np.load(os.path.join(out_dir, s["data"]),
+                                  mmap_mode="r"))
+        entry = _write_shard(out_dir, next_id, rows[sel], kept_meta)
+        next_id += 1
+        entry["samples"] = entry["rows"]
+        new_shards.append(entry)
+    _write_manifest(out_dir, new_shards, dim)
+    for name in stale_files:
+        try:
+            os.unlink(os.path.join(out_dir, name))
+        except OSError:
+            pass
+    log.info("index compact: dropped %d rows, %d shards remain",
+             dropped, len(new_shards))
+    idx = GalleryIndex.load(out_dir)
+    if (dropped and shrink_ok
+            and os.path.exists(os.path.join(sidecar, "ivf.json"))):
+        # keep the trained ANN sidecar in step: renumber + re-front-fill
+        # instead of re-running k-means (280 s at 10M rows). Any
+        # mismatch (e.g. an un-extended sidecar) just warns — the next
+        # engine build detects it and retrains. Best-effort by contract,
+        # so ANY failure degrades to warn-and-retrain, never a crash.
+        try:
+            from mmrs_tpu_torch.index.ivf import shrink_sidecar
+
+            shrink_sidecar(sidecar, np.asarray(global_mask, bool),
+                           idx.embeddings)
+        except Exception as e:
+            log.warning("ivf sidecar not shrunk (%s); the next engine "
+                        "build retrains it", e)
+    return idx
+
+
+def _sidecar_matches_old_gallery(out_dir: str, man: dict,
+                                 sidecar: str) -> bool:
+    """True if the saved IVF sidecar's fingerprint matches the CURRENT
+    (pre-compaction) gallery content, so shrink_sidecar may safely
+    renumber it. Reads only the ~64 strided fingerprint rows via a lazy
+    shard-routing view — no consolidation, no full residency."""
+    try:
+        from mmrs_tpu_torch.index.ivf import gallery_fingerprint, sidecar_meta
+
+        meta = sidecar_meta(sidecar)
+        want = (meta or {}).get("fingerprint")
+        if not want:          # pre-fingerprint sidecar: nothing to verify
+            return True
+        got = gallery_fingerprint(_ShardRowView(out_dir, man))
+        if got == want:
+            return True
+        log.warning("ivf sidecar fingerprint does not match the "
+                    "pre-compaction gallery (stale sidecar from an "
+                    "earlier embedding run?) — skipping shrink; the "
+                    "next engine build retrains it")
+        return False
+    except Exception as e:                      # best-effort gate
+        log.warning("ivf sidecar pre-compaction check failed (%s); "
+                    "skipping shrink", e)
+        return False
+
+
+class _ShardRowView:
+    """Minimal [N, D] row-indexable view over the on-disk shards (mmap),
+    just enough surface for gallery_fingerprint: `.shape` + `view[i]`."""
+
+    def __init__(self, out_dir: str, man: dict):
+        self._dir = out_dir
+        self._shards = man["shards"]
+        self._starts = np.cumsum([0] + [s["rows"] for s in self._shards])
+        self.shape = (int(self._starts[-1]), int(man["embed_dim"]))
+
+    def __getitem__(self, i: int):
+        s = int(np.searchsorted(self._starts, i, side="right")) - 1
+        data = np.load(os.path.join(self._dir, self._shards[s]["data"]),
+                       mmap_mode="r")
+        return data[i - int(self._starts[s])]

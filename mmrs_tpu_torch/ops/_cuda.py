@@ -32,7 +32,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu", "quant_topk.cu",
-                "mlp_int8.cu")
+                "mlp_int8.cu", "ivf_probe.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -54,6 +54,11 @@ _SIGNATURES = {
                            _P), _I),
     "mmrs_mlp_int8": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P), _I),
+    "mmrs_probe_scan": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P, _P), _I),
+    "mmrs_probe_scan_q4": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P, _P, _P), _I),
+    "mmrs_probe_ids": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
 }
 
 

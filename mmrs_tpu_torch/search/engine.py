@@ -7,8 +7,10 @@ device memory) or packed int4 rows + scales (a quarter). Every query goes
 through the gallery's fused top-k scan (ops/topk.py, ops/quant.py,
 ops/quant4.py: CUDA kernels on a GPU). Scores follow the reference's
 `100. * feat @ ref.T` convention (code/search_image.py:105-117) via the
-configured logit scale. IVF (ROADMAP A.7) and the sharded gallery (A.12)
-are not ported yet and raise.
+configured logit scale. With `config.ann == "ivf"` the gallery is an IVF
+index instead (index/ivf.py: the bucket probe kernels K7 / K8 on a GPU),
+for every rung of the ladder, with its sidecar cached under
+`<index>/ivf`. The sharded gallery (A.12) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -28,7 +30,10 @@ from mmrs_tpu_torch.ops.quant4 import (cosine_topk_int4, quantize_rows_int4,
                                        similarities_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
 from mmrs_tpu_torch.search.prototypes import build_prototype
+from mmrs_tpu_torch.utils.logging import get_logger
 from mmrs_tpu_torch.utils.stats import StageStats
+
+log = get_logger(__name__)
 
 UPLOAD_CHUNK = 131072  # host->device staging rows (bounds host RSS)
 
@@ -106,19 +111,106 @@ class SearchEngine:
         if quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantized = quantize
-        if self.config.ann not in ("none", "", None):
-            raise NotImplementedError(
-                "IVF search (ann=) is ported with ROADMAP A.7")
         if device is None:
             device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
-        self.gallery_scales = None
-        if quantize:
+        self.gallery = self.gallery_scales = self.ivf = None
+        if self.config.ann == "ivf":
+            self._init_ivf()
+        elif self.config.ann not in ("none", "", None):
+            raise ValueError(f"unknown ann mode {self.config.ann!r}")
+        elif quantize:
             self.gallery, self.gallery_scales = _quantize_gallery_chunked(
                 index.embeddings, quantize, self.device)
         else:
             self.gallery = _to_device_chunked(index.embeddings,
                                               torch.bfloat16, self.device)
+
+    def _init_ivf(self) -> None:
+        """The IVF gallery: the flat gallery is never on the device. The
+        trained sidecar (centroids + slot maps, ~4 B/row) is cached under
+        <index>/ivf: a compatible one is extended over appended rows and
+        loaded (no k-means, no assignment pass); otherwise the index is
+        built and the sidecar saved. A fingerprint of the gallery rows, the
+        quantize mode and the cluster / capacity knobs decide
+        compatibility. `ann_target_recall` measures an nprobe and keeps it
+        in the sidecar."""
+        import dataclasses
+        import os
+
+        from mmrs_tpu_torch.index import ivf as ivf_mod
+
+        index, cfg = self.index, self.config
+        if cfg.ann_target_recall > 0 and cfg.ann_nprobe > 0:
+            raise ValueError("set ann_nprobe or ann_target_recall, not both")
+        sidecar = meta = None
+        loaded = False
+        if getattr(index, "directory", None):
+            sidecar = os.path.join(index.directory, "ivf")
+            meta = ivf_mod.sidecar_meta(sidecar)
+            compatible = meta is not None and (
+                meta.get("quant", "") == self.quantized
+                and cfg.ann_clusters in (0, meta.get("n_clusters"))
+                and cfg.ann_bucket_cap in (0, meta.get("bucket_cap"))
+                # the auto cap derives from cover and slots_frac; an
+                # explicit cap overrides them
+                and (cfg.ann_bucket_cap != 0
+                     or (meta.get("cover", 0.98) == cfg.ann_cover
+                         and meta.get("slots_frac", 1.3)
+                         == cfg.ann_slots_frac)))
+            if compatible and meta["n_total"] < len(index):
+                # the gallery grew (index update): assign only the new rows
+                try:
+                    meta = ivf_mod.extend_sidecar(sidecar, index.embeddings,
+                                                  device=self.device)
+                except (ValueError, OSError) as e:
+                    log.warning("ivf sidecar extend failed (%s); "
+                                "rebuilding", e)
+                    compatible = False
+            if compatible:
+                try:
+                    self.ivf = ivf_mod.load_ivf(sidecar, index.embeddings,
+                                                device=self.device)
+                    loaded = True
+                except ValueError as e:
+                    log.warning("ivf sidecar rejected (%s); rebuilding", e)
+        if self.ivf is None:
+            self.ivf = ivf_mod.build_ivf(
+                index.embeddings, n_clusters=cfg.ann_clusters,
+                bucket_cap=cfg.ann_bucket_cap, iters=cfg.ann_train_iters,
+                quantize=self.quantized, cover=cfg.ann_cover,
+                slots_frac=cfg.ann_slots_frac, device=self.device)
+            if sidecar is not None:
+                try:
+                    ivf_mod.save_ivf(sidecar, self.ivf,
+                                     embeddings=index.embeddings)
+                    ivf_mod.update_sidecar_meta(
+                        sidecar, cover=cfg.ann_cover,
+                        slots_frac=cfg.ann_slots_frac)
+                    meta = ivf_mod.sidecar_meta(sidecar)
+                except OSError as e:  # read-only index dirs are fine
+                    log.warning("ivf sidecar not saved: %s", e)
+                    sidecar = None
+        if cfg.ann_target_recall > 0:
+            # reuse a persisted tuning only when the index came from that
+            # sidecar and the target and k match; else measure and persist
+            tuned = (meta or {}).get("tuned")
+            if not (loaded and tuned
+                    and tuned.get("target") == cfg.ann_target_recall
+                    and tuned.get("k") == cfg.top_k):
+                tuned = ivf_mod.tune_nprobe(
+                    self.ivf, index.embeddings,
+                    target_recall=cfg.ann_target_recall, k=cfg.top_k)
+                if sidecar is not None:
+                    try:
+                        ivf_mod.update_sidecar_meta(sidecar, tuned=tuned)
+                    except OSError as e:
+                        log.warning("tuned nprobe not saved: %s", e)
+            self.config = dataclasses.replace(
+                self.config, ann_nprobe=int(tuned["nprobe"]))
+            log.info("ann_target_recall %.3f -> nprobe %d (measured recall "
+                     "%.4f)", cfg.ann_target_recall, tuned["nprobe"],
+                     tuned["recall"])
 
     # -- core ---------------------------------------------------------------
 
@@ -128,7 +220,12 @@ class SearchEngine:
         k = min(top_k or self.config.top_k, len(self.index))
         q = l2_normalize(_as_tensor(vectors, self.device))
         with self.stats.timed("topk", count=q.shape[0]):
-            if self.quantized == "int4":
+            if self.ivf is not None:
+                from mmrs_tpu_torch.index.ivf import ivf_topk
+
+                vals, idxs = ivf_topk(q, self.ivf, k=k,
+                                      nprobe=self.config.ann_nprobe)
+            elif self.quantized == "int4":
                 vals, idxs = cosine_topk_int4(q, self.gallery,
                                               self.gallery_scales, k)
             elif self.quantized:
@@ -168,10 +265,14 @@ class SearchEngine:
 
     def query_prototype(self, shot_embeds, strategy: Optional[str] = None,
                         text_embed=None, top_k=None):
-        """K-shot prototype search."""
+        """K-shot prototype search with the reference's strategies."""
+        cfg = self.config
         proto = build_prototype(_as_tensor(shot_embeds, self.device),
-                                strategy=strategy or self.config.prototype,
-                                text_embed=text_embed)
+                                strategy=strategy or cfg.prototype,
+                                text_embed=text_embed,
+                                cluster_k=cfg.cluster_k,
+                                balance_ratio=cfg.cluster_balance_ratio,
+                                outlier_percentile=cfg.outlier_percentile)
         return self.query_vectors(proto[None, :], top_k)
 
     def device_similarities(self, vectors) -> torch.Tensor:
@@ -179,6 +280,10 @@ class SearchEngine:
         computed chunk by chunk so that no f32 (or unpacked) copy of the
         whole gallery is made: bf16 operands with f32 sums, or the int8 /
         int4 scores of the quantized top-k scans."""
+        if self.ivf is not None:
+            raise RuntimeError(
+                "device_similarities needs the flat gallery; calibrate "
+                "with ann='none' (calibration is an offline build step)")
         q = l2_normalize(_as_tensor(vectors, self.device))
         if self.quantized == "int8":
             q_q, q_scale = quantize_rows(q)

@@ -7,20 +7,25 @@ machine (which has no JAX, so the JAX conftest is left out):
 
 Shapes include the edges the kernels handle in their own code: ragged
 gallery chunks, N < k, multi-level top-k merges, k = 256, ties, query tiles
-over T, ragged row tiles of the int8 MLP, f32 inputs. The int8 and int4
-scans must equal their plain versions exactly (ids and values), and so must
-the fused int8 MLP (nonzero biases, rows of exact rounding ties).
+over T, ragged row tiles of the int8 MLP, f32 inputs, masked bucket slots
+and equal scores across probed buckets. The int8 and int4 scans and the
+int4 bucket probe must equal their plain versions exactly (ids and values),
+and so must the fused int8 MLP (nonzero biases, rows of exact rounding
+ties).
 """
 
 import pytest
 import torch
 
+from mmrs_tpu_torch.index.ivf import (build_ivf_streaming, ivf_topk,
+                                      probe_buckets, probe_buckets_q4)
 from mmrs_tpu_torch.models import layers
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
-from mmrs_tpu_torch.ops.quant4 import cosine_topk_int4, quantize_rows_int4
+from mmrs_tpu_torch.ops.quant4 import (cosine_topk_int4, prep_queries,
+                                       quantize_rows_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
 
 torch.set_num_threads(2)
@@ -263,3 +268,121 @@ def test_dense_bf16_on_the_card_matches_the_cpu(dev):
         want = layers.dense(x, lin, torch.bfloat16).float()
         got = layers.dense(x.to(dev), lin.to(dev), torch.bfloat16).float()
     assert int((got.cpu() != want).sum()) <= 16
+
+
+# -- IVF bucket probes (K7 over bf16 / int8 buckets, K8 over int4) -------------
+
+def _probe_index(n, d, c, quant, dev, seed, cap=0):
+    """An IVF index over n seeded unit rows (rows 1..3 copies of row 0, so
+    equal scores meet in one bucket), built on the card."""
+    rows = _unit_rows(n, d, dev, seed).float()
+    rows[1:4] = rows[0]
+    return rows, build_ivf_streaming(
+        lambda: iter([rows]), n, d, n_clusters=c, bucket_cap=cap, iters=3,
+        chunk=n, sample=rows, quantize=quant, device=dev)
+
+
+def _probe_lists(q, c, p, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.stack([torch.randperm(c, device=dev, generator=g)[:p]
+                        for _ in range(q)]).int()
+
+
+def _probe(ivf, qs, probe, k, ids=None, impl="auto"):
+    ids = ivf.bucket_ids if ids is None else ids
+    if ivf.quant == "int4":
+        return probe_buckets_q4(*prep_queries(qs), probe, ivf.buckets, ids,
+                                ivf.bucket_scales, k, impl=impl)
+    return probe_buckets(qs.bfloat16(), probe, ivf.buckets, ids,
+                         ivf.bucket_scales, k, impl=impl)
+
+
+def _assert_probe_matches(vals, ids, rv, ri, exact):
+    """int4: equal. bf16 / int8 (f32 sums in another order): values within
+    1e-5, ids equal wherever the plain scores are more than 1e-5 apart."""
+    if exact:
+        assert torch.equal(ids, ri) and torch.equal(vals, rv)
+        return
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals), finite)
+    assert torch.equal(ids[~finite], ri[~finite])            # the -1s
+    assert float((vals[finite] - rv[finite]).abs().max()) <= 1e-5
+    gap = torch.full_like(rv, float("inf"))
+    diff = (rv[:, :-1] - rv[:, 1:]).abs()
+    gap[:, :-1] = diff
+    gap[:, 1:] = torch.minimum(gap[:, 1:], diff)
+    clear = finite & (gap > 1e-5)
+    assert torch.equal(ids[clear], ri[clear])
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+@pytest.mark.parametrize("d", [512, 768])
+@pytest.mark.parametrize("q,p,k", [(1, 8, 1), (7, 16, 10), (64, 32, 100),
+                                   (3, 64, 256)])
+def test_probe_kernels_match_plain(dev, quant, d, q, p, k):
+    rows, ivf = _probe_index(30000, d, 64, quant, dev, seed=d)
+    qs = rows[:q] + 0.05 * _unit_rows(q, d, dev, seed=q).float()
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    probe = _probe_lists(q, 64, p, dev, seed=p)
+    fn = probe_buckets_q4 if quant == "int4" else probe_buckets
+    # masked slots inside the live prefix as well as the empty tail
+    holes = ivf.bucket_ids.clone()
+    holes[:, 3::11] = -1
+    for ids in (ivf.bucket_ids, holes):
+        before = fn.launches
+        vals, got = _probe(ivf, qs, probe, k, ids)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        rv, ri = _probe(ivf, qs, probe, k, ids, impl="torch")
+        assert vals.shape == (q, k) and got.dtype == torch.int32
+        _assert_probe_matches(vals, got, rv, ri, exact=quant == "int4")
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+def test_probe_kernels_tie_rule(dev, quant):
+    """Equal scores: the earlier probe rank, then the earlier slot, first;
+    k past the live slots pads with (-inf, -1)."""
+    rows, ivf = _probe_index(2000, 512, 8, quant, dev, seed=3)
+    home = int((ivf.bucket_ids == 0).nonzero()[0, 0])       # row 0's bucket
+    other = (home + 1) % 8
+    probe = torch.tensor([[other, home]], dtype=torch.int32, device=dev)
+    vals, ids = _probe(ivf, rows[:1], probe, 256)
+    rv, ri = _probe(ivf, rows[:1], probe, 256, impl="torch")
+    assert ids[0, :4].tolist() == [0, 1, 2, 3]
+    _assert_probe_matches(vals, ids, rv, ri, exact=quant == "int4")
+    assert len(set(vals[0, :4].tolist())) == 1       # the tie is exact
+    live = int((ivf.bucket_ids[[other, home]] >= 0).sum())
+    if live < 256:
+        assert (ids[0, live:] == -1).all() and torch.isinf(vals[0, live:]).all()
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+def test_ivf_topk_on_the_card_matches_plain_with_a_big_spill(dev, quant):
+    """bucket_cap 8 sends most rows to the spill (far more rows than a
+    bucket holds); the kernel path equals the plain path end to end."""
+    rows, ivf = _probe_index(20000, 512, 64, quant, dev, seed=5,
+                             cap=8 if quant != "int4" else 128)
+    assert int((ivf.spill_ids >= 0).sum()) > 4 * ivf.bucket_cap
+    qs = rows[100:108]
+    for nprobe in (4, 64):
+        vals, ids = ivf_topk(qs, ivf, k=10, nprobe=nprobe)
+        rv, ri = ivf_topk(qs, ivf, k=10, nprobe=nprobe, impl="torch")
+        _assert_probe_matches(vals, ids, rv, ri, exact=quant == "int4")
+        assert torch.equal(ids[:, 0].long(), torch.arange(100, 108,
+                                                          device=dev))
+
+
+def test_probe_kernels_reject_what_they_cannot_run(dev):
+    rows, ivf = _probe_index(1000, 64, 4, "", dev, seed=0)
+    probe = _probe_lists(1, 4, 2, dev, seed=0)
+    with pytest.raises(ValueError, match="k <= 256"):
+        _probe(ivf, rows[:1], probe, 257)
+    with pytest.raises(ValueError, match="scales"):
+        probe_buckets(rows[:1].bfloat16(), probe, ivf.buckets.to(torch.int8),
+                      ivf.bucket_ids, None, 5)
+    with pytest.raises(ValueError, match="int32"):
+        probe_buckets(rows[:1].bfloat16(), probe.long(), ivf.buckets,
+                      ivf.bucket_ids, None, 5)
+    rows, ivf4 = _probe_index(1000, 24, 4, "int4", dev, seed=0)  # D % 16
+    with pytest.raises(ValueError, match="D % 16"):
+        _probe(ivf4, rows[:1], probe, 5)

@@ -27,11 +27,15 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
         "    importlib.import_module(n)\n"
         "print(len(names))\n"
         "print(sorted(m for m in ('jax', 'jaxlib', 'mmrs_tpu', 'yaml',\n"
-        "    'regex', 'PIL', 'ml_dtypes', 'triton') if m in sys.modules))\n")
+        "    'regex', 'PIL', 'ml_dtypes', 'triton') if m in sys.modules))\n"
+        "print(' '.join(names))\n")
     assert r.returncode == 0, r.stderr[-2000:]
-    count, loaded = r.stdout.strip().splitlines()
-    assert int(count) >= 25
+    count, loaded, names = r.stdout.strip().splitlines()
+    assert int(count) >= 28
     assert loaded == "[]"
+    for mod in ("index.ivf", "index.stream", "ops.kmeans",
+                "search.prototypes"):
+        assert f"mmrs_tpu_torch.{mod}" in names.split()
 
 
 def test_chip_smoke_imports_no_jax_and_refuses_without_a_gpu(tmp_path):

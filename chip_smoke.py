@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's search and governance paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -16,7 +16,10 @@ nonzero exit and no result line:
      serving shape, nonzero biases, equal in every element), K7/K8 (the
      IVF bucket probes over bf16 / int8 / int4 buckets of a clustered
      1,048,576 x 512 gallery at C = 1024, built on the card: K8 equal,
-     K7 values within 1e-5 and ids equal where scores are separated);
+     K7 values within 1e-5 and ids equal where scores are separated), K9
+     (all-pairs first match over 131,072 x 512 planted rows, f32 and bf16:
+     keep-first, cross set, ring halves with row offsets, ragged N; every
+     id equal);
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -33,9 +36,19 @@ nonzero exit and no result line:
         second engine with k-means disabled (same hits), ann_target_recall
         0.95; then the clustered 1M gallery: nprobe = C against flat K1
         (bf16) and K5 (int4), recall@10 at nprobe = 128, sidecar load;
+     d. governance: `mmrs-torch dedup --mode embedding` over a 131,072 x
+        512 f16 index of planted rows (DUP lines = the planted pairs = the
+        plain report); over phase 4a's index with 64 exact image copies
+        appended by update_index (every copy found, = plain); the hash
+        modes, leakage, convert, clean, rename, merge and dataset make on
+        a small image tree (dry runs), naming the native library that ran;
   5. launch counts: every kernel of each path ran during its phase 4 run;
      phase 4's answers against the plain versions on the same inputs;
-  6. times (CUDA events, after warm-up), kernel and plain version in turns.
+  6. times (CUDA events, after warm-up), kernel and plain version in turns,
+     K9 in Gpairs/s as bench.py counts them; each kernel's bound (the
+     larger of its bytes over 3.35 TB/s and its operations over the peak
+     rate of their type) and, for K2, PyTorch's fused attention as a
+     yardstick.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -43,6 +56,7 @@ The line before the last is the kernels' JSON summary; the last line is
 import dataclasses
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -74,6 +88,15 @@ IVF_CHUNK = 65536             # build streaming rows
 IVF_ANCHORS = 8192            # bench_ivf.py's clustered data
 IVF_DUPS = (77, 500_000, 1_000_000)   # the last two are copies of the first
 IVF_RUNGS = {"": "bf16", "int8": "int8", "int4": "int4"}
+# governance dedup: the JAX bench's size (bench.py:bench_dedup)
+DEDUP_ROWS = 131_072
+DEDUP_TEST_ROWS = 16_384
+DEDUP_TAU = 0.99
+DEDUP_PLANTS = 1024           # noisy copies; near misses and chains: 256 each
+DEDUP_COPIES = 64             # exact image copies added to phase 4a's index
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s, FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def say(*parts) -> None:
@@ -94,25 +117,37 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def time_pair(kernel_fn, plain_fn, iters: int = 10, warmup: int = 3):
-    """(kernel ms, plain ms) per call: CUDA events over `iters` calls after
-    `warmup`, in the order plain, kernel, kernel, plain."""
-    def one(fn):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """ms per call of fn: CUDA events over `iters` calls after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
-    p1, k1, k2, p2 = one(plain_fn), one(kernel_fn), one(kernel_fn), \
-        one(plain_fn)
+
+def time_pair(kernel_fn, plain_fn, iters: int = 10, warmup: int = 3):
+    """(kernel ms, plain ms) per call, timed in the order plain, kernel,
+    kernel, plain."""
+    p1, k1, k2, p2 = (time_ms(fn, iters, warmup) for fn in
+                      (plain_fn, kernel_fn, kernel_fn, plain_fn))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def least_ms(nbytes: float, ops: float, kind: str):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over the peak rate of
+    their type."""
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def ptxas_lines(log_path: str):
@@ -121,6 +156,9 @@ def ptxas_lines(log_path: str):
     with open(log_path, encoding="utf-8") as f:
         for line in f:
             if "Compiling entry function" in line:
+                # drop the anonymous namespace's mangled prefix
+                line = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                              line)
                 m = re.search(r"(\w+?_kernel)(?:I(?:Li(\d+)E|Lb(\d)E|(f)|"
                               r"13__nv_(bfloat16)))?", line)
                 name = m.group(1) + "".join(
@@ -250,6 +288,124 @@ class SyntheticImages:
                         ok=np.ones(len(chunk), bool))
 
 
+def near_rows(x: torch.Tensor, cos: float, g) -> torch.Tensor:
+    """Unit rows at exactly `cos` to the unit rows x (a random direction
+    orthogonal to each row)."""
+    z = torch.randn(x.shape, device=x.device, generator=g)
+    z -= (z * x).sum(1, keepdim=True) * x
+    z /= z.norm(dim=1, keepdim=True)
+    return cos * x + (1.0 - cos * cos) ** 0.5 * z
+
+
+def planted_dedup_rows(dev, seed: int):
+    """[DEDUP_ROWS, DIM] f32 unit rows made on the card, with planted pairs
+    around DEDUP_TAU: DEDUP_PLANTS noisy copies at cosine 0.995, a quarter
+    as many near misses at 0.985 and chains A~B, B~C (0.995 a step, A~C
+    0.980). Returns (rows, the keep-first first-match vector they must
+    give, int64 on the host). Random pairs of 512-d rows stay below ~0.3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((DEDUP_ROWS, DIM), device=dev, generator=g)
+    x /= x.norm(dim=1, keepdim=True)
+    perm = torch.randperm(DEDUP_ROWS, device=dev, generator=g)
+    p, q = DEDUP_PLANTS, DEDUP_PLANTS // 4
+    src, dup = perm[:p], perm[p:2 * p]
+    x[dup] = near_rows(x[src], 0.995, g)
+    x[perm[2 * p + q:2 * p + 2 * q]] = near_rows(x[perm[2 * p:2 * p + q]],
+                                                 0.985, g)
+    o = 2 * p + 2 * q
+    a, b, c = perm[o:o + q], perm[o + q:o + 2 * q], perm[o + 2 * q:o + 3 * q]
+    e1 = near_rows(x[a], 0.0, g)
+    t = math.acos(0.995)
+    x[b] = math.cos(t) * x[a] + math.sin(t) * e1
+    x[c] = math.cos(2 * t) * x[a] + math.sin(2 * t) * e1
+    first = np.full(DEDUP_ROWS, -1, np.int64)
+    for s, d in zip(src.tolist(), dup.tolist()):
+        first[max(s, d)] = min(s, d)
+    for ra, rb, rc in zip(a.tolist(), b.tolist(), c.tolist()):
+        edges = {ra: (rb,), rb: (ra, rc), rc: (rb,)}
+        for r, nb in edges.items():
+            earlier = [e for e in nb if e < r]
+            if earlier:
+                first[r] = min(earlier)
+    return x, first
+
+
+def keeper_pairs(first, paths):
+    """embedding_dedup's (dup, keeper) report from a first-match vector."""
+    out = []
+    for i, j in enumerate(first):
+        if j >= 0:
+            k = int(j)
+            while first[k] >= 0:
+                k = int(first[k])
+            out.append((paths[i], paths[k]))
+    return out
+
+
+def run_cli(argv):
+    """`mmrs-torch <argv>` in this process: (exit code, stdout lines)."""
+    import contextlib
+    import io
+
+    from mmrs_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_main(argv)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue().splitlines()
+
+
+def dup_lines(lines):
+    """(dup, keeper) pairs from `dedup` DUP lines."""
+    out = []
+    for ln in lines:
+        if ln.startswith("DUP\t"):
+            _, dup, keeper = ln.split("\t")
+            out.append((dup, keeper.removeprefix("-> keeper ")))
+    return out
+
+
+def governance_tree(root: str) -> None:
+    """A small image tree for the hash modes and the dataset commands:
+    exact and recompressed copies, a train/test leak, convertible formats,
+    class folders to rename and merge, and VQA class folders."""
+    from PIL import Image
+
+    def grad(seed, size=(64, 64)):
+        rng = np.random.default_rng(seed)
+        return Image.fromarray(rng.integers(0, 255, (8, 8, 3), np.uint8)
+                               ).resize(size, Image.BILINEAR)
+
+    dirs = ("ref", "tgt", "train", "test", "mixed/sub", "classes/cat",
+            "classes/kitty", "vqa/cat", "vqa/dog", "vqa/lynx",
+            "vqa/ez_negative", "vqa/cat_negative")
+    for d in dirs:
+        os.makedirs(os.path.join(root, d))
+    j = lambda *p: os.path.join(root, *p)  # noqa: E731
+    grad(10).save(j("ref", "a.png"))
+    grad(10).save(j("tgt", "a_copy.png"))
+    grad(11).save(j("tgt", "b.png"))
+    grad(20, (128, 128)).save(j("tgt", "big.jpg"), quality=98)
+    grad(20, (128, 128)).save(j("tgt", "small.jpg"), quality=40)
+    grad(30).save(j("test", "t1.png"))
+    grad(30).save(j("train", "leaked.png"))
+    grad(31).save(j("train", "clean.png"))
+    grad(1).save(j("mixed", "keep.jpg"))
+    grad(2).save(j("mixed", "t.png"))
+    grad(3).save(j("mixed", "sub", "drop.bmp"))
+    for cls, n in (("cat", 3), ("kitty", 2)):
+        for i in range(n):
+            grad(40 + i).save(j("classes", cls, f"w_{i}.jpg"))
+    for cls, n in (("cat", 6), ("dog", 4), ("lynx", 3), ("ez_negative", 12),
+                   ("cat_negative", 4)):
+        for i in range(n):
+            open(j("vqa", cls, f"{cls}{i}.jpg"), "wb").close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -258,11 +414,16 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mmrs_tpu_torch.config import Config, ModelConfig, SearchConfig
     from mmrs_tpu_torch.index import ivf as ivf_mod
-    from mmrs_tpu_torch.index.gallery import GalleryIndex, build_index
+    from mmrs_tpu_torch.govern import native as gov_native
+    from mmrs_tpu_torch.govern.dedup import embedding_dedup
+    from mmrs_tpu_torch.index import gallery as gallery_mod
+    from mmrs_tpu_torch.index.gallery import (GalleryIndex, build_index,
+                                              update_index)
     from mmrs_tpu_torch.index.ivf import probe_buckets, probe_buckets_q4
     from mmrs_tpu_torch.models import clip
     from mmrs_tpu_torch.models.layers import QLinear
     from mmrs_tpu_torch.ops import _cuda
+    from mmrs_tpu_torch.ops.allpairs import first_match
     from mmrs_tpu_torch.ops.attention import mha_short_seq
     from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
     from mmrs_tpu_torch.ops.normalize import l2_normalize
@@ -280,7 +441,7 @@ def main() -> int:
     card = card_line()
     kernels = (cosine_topk, mha_short_seq, normalize_images,
                cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused,
-               probe_buckets, probe_buckets_q4)
+               probe_buckets, probe_buckets_q4, first_match)
     quant_topk = {"int8": (cosine_topk_quantized, quantize_rows),
                   "int4": (cosine_topk_int4, quantize_rows_int4)}
 
@@ -510,6 +671,80 @@ def main() -> int:
                 topk_agree(vals, ids, rv, ri, tol=1e-5)
             say(f"phase 3 {fn.__name__} {IVF_RUNGS[mode]} tie case: ids "
                 f"{ids[0].tolist()} (equal rows in slot order)")
+
+        # K9: all-pairs first match at the dedup bench's size, planted pairs
+        # at 0.995 / 0.985 around tau 0.99; every id equal to plain
+        t0 = time.perf_counter()
+        dedup_x, dedup_first = planted_dedup_rows(dev, SEED)
+        want_first = torch.from_numpy(dedup_first).to(dev, torch.int32)
+        half = DEDUP_ROWS // 2
+
+        def k9_equal(a, b, what, **kw):
+            got = first_match(a, b, DEDUP_TAU, **kw)
+            ref = first_match(a, b, DEDUP_TAU, impl="torch", **kw)
+            check(torch.equal(got, ref),
+                  f"K9 {what}: kernel != plain at {int((got != ref).sum())} "
+                  f"rows")
+            return got
+
+        k9_report = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x = dedup_x.to(dtype)
+            name = "f32" if dtype == torch.float32 else "bf16"
+            whole = k9_equal(x, x, f"{name} intra", intra=True)
+            check(torch.equal(whole, want_first),
+                  f"K9 {name} intra != the planted pairs at "
+                  f"{int((whole != want_first).sum())} rows")
+            ragged = k9_equal(x[:-1], x[:-1], f"{name} ragged", intra=True)
+            check(torch.equal(ragged, whole[:-1]), f"K9 {name} N-1 rows")
+            h1 = k9_equal(x[half:], x[:half], f"{name} ring block",
+                          intra=True, row_offset=half)
+            h2 = k9_equal(x[half:], x[half:], f"{name} ring diagonal",
+                          intra=True, row_offset=half, col_offset=half)
+            ring = torch.where(h1 >= 0, h1,
+                               torch.where(h2 >= 0, h2 + half, -1))
+            check(torch.equal(ring, whole[half:]),
+                  f"K9 {name}: the ring's halves != the whole set")
+            k9_report.append(f"{name} intra {int((whole >= 0).sum())} rows "
+                             f"matched = planted, N-1 ragged, ring halves "
+                             f"at row_offset {half} = whole")
+        # no pair lies within 1e-3 of tau: tau +- 1e-3 give the same answer
+        for tau in (DEDUP_TAU - 1e-3, DEDUP_TAU + 1e-3):
+            check(torch.equal(first_match(dedup_x, dedup_x, tau, intra=True),
+                              want_first), f"K9 at tau {tau} differs")
+        # cross set: DEDUP_ROWS train rows against DEDUP_TEST_ROWS test rows
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        test_rows = torch.randn((DEDUP_TEST_ROWS, DIM), device=dev,
+                                generator=g)
+        test_rows /= test_rows.norm(dim=1, keepdim=True)
+        train = dedup_x.clone()
+        pick = torch.randperm(DEDUP_ROWS, device=dev, generator=g)[:768]
+        leak_to = torch.randperm(DEDUP_TEST_ROWS, device=dev,
+                                 generator=g)[:768]
+        train[pick[:512]] = near_rows(test_rows[leak_to[:512]], 0.995, g)
+        train[pick[512:]] = near_rows(test_rows[leak_to[512:]], 0.985, g)
+        # one train row leaks to two test rows: its first match is the lower
+        twin = int(leak_to[512 + 255])        # a near-miss target, now reused
+        test_rows[twin] = near_rows(train[pick[0]:pick[0] + 1], 0.995, g)[0]
+        want_cross = torch.full((DEDUP_ROWS,), -1, dtype=torch.int32,
+                                device=dev)
+        want_cross[pick[:512]] = leak_to[:512].int()
+        want_cross[pick[0]] = min(int(leak_to[0]), twin)
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            got = k9_equal(train.to(dtype), test_rows.to(dtype),
+                           f"{name} cross set")
+            check(torch.equal(got, want_cross),
+                  f"K9 {name} cross set != the planted leaks at "
+                  f"{int((got != want_cross).sum())} rows")
+        del train, test_rows
+        errs["first_match"] = 0.0       # ids: equal in every element
+        say(f"phase 3 K9 first_match {DEDUP_ROWS}x{DIM} tau {DEDUP_TAU} "
+            f"({DEDUP_PLANTS} copies at 0.995, {DEDUP_PLANTS // 4} near "
+            f"misses at 0.985, {DEDUP_PLANTS // 4} chains): "
+            + "; ".join(k9_report) + f"; cross {DEDUP_ROWS} x "
+            f"{DEDUP_TEST_ROWS}: 512 leaks found (one to two test rows, "
+            f"lowest taken), 256 near misses not; tau +- 1e-3 same answer; "
+            f"every id equal to plain, {time.perf_counter() - t0:.1f} s")
 
     # ---- 4a. end to end: bf16 ---------------------------------------------
     cfg = Config(model=ModelConfig(image_tower="vit_b32", dtype="bfloat16"),
@@ -856,6 +1091,132 @@ def main() -> int:
         f"C): {json.dumps(recall)}; sidecar save + load = build "
         f"({ivf_load_s:.2f} s load), {time.perf_counter() - t0:.1f} s")
     launches_ivf = {fn.__name__: fn.launches for fn in kernels}
+
+    # ---- 4d. end to end: governance ------------------------------------------
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    # (i) the planted rows as an on-disk index (f16 rows, two shards), then
+    # `mmrs-torch dedup --mode embedding` as a user runs it
+    dedup_dir = os.path.join(tmp.name, "dedup_index")
+    os.makedirs(dedup_dir)
+    dedup_paths = [f"dedup/{i:06d}.jpg" for i in range(DEDUP_ROWS)]
+    rows16 = dedup_x.to(torch.float16).cpu().numpy()
+    shards = [gallery_mod._write_shard(
+        dedup_dir, s, rows16[a:a + 65536],
+        [(p, "c") for p in dedup_paths[a:a + 65536]])
+        for s, a in enumerate(range(0, DEDUP_ROWS, 65536))]
+    gallery_mod._write_manifest(dedup_dir, shards, DIM)
+    del rows16
+    t1 = time.perf_counter()
+    code, lines = launched((first_match,), lambda: run_cli(
+        ["dedup", "--mode", "embedding", "--index", dedup_dir, "--tau",
+         str(DEDUP_TAU)]), "dedup --mode embedding")
+    cli_s = time.perf_counter() - t1
+    planted = keeper_pairs(dedup_first, dedup_paths)
+    check(code == 0 and dup_lines(lines) == planted
+          and lines[0].startswith(f"{len(planted)} duplicates, 0 errors"),
+          f"dedup --mode embedding: exit {code}, {len(dup_lines(lines))} DUP "
+          f"lines, {len(planted)} planted")
+    idx_d = GalleryIndex.load(dedup_dir)
+    plain_rep = embedding_dedup(np.asarray(idx_d.embeddings, np.float32),
+                                idx_d.paths, tau=DEDUP_TAU, impl="torch")
+    check(plain_rep.duplicates == planted, "plain embedding_dedup report")
+    say(f"phase 4d e2e governance (i): mmrs-torch dedup --mode embedding "
+        f"over a {DEDUP_ROWS}x{DIM} f16 index: exit 0, {lines[0]!r}, DUP "
+        f"lines = the planted pairs (chains to their first keeper) = the "
+        f"plain report, {cli_s:.2f} s for the command")
+
+    # (ii) phase 4a's ViT-B/32 index with exact copies of 64 of its images
+    # appended (`index update`), deduplicated at a tau between the largest
+    # distinct-image cosine and the smallest copy cosine (random towers put
+    # distinct images within ~0.002 of each other)
+    sources = list(range(0, SMOKE_IMAGES, SMOKE_IMAGES // DEDUP_COPIES))
+    copies = [(f"synthetic/{samples[s][1]}/{SMOKE_IMAGES + i:05d}",
+               samples[s][1]) for i, s in enumerate(sources)]
+    for (name, _), s in zip(copies, sources):
+        ds.cache[name] = ds.image(*samples[s])
+    ds_copies = dataclasses.replace(ds, samples=samples + copies)
+    idx2 = update_index(ds_copies, towers.image_encode, idx.directory,
+                        batch_size=cfg.gallery.batch_size)
+    check(len(idx2) == SMOKE_IMAGES + DEDUP_COPIES, "index update rows")
+    with torch.inference_mode():
+        e2 = torch.tensor(np.asarray(idx2.embeddings, np.float32), device=dev)
+        sims = e2 @ e2.T
+        copy_rows = torch.arange(SMOKE_IMAGES, len(idx2), device=dev)
+        src_rows = torch.tensor(sources, device=dev)
+        copy_min = float(sims[copy_rows, src_rows].min())
+        sims[copy_rows, src_rows] = -2.0
+        sims[src_rows, copy_rows] = -2.0
+        sims.fill_diagonal_(-2.0)
+        distinct_max = float(sims.max())
+        del sims, e2
+    check(copy_min > distinct_max,
+          f"copies (min cosine {copy_min}) not above distinct images (max "
+          f"{distinct_max})")
+    tau2 = float(np.float32((copy_min + distinct_max) / 2))
+    code, lines = launched((first_match,), lambda: run_cli(
+        ["dedup", "--mode", "embedding", "--index", idx.directory, "--tau",
+         repr(tau2)]), "dedup over the ViT-B/32 index")
+    want = [(idx2.paths[SMOKE_IMAGES + i], idx2.paths[s])
+            for i, s in enumerate(sources)]
+    plain_rep = embedding_dedup(np.asarray(idx2.embeddings, np.float32),
+                                idx2.paths, tau=tau2, impl="torch")
+    check(code == 0 and dup_lines(lines) == plain_rep.duplicates == want,
+          f"dedup over the ViT-B/32 index: {len(dup_lines(lines))} DUP lines,"
+          f" plain {len(plain_rep.duplicates)}, {DEDUP_COPIES} copies")
+    say(f"phase 4d e2e governance (ii): 4a's index + {DEDUP_COPIES} exact "
+        f"image copies (index update, {len(idx2)} rows): copy cosines >= "
+        f"{copy_min:.7f}, distinct images <= {distinct_max:.7f}, tau "
+        f"{tau2:.7f} (midway): {lines[0]!r}, every copy -> its source, = "
+        f"the plain report")
+
+    # (iii) the host-side governance commands, dry runs, on a small tree
+    gov = os.path.join(tmp.name, "gov")
+    governance_tree(gov)
+    g_ = lambda *p: os.path.join(gov, *p)  # noqa: E731
+    expect = {
+        ("dedup", "--mode", "exact", "--reference", g_("ref"), "--target",
+         g_("tgt")): ["1 duplicates, 0 errors, 0 removed (dry_run=True)",
+                      f"DUP\t{g_('tgt', 'a_copy.png')}\t-> keeper "
+                      f"{g_('ref', 'a.png')}"],
+        ("dedup", "--mode", "perceptual", "--target", g_("tgt")):
+            f"DUP\t{g_('tgt', 'small.jpg')}\t-> keeper "
+            f"{g_('tgt', 'big.jpg')}",
+        ("leakage", "--train", g_("train"), "--test", g_("test")):
+            ["1 duplicates, 0 errors, 0 removed (dry_run=True)",
+             f"LEAK\t{g_('train', 'leaked.png')}\t(matches test "
+             f"{g_('test', 't1.png')})"],
+        ("convert", "--root", g_("mixed")):
+            ["2 converted, 0 errors (dry_run=True)"],
+        ("clean", "--root", g_("mixed")): ["2 deleted (dry_run=True)"],
+        ("rename", "--root", g_("classes")): ["5 renamed (dry_run=True)"],
+        ("merge", "--root", g_("classes"), "--map", "kitty=cat"):
+            ["2 moved (dry_run=True)"],
+    }
+    for variant, n in (("v1", 13), ("v2", 26), ("v3", 13 + 6 + 6),
+                       ("v5", 6 + 3 + 4)):
+        out = g_(f"{variant}.json")
+        expect[("dataset", "make", "--variant", variant, "--root", g_("vqa"),
+                "--out", out)] = [json.dumps({"records": n, "out": out})]
+    expect[("dataset", "make", "--variant", "v4", "--root", g_("vqa"),
+            "--out", g_("v4"))] = [json.dumps(
+                {"positives": 9, "with_cross": 12, "with_simple": 15,
+                 "with_hard": 15})]
+    for argv, want_lines in expect.items():
+        code, lines = run_cli(list(argv))
+        ok = (want_lines in lines if isinstance(want_lines, str)
+              else lines == want_lines)
+        check(code == 0 and ok, f"mmrs-torch {' '.join(argv[:3])}: exit "
+              f"{code}, {lines}")
+    lib = gov_native.load_library()
+    say(f"phase 4d e2e governance (iii): dedup exact / perceptual, leakage, "
+        f"convert, clean, rename, merge, dataset make v1-v5 (dry runs) on a "
+        f"small image tree: the expected lines; hashing scans ran on "
+        + (f"the native library {os.path.basename(lib._name)} (g++)" if lib
+           else "the numpy fallback (no g++)")
+        + f"; {time.perf_counter() - t0:.1f} s for 4d")
+    launches_gov = {fn.__name__: fn.launches for fn in kernels}
     tmp.cleanup()
 
     # ---- 5. launch counts --------------------------------------------------
@@ -881,6 +1242,11 @@ def main() -> int:
                       "mlp_int8_fused")})
     launches.update({name: launches_ivf[name] for name in
                      ("probe_buckets", "probe_buckets_q4")})
+    say(f"phase 5 launches during phase 4d (governance): "
+        f"{json.dumps(launches_gov)}")
+    check(launches_gov["first_match"] > 0,
+          "first_match never launched in phase 4d")
+    launches["first_match"] = launches_gov["first_match"]
 
     # phase 4's answers against the plain versions on the same inputs
     with torch.inference_mode():
@@ -953,14 +1319,43 @@ def main() -> int:
                     attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)
         # the bucket probes alone at Q=8, nprobe=128, k=10; then IVF top-10
         # end to end (centroid scores, probe, spill, merge) beside flat K1
-        probe_ms = {}
+        probe_ms, probe_bound = {}, {}
         for mode, ivf in ivfs.items():
-            fn, args = probe_call(ivf, qc[:8],
-                                  ivf_mod.probe_lists(qc[:8], ivf, IVF_NPROBE))
+            plist = ivf_mod.probe_lists(qc[:8], ivf, IVF_NPROBE)
+            fn, args = probe_call(ivf, qc[:8], plist)
             probe_ms[IVF_RUNGS[mode]] = time_pair(
                 lambda: fn(*args, 10), lambda: fn(*args, 10, impl="torch"))
+            # the live rows of the distinct probed buckets, read once, and
+            # their slot ids; each query scores its own buckets' live rows
+            live = (ivf.bucket_ids >= 0).sum(1)
+            distinct = torch.unique(plist)
+            row_bytes = {"": DIM * 2, "int8": DIM + 4, "int4": DIM // 2 + 4}
+            probe_bound[IVF_RUNGS[mode]] = least_ms(
+                int(live[distinct].sum()) * row_bytes[mode]
+                + distinct.numel() * ivf.bucket_cap * 4 + 8 * DIM * 2
+                + 8 * 10 * 8,
+                2 * DIM * int(live[plist.long()].sum()),
+                "bf16" if mode == "" else "int8")
         times["probe_buckets"] = probe_ms["bf16"]
         times["probe_buckets_q4"] = probe_ms["int4"]
+        # K9 at the dedup bench's shape, both input types; the plain
+        # version scores the full square in ~1 GiB row blocks
+        k9_ms = {}
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            xk = dedup_x.to(dtype)
+            k9_ms[name] = time_pair(
+                lambda: first_match(xk, xk, DEDUP_TAU, intra=True),
+                lambda: first_match(xk, xk, DEDUP_TAU, intra=True,
+                                    impl="torch"), iters=2, warmup=1)
+        times["first_match"] = k9_ms["f32"]
+        # the yardstick for K2: PyTorch's fused attention on the same
+        # [B, H, T, hd] inputs (scale 1: q is pre-scaled); the port never
+        # calls it
+        qh, kh, vh = (t.view(EMBED_BATCH, 50, 12, 64).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = {"mha_short_seq": time_ms(
+            lambda: sdpa(qh, kh, vh, scale=1.0), iters=20)}
         ivf_ms = {}
         for nq in (1, 8):
             for mode, ivf in ivfs.items():
@@ -999,6 +1394,47 @@ def main() -> int:
         f"{v.buckets.nbytes / 2 ** 20:.1f} MiB, cap {v.bucket_cap}, spill "
         f"{v.spill.nbytes / 2 ** 20:.1f} MiB)" for m, v in ivfs.items()))
 
+    pairs = DEDUP_ROWS * (DEDUP_ROWS - 1) // 2      # the intra triangle
+    for name, (kms, pms) in k9_ms.items():
+        say(f"  K9 first_match {name} {DEDUP_ROWS}x{DIM} intra tau "
+            f"{DEDUP_TAU}: kernel {kms:.4f} ms "
+            f"({DEDUP_ROWS ** 2 / kms / 1e6:.1f} Gpairs/s as bench.py counts"
+            f" N^2), plain {pms:.4f} ms ({DEDUP_ROWS ** 2 / pms / 1e6:.1f} "
+            f"Gpairs/s)")
+    say(f"  K2 yardstick: scaled_dot_product_attention [{EMBED_BATCH}, 12, "
+        f"50, 64] bf16 {library_ms['mha_short_seq']:.4f} ms")
+    w_mlp = 768 * 3072
+    bounds = {   # (bytes each input read once + each output written, ops, type)
+        "normalize_images": least_ms(EMBED_BATCH * 224 * 224 * 3 * 3,
+                                     EMBED_BATCH * 224 * 224 * 3 * 2, "f32"),
+        "mha_short_seq": least_ms(4 * EMBED_BATCH * 50 * 768 * 2,
+                                  4 * EMBED_BATCH * 12 * 50 * 50 * 64, "bf16"),
+        "cosine_topk": least_ms(
+            GALLERY_ROWS * DIM * 2 + 8 * DIM * 2 + 8 * 80,
+            2 * 8 * GALLERY_ROWS * DIM, "bf16"),
+        "cosine_topk_quantized": least_ms(
+            GALLERY_ROWS * (DIM + 4) + 8 * DIM * 4 + 8 * 80,
+            2 * 8 * GALLERY_ROWS * DIM, "int8"),
+        "cosine_topk_int4": least_ms(
+            GALLERY_ROWS * (DIM // 2 + 4) + 8 * DIM * 4 + 8 * 80,
+            2 * 8 * GALLERY_ROWS * DIM, "int8"),
+        "mlp_int8_fused": least_ms(
+            2 * EMBED_BATCH * 50 * 768 * 2 + 2 * w_mlp + (3072 + 768) * 8,
+            2 * 2 * EMBED_BATCH * 50 * w_mlp, "int8"),
+        "probe_buckets": probe_bound["bf16"],
+        "probe_buckets_q4": probe_bound["int4"],
+        "first_match": least_ms(DEDUP_ROWS * DIM * 4 + DEDUP_ROWS * 4,
+                                2 * DIM * pairs, "f32"),
+    }
+    k9_bf16_bound = least_ms(DEDUP_ROWS * DIM * 2 + DEDUP_ROWS * 4,
+                             2 * DIM * pairs, "bf16")
+    other_rung = {"first_match": ("bf16", k9_bf16_bound),
+                  "probe_buckets": ("int8", probe_bound["int8"])}
+    for name, (ms, by) in bounds.items():
+        rung, (oms, oby) = other_rung.get(name, ("", (0.0, "")))
+        say(f"  bound {name}: {ms:.4f} ms ({by})"
+            + (f"; {rung} {oms:.4f} ms ({oby})" if rung else ""))
+
     meta = {
         "cosine_topk": ("cuda", "mmrs_tpu_torch/csrc/cosine_topk.cu",
                         "mmrs_tpu/ops/topk.py:94"),
@@ -1017,11 +1453,20 @@ def main() -> int:
                           "mmrs_tpu/index/ivf.py:623"),
         "probe_buckets_q4": ("cuda", "mmrs_tpu_torch/csrc/ivf_probe.cu",
                              "mmrs_tpu/index/ivf.py:812"),
+        "first_match": ("cuda", "mmrs_tpu_torch/csrc/first_match.cu",
+                        "mmrs_tpu/ops/allpairs.py:74"),
     }
+    extra = {"first_match": {   # ms/plain_ms/bound_ms above are f32's
+        "bf16_ms": k9_ms["bf16"][0], "bf16_plain_ms": k9_ms["bf16"][1],
+        "bf16_bound_ms": k9_bf16_bound[0],
+        "gpairs_s": {n: DEDUP_ROWS ** 2 / t[0] / 1e6
+                     for n, t in k9_ms.items()}}}
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library_ms.get(name), **extra.get(name, {})}
         for name, (route, source, where) in meta.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

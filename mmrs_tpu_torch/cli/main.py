@@ -14,14 +14,25 @@
   mmrs-torch ann build     --index DIR [--clusters C] [--bucket-cap N]
                            [--cover F] [--slots-frac F]
                            [--target-recall R] [--gallery-quant int8|int4]
+  mmrs-torch dedup         --mode exact|perceptual|embedding
+                           [--reference DIR] [--target DIR] [--index DIR]
+                           [--hamming 5] [--tau 0.96] [--workers 0]
+  mmrs-torch leakage       --train DIR --test DIR [--tolerance 0]
+  mmrs-torch convert       --root DIR [--quality 95]   (format -> JPEG)
+  mmrs-torch clean         --root DIR          (delete non-jpeg images)
+  mmrs-torch rename        --root DIR          (canonical two-phase rename)
+  mmrs-torch merge         --root DIR --map 'src=dst' ...
+  mmrs-torch dataset make  --variant v1..v5 --root DIR --out PATH [--seed 0]
 
 The flags and output lines are those of the same `mmrs` subcommands
 (mmrs_tpu/cli/main.py) on one device: the flat gallery, bf16 or
 quantized (`--gallery-quant`; `--gallery-int8` is the older spelling of
 `--gallery-quant int8`), or the IVF index (`--ann-*`, whose sidecar is
-cached under `<index>/ivf` and prebuilt by `ann build`). The towers and
-the gallery live on the GPU when there is one; the kernels build there on
-first use.
+cached under `<index>/ivf` and prebuilt by `ann build`). Destructive
+governance commands are dry runs unless given --no-dry-run. The towers,
+the gallery and the embedding dedup run on the GPU (the kernels build
+there on first use); MMRS_TORCH_DEVICE=cpu puts them on the CPU, and
+without a GPU nothing else does.
 """
 
 from __future__ import annotations
@@ -279,6 +290,126 @@ def cmd_calibrate(args) -> int:
     return 0
 
 
+def _collect(root: str) -> List[str]:
+    from mmrs_tpu_torch.io.dataset import scan_folder
+
+    return [p for p, _ in scan_folder(root)]
+
+
+def cmd_dedup(args) -> int:
+    from mmrs_tpu_torch.govern import dedup as dd
+
+    need = {"exact": ("reference", "target"), "perceptual": ("target",),
+            "embedding": ("index",)}.get(args.mode, ())
+    missing = [f"--{n}" for n in need if not getattr(args, n, None)]
+    if missing:
+        print(f"dedup --mode {args.mode} needs {' and '.join(missing)}",
+              file=sys.stderr)
+        return 2
+    dry = not args.no_dry_run
+    if args.mode == "exact":
+        rep = dd.exact_dedup(_collect(args.reference), _collect(args.target),
+                             dry_run=dry, workers=args.workers)
+    elif args.mode == "perceptual":
+        rep = dd.perceptual_dedup(_collect(args.target),
+                                  threshold=args.hamming, dry_run=dry,
+                                  workers=args.workers)
+    else:
+        from mmrs_tpu_torch.index.gallery import GalleryIndex
+
+        if args.gallery_shards > 1:
+            print(f"--gallery-shards {args.gallery_shards}: the sharded "
+                  "dedup ring is ported with ROADMAP A.12", file=sys.stderr)
+            return 2
+        idx = GalleryIndex.load(args.index)
+        rep = dd.embedding_dedup(np.asarray(idx.embeddings, np.float32),
+                                 idx.paths, tau=args.tau, dry_run=dry)
+    print(rep.summary())
+    for dup, keeper in rep.duplicates:
+        print(f"DUP\t{dup}\t-> keeper {keeper}")
+    return 0
+
+
+def cmd_leakage(args) -> int:
+    from mmrs_tpu_torch.govern.dedup import leakage_removal
+
+    rep = leakage_removal(_collect(args.train), _collect(args.test),
+                          tolerance=args.tolerance,
+                          dry_run=not args.no_dry_run)
+    print(rep.summary())
+    for dup, src in rep.duplicates:
+        print(f"LEAK\t{dup}\t(matches test {src})")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from mmrs_tpu_torch.govern.normalize import convert_to_jpeg
+
+    rep = convert_to_jpeg(args.root, quality=args.quality,
+                          dry_run=not args.no_dry_run)
+    print(f"{len(rep.converted)} converted, {len(rep.errors)} errors "
+          f"(dry_run={rep.dry_run})")
+    return 0
+
+
+def cmd_clean(args) -> int:
+    from mmrs_tpu_torch.govern.normalize import delete_non_jpeg
+
+    rep = delete_non_jpeg(args.root, dry_run=not args.no_dry_run)
+    print(f"{len(rep.deleted)} deleted (dry_run={rep.dry_run})")
+    return 0
+
+
+def cmd_rename(args) -> int:
+    from mmrs_tpu_torch.govern.manifest import canonical_rename
+
+    rep = canonical_rename(args.root, dry_run=not args.no_dry_run)
+    print(f"{len(rep.renamed)} renamed (dry_run={rep.dry_run})")
+    return 0
+
+
+def cmd_merge(args) -> int:
+    from mmrs_tpu_torch.govern.manifest import merge_folders
+
+    mapping = dict(kv.split("=", 1) for kv in args.map)
+    rep = merge_folders(args.root, mapping, dry_run=not args.no_dry_run)
+    print(f"{len(rep.moved)} moved (dry_run={rep.dry_run})")
+    return 0
+
+
+def cmd_dataset_make(args) -> int:
+    from mmrs_tpu_torch.govern import vqa
+    from mmrs_tpu_torch.io.dataset import scan_folder
+
+    by_class: dict = {}
+    for p, c in scan_folder(args.root):
+        by_class.setdefault(c, []).append(p)
+    easy = by_class.pop("ez_negative", [])
+    hard = {c[: -len("_negative")]: v for c, v in list(by_class.items())
+            if c.endswith("_negative")}
+    for c in list(by_class):
+        if c.endswith("_negative"):
+            del by_class[c]
+
+    if args.variant == "v1":
+        recs = vqa.build_v1(by_class, args.out, seed=args.seed)
+    elif args.variant == "v2":
+        recs = vqa.build_v2(by_class, args.out, seed=args.seed)
+    elif args.variant == "v3":
+        recs = vqa.build_v3(by_class, easy, args.out, seed=args.seed)
+    elif args.variant == "v4":
+        out = vqa.build_v4(by_class, easy, hard, out_dir=args.out,
+                           seed=args.seed)
+        print(json.dumps({k: len(getattr(out, k)) for k in
+                          ("positives", "with_cross", "with_simple",
+                           "with_hard")}))
+        return 0
+    else:
+        recs = vqa.build_v5(by_class, out_path=args.out, seed=args.seed)
+    print(json.dumps({"records": len(recs), "out": args.out}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mmrs-torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -344,6 +475,66 @@ def build_parser() -> argparse.ArgumentParser:
     _add_quant_flags(c)
     _add_ann_flags(c)
     c.set_defaults(fn=cmd_calibrate)
+
+    def add_dry(sp):
+        sp.add_argument("--no-dry-run", action="store_true",
+                        help="actually apply destructive changes")
+
+    d = sub.add_parser("dedup")
+    d.add_argument("--mode", required=True,
+                   choices=["exact", "perceptual", "embedding"])
+    d.add_argument("--reference")
+    d.add_argument("--target")
+    d.add_argument("--index")
+    d.add_argument("--hamming", type=int, default=5)
+    d.add_argument("--tau", type=float, default=0.96)
+    d.add_argument("--workers", type=int, default=0,
+                   help="hash thread pool size (0 = one per core)")
+    d.add_argument("--gallery-shards", type=int, default=1,
+                   help="embedding mode: the sharded dedup ring (N > 1 is "
+                        "not ported yet)")
+    add_dry(d)
+    d.set_defaults(fn=cmd_dedup)
+
+    lk = sub.add_parser("leakage")
+    lk.add_argument("--train", required=True)
+    lk.add_argument("--test", required=True)
+    lk.add_argument("--tolerance", type=int, default=0)
+    add_dry(lk)
+    lk.set_defaults(fn=cmd_leakage)
+
+    cv = sub.add_parser("convert")
+    cv.add_argument("--root", required=True)
+    cv.add_argument("--quality", type=int, default=95)
+    add_dry(cv)
+    cv.set_defaults(fn=cmd_convert)
+
+    cl = sub.add_parser("clean")
+    cl.add_argument("--root", required=True)
+    add_dry(cl)
+    cl.set_defaults(fn=cmd_clean)
+
+    rn = sub.add_parser("rename")
+    rn.add_argument("--root", required=True)
+    add_dry(rn)
+    rn.set_defaults(fn=cmd_rename)
+
+    mg = sub.add_parser("merge")
+    mg.add_argument("--root", required=True)
+    mg.add_argument("--map", nargs="+", required=True,
+                    help="src=dst folder mappings")
+    add_dry(mg)
+    mg.set_defaults(fn=cmd_merge)
+
+    ds = sub.add_parser("dataset").add_subparsers(dest="subcmd",
+                                                  required=True)
+    mk = ds.add_parser("make")
+    mk.add_argument("--variant", required=True,
+                    choices=["v1", "v2", "v3", "v4", "v5"])
+    mk.add_argument("--root", required=True)
+    mk.add_argument("--out", required=True)
+    mk.add_argument("--seed", type=int, default=0)
+    mk.set_defaults(fn=cmd_dataset_make)
     return p
 
 

@@ -52,6 +52,7 @@ from mmrs_tpu_torch.ops.quant import MAX_DIM, quantize_rows
 from mmrs_tpu_torch.ops.quant4 import (prep_queries, quantize_rows_int4,
                                        scores_int4)
 from mmrs_tpu_torch.ops.topk import NEG_INF, sorted_topk
+from mmrs_tpu_torch.pipeline import default_device
 from mmrs_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -65,9 +66,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _default_device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    return torch.device(device) if device is not None else default_device()
 
 
 def auto_clusters(n_rows: int) -> int:

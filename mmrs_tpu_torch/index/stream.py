@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from mmrs_tpu_torch.ops.topk import NEG_INF, cosine_topk
+from mmrs_tpu_torch.pipeline import default_device
 
 
 def streaming_topk(
@@ -31,9 +32,7 @@ def streaming_topk(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (values [Q, k] f32, global row ids [Q, k] int64). When the
     gallery holds fewer than k rows the surplus places are (-inf, -1)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device(device) if device is not None else default_device()
     n = embeddings.shape[0]
     q = torch.from_numpy(np.asarray(queries, np.float32)).to(device).to(dtype)
     vals, idxs = [], []

@@ -32,13 +32,15 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu", "quant_topk.cu",
-                "mlp_int8.cu", "ivf_probe.cu")
+                "mlp_int8.cu", "ivf_probe.cu", "first_match.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype)
 _SIGNATURES = {
     "mmrs_topk_chunk_rows": ((), _I),
@@ -59,6 +61,8 @@ _SIGNATURES = {
     "mmrs_probe_scan_q4": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P), _I),
     "mmrs_probe_ids": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
+    "mmrs_first_match": ((_P, _P, _I, _I, _I, _F, _I, _LL, _LL, _I, _P, _P),
+                         _I),
 }
 
 

@@ -10,6 +10,7 @@ the CPU it runs their plain PyTorch versions.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -46,13 +47,27 @@ class Towers:
     image_encode_raw: Optional[Callable] = None
 
 
+DEVICE_ENV = "MMRS_TORCH_DEVICE"
+
+
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of every entry point whose caller names none: the GPU.
+    Nothing falls back to the CPU on its own; the CPU is asked for with an
+    explicit `device="cpu"` or with MMRS_TORCH_DEVICE=cpu (the port's
+    JAX_PLATFORMS=cpu, and the CLI's only way onto the CPU)."""
+    want = os.environ.get(DEVICE_ENV, "")
+    if want:
+        return torch.device(want)
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(
+        f"no CUDA device found; to run on the CPU set {DEVICE_ENV}=cpu or "
+        f"pass device='cpu'")
 
 
 def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
-    """Construct the configured CLIP pair on `device` (default: the GPU if
-    there is one). Weights come from cfg.model.checkpoint_path (an npz
+    """Construct the configured CLIP pair on `device` (default:
+    `default_device()`). Weights come from cfg.model.checkpoint_path (an npz
     written by mmrs_tpu's checkpoint.save_npz); without one the towers are
     random-initialized from cfg.seed (bring-up mode)."""
     from mmrs_tpu_torch.models import convert_jax

@@ -29,6 +29,7 @@ from mmrs_tpu_torch.ops.quant import (cosine_topk_quantized, quantize_rows,
 from mmrs_tpu_torch.ops.quant4 import (cosine_topk_int4, quantize_rows_int4,
                                        similarities_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
+from mmrs_tpu_torch.pipeline import default_device
 from mmrs_tpu_torch.search.prototypes import build_prototype
 from mmrs_tpu_torch.utils.logging import get_logger
 from mmrs_tpu_torch.utils.stats import StageStats
@@ -111,9 +112,8 @@ class SearchEngine:
         if quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantized = quantize
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = (torch.device(device) if device is not None
+                       else default_device())
         self.gallery = self.gallery_scales = self.ivf = None
         if self.config.ann == "ivf":
             self._init_ivf()

@@ -11,7 +11,7 @@ over T, ragged row tiles of the int8 MLP, f32 inputs, masked bucket slots
 and equal scores across probed buckets. The int8 and int4 scans and the
 int4 bucket probe must equal their plain versions exactly (ids and values),
 and so must the fused int8 MLP (nonzero biases, rows of exact rounding
-ties).
+ties) and the all-pairs first match (every id, f32 and bf16 inputs).
 """
 
 import pytest
@@ -20,6 +20,7 @@ import torch
 from mmrs_tpu_torch.index.ivf import (build_ivf_streaming, ivf_topk,
                                       probe_buckets, probe_buckets_q4)
 from mmrs_tpu_torch.models import layers
+from mmrs_tpu_torch.ops.allpairs import first_match
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from mmrs_tpu_torch.ops.preprocess import normalize_images
@@ -386,3 +387,105 @@ def test_probe_kernels_reject_what_they_cannot_run(dev):
     rows, ivf4 = _probe_index(1000, 24, 4, "int4", dev, seed=0)  # D % 16
     with pytest.raises(ValueError, match="D % 16"):
         _probe(ivf4, rows[:1], probe, 5)
+
+
+# -- K9: all-pairs first match ------------------------------------------------
+
+def _near(x, cos, g):
+    """Unit rows at exactly `cos` to the unit rows x (f32, on x's device)."""
+    z = torch.randn(x.shape, device=x.device, generator=g)
+    z -= (z * x).sum(1, keepdim=True) * x
+    z /= z.norm(dim=1, keepdim=True)
+    return cos * x + (1.0 - cos * cos) ** 0.5 * z
+
+
+def _planted_rows(n, d, dev, seed):
+    """f32 unit rows with noisy copies at 0.995 and near misses at 0.985 of
+    earlier or later rows (tau 0.99 is then clear of every pair)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), device=dev, generator=g)
+    x /= x.norm(dim=1, keepdim=True)
+    pos = torch.randperm(n, device=dev, generator=g)
+    k = max(1, n // 40)
+    if n >= 4 * k:
+        x[pos[k:2 * k]] = _near(x[pos[:k]], 0.995, g)
+        x[pos[3 * k:4 * k]] = _near(x[pos[2 * k:3 * k]], 0.985, g)
+    return x, g
+
+
+def _k9(a, b, **kw):
+    """K9 on the card, counted, against its plain version: every id equal."""
+    before = first_match.launches
+    got = first_match(a, b, 0.99, **kw)
+    torch.cuda.synchronize()
+    assert first_match.launches == before + 1
+    want = first_match(a, b, 0.99, impl="torch", **kw)
+    assert got.dtype == torch.int32 and got.shape == (a.shape[0],)
+    assert torch.equal(got, want), int((got != want).sum())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 768, 40])
+@pytest.mark.parametrize("n", [3000, 129, 1])
+def test_first_match_kernel_intra_matches_plain(dev, dtype, d, n):
+    x, _ = _planted_rows(n, d, dev, seed=n + d)
+    got = _k9(x.to(dtype), x.to(dtype), intra=True)
+    assert n < 100 or int((got >= 0).sum()) >= n // 40
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 768])
+def test_first_match_kernel_cross_set_matches_plain(dev, dtype, d):
+    x, g = _planted_rows(2500, d, dev, seed=d)
+    b = x[:1300].clone()
+    a = x[1000:].clone()               # rows 0..298 of a equal rows of b
+    fresh = torch.randn((2, d), device=dev, generator=g)
+    b[[0, -1]] = fresh / fresh.norm(dim=1, keepdim=True)
+    a[7] = _near(b[-1:], 0.995, g)[0]  # its only match is the last column
+    a[8] = _near(b[:1], 0.995, g)[0]
+    got = _k9(a.to(dtype), b.to(dtype))
+    assert got[7] == 1299 and got[8] == 0
+    mid = got[9:299]
+    assert bool(((mid >= 0) & (mid <= torch.arange(1009, 1299,
+                                                  device=dev))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 768])
+def test_first_match_kernel_offsets_match_plain(dev, dtype, d):
+    """Ring blocks: rows 1000..2499 against columns 300..1399, and the
+    halves of a set, which together give the whole set's answer."""
+    x, _ = _planted_rows(2500, d, dev, seed=7 + d)
+    x = x.to(dtype)
+    _k9(x[1000:], x[300:1400], intra=True, row_offset=1000, col_offset=300)
+    whole = _k9(x, x, intra=True)
+    h1 = _k9(x[1250:], x[:1250], intra=True, row_offset=1250)
+    h2 = _k9(x[1250:], x[1250:], intra=True, row_offset=1250,
+             col_offset=1250)
+    ring = torch.where(h1 >= 0, h1, torch.where(h2 >= 0, h2 + 1250, -1))
+    assert torch.equal(whole[1250:], ring)
+    none = _k9(x[:1250], x[1250:], intra=True, col_offset=1250)
+    assert bool((none == -1).all())
+
+
+def test_first_match_kernel_early_exit_and_masks(dev):
+    x, _ = _planted_rows(700, 64, dev, seed=1)
+    # tau -1: every pair matches, so every row's walk stops at its first tile
+    assert first_match(x, x, -1.0, intra=True).tolist() == [-1] + [0] * 699
+    assert bool((first_match(x, x[:300], -1.0) == 0).all())
+    # padded columns (zeros, similarity 0 >= -0.5) must never match
+    v = x[:1]
+    assert first_match(-v.repeat(5, 1), v, -0.5).tolist() == [-1] * 5
+    torch.cuda.synchronize()
+
+
+def test_first_match_kernel_rejects_what_it_cannot_run(dev):
+    x = torch.randn((10, 12), device=dev)
+    with pytest.raises(ValueError, match="D % 8"):
+        first_match(x, x, 0.5)
+    with pytest.raises(ValueError, match="one dtype"):
+        first_match(x[:, :8].contiguous(), x[:, :8].bfloat16(), 0.5)
+    cpu = torch.randn((10, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        first_match(cpu, cpu, 0.5, impl="cuda")

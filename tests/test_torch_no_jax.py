@@ -8,7 +8,18 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """The port's entry points run on the card unless asked for the CPU;
+    these tests ask for it, once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRS_TORCH_DEVICE", "cpu")
+        yield
 
 
 def _python(code: str, cwd: str = REPO) -> subprocess.CompletedProcess:
@@ -31,10 +42,12 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
         "print(' '.join(names))\n")
     assert r.returncode == 0, r.stderr[-2000:]
     count, loaded, names = r.stdout.strip().splitlines()
-    assert int(count) >= 28
+    assert int(count) >= 36
     assert loaded == "[]"
     for mod in ("index.ivf", "index.stream", "ops.kmeans",
-                "search.prototypes"):
+                "search.prototypes", "ops.allpairs", "govern.dedup",
+                "govern.hashing", "govern.native", "govern.normalize",
+                "govern.manifest", "govern.vqa"):
         assert f"mmrs_tpu_torch.{mod}" in names.split()
 
 

@@ -39,6 +39,15 @@ from mmrs_tpu_torch.search import prototypes as t_prototypes
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """The port's entry points run on the card unless asked for the CPU;
+    these tests ask for it, once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRS_TORCH_DEVICE", "cpu")
+        yield
+
+
 def _jpeg(rng, cls: str) -> bytes:
     h, w = int(rng.integers(40, 90)), int(rng.integers(40, 90))
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)

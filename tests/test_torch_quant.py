@@ -31,6 +31,15 @@ from mmrs_tpu_torch.search import engine as t_engine
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """The port's entry points run on the card unless asked for the CPU;
+    these tests ask for it, once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRS_TORCH_DEVICE", "cpu")
+        yield
+
+
 def _unit_rows(rng, n, d):
     x = rng.standard_normal((n, d)).astype(np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)

@@ -40,6 +40,16 @@ from test_torch_towers import with_seeded_biases  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """The port's entry points run on the card unless asked for the CPU;
+    these tests ask for it, once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRS_TORCH_DEVICE", "cpu")
+        yield
+
+
 # the vit_tiny pair: the JAX int8 MLP kernel needs widths that are
 # multiples of 128 (a TPU tiling limit the port's kernel does not share)
 J_CFG = j_clip.CLIPConfig(vision=VIT_TINY, text=CLIP_TEXT_TINY)

@@ -23,6 +23,16 @@ from mmrs_tpu_torch.models.configs import TextConfig, VITConfig
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """The port's entry points run on the card unless asked for the CPU;
+    these tests ask for it, once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRS_TORCH_DEVICE", "cpu")
+        yield
+
+
 # the sizes of tests/test_composed_parity.py
 VCFG = dict(image_size=32, patch_size=8, width=64, layers=2, heads=4,
             embed_dim=32)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search and governance paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's search, governance and cascade-verifier paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -19,7 +20,13 @@ nonzero exit and no result line:
      K7 values within 1e-5 and ids equal where scores are separated), K9
      (all-pairs first match over 131,072 x 512 planted rows, f32 and bf16:
      keep-first, cross set, ring halves with row offsets, ragged N; every
-     id equal);
+     id equal); K2 at the 336-px L/14 tower's [8, 577, 1024] / 16 heads,
+     K6 at its MLP ([4616, 1024] -> 4096, equal in every element); K10 /
+     K11 (chunk / decode attention over the KV cache) on layer views of
+     stacked 32-layer caches at the LLaVA-v1.5-7B shapes (B=8, 32 kv heads,
+     HD 128, 704 slots) and the 1.1B draft's (4 kv heads, G=8, HD 64), bf16
+     and int8 caches, scalar and per-row positions with dead tails, K10 at
+     C=64 with kv_limit windows and at T=2 / T=5;
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -42,17 +49,39 @@ nonzero exit and no result line:
         appended by update_index (every copy found, = plain); the hash
         modes, leakage, convert, clean, rename, merge and dataset make on
         a small image tree (dry runs), naming the native library that ran;
-  5. launch counts: every kernel of each path ran during its phase 4 run;
-     phase 4's answers against the plain versions on the same inputs;
+     e. the LLaVA cascade verifier at LLaVA-v1.5-7B width and depth (random
+        weights from the seed, made on the card; 16 synthetic 336-px JPEGs;
+        a SentencePiece model built with serialize_model): (1) LLaVAVerifier
+        with bf16 weights and the CLI's serving options (prefill chunks of
+        64, early stop, 32 new tokens), two packs of 8 through
+        CascadePipeline.run_streaming, then the first pack against the
+        plain route (K2 / K10 / K11 plain versions): prefill logits within
+        PREFILL_LOGIT_TOL, greedy tokens equal up to the first near-tie
+        (a plain top-2 margin under twice that), and the plain route fed
+        the kernel route's 32 tokens finds each within twice that of its
+        best;
+        (3) speculative decode with a 1.1B draft (k=4), tokens = (1)'s
+        plain run's under the same rule; (2) quantize_llava weights and the
+        int8 KV cache, against its plain route; (4) `mmrs-torch cascade
+        --verifier llava --verifier-int8` in process over the JPEG folder,
+        from an int8 checkpoint written by the port's save_npz (verdicts =
+        run (2)'s). Launch counts are reset before each run;
+  5. launch counts: every kernel of each path ran during its phase 4 run
+     (K2, K10, K11 in every 4e run, K6 in the int8 ones); phase 4's answers
+     against the plain versions on the same inputs;
   6. times (CUDA events, after warm-up), kernel and plain version in turns,
      K9 in Gpairs/s as bench.py counts them; each kernel's bound (the
      larger of its bytes over 3.35 TB/s and its operations over the peak
-     rate of their type) and, for K2, PyTorch's fused attention as a
-     yardstick.
+     rate of their type) and, for K2, K10 and K11 (bf16 caches), PyTorch's
+     scaled_dot_product_attention on the same inputs as a yardstick; K2 and
+     K6 at the L/14 shapes; the verifier end to end per pack (encode,
+     prefill, decode ms a step and tokens/s for bf16 and int8 + int8 KV,
+     speculative tokens/s).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import csv
 import dataclasses
 import importlib
 import json
@@ -94,6 +123,22 @@ DEDUP_TEST_ROWS = 16_384
 DEDUP_TAU = 0.99
 DEDUP_PLANTS = 1024           # noisy copies; near misses and chains: 256 each
 DEDUP_COPIES = 64             # exact image copies added to phase 4a's index
+# the LLaVA cascade verifier (phase 4e): LLaVA-v1.5-7B at full width and
+# depth, the CLI's serving options; verify packs of 8, 32 new tokens
+LLAVA_IMAGES = 16
+VERIFY_BATCH = LLAVA_B = 8
+LLAVA_MAX_NEW = 32
+KV_SLOTS = 704                # round64(prompt ~630 + 32): the decode cache
+# K10 / K11 against their plain versions: both round the probabilities to
+# bf16, and a last-bit difference of exp() or of the f32 sums can flip one
+# rounding: one bf16 ulp of a probability (<= 2^-8) times |v| (< 5)
+KV_ATTN_TOL = 2e-2
+# prefill logits, kernel route vs plain route, at 7B on random weights
+# (|logits| < 6): the routes' attention outputs differ by such flips, and
+# 32 decoder layers carry them to the logits; the int8 route quantizes
+# every layer's input per row, where a moved code moves a whole product.
+# About 3x the 0.160 (bf16) and 0.567 (int8) measured on an H100
+PREFILL_LOGIT_TOL = {"bf16": 0.5, "int8": 1.5}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s, FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -406,6 +451,538 @@ def governance_tree(root: str) -> None:
             open(j("vqa", cls, f"{cls}{i}.jpg"), "wb").close()
 
 
+# ---- phase 4e: the LLaVA cascade verifier -----------------------------------
+
+def synthetic_jpegs(root: str, n: int, seed: int):
+    """n seeded 400 x 360 JPEGs in two class folders (cat, dog): smooth
+    colour fields plus noise, resized to 336 px by the verifier's loader."""
+    from PIL import Image
+
+    paths = []
+    for i in range(n):
+        cls = "cat" if i % 2 == 0 else "dog"
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        rng = np.random.default_rng([seed, i])
+        cells = rng.uniform(0, 255, (6, 6, 3)).astype(np.uint8)
+        img = Image.fromarray(cells).resize((400, 360), Image.BICUBIC)
+        arr = np.asarray(img).astype(np.int16) + rng.integers(
+            -10, 10, (360, 400, 3))
+        p = os.path.join(root, cls, f"{cls}{i:02d}.jpg")
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            p, quality=92)
+        paths.append(p)
+    return sorted(paths)
+
+
+def tiny_sentencepiece(path: str) -> None:
+    """A SentencePiece model (serialize_model) for the llava_v1 prompt:
+    control pieces, 256 byte pieces, the prompt's characters and every
+    prefix of each of its words, so that a word encodes to one piece (about
+    as many tokens as LLaMA's tokenizer gives); every id < 32000."""
+    from mmrs_tpu_torch.cascade.verifier import (LLAVA_V1_SYSTEM,
+                                                 llava_v1_prompt_parts)
+    from mmrs_tpu_torch.models.sentencepiece import (SPACE, Piece,
+                                                     serialize_model)
+
+    text = LLAVA_V1_SYSTEM + "".join(llava_v1_prompt_parts(
+        "Does this image contain a cat?")) + " yes no"
+    pieces = [Piece("<unk>", 0.0, 2), Piece("<s>", 0.0, 3),
+              Piece("</s>", 0.0, 3)]
+    pieces += [Piece(f"<0x{b:02X}>", -100.0, 6) for b in range(256)]
+    chars = sorted(set(text.replace(" ", SPACE)) - {"\n"} | {SPACE})
+    pieces += [Piece(c, -50.0, 1) for c in chars]
+    words = sorted({SPACE + w for w in text.replace("\n", " ").split()})
+    seen = set(chars)
+    for w in words:
+        for i in range(2, len(w) + 1):
+            if w[:i] not in seen:
+                seen.add(w[:i])
+                pieces.append(Piece(w[:i], -20.0 + i, 1))
+    with open(path, "wb") as f:
+        f.write(serialize_model(pieces))
+
+
+def greedy_trace(lm, embeds, kv_dtype, attn: str, steps: int,
+                 forced=None):
+    """Greedy decode of a batch with no EOS (the decode loop of
+    llama.greedy_generate, prefill_chunk 64), keeping the prefill's last
+    logits and each step's top-2 margin. With `forced` [B, steps] tokens
+    it feeds those instead of its own choices and also returns, per step,
+    how far the forced token's logit lies below the best one. (logits
+    [B, V], tokens [B, steps], margins [B, steps], gaps or None)."""
+    from mmrs_tpu_torch.models import llama
+
+    b, t, _ = embeds.shape
+    cache_len = -(-(t + steps) // 64) * 64
+    logits, cache = llama.prefill(lm, embeds, cache_len, torch.bfloat16,
+                                  kv_dtype, 64, attn)
+    first = logits[:, -1].float()
+    toks, margins, gaps = [], [], []
+    for i in range(steps):
+        last = logits[:, -1]
+        top2 = last.topk(2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        toks.append(last.argmax(-1).to(torch.int32))
+        feed = toks[-1] if forced is None else forced[:, i]
+        if forced is not None:
+            gaps.append(top2[:, 0] - last.gather(1, feed[:, None].long())[:,
+                                                                          0])
+        if i == steps - 1:
+            break
+        emb = llama.embed_tokens(lm, feed[:, None])
+        logits, cache = llama.forward(lm, emb, cache, t + i, torch.bfloat16,
+                                      attn=attn)
+    return (first, torch.stack(toks, 1), torch.stack(margins, 1),
+            torch.stack(gaps, 1) if gaps else None)
+
+
+def agreed_steps(tokens, ref_tokens, ref_margins, near_tie: float,
+                 what: str) -> int:
+    """Steps where `tokens` equal the plain run's, counted per row up to
+    the first near-tie (the plain top-2 margin below `near_tie`, twice
+    the logit tolerance: there either route may pick either token); a
+    difference before that fails. Returns the total of agreeing steps."""
+    total = 0
+    for r in range(ref_tokens.shape[0]):
+        for i in range(ref_tokens.shape[1]):
+            if float(ref_margins[r, i]) < near_tie:
+                break
+            check(int(tokens[r, i]) == int(ref_tokens[r, i]),
+                  f"{what}: row {r} step {i} token {int(tokens[r, i])} != "
+                  f"plain {int(ref_tokens[r, i])} at top-2 margin "
+                  f"{float(ref_margins[r, i]):.4f}")
+            total += 1
+    return total
+
+def profile_device(fn, top: int = 8):
+    """torch.profiler over one call of fn: (wall ms, device ms summed over
+    kernels, [(kernel, ms, launches)] of the `top` largest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda r: -r[1])
+    return wall, sum(r[1] for r in kern), kern[:top]
+
+
+def llava_phase(dev, root: str, kernels, cli):
+    """Phase 4e: the cascade verifier at LLaVA-v1.5-7B width and depth on
+    random weights from SEED. Returns what phases 5 and 6 read."""
+    import shutil
+
+    from mmrs_tpu_torch.cascade import CascadePipeline
+    from mmrs_tpu_torch.cascade.verifier import LLaVAVerifier
+    from mmrs_tpu_torch.models import checkpoint, convert_jax, llava
+    from mmrs_tpu_torch.models.configs import VIT_L14_336
+    from mmrs_tpu_torch.models.llama import LLAMA2_7B, LLAMA_1B
+    from mmrs_tpu_torch.models.quantize import quantize_llava
+    from mmrs_tpu_torch.models.sentencepiece import SentencePieceBPE
+
+    bf16 = torch.bfloat16
+    ctx = {"launches": {}, "report": [], "e2e": {}}
+    t0 = time.perf_counter()
+    cfg = llava.LLaVAConfig(vision=VIT_L14_336, lm=LLAMA2_7B)
+    model = llava.LLaVA(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, dtype=bf16).requires_grad_(False)
+    draft = llava.LLaVA(llava.LLaVAConfig(vision=VIT_L14_336, lm=LLAMA_1B),
+                        torch.Generator(device=dev).manual_seed(SEED + 1),
+                        device=dev, dtype=bf16).requires_grad_(False)
+    paths = synthetic_jpegs(os.path.join(root, "folder"), LLAVA_IMAGES, SEED)
+    tok_path = os.path.join(root, "tokenizer.model")
+    tiny_sentencepiece(tok_path)
+    tok = SentencePieceBPE.from_file(tok_path)
+    torch.cuda.synchronize()
+    say(f"phase 4e setup: LLaVA-v1.5-7B (ViT-L/14-336 + LLaMA-2-7B, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params "
+        f"bf16) and the 1.1B draft, random from seed {SEED}, on the card; "
+        f"{LLAVA_IMAGES} JPEGs; {time.perf_counter() - t0:.1f} s")
+
+    def serve(m, **kw):
+        return LLaVAVerifier(m, m.cfg, tok, max_new_tokens=LLAVA_MAX_NEW,
+                             prefill_chunk=64, early_stop=True, device=dev,
+                             **kw)
+
+    def pipeline_run(verifier, name, want):
+        """Two verify packs through run_streaming; every kernel in `want`
+        launched; (result, seconds, launch counts)."""
+        for fn in kernels:
+            fn.launches = 0
+        pipe = CascadePipeline(en_scorer=lambda ps: [1.0] * len(ps),
+                               en_threshold=0.0, verifier=verifier)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = pipe.run_streaming(paths, "cat", chunk_size=VERIFY_BATCH,
+                                 verify_batch=VERIFY_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        for fn in want:
+            check(counts[fn.__name__] > 0,
+                  f"4e {name}: {fn.__name__} never launched")
+        check(res.verifier_calls == LLAVA_IMAGES
+              and int(res.gate_passed.sum()) == LLAVA_IMAGES,
+              f"4e {name}: {res.verifier_calls} verifier calls")
+        ctx["launches"][name] = counts
+        return res, secs
+
+    # the first pack's inputs, for the plain-route comparisons
+    v0 = serve(model)
+    images = torch.cat([v0._load_image(p) for p in paths[:VERIFY_BATCH]])
+    pre_ids, post_ids = v0._prompt_ids(v0.prompt_template.format(
+        category="cat"))
+    pre, post = v0._ids(pre_ids, VERIFY_BATCH), v0._ids(post_ids,
+                                                         VERIFY_BATCH)
+
+    def embeds(m, plain: bool):
+        with torch.inference_mode():
+            impl = "torch" if plain else "auto"
+            img = llava.encode_images(m, images, bf16, impl, impl)
+            return llava.build_multimodal_embeds(m, pre, img, post, bf16)
+
+    def e2e(m, kv, draft_model=None):
+        """Seconds of one pack's stages on the kernel route (no EOS, 32
+        new tokens): image encode, prefill, the 31 decode steps (or the
+        speculative rounds); and tokens/s of the decode."""
+        from mmrs_tpu_torch.models import llama
+
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            e = embeds(m, False)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            cache_len = -(-(e.shape[1] + LLAVA_MAX_NEW) // 64) * 64
+            llama.prefill(m.lm, e, cache_len, bf16, kv, 64)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if draft_model is None:
+                llama.greedy_generate(m.lm, e, LLAVA_MAX_NEW, -1, bf16, kv,
+                                      64)
+            else:
+                llava.generate_speculative(m, draft_model, images, pre, post,
+                                           LLAVA_MAX_NEW, 4, -1, bf16,
+                                           prefill_chunk=64)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+        if draft_model is None:
+            steps = LLAVA_MAX_NEW - 1
+            dec = (t4 - t3) - (t3 - t2)
+            return {"encode_ms": (t2 - t1) * 1e3,
+                    "prefill_ms": (t3 - t2) * 1e3,
+                    "decode_step_ms": dec / steps * 1e3,
+                    "decode_tok_s": VERIFY_BATCH * steps / dec,
+                    "tok_s": VERIFY_BATCH * LLAVA_MAX_NEW
+                    / ((t4 - t3) + (t2 - t1))}
+        # tok/s of the whole generate (both encodes and prefills, the
+        # rounds), as the plain one's encode + generate above
+        return {"generate_ms": (t4 - t3) * 1e3,
+                "tok_s": VERIFY_BATCH * LLAVA_MAX_NEW / (t4 - t3)}
+
+    def compare(m, kv, name):
+        """Prefill logits and greedy tokens, kernel route vs plain; then
+        the plain route fed the kernel route's tokens, each of which must
+        lie within twice the logit tolerance of the plain best."""
+        tol = PREFILL_LOGIT_TOL[name]
+        with torch.inference_mode():
+            ek, ep = embeds(m, False), embeds(m, True)
+            lk, tk, _, _ = greedy_trace(m.lm, ek, kv, "auto", LLAVA_MAX_NEW)
+            lp, tp, mp, _ = greedy_trace(m.lm, ep, kv, "torch", LLAVA_MAX_NEW)
+            _, tf, _, gaps = greedy_trace(m.lm, ep, kv, "torch",
+                                          LLAVA_MAX_NEW, forced=tk)
+        gap, same = float(gaps.max()), int((tf == tk).sum())
+        err = float((lk - lp).abs().max())
+        check(err <= tol, f"4e {name}: prefill logits differ by {err} "
+              f"(limit {tol}; |logits| <= {float(lp.abs().max())})")
+        check(gap <= 2 * tol, f"4e {name}: a kernel-route token lies {gap} "
+              f"below the plain route's best (limit {2 * tol})")
+        agreed = agreed_steps(tk, tp, mp, 2 * tol, f"4e {name}")
+        ctx["report"].append(
+            f"{name}: image embeds max|d| "
+            f"{float((ek - ep).abs().max()):.3e}, prefill logits max|d| "
+            f"{err:.4f} (limit {tol}; |logits| <= "
+            f"{float(lp.abs().max()):.2f}); tokens = plain for {agreed} of "
+            f"{tp.numel()} steps (each row to its first plain top-2 margin "
+            f"< {2 * tol}; margins {float(mp.min()):.4f} to "
+            f"{float(mp.max()):.4f}); fed the kernel route's tokens, the "
+            f"plain route picks the same token at {same} of {tk.numel()} "
+            f"steps and has every kernel token within {gap:.4f} of its "
+            f"best")
+        return tp, mp, ek.shape[1], ep
+
+    from mmrs_tpu_torch.ops.attention import mha_short_seq
+    from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                     decode_attention)
+    from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+
+    k2_10_11 = (mha_short_seq, chunk_attention, decode_attention)
+    # (1) bf16 weights, bf16 KV cache: the CLI's serving options
+    res1, secs1 = pipeline_run(v0, "bf16", k2_10_11)
+    plain_toks, plain_margins, prompt_len, plain_embeds = compare(
+        model, None, "bf16")
+    ctx["prompt_len"] = prompt_len
+    ctx["pack_s"] = {"bf16": secs1 / 2}
+    ctx["e2e"]["bf16"] = e2e(model, None)
+    ctx["profile"] = {"bf16": profile_device(lambda: llava.generate(
+        model, images, pre, post, LLAVA_MAX_NEW, -1, bf16,
+        prefill_chunk=64))}
+    ctx["report"][-1] = (f"(1) bf16: 2 packs of {VERIFY_BATCH} through "
+                         f"run_streaming in {secs1:.2f} s, "
+                         f"{int(res1.verified.sum())} verified; "
+                         + ctx["report"][-1])
+
+    # (3) speculative decode with the 1.1B draft, k = 4
+    vs = serve(model, draft_params=draft, draft_cfg=draft.cfg,
+               draft_tokens=4)
+    res3, secs3 = pipeline_run(vs, "speculative", k2_10_11)
+    with torch.inference_mode():
+        spec_toks, spec_stats = llava.generate_speculative(
+            model, draft, images, pre, post, LLAVA_MAX_NEW, 4, -1, bf16,
+            prefill_chunk=64, return_stats=True)
+    tol = PREFILL_LOGIT_TOL["bf16"]
+    agreed = agreed_steps(spec_toks, plain_toks, plain_margins, 2 * tol,
+                          "4e speculative")
+    with torch.inference_mode():
+        _, tf, _, gaps = greedy_trace(model.lm, plain_embeds, None, "torch",
+                                      LLAVA_MAX_NEW, forced=spec_toks)
+    gap, same = float(gaps.max()), int((tf == spec_toks).sum())
+    check(gap <= 2 * tol, f"4e speculative: a token lies {gap} below the "
+          f"plain route's best (limit {2 * tol})")
+    st = vs.speculative_stats()
+    check(st is not None and st["rounds"] > 0, "4e speculative: no rounds")
+    if agreed == plain_toks.numel():     # no near-tie: the same answers
+        check(list(res3.verified) == list(res1.verified),
+              "4e speculative: verdicts differ from run (1)'s")
+    ctx["spec_stats"] = st
+    ctx["e2e"]["speculative"] = e2e(model, None, draft)
+    ctx["report"].append(
+        f"(3) speculative (1.1B draft, k=4): 2 packs in {secs3:.2f} s, "
+        f"{st['rounds']} rounds, slot utilization {st['utilization']:.3f}; "
+        f"tokens = the plain bf16 run's for {agreed} of "
+        f"{plain_toks.numel()} steps (to the first near-tie); fed its "
+        f"tokens, the plain route picks the same at {same} of "
+        f"{spec_toks.numel()} steps, every token within {gap:.4f} of its "
+        f"best")
+
+    # (2) int8 weights (quantize_llava) + int8 KV cache
+    t1 = time.perf_counter()
+    quantize_llava(model)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t1
+    v2 = serve(model, kv_dtype=torch.int8)
+    res2, secs2 = pipeline_run(v2, "int8", k2_10_11 + (mlp_int8_fused,))
+    compare(model, torch.int8, "int8")
+    ctx["pack_s"].update(speculative=secs3 / 2, int8=secs2 / 2)
+    ctx["e2e"]["int8"] = e2e(model, torch.int8)
+    ctx["profile"]["int8"] = profile_device(lambda: llava.generate(
+        model, images, pre, post, LLAVA_MAX_NEW, -1, bf16,
+        kv_dtype=torch.int8, prefill_chunk=64))
+    ctx["report"][-1] = (f"(2) int8 weights + int8 KV (quantize_llava "
+                         f"{quant_s:.2f} s): 2 packs in {secs2:.2f} s; "
+                         + ctx["report"][-1])
+
+    # (4) mmrs-torch cascade --verifier llava --verifier-int8 in process,
+    # on an int8 checkpoint written by the port's save_npz
+    free = shutil.disk_usage(root).free
+    need = sum(b.numel() * b.element_size() for b in
+               model.state_dict().values())
+    check(free > 1.5 * need,
+          f"4e CLI: {free / 2 ** 30:.1f} GiB free under {root}, the int8 "
+          f"7B checkpoint needs {need / 2 ** 30:.1f} GiB")
+    t1 = time.perf_counter()
+    ckpt = os.path.join(root, "llava_int8.npz")
+    checkpoint.save_npz(convert_jax.llava_tree(model), ckpt)
+    save_s = time.perf_counter() - t1
+    embed = os.path.join(root, "cat.npy")
+    np.save(embed, np.random.default_rng(SEED).standard_normal(DIM).astype(
+        np.float32))
+    audit = os.path.join(root, "audit.csv")
+    for fn in kernels:
+        fn.launches = 0
+    t1 = time.perf_counter()
+    code, lines = cli(["cascade", "--root", os.path.join(root, "folder"),
+                       "--positive-class", "cat", "--class-embed", embed,
+                       "--threshold=-1e30", "--verifier", "llava",
+                       "--verifier-int8", "--llava-checkpoint", ckpt,
+                       "--tokenizer-model", tok_path, "--chunk-size",
+                       str(VERIFY_BATCH), "--verify-batch", str(VERIFY_BATCH),
+                       "--out", audit])
+    cli_s = time.perf_counter() - t1
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    ctx["launches"]["cli"] = counts
+    for fn in k2_10_11 + (mlp_int8_fused,):
+        check(counts[fn.__name__] > 0,
+              f"4e CLI: {fn.__name__} never launched")
+    want = [f"images: {LLAVA_IMAGES}", f"gate passed: {LLAVA_IMAGES}",
+            f"verifier calls: {LLAVA_IMAGES}",
+            f"final positives: {int(res2.verified.sum())}"]
+    check(code == 0 and lines[:4] == want,
+          f"4e CLI: exit {code}, {lines[:5]}, want {want}")
+    with open(audit) as f:
+        rows = list(csv.reader(f))[1:]
+    by_path = dict(zip(paths, res2.verified))
+    check(all(bool(int(r[4])) == bool(by_path[r[0]]) for r in rows),
+          "4e CLI: verdicts differ from run (2)'s")
+    os.remove(ckpt)
+    ctx["report"].append(
+        f"(4) mmrs-torch cascade --verifier llava --verifier-int8 over "
+        f"{LLAVA_IMAGES} JPEGs (ViT-B/32 gate, threshold -1e30): exit 0, "
+        f"{lines[:5]}, verdicts = run (2)'s; save_npz {need / 2 ** 30:.2f} "
+        f"GiB in {save_s:.1f} s, the command {cli_s:.1f} s")
+    ctx["model"] = model
+    return ctx
+
+
+def kv_cache(dev, g, layers, b, kvh, s, hd, quantized):
+    """A stacked random [L, B, KVH, S, HD] cache: bf16, or int8 + scales."""
+    from mmrs_tpu_torch.models.llama import _quantize_kv
+
+    k, v = (torch.randn((layers, b, kvh, s, hd), device=dev, generator=g)
+            for _ in range(2))
+    if not quantized:
+        return k.to(torch.bfloat16), None, v.to(torch.bfloat16), None
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    return kq, ks, vq, vs
+
+
+def attn_err(out, ref, what: str) -> float:
+    """max |kernel - plain| of K10/K11 outputs, held to KV_ATTN_TOL (both
+    round the probabilities to bf16; an ulp of exp() may flip a rounding),
+    99% of the elements to 1e-4."""
+    d = (out - ref).abs()
+    err = float(d.max())
+    check(err <= KV_ATTN_TOL and float((d > 1e-4).float().mean()) <= 0.01,
+          f"{what}: kernel vs plain max|d| {err}, "
+          f"{float((d > 1e-4).float().mean()):.4f} of elements over 1e-4")
+    return err
+
+
+def kv_attention_checks(dev, gen):
+    """Phase 3 for K10 / K11 at the 7B and draft shapes: each kernel
+    against its plain version on layer views of stacked 32-layer caches.
+    Returns (max error of K10, of K11, report lines)."""
+    from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                     decode_attention)
+
+    errs = {"chunk_attention": 0.0, "decode_attention": 0.0}
+    lines = []
+    shapes = {"7B": (32, 1, 128), "draft": (4, 8, 64)}
+    for quantized in (False, True):
+        kind = "int8" if quantized else "bf16"
+        for name, (kvh, g, hd) in shapes.items():
+            layers = 32 if name == "7B" else 22
+            k, ks, v, vs = kv_cache(dev, gen, layers, LLAVA_B, kvh,
+                                    KV_SLOTS, hd, quantized)
+            li = layers - 1
+            view = (k[li], None if ks is None else ks[li], v[li],
+                    None if vs is None else vs[li])
+            rows = torch.tensor([650, 3, 703, 511, 640, 600, 0, 100],
+                                device=dev)[:LLAVA_B]
+            q1 = torch.randn((LLAVA_B, kvh, g, hd), device=dev,
+                             generator=gen).to(torch.bfloat16)
+            e11 = max(attn_err(decode_attention(q1, *view, p),
+                               decode_attention(q1, *view, p, impl="torch"),
+                               f"K11 {name} {kind} pos {p}")
+                      for p in (0, 650, rows))
+            cases = [(64, 576, 640), (64, 0, 64), (5, 600, None),
+                     (2, rows.clamp(min=1) - 1, None)] if name == "7B" else [
+                (2, 599, None), (2, rows[:LLAVA_B].clamp(1, 700) - 1, None)]
+            e10 = 0.0
+            for c, p, lim in cases:
+                qc = torch.randn((LLAVA_B, kvh, g, c, hd), device=dev,
+                                 generator=gen).to(torch.bfloat16)
+                e10 = max(e10, attn_err(
+                    chunk_attention(qc, *view, p, kv_limit=lim),
+                    chunk_attention(qc, *view, p, kv_limit=lim,
+                                    impl="torch"),
+                    f"K10 {name} {kind} C={c}"))
+            errs["decode_attention"] = max(errs["decode_attention"], e11)
+            errs["chunk_attention"] = max(errs["chunk_attention"], e10)
+            lines.append(
+                f"phase 3 K10/K11 {name} {kind} cache [{layers},{LLAVA_B},"
+                f"{kvh},{KV_SLOTS},{hd}] G={g}, layer {li}'s view: K11 at "
+                f"pos 0 / 650 / per row (dead tails) max|d| {e11:.3e}; K10 "
+                f"C={'/'.join(str(c[0]) for c in cases)} (window 640, 64; "
+                f"per-row starts) max|d| {e10:.3e}; limit {KV_ATTN_TOL}")
+            del k, ks, v, vs
+    return errs, lines
+
+
+def kv_attention_times(dev, gen, prompt_len: int):
+    """Phase 6 for K10 / K11 at the 7B verify pack's shapes (B=8, 32 kv
+    heads, HD=128, the cache of this run's prompt): the middle decode step
+    (K11) and the last prefill chunk (K10), bf16 and int8 caches, kernel
+    and plain in turns, each beside its bound and (bf16) PyTorch's
+    scaled_dot_product_attention on the same inputs with a boolean
+    key_pos <= q_pos mask. {(name, kind): (ms, plain ms, (bound ms, by),
+    library ms or None)}."""
+    from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                     decode_attention,
+                                                     hd_scale)
+
+    b, kvh, hd = LLAVA_B, 32, 128
+    cache_len = -(-(prompt_len + LLAVA_MAX_NEW) // 64) * 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for quantized in (False, True):
+        kind = "int8" if quantized else "bf16"
+        k, ks, v, vs = kv_cache(dev, gen, 2, b, kvh, cache_len, hd,
+                                quantized)
+        view = (k[1], None if ks is None else ks[1], v[1],
+                None if vs is None else vs[1])
+        per_key = 2 * hd * k.element_size() + (8 if quantized else 0)
+        # K11: decode step 16 attends to pos + 1 keys per row
+        pos = prompt_len + LLAVA_MAX_NEW // 2
+        q1 = torch.randn((b, kvh, 1, hd), device=dev, generator=gen).to(
+            torch.bfloat16)
+        kms, pms = time_pair(lambda: decode_attention(q1, *view, pos),
+                             lambda: decode_attention(q1, *view, pos,
+                                                      impl="torch"),
+                             iters=50)
+        n = pos + 1
+        bound = least_ms(b * kvh * (n * per_key + hd * 2 + hd * 4),
+                         4 * b * kvh * n * hd, "bf16")
+        lib = None
+        if not quantized:
+            mask = (torch.arange(cache_len, device=dev) <= pos)[None, None,
+                                                                None]
+            lib = time_ms(lambda: sdpa(q1, view[0], view[2], attn_mask=mask,
+                                       scale=hd_scale(hd)), iters=50)
+        out[("decode_attention", kind)] = (kms, pms, bound, lib)
+        # K10: the last 64-token chunk of the chunked prefill
+        start = (prompt_len - 1) // 64 * 64
+        c = prompt_len - start
+        lim = min(cache_len, -(-prompt_len // 64) * 64)
+        qc = torch.randn((b, kvh, 1, c, hd), device=dev, generator=gen).to(
+            torch.bfloat16)
+        kms, pms = time_pair(
+            lambda: chunk_attention(qc, *view, start, kv_limit=lim),
+            lambda: chunk_attention(qc, *view, start, kv_limit=lim,
+                                    impl="torch"), iters=50)
+        nk = start + c
+        causal = sum(start + r + 1 for r in range(c))
+        bound = least_ms(b * kvh * (nk * per_key + c * hd * 2 + c * hd * 4),
+                         4 * b * kvh * causal * hd, "bf16")
+        lib = None
+        if not quantized:
+            mask = (torch.arange(lim, device=dev)[None, :]
+                    <= start + torch.arange(c, device=dev)[:, None])
+            lib = time_ms(lambda: sdpa(
+                qc[:, :, 0], view[0][:, :, :lim], view[2][:, :, :lim],
+                attn_mask=mask, scale=hd_scale(hd)), iters=50)
+        out[("chunk_attention", kind)] = (kms, pms, bound, lib)
+        del k, ks, v, vs
+    return out, cache_len, (start, c, lim)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -424,7 +1001,11 @@ def main() -> int:
     from mmrs_tpu_torch.models.layers import QLinear
     from mmrs_tpu_torch.ops import _cuda
     from mmrs_tpu_torch.ops.allpairs import first_match
+    from mmrs_tpu_torch.models.layers import MLP, quick_gelu
+    from mmrs_tpu_torch.models.quantize import quantize_tree
     from mmrs_tpu_torch.ops.attention import mha_short_seq
+    from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                     decode_attention)
     from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
     from mmrs_tpu_torch.ops.normalize import l2_normalize
     from mmrs_tpu_torch.ops.preprocess import normalize_images
@@ -441,7 +1022,8 @@ def main() -> int:
     card = card_line()
     kernels = (cosine_topk, mha_short_seq, normalize_images,
                cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused,
-               probe_buckets, probe_buckets_q4, first_match)
+               probe_buckets, probe_buckets_q4, first_match,
+               chunk_attention, decode_attention)
     quant_topk = {"int8": (cosine_topk_quantized, quantize_rows),
                   "int4": (cosine_topk_int4, quantize_rows_int4)}
 
@@ -491,7 +1073,8 @@ def main() -> int:
             f"{ulps} ulp, max|d| {errs['normalize_images']:.3e}")
 
         errs["mha_short_seq"] = 0.0
-        for b, t, w, h in ((EMBED_BATCH, 50, 768, 12), (32, 257, 1024, 16)):
+        for b, t, w, h in ((EMBED_BATCH, 50, 768, 12), (32, 257, 1024, 16),
+                           (LLAVA_B, 577, 1024, 16)):
             q, k, v = (torch.randn((b, t, w), device=dev, generator=gen)
                        .to(torch.bfloat16) for _ in range(3))
             q = q * (w // h) ** -0.5
@@ -589,7 +1172,33 @@ def main() -> int:
             say(f"phase 3 K6 mlp_int8_fused {act} [{x.shape[0]},768]->3072 "
                 f"bf16, biases N(0, 0.3), tie rows: equal to plain in every "
                 f"element")
+        # K6 at the 336-px L/14 tower's MLP (W=1024, H=4096, --verifier-int8)
+        mlp14 = MLP(1024, 4096, quick_gelu).to(dev)
+        for lin in (mlp14.w1, mlp14.w2):
+            torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+            torch.nn.init.normal_(lin.bias, std=0.3, generator=gen)
+        quantize_tree(mlp14)
+        x14 = torch.randn((LLAVA_B * 577, 1024), device=dev,
+                          generator=gen).to(torch.bfloat16)
+        x14[0], x14[1] = ties.repeat(1024 // 768 + 1)[:1024], \
+            -ties.repeat(1024 // 768 + 1)[:1024]
+        args14 = (x14, mlp14.w1.q, mlp14.w1.s, mlp14.w1.bias, mlp14.w2.q,
+                  mlp14.w2.s, mlp14.w2.bias)
+        out = mlp_int8_fused(*args14).float()
+        ref = mlp_int8_fused(*args14, impl="torch").float()
+        check(torch.equal(out, ref),
+              f"mlp_int8_fused L/14: kernel != plain in "
+              f"{int((out != ref).sum())} elements")
+        say(f"phase 3 K6 mlp_int8_fused quick_gelu [{x14.shape[0]},1024]->"
+            f"4096 bf16 (the 336-px L/14 MLP), biases N(0, 0.3), tie rows: "
+            f"equal to plain in every element")
         del g, px, packed, x
+
+        # K10 / K11 at the LLaVA-v1.5-7B and 1.1B-draft cache shapes
+        kv_errs, kv_lines = kv_attention_checks(dev, gen)
+        errs.update(kv_errs)
+        for line in kv_lines:
+            say(line)
 
         # K7 / K8: the IVF bucket probes over a clustered 1M x 512 gallery,
         # indexed at C = 1024 for every rung from one set of centroids
@@ -1219,6 +1828,15 @@ def main() -> int:
     launches_gov = {fn.__name__: fn.launches for fn in kernels}
     tmp.cleanup()
 
+    # ---- 4e. end to end: the LLaVA cascade verifier -------------------------
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    llava_ctx = llava_phase(dev, tmp.name, kernels, run_cli)
+    for line in llava_ctx["report"]:
+        say(f"phase 4e {line}")
+    say(f"phase 4e: {time.perf_counter() - t0:.1f} s")
+    tmp.cleanup()
+
     # ---- 5. launch counts --------------------------------------------------
     say(f"phase 5 launches during phase 4a (bf16): "
         f"{json.dumps(launches_bf16)}")
@@ -1247,6 +1865,15 @@ def main() -> int:
     check(launches_gov["first_match"] > 0,
           "first_match never launched in phase 4d")
     launches["first_match"] = launches_gov["first_match"]
+    for run, counts in llava_ctx["launches"].items():
+        say(f"phase 5 launches during phase 4e ({run}): "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    # the verifier's main path is run (1), bf16 (phase 4e checked that
+    # K2, K10 and K11 launched in every run and K6 in the int8 runs)
+    launches["chunk_attention"] = llava_ctx["launches"]["bf16"][
+        "chunk_attention"]
+    launches["decode_attention"] = llava_ctx["launches"]["bf16"][
+        "decode_attention"]
 
     # phase 4's answers against the plain versions on the same inputs
     with torch.inference_mode():
@@ -1356,6 +1983,29 @@ def main() -> int:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library_ms = {"mha_short_seq": time_ms(
             lambda: sdpa(qh, kh, vh, scale=1.0), iters=20)}
+        # K2 and K6 at the 336-px L/14 tower's shapes (the verifier's)
+        q, k, v = (torch.randn((LLAVA_B, 577, 1024), device=dev,
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        l14 = {"mha_short_seq": time_pair(
+            lambda: mha_short_seq(q, k, v, 16),
+            lambda: mha_short_seq(q, k, v, 16, impl="torch"), iters=20)}
+        qh, kh, vh = (t.view(LLAVA_B, 577, 16, 64).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
+        l14_lib = time_ms(lambda: sdpa(qh, kh, vh, scale=1.0), iters=20)
+        mlp_l = llava_ctx["model"].visual.blocks[0].mlp     # int8 by now
+        x = torch.randn((LLAVA_B * 577, 1024), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        args = (x, mlp_l.w1.q, mlp_l.w1.s, mlp_l.w1.bias, mlp_l.w2.q,
+                mlp_l.w2.s, mlp_l.w2.bias)
+        l14["mlp_int8_fused"] = time_pair(
+            lambda: mlp_int8_fused(*args),
+            lambda: mlp_int8_fused(*args, impl="torch"), iters=20)
+        kv_times, kv_cache_len, (kv_start, kv_c, kv_lim) = \
+            kv_attention_times(dev, gen, llava_ctx["prompt_len"])
+        for name in ("chunk_attention", "decode_attention"):
+            times[name] = kv_times[(name, "bf16")][:2]
+            library_ms[name] = kv_times[(name, "bf16")][3]
         ivf_ms = {}
         for nq in (1, 8):
             for mode, ivf in ivfs.items():
@@ -1403,6 +2053,43 @@ def main() -> int:
             f"Gpairs/s)")
     say(f"  K2 yardstick: scaled_dot_product_attention [{EMBED_BATCH}, 12, "
         f"50, 64] bf16 {library_ms['mha_short_seq']:.4f} ms")
+    t14 = LLAVA_B * 577
+    l14_bounds = {
+        "mha_short_seq": least_ms(4 * t14 * 1024 * 2,
+                                  4 * LLAVA_B * 16 * 577 * 577 * 64, "bf16"),
+        "mlp_int8_fused": least_ms(2 * t14 * 1024 * 2 + 2 * 1024 * 4096
+                                   + (4096 + 1024) * 8,
+                                   2 * 2 * t14 * 1024 * 4096, "int8")}
+    say(f"  K2 mha_short_seq [{LLAVA_B},577,1024]/16 (ViT-L/14-336): kernel "
+        f"{l14['mha_short_seq'][0]:.4f} ms, plain "
+        f"{l14['mha_short_seq'][1]:.4f} ms, SDPA {l14_lib:.4f} ms, bound "
+        f"{l14_bounds['mha_short_seq'][0]:.4f} ms "
+        f"({l14_bounds['mha_short_seq'][1]})")
+    say(f"  K6 mlp_int8_fused [{t14},1024]->4096 (ViT-L/14-336 int8): "
+        f"kernel {l14['mlp_int8_fused'][0]:.4f} ms, plain "
+        f"{l14['mlp_int8_fused'][1]:.4f} ms, bound "
+        f"{l14_bounds['mlp_int8_fused'][0]:.4f} ms "
+        f"({l14_bounds['mlp_int8_fused'][1]})")
+    for (name, kind), (kms, pms, (bms, by), lib) in kv_times.items():
+        shape = (f"decode step at pos {llava_ctx['prompt_len'] + 16}"
+                 if name == "decode_attention" else
+                 f"last prefill chunk C={kv_c} at {kv_start}, window "
+                 f"{kv_lim}")
+        say(f"  {'K11' if name == 'decode_attention' else 'K10'} {name} "
+            f"{kind} 7B B={LLAVA_B} cache {kv_cache_len} slots, {shape}: "
+            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+            f"({by})" + (f", SDPA {lib:.4f} ms" if lib is not None else ""))
+    for name, e in llava_ctx["e2e"].items():
+        say(f"  verifier {name} pack of {LLAVA_B} (prompt "
+            f"{llava_ctx['prompt_len']} tokens, {LLAVA_MAX_NEW} new): "
+            f"{llava_ctx['pack_s'][name] * 1e3:.1f} ms per pack through "
+            f"run_streaming (early stop, JPEG decode included); "
+            + ", ".join(f"{k} {v:.3f}" for k, v in e.items()))
+    for name, (wall, dev_ms, top) in llava_ctx["profile"].items():
+        say(f"  verifier {name} profile, one generate of a pack (encode, "
+            f"prefill, 31 decode steps; torch.profiler): wall {wall:.1f} ms, "
+            f"device {dev_ms:.1f} ms ({dev_ms / wall:.1%} busy); "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top))
     w_mlp = 768 * 3072
     bounds = {   # (bytes each input read once + each output written, ops, type)
         "normalize_images": least_ms(EMBED_BATCH * 224 * 224 * 3 * 3,
@@ -1455,12 +2142,27 @@ def main() -> int:
                              "mmrs_tpu/index/ivf.py:812"),
         "first_match": ("cuda", "mmrs_tpu_torch/csrc/first_match.cu",
                         "mmrs_tpu/ops/allpairs.py:74"),
+        "chunk_attention": ("cuda", "mmrs_tpu_torch/csrc/decode_attention.cu",
+                            "mmrs_tpu/ops/decode_attention.py:142"),
+        "decode_attention": ("cuda",
+                             "mmrs_tpu_torch/csrc/decode_attention.cu",
+                             "mmrs_tpu/ops/decode_attention.py:237"),
     }
     extra = {"first_match": {   # ms/plain_ms/bound_ms above are f32's
         "bf16_ms": k9_ms["bf16"][0], "bf16_plain_ms": k9_ms["bf16"][1],
         "bf16_bound_ms": k9_bf16_bound[0],
         "gpairs_s": {n: DEDUP_ROWS ** 2 / t[0] / 1e6
                      for n, t in k9_ms.items()}}}
+    for name in ("mha_short_seq", "mlp_int8_fused"):   # the L/14 shapes
+        extra[name] = {"l14_ms": l14[name][0], "l14_plain_ms": l14[name][1],
+                       "l14_bound_ms": l14_bounds[name][0],
+                       "l14_library_ms": l14_lib if name == "mha_short_seq"
+                       else None}
+    for name in ("chunk_attention", "decode_attention"):  # ms: bf16 cache
+        kms, pms, (bms, _), _ = kv_times[(name, "int8")]
+        extra[name] = {"int8_ms": kms, "int8_plain_ms": pms,
+                       "int8_bound_ms": bms}
+        bounds[name] = kv_times[(name, "bf16")][2]
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -23,16 +23,27 @@
   mmrs-torch rename        --root DIR          (canonical two-phase rename)
   mmrs-torch merge         --root DIR --map 'src=dst' ...
   mmrs-torch dataset make  --variant v1..v5 --root DIR --out PATH [--seed 0]
+  mmrs-torch cascade       --root DIR --positive-class NAME --threshold T
+                           (--class-embed FILE | --prompt P --merges FILE)
+                           [--verifier none|stub|llava]
+                           [--llava-checkpoint FILE --tokenizer-model FILE]
+                           [--verifier-int8] [--simple-decode]
+                           [--draft-checkpoint FILE] [--draft-tokens 4]
+                           [--verify-batch 8] [--chunk-size N]
+                           [--journal FILE] [--out CSV]
 
 The flags and output lines are those of the same `mmrs` subcommands
 (mmrs_tpu/cli/main.py) on one device: the flat gallery, bf16 or
 quantized (`--gallery-quant`; `--gallery-int8` is the older spelling of
 `--gallery-quant int8`), or the IVF index (`--ann-*`, whose sidecar is
 cached under `<index>/ivf` and prebuilt by `ann build`). Destructive
-governance commands are dry runs unless given --no-dry-run. The towers,
-the gallery and the embedding dedup run on the GPU (the kernels build
-there on first use); MMRS_TORCH_DEVICE=cpu puts them on the CPU, and
-without a GPU nothing else does.
+governance commands are dry runs unless given --no-dry-run. `cascade`
+gates a folder with the CLIP tower and verifies the survivors with
+LLaVA-v1.5-7B (`--verifier llava`: a converted npz and its
+tokenizer.model; `--tp` other than 1 waits for ROADMAP A.12). The towers,
+the gallery, the embedding dedup and the verifier run on the GPU (the
+kernels build there on first use); MMRS_TORCH_DEVICE=cpu puts them on the
+CPU, and without a GPU nothing else does.
 """
 
 from __future__ import annotations
@@ -49,6 +60,19 @@ def _load_config(path: Optional[str]):
     from mmrs_tpu_torch import config as config_mod
 
     return config_mod.load(path) if path else config_mod.Config()
+
+
+def _make_tokenizer(args, cfg):
+    """Optional tokenizer from CLI file flags (--merges / --vocab)."""
+    if getattr(args, "merges", None):
+        from mmrs_tpu_torch.models.tokenizer import CLIPTokenizer
+
+        return CLIPTokenizer.from_file(args.merges)
+    if getattr(args, "vocab", None):
+        from mmrs_tpu_torch.models.tokenizer import BertWordPieceTokenizer
+
+        return BertWordPieceTokenizer.from_vocab_file(args.vocab)
+    return None
 
 
 def _quant_mode(args) -> str:
@@ -410,6 +434,163 @@ def cmd_dataset_make(args) -> int:
     return 0
 
 
+def cmd_cascade(args) -> int:
+    """OR-gate cascade over a folder (code/union_clip_llava2.py flow):
+    each image's score is its tower embedding's similarity to a class
+    embedding; the verifier (default none: gate only) confirms the
+    survivors."""
+    from mmrs_tpu_torch.cascade import CascadePipeline
+    from mmrs_tpu_torch.cascade.verifier import speculative_stats_of
+    from mmrs_tpu_torch.io.dataset import FolderDataset
+    from mmrs_tpu_torch.pipeline import build_towers
+    from mmrs_tpu_torch.utils.logging import get_logger
+
+    cfg = _load_config(args.config)
+    towers = build_towers(cfg, tokenizer=_make_tokenizer(args, cfg))
+    ds = FolderDataset.from_root(args.root)
+    paths = [p for p, _ in ds.samples]
+    labels = [c == args.positive_class for _, c in ds.samples]
+
+    if args.class_embed:
+        embed = np.load(args.class_embed)
+    else:
+        tpl = args.prompt or cfg.prompts.get(args.positive_class)
+        if tpl is None or towers.text_encode is None:
+            print("need --class-embed, or --prompt/config.prompts plus a "
+                  "tokenizer (--merges/--vocab)", file=sys.stderr)
+            return 2
+        if "{}" in tpl:
+            tpl = tpl.format(args.positive_class)
+        embed = towers.text_encode([tpl])[0]
+    embed = embed / np.linalg.norm(embed)
+    log = get_logger("cli")
+
+    def scorer(ps):
+        sub = FolderDataset([(p, "") for p in ps])
+        sims = []
+        for batch in sub.batches(128):
+            e = towers.image_encode(batch.pixels)
+            e = e / np.linalg.norm(e, axis=1, keepdims=True)
+            s = np.asarray((e @ embed) * cfg.search.logit_scale, np.float32)
+            # quarantined (corrupt) images decode to zero pixels: score
+            # them -inf so they can never pass the gate
+            if not batch.ok.all():
+                for p, o in zip(batch.paths, batch.ok):
+                    if not o:
+                        log.warning("corrupt image excluded from cascade "
+                                    "gate: %s", p)
+                s = np.where(batch.ok, s, -np.inf)
+            sims.extend(s)
+        return sims
+
+    verifier = _make_verifier(args)
+    if verifier == 2:
+        return 2
+    pipe = CascadePipeline(en_scorer=scorer, en_threshold=args.threshold,
+                           verifier=verifier)
+    if args.chunk_size or args.journal:
+        # bounded-memory streaming, verify packs of --verify-batch in
+        # flight while the next chunk is gated; --journal makes the run
+        # crash-resumable
+        res = pipe.run_streaming(paths, args.positive_class, labels=labels,
+                                 chunk_size=args.chunk_size or 224,
+                                 verify_batch=args.verify_batch,
+                                 journal=args.journal)
+    else:
+        res = pipe.run(paths, args.positive_class, labels=labels)
+    print(res.summary())
+    spec = speculative_stats_of(verifier)
+    if spec is not None:
+        print(f"speculative: {spec['tokens']} tokens in {spec['rounds']} "
+              f"rounds, slot utilization {spec['utilization']:.2f}")
+    if args.out:
+        res.write_csv(args.out)
+        print(f"audit csv: {args.out}")
+    return 0
+
+
+def _add_verifier_flags(parser) -> None:
+    """The cascade verifier's flags (mmrs_tpu's `_add_verifier_flags`)."""
+    parser.add_argument("--verifier", default="none",
+                        choices=["none", "stub", "llava"])
+    parser.add_argument("--llava-checkpoint",
+                        help="converted llava npz (mmrs_tpu's format)")
+    parser.add_argument("--tokenizer-model",
+                        help="SentencePiece tokenizer.model for the verifier")
+    parser.add_argument("--verify-batch", type=int, default=8,
+                        help="fixed batch of the VLM verify packs")
+    parser.add_argument("--simple-decode", action="store_true",
+                        help="no chunked prefill and a bf16 KV cache")
+    parser.add_argument("--verifier-int8", action="store_true",
+                        help="int8 serving weights for the verifier, with "
+                             "an int8 KV cache (the reference's load_8bit)")
+    parser.add_argument("--draft-checkpoint",
+                        help="converted 1.1B-class draft VLM npz (the same "
+                             "336/14 vision grid and llama tokenizer): "
+                             "speculative decode with the 7B verifier's "
+                             "greedy output")
+    parser.add_argument("--draft-tokens", type=int, default=4,
+                        help="draft tokens proposed per speculation round")
+    parser.add_argument("--tp", default="1",
+                        help="verifier mesh; only 1 (one device) is ported")
+
+
+def _make_verifier(args):
+    """The cascade verifier from CLI flags: None, a verifier, or the int 2
+    (the exit code) on a usage error."""
+    kind = getattr(args, "verifier", "none")
+    if kind == "stub":
+        from mmrs_tpu_torch.cascade import StubVerifier
+
+        return StubVerifier()
+    if kind != "llava":
+        return None
+    if not (args.llava_checkpoint and args.tokenizer_model):
+        print("--verifier llava needs --llava-checkpoint and "
+              "--tokenizer-model", file=sys.stderr)
+        return 2
+    spec = str(getattr(args, "tp", "1")).lower()
+    if spec not in ("1", "1x1"):
+        print(f"--tp {spec}: tensor-parallel verifier hosting is ported "
+              f"with ROADMAP A.12; this port runs the verifier on one device",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    from mmrs_tpu_torch.cascade.verifier import LLaVAVerifier
+    from mmrs_tpu_torch.models import checkpoint, convert_jax
+    from mmrs_tpu_torch.models.configs import VIT_L14_336
+    from mmrs_tpu_torch.models.llama import LLAMA2_7B, LLAMA_1B
+    from mmrs_tpu_torch.models.llava import LLaVAConfig
+    from mmrs_tpu_torch.models.quantize import quantize_llava
+    from mmrs_tpu_torch.models.sentencepiece import SentencePieceBPE
+    from mmrs_tpu_torch.pipeline import default_device
+
+    dev = default_device()
+
+    def load(path, lm):
+        model = convert_jax.from_jax_llava(
+            checkpoint.load_npz(path), LLaVAConfig(vision=VIT_L14_336, lm=lm),
+            device=dev)
+        return quantize_llava(model) if args.verifier_int8 else model
+
+    vparams = load(args.llava_checkpoint, LLAMA2_7B)
+    dparams = dcfg = None
+    if args.draft_checkpoint:
+        dparams = load(args.draft_checkpoint, LLAMA_1B)
+        dcfg = dparams.cfg
+    tok = SentencePieceBPE.from_file(args.tokenizer_model)
+    # the serving config: chunked prefill (64-token chunks through K10),
+    # int8 KV with int8 weights, early stop; --simple-decode opts out
+    fast = not args.simple_decode
+    return LLaVAVerifier(
+        vparams, vparams.cfg, tok,
+        kv_dtype=(torch.int8 if args.verifier_int8 and fast else None),
+        prefill_chunk=64 if fast else None,
+        draft_params=dparams, draft_cfg=dcfg,
+        draft_tokens=args.draft_tokens, device=dev)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mmrs-torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -535,6 +716,27 @@ def build_parser() -> argparse.ArgumentParser:
     mk.add_argument("--out", required=True)
     mk.add_argument("--seed", type=int, default=0)
     mk.set_defaults(fn=cmd_dataset_make)
+
+    ca = sub.add_parser("cascade")
+    ca.add_argument("--root", required=True)
+    ca.add_argument("--positive-class", required=True)
+    ca.add_argument("--class-embed", help="npy class embedding (or --prompt)")
+    ca.add_argument("--prompt", help='prompt, e.g. "a photo of {}"')
+    ca.add_argument("--merges", help="CLIP BPE merges file")
+    ca.add_argument("--vocab", help="WordPiece vocab (Taiyi)")
+    ca.add_argument("--threshold", type=float, required=True)
+    _add_verifier_flags(ca)
+    ca.add_argument("--chunk-size", type=int, default=0,
+                    help="stream the folder in chunks of this many images "
+                         "(bounded memory, pipelined verify); 0 = one pass")
+    ca.add_argument("--journal",
+                    help="crash-resume journal CSV: finalized rows are "
+                         "appended+fsynced as they complete; re-running "
+                         "with the same file skips them (implies "
+                         "streaming)")
+    ca.add_argument("--out", help="write the per-image audit CSV here")
+    ca.add_argument("--config")
+    ca.set_defaults(fn=cmd_cascade)
     return p
 
 

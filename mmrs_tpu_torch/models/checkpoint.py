@@ -1,4 +1,4 @@
-"""Read the param-tree npz checkpoints that mmrs_tpu writes.
+"""Read and write the param-tree npz checkpoints of mmrs_tpu's format.
 
 Counterpart of mmrs_tpu/models/checkpoint.py's npz format: flat
 '/'-joined keys, one array each; bf16 arrays are stored as their raw bits
@@ -11,10 +11,15 @@ weight (the JAX package's `QTensor`, written by `mmrs weights convert
 
 The result keeps the JAX package's tree and layouts (leaves are torch
 tensors); models/convert_jax.py maps it onto the port's modules.
+`save_npz` writes the same format from such a tree (convert_jax.llava_tree
+of a module), one member at a time, so a checkpoint written by either
+package loads in both.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
 from typing import Any, Dict, NamedTuple
 
 import numpy as np
@@ -72,3 +77,46 @@ def load_npz(path: str) -> Dict[str, Any]:
                              f"int8 weight {base!r}")
         flat[base] = QWeight(q, s)
     return unflatten(flat)
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    """(flat key, leaf) pairs, '/'-joined keys in the tree's order."""
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flatten(v, key)
+        else:
+            yield key, v
+
+
+def _members(key: str, leaf: Any):
+    """(npz member name, numpy array) pairs of one leaf: bf16 as its uint16
+    bits under `@bf16`, an int8 weight as its `@int8q` / `@int8s` pair."""
+    if isinstance(leaf, QWeight):
+        yield from _members(key + _Q8_Q, leaf.q)
+        yield from _members(key + _Q8_S, leaf.s)
+        return
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            yield key + _BF16_SUFFIX, t.view(torch.int16).numpy().view(
+                np.uint16)
+            return
+        leaf = t.numpy()
+    yield key, np.asarray(leaf)
+
+
+def save_npz(tree: Dict[str, Any], path: str) -> None:
+    """Write a param tree (torch tensors, numpy arrays, `QWeight`s; JAX
+    layouts) as mmrs_tpu's npz, streaming one member at a time (the
+    archive np.savez writes: stored, zip64), to a temporary name first."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, leaf in _flatten(tree):
+            for name, arr in _members(key, leaf):
+                with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.ascontiguousarray(arr),
+                                              allow_pickle=False)
+    os.replace(tmp, path)

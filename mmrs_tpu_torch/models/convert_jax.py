@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's param tree onto the port's modules.
+"""Carry weights between the JAX package's param tree and the port's modules.
 
 The only place that knows both layouts:
   - mmrs_tpu stacks every per-layer leaf along a leading layer axis (for
@@ -9,7 +9,10 @@ The only place that knows both layouts:
     from checkpoint.load_npz) becomes a `QLinear` with q transposed.
 
 Leaves may be numpy arrays (f32, or ml_dtypes bf16), torch tensors, or
-int8 pairs with fields (q, s).
+int8 pairs with fields (q, s). The LLaMA / LLaVA modules are built on the
+meta device and take the tree's tensors as they are (dtype kept, moved to
+`device`), so a 7B checkpoint is never materialized twice.
+`llava_tree` / `llama_tree` go the other way, for checkpoint.save_npz.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from mmrs_tpu_torch.models import checkpoint
 from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
 from mmrs_tpu_torch.models.layers import QLinear
+from mmrs_tpu_torch.models.llama import Llama, LlamaConfig
+from mmrs_tpu_torch.models.llava import LLaVA, LLaVAConfig
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -80,18 +85,27 @@ def _blocks(prefix: str, stacked: Dict[str, Any], sd: Dict[str, torch.Tensor]
                     mlp[f"b{j}"][i])
 
 
+def _visual_sd(vis: Dict[str, Any], sd: Dict[str, torch.Tensor],
+               prefix: str = "visual") -> None:
+    """State-dict entries of a ViT from a JAX `vit.init`-shaped tree."""
+    sd.update({
+        f"{prefix}.class_embedding": vis["class_embedding"],
+        f"{prefix}.positional_embedding": vis["positional_embedding"],
+        f"{prefix}.ln_pre.weight": vis["ln_pre_scale"],
+        f"{prefix}.ln_pre.bias": vis["ln_pre_bias"],
+        f"{prefix}.ln_post.weight": vis["ln_post_scale"],
+        f"{prefix}.ln_post.bias": vis["ln_post_bias"],
+        f"{prefix}.proj.weight": vis["proj"].T,
+    })
+    _linear(sd, f"{prefix}.patch_embed", vis["patch_kernel"])
+    _blocks(prefix, vis["blocks"], sd)
+
+
 def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The CLIP module's state dict from a JAX `clip.init`-shaped tree."""
     tree = _tensors(tree)
-    vis, txt = tree["visual"], tree["text"]
+    txt = tree["text"]
     sd: Dict[str, torch.Tensor] = {
-        "visual.class_embedding": vis["class_embedding"],
-        "visual.positional_embedding": vis["positional_embedding"],
-        "visual.ln_pre.weight": vis["ln_pre_scale"],
-        "visual.ln_pre.bias": vis["ln_pre_bias"],
-        "visual.ln_post.weight": vis["ln_post_scale"],
-        "visual.ln_post.bias": vis["ln_post_bias"],
-        "visual.proj.weight": vis["proj"].T,
         "text.token_embedding.weight": txt["token_embedding"],
         "text.positional_embedding": txt["positional_embedding"],
         "text.ln_final.weight": txt["ln_final_scale"],
@@ -99,10 +113,19 @@ def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         "text.text_projection.weight": txt["text_projection"].T,
         "logit_scale": tree["logit_scale"].reshape(()),
     }
-    _linear(sd, "visual.patch_embed", vis["patch_kernel"])
-    _blocks("visual", vis["blocks"], sd)
+    _visual_sd(tree["visual"], sd)
     _blocks("text", txt["blocks"], sd)
     return sd
+
+
+def _int8_layers(model: torch.nn.Module, sd: Dict[str, torch.Tensor]
+                 ) -> None:
+    """Swap in a `QLinear` wherever the state dict holds int8 codes."""
+    for key in [k for k in sd if k.endswith(".q")]:
+        path = key[:-2]
+        parent, _, attr = path.rpartition(".")
+        setattr(model.get_submodule(parent), attr,
+                QLinear(*sd[key].shape, bias=f"{path}.bias" in sd))
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: CLIPConfig) -> CLIP:
@@ -111,13 +134,125 @@ def from_jax_params(tree: Dict[str, Any], cfg: CLIPConfig) -> CLIP:
     against `cfg` by `load_state_dict`."""
     model = CLIP(cfg)
     sd = state_dict_from_jax(tree)
-    for key in [k for k in sd if k.endswith(".q")]:
-        path = key[:-2]
-        parent, _, attr = path.rpartition(".")
-        setattr(model.get_submodule(parent), attr,
-                QLinear(*sd[key].shape, bias=f"{path}.bias" in sd))
+    _int8_layers(model, sd)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _llama_sd(lm: Dict[str, Any], sd: Dict[str, torch.Tensor],
+              prefix: str = "") -> None:
+    blocks = lm["blocks"]
+    sd[f"{prefix}embed"] = lm["embed"]
+    sd[f"{prefix}final_norm"] = lm["final_norm"]
+    _linear(sd, f"{prefix}lm_head", lm["lm_head"])
+    for i in range(blocks["attn_norm"].shape[0]):
+        p = f"{prefix}blocks.{i}"
+        sd[f"{p}.attn_norm"] = blocks["attn_norm"][i]
+        sd[f"{p}.mlp_norm"] = blocks["mlp_norm"][i]
+        for name in _LLAMA_LINEARS:
+            _linear(sd, f"{p}.{name}", _layer(blocks[name], i))
+
+
+_LLAMA_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _assign(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+            device) -> torch.nn.Module:
+    """Load a meta-device module with the state dict's own tensors (their
+    dtypes kept), each moved to `device` and made contiguous there."""
+    _int8_layers(model, sd)
+    sd = {k: v.to(device).contiguous() for k, v in sd.items()}
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.requires_grad_(False)
+
+
+def from_jax_llama(tree: Dict[str, Any], cfg: LlamaConfig,
+                   device="cpu") -> Llama:
+    """A Llama module holding a JAX `llama.init`-shaped tree's weights."""
+    sd: Dict[str, torch.Tensor] = {}
+    _llama_sd(_tensors(tree), sd)
+    with torch.device("meta"):
+        model = Llama(cfg)
+    return _assign(model, sd, device)
+
+
+def from_jax_llava(tree: Dict[str, Any], cfg: LLaVAConfig,
+                   device="cpu") -> LLaVA:
+    """A LLaVA module holding a JAX `llava.init`-shaped tree's weights (or
+    a checkpoint.load_npz tree of one)."""
+    tree = _tensors(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _visual_sd(tree["visual"], sd)
+    _linear(sd, "proj1", tree["proj_w1"], tree["proj_b1"])
+    _linear(sd, "proj2", tree["proj_w2"], tree["proj_b2"])
+    _llama_sd(tree["lm"], sd, "lm.")
+    with torch.device("meta"):
+        model = LLaVA(cfg)
+    return _assign(model, sd, device)
+
+
+# -- the port's modules -> the JAX layout (for checkpoint.save_npz) ----------
+
+def _kernel(layer) -> Any:
+    """A linear layer's JAX [K, N] kernel: a tensor, or a QWeight."""
+    if isinstance(layer, QLinear):
+        return checkpoint.QWeight(layer.q.T, layer.s)
+    return layer.weight.T
+
+
+def _stack(leaves) -> Any:
+    if isinstance(leaves[0], checkpoint.QWeight):
+        return checkpoint.QWeight(torch.stack([x.q for x in leaves]),
+                                  torch.stack([x.s for x in leaves]))
+    return torch.stack(leaves)
+
+
+def llama_tree(model: Llama) -> Dict[str, Any]:
+    """The JAX `llama.init` tree of a Llama module (stacked layers)."""
+    blocks = {name: _stack([_kernel(getattr(b, name)) for b in model.blocks])
+              for name in _LLAMA_LINEARS}
+    for norm in ("attn_norm", "mlp_norm"):
+        blocks[norm] = torch.stack([getattr(b, norm) for b in model.blocks])
+    return {"embed": model.embed, "blocks": blocks,
+            "final_norm": model.final_norm,
+            "lm_head": _kernel(model.lm_head)}
+
+
+def _vit_tree(vit) -> Dict[str, Any]:
+    blocks = list(vit.blocks)
+
+    def per(fn):
+        return _stack([fn(b) for b in blocks])
+
+    attn = {}
+    for n in ("q", "k", "v", "o"):
+        attn[f"w{n}"] = per(lambda b: _kernel(getattr(b.attn, f"w{n}")))
+        attn[f"b{n}"] = per(lambda b: getattr(b.attn, f"w{n}").bias)
+    mlp = {}
+    for j in ("1", "2"):
+        mlp[f"w{j}"] = per(lambda b: _kernel(getattr(b.mlp, f"w{j}")))
+        mlp[f"b{j}"] = per(lambda b: getattr(b.mlp, f"w{j}").bias)
+    stacked = {"attn": attn, "mlp": mlp}
+    for ln in ("ln1", "ln2"):
+        stacked[f"{ln}_scale"] = per(lambda b: getattr(b, ln).weight)
+        stacked[f"{ln}_bias"] = per(lambda b: getattr(b, ln).bias)
+    return {
+        "patch_kernel": _kernel(vit.patch_embed),
+        "class_embedding": vit.class_embedding,
+        "positional_embedding": vit.positional_embedding,
+        "ln_pre_scale": vit.ln_pre.weight, "ln_pre_bias": vit.ln_pre.bias,
+        "blocks": stacked,
+        "ln_post_scale": vit.ln_post.weight, "ln_post_bias": vit.ln_post.bias,
+        "proj": vit.proj.weight.T,
+    }
+
+
+def llava_tree(model: LLaVA) -> Dict[str, Any]:
+    """The JAX `llava.init` tree of a LLaVA module."""
+    return {"visual": _vit_tree(model.visual),
+            "proj_w1": model.proj1.weight.T, "proj_b1": model.proj1.bias,
+            "proj_w2": model.proj2.weight.T, "proj_b2": model.proj2.bias,
+            "lm": llama_tree(model.lm)}
 
 
 def load_npz(path: str, cfg: CLIPConfig) -> CLIP:

@@ -1,7 +1,8 @@
-"""Shared transformer building blocks for the CLIP towers.
+"""Shared transformer building blocks for the CLIP towers and LLaMA.
 
 Counterpart of mmrs_tpu/models/layers.py, restricted to what the CLIP
-towers use. Numerics follow the JAX package:
+towers and the LLaMA decoder (`matmul`) use. Numerics follow the JAX
+package:
   - matmuls take the compute dtype (bf16 by default); the products are
     summed in f32, the f32 bias is added to the f32 sums and the result
     is rounded once to the compute dtype;
@@ -72,7 +73,8 @@ class QLinear(nn.Module):
         package runs this op by op, outside `jit`, so its / 127 is a true
         division (under `jit` XLA makes it a product: ops/int8.INV_127)."""
         w32 = lin.weight.detach().float()
-        layer = cls(*w32.shape, bias=lin.bias is not None).to(w32.device)
+        with torch.device(w32.device):
+            layer = cls(*w32.shape, bias=lin.bias is not None)
         layer.s = torch.clamp(w32.abs().amax(1), min=1e-12) / 127.0
         layer.q = torch.round(w32 / layer.s[:, None]).to(torch.int8)
         if lin.bias is not None:
@@ -106,6 +108,21 @@ def dense(x: torch.Tensor, layer, compute_dtype: torch.dtype
     # one pass: the f32 sum, rounded as it is stored
     return torch.add(y, layer.bias.float(),
                      out=torch.empty_like(y, dtype=compute_dtype))
+
+
+def matmul(x: torch.Tensor, layer, compute_dtype: torch.dtype,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Bias-free x @ W^T returned in `out_dtype` (default: the compute
+    dtype), as mmrs_tpu layers.matmul for the LLaMA stack: float weights
+    give f32 sums of compute-dtype products; a `QLinear` quantizes x per
+    row and rescales its exact int32 sums as acc * sx * s."""
+    out_dtype = out_dtype or compute_dtype
+    if isinstance(layer, QLinear):
+        xq, sx = quantize_act(x)
+        return int8_linear(xq, sx, layer.q, layer.s, None, out_dtype)
+    x = x.to(compute_dtype)
+    y = _mm_f32(x.reshape(-1, x.shape[-1]), layer.weight.to(compute_dtype))
+    return y.reshape(*x.shape[:-1], -1).to(out_dtype)
 
 
 def project(x: torch.Tensor, layer: nn.Linear, compute_dtype: torch.dtype

@@ -1,11 +1,16 @@
-"""int8 serving quantization for the towers (opt-in, serving only).
+"""int8 serving quantization for the towers and the VLM (opt-in, serving
+only).
 
-Counterpart of mmrs_tpu/models/quantize.py for the CLIP towers: the six
+Counterpart of mmrs_tpu/models/quantize.py. CLIP towers: the six
 block matmuls and the patch embedding become `QLinear` layers
 (per-output-channel symmetric int8 weights, codes and scales bit-identical
 to the JAX package's `quantize_weight`); activations are quantized per row
 at call time (models/layers.py). LayerNorm, softmax, residuals, the
 embeddings and the final projection stay in the bf16/f32 serving mix.
+LLaMA adds its gated MLP and the (dim x vocab) lm_head; its embedding table
+stays unquantized (a lookup). LLaVA quantizes its vision tower and its
+decoder; the projector stays in the serving mix. The int4-weight LLaMA
+(`quantize_llama_int4`) is not ported.
 
 The functions replace layers in place and return the module they were
 given (the JAX package returns a new tree).
@@ -37,4 +42,23 @@ def quantize_tree(module: nn.Module, keys=QUANT_KEYS) -> nn.Module:
 def quantize_clip_visual(model: nn.Module) -> nn.Module:
     """CLIP model with the vision tower quantized, text left as it is."""
     quantize_tree(model.visual)
+    return model
+
+
+# LLaMA's matmul weights (mmrs_tpu quantize._LM_KEYS restricted to the
+# decoder's names)
+LM_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                     "lm_head"})
+
+
+def quantize_llama(model: nn.Module) -> nn.Module:
+    """LLaMA decoder with int8 serving weights (the lm_head too)."""
+    return quantize_tree(model, LM_KEYS)
+
+
+def quantize_llava(model: nn.Module) -> nn.Module:
+    """LLaVA: int8 vision tower + int8 decoder; the 2-layer projector and
+    the embeddings stay as they are (run once per image)."""
+    quantize_tree(model.visual)
+    quantize_llama(model.lm)
     return model

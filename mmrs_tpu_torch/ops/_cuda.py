@@ -32,7 +32,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu", "quant_topk.cu",
-                "mlp_int8.cu", "ivf_probe.cu", "first_match.cu")
+                "mlp_int8.cu", "ivf_probe.cu", "first_match.cu",
+                "decode_attention.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -63,6 +64,11 @@ _SIGNATURES = {
     "mmrs_probe_ids": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
     "mmrs_first_match": ((_P, _P, _I, _I, _I, _F, _I, _LL, _LL, _I, _P, _P),
                          _I),
+    "mmrs_decode_attention": ((_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                               _I, _LL, _LL, _LL, _LL, _I, _F, _I, _P), _I),
+    "mmrs_chunk_attention": ((_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                              _I, _I, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _P),
+                             _I),
 }
 
 

@@ -11,7 +11,12 @@ over T, ragged row tiles of the int8 MLP, f32 inputs, masked bucket slots
 and equal scores across probed buckets. The int8 and int4 scans and the
 int4 bucket probe must equal their plain versions exactly (ids and values),
 and so must the fused int8 MLP (nonzero biases, rows of exact rounding
-ties) and the all-pairs first match (every id, f32 and bf16 inputs).
+ties) and the all-pairs first match (every id, f32 and bf16 inputs). The
+KV-cache attention kernels read strided layer views of stacked caches, with
+per-row positions and kv_limit windows; they must agree with their plain
+versions to 2e-2 (both round the probabilities to bf16, and a last-bit
+difference of exp() or of the f32 sums can flip one rounding: one ulp of
+a probability, 2^-8 at most, times |v| < 5), 99% of the outputs to 1e-4.
 """
 
 import pytest
@@ -20,7 +25,11 @@ import torch
 from mmrs_tpu_torch.index.ivf import (build_ivf_streaming, ivf_topk,
                                       probe_buckets, probe_buckets_q4)
 from mmrs_tpu_torch.models import layers
+from mmrs_tpu_torch.models.llama import _quantize_kv
 from mmrs_tpu_torch.ops.allpairs import first_match
+from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
+                                                 chunk_attention,
+                                                 decode_attention)
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from mmrs_tpu_torch.ops.preprocess import normalize_images
@@ -489,3 +498,98 @@ def test_first_match_kernel_rejects_what_it_cannot_run(dev):
     cpu = torch.randn((10, 16))
     with pytest.raises(ValueError, match="CUDA"):
         first_match(cpu, cpu, 0.5, impl="cuda")
+
+
+def _kv_cache(dev, layers, b, kvh, s, hd, quantized, seed):
+    """A stacked [L, B, KVH, S, HD] cache: bf16, or int8 + f32 scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v = (torch.randn((layers, b, kvh, s, hd), device=dev, generator=g)
+            for _ in range(2))
+    if not quantized:
+        return k.bfloat16(), None, v.bfloat16(), None
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    return kq, ks, vq, vs
+
+
+def _attn_close(out, ref):
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    d = (out - ref).abs()
+    assert float(d.max()) <= 2e-2, float(d.max())
+    assert float((d > 1e-4).float().mean()) <= 0.01
+
+
+def _layer(t, li):
+    return None if t is None else t[li]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("b,kvh,g,hd,s,pos", [
+    (8, 32, 1, 128, 704, 650),       # LLaMA-2-7B decode step
+    (8, 4, 8, 64, 704, 600),         # the 1.1B draft (GQA 8)
+    (3, 2, 2, 64, 77, 76),           # ragged S, the last slot
+    (2, 3, 4, 128, 130, 0),          # one live key
+    (1, 1, 1, 64, 40, 1000),         # pos past the end: every slot
+])
+def test_decode_attention_kernel_matches_plain(dev, quantized, b, kvh, g,
+                                               hd, s, pos):
+    k, ks, v, vs = _kv_cache(dev, 3, b, kvh, s, hd, quantized, seed=s + g)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((b, kvh, g, hd), device=dev, generator=gen).bfloat16()
+    args = (q, k[1], _layer(ks, 1), v[1], _layer(vs, 1))
+    before = decode_attention.launches
+    out = decode_attention(*args, pos)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    _attn_close(out, decode_attention(*args, pos, impl="torch"))
+    # per-row positions, a dead tail past each
+    rows = torch.randint(0, s, (b,), device=dev, generator=gen)
+    _attn_close(decode_attention(*args, rows),
+                decode_attention(*args, rows, impl="torch"))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("b,kvh,g,c,hd,s,pos,lim", [
+    (8, 32, 1, 64, 128, 704, 576, 640),   # 7B prefill chunk, 640 window
+    (8, 32, 1, 64, 128, 704, 0, 64),      # the first chunk
+    (8, 32, 1, 5, 128, 704, 600, None),   # the k=4 verify pass
+    (8, 4, 8, 2, 64, 704, 599, None),     # the draft's T=2 step
+    (2, 3, 2, 37, 64, 100, 20, 64),       # ragged C and window
+    (1, 2, 4, 9, 128, 2048, 2000, None),  # the longest cache
+])
+def test_chunk_attention_kernel_matches_plain(dev, quantized, b, kvh, g, c,
+                                              hd, s, pos, lim):
+    k, ks, v, vs = _kv_cache(dev, 2, b, kvh, s, hd, quantized, seed=c + s)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((b, kvh, g, c, hd), device=dev, generator=gen).bfloat16()
+    args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+    before = chunk_attention.launches
+    out = chunk_attention(*args, pos, kv_limit=lim)
+    torch.cuda.synchronize()
+    assert chunk_attention.launches == before + 1
+    _attn_close(out, chunk_attention(*args, pos, kv_limit=lim, impl="torch"))
+    rows = torch.randint(0, max(1, (lim or s) - c), (b,), device=dev,
+                         generator=gen)
+    _attn_close(chunk_attention(*args, rows, kv_limit=lim),
+                chunk_attention(*args, rows, kv_limit=lim, impl="torch"))
+
+
+def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
+    k, ks, v, vs = _kv_cache(dev, 1, 2, 2, 64, 64, True, seed=0)
+    q = torch.randn((2, 2, 1, 64), device=dev).bfloat16()
+    with pytest.raises(ValueError, match="bf16 q"):
+        decode_attention(q.float(), k[0], ks[0], v[0], vs[0], 3)
+    with pytest.raises(ValueError, match="bf16 cache"):
+        decode_attention(q, k[0].float(), None, v[0].float(), None, 3)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention(q[..., :32].contiguous(), k[0, ..., :32].contiguous(),
+                         ks[0], v[0, ..., :32].contiguous(), vs[0], 3)
+    with pytest.raises(ValueError, match="G in"):
+        decode_attention(q.repeat(1, 1, 3, 1), k[0], ks[0], v[0], vs[0], 3)
+    cpu = [t.cpu() for t in (q, k[0], ks[0], v[0], vs[0])]
+    with pytest.raises(ValueError, match="CUDA"):
+        _decode_cuda(*cpu, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        _chunk_cuda(cpu[0][:, :, :, None], *cpu[1:], 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((1, 1, 8000, 64), dtype=torch.bfloat16, device=dev)
+        chunk_attention(q[:1, :1, :, None], big, None, big, None, 0)

@@ -1,0 +1,203 @@
+"""K10 (`chunk_attention`) and K11 (`decode_attention`): the port's plain
+versions against mmrs_tpu's Pallas kernels in interpret mode.
+
+Seeded numpy caches (bf16, or int8 codes with f32 scales made once and fed
+to both packages) and queries go through both. Tolerance: 2e-5 absolute
+and relative on the f32 outputs (both sum the same exact bf16 products in
+f32, in different orders; the probabilities are rounded to bf16 in both,
+and a last-bit difference of exp() may flip one such rounding, which the
+outputs' scale keeps under 2e-3: the bound checked is max(2e-5 abs+rel,
+that flip on at most 1% of the elements)).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mmrs_tpu.ops import decode_attention as j_da
+from mmrs_tpu_torch.models.llama import _quantize_kv
+from mmrs_tpu_torch.ops import decode_attention as t_da
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """The port's entry points run on the card unless asked for the CPU;
+    these tests ask for it, once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRS_TORCH_DEVICE", "cpu")
+        yield
+
+
+def _cache(rng, shape, quantized):
+    """(k, ks, v, vs) as torch tensors: bf16, or int8 + f32 scales."""
+    k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if not quantized:
+        return k.to(torch.bfloat16), None, v.to(torch.bfloat16), None
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    return kq, ks, vq, vs
+
+
+def _j(x):
+    """torch -> jnp (bf16 through f32, which is exact)."""
+    if x is None:
+        return None
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+def _close(got: torch.Tensor, want) -> None:
+    want = np.asarray(want, np.float32)
+    got = got.numpy()
+    assert got.shape == want.shape
+    bad = np.abs(got - want) > 2e-5 + 2e-5 * np.abs(want)
+    # a flipped bf16 rounding of one probability moves an output by at
+    # most 2^-8 of that probability times |v| (|v| < 5 here)
+    assert bad.mean() <= 0.01, bad.mean()
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("pos", [0, 5, 63])
+@pytest.mark.parametrize("g", [1, 2])
+def test_decode_plain_matches_pallas(quantized, pos, g):
+    rng = np.random.default_rng(pos + 10 * g)
+    b, kvh, hd, s = 2, 2, 64, 64
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, ks, v, vs = _cache(rng, (b, kvh, s, hd), quantized)
+    want = j_da.decode_attention(_j(q), _j(k), _j(ks), _j(v), _j(vs), pos,
+                                 interpret=True)
+    got = t_da.decode_attention(q, k, ks, v, vs, pos)
+    assert got.dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_decode_per_row_positions_and_stacked_layer(quantized):
+    """[B] positions over layer 1 of a stacked [L, ...] cache: the port's
+    cache[1] view against JAX's scalar-prefetched layer index."""
+    rng = np.random.default_rng(5)
+    L, b, kvh, g, hd, s = 3, 3, 2, 4, 64, 64
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, ks, v, vs = _cache(rng, (L, b, kvh, s, hd), quantized)
+    pos = torch.tensor([2, 31, 63], dtype=torch.int32)
+    want = j_da.decode_attention(_j(q), _j(k), _j(ks), _j(v), _j(vs),
+                                 jnp.asarray(pos.numpy()), layer=1,
+                                 interpret=True)
+    sl = (lambda x: None if x is None else x[1])
+    got = t_da.decode_attention(q, k[1], sl(ks), v[1], sl(vs), pos)
+    _close(got, want)
+    for i in range(b):     # each row alone, at its own scalar position
+        one = t_da.decode_attention(
+            q[i:i + 1], k[1, i:i + 1], None if ks is None else ks[1, i:i + 1],
+            v[1, i:i + 1], None if vs is None else vs[1, i:i + 1],
+            int(pos[i]))
+        torch.testing.assert_close(one, got[i:i + 1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fn", ["decode", "chunk"])
+def test_dead_tail_is_masked(fn):
+    """Slots past the last query position contribute exactly nothing."""
+    rng = np.random.default_rng(1)
+    b, kvh, g, hd, s, pos = 1, 2, 2, 64, 64, 7
+    shape = (b, kvh, g, hd) if fn == "decode" else (b, kvh, g, 3, hd)
+    q = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+    k, ks, v, vs = _cache(rng, (b, kvh, s, hd), True)
+    call = t_da.decode_attention if fn == "decode" else t_da.chunk_attention
+    last = pos if fn == "decode" else pos + 2
+    out1 = call(q, k, ks, v, vs, pos)
+    k2, v2, ks2, vs2 = k.clone(), v.clone(), ks.clone(), vs.clone()
+    k2[:, :, last + 1:] = 127
+    v2[:, :, last + 1:] = -127
+    ks2[:, :, last + 1:] = 1e6
+    vs2[:, :, last + 1:] = 1e6
+    torch.testing.assert_close(call(q, k2, ks2, v2, vs2, pos), out1,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("pos,c,g,kv_limit", [
+    (0, 8, 1, None),        # first chunk, no window
+    (5, 8, 2, None),        # chunk inside the cache, G > 1
+    (56, 8, 1, 64),         # the chunk ending at a 64-slot window
+    (0, 16, 2, 64),         # a window cutting a 128-slot cache
+    (63, 1, 4, None),       # one row (the kernel's T=1 edge)
+])
+def test_chunk_plain_matches_pallas(quantized, pos, c, g, kv_limit):
+    rng = np.random.default_rng(pos + c + g)
+    b, kvh, hd, s = 2, 2, 64, 128
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, c, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, ks, v, vs = _cache(rng, (b, kvh, s, hd), quantized)
+    want = j_da.chunk_attention(_j(q), _j(k), _j(ks), _j(v), _j(vs), pos,
+                                kv_limit=kv_limit, interpret=True)
+    got = t_da.chunk_attention(q, k, ks, v, vs, pos, kv_limit=kv_limit)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_chunk_per_row_positions_stacked(quantized):
+    """Speculative decode's T=k+1 verify pass: [B] chunk starts over a
+    stacked cache's layer view."""
+    rng = np.random.default_rng(9)
+    L, b, kvh, g, c, hd, s = 2, 3, 2, 2, 5, 64, 64
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, c, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, ks, v, vs = _cache(rng, (L, b, kvh, s, hd), quantized)
+    pos = torch.tensor([0, 17, 59], dtype=torch.int32)
+    want = j_da.chunk_attention(_j(q), _j(k), _j(ks), _j(v), _j(vs),
+                                jnp.asarray(pos.numpy()), layer=0,
+                                interpret=True)
+    sl = (lambda x: None if x is None else x[0])
+    got = t_da.chunk_attention(q, k[0], sl(ks), v[0], sl(vs), pos)
+    _close(got, want)
+
+
+def test_chunk_rows_equal_decode_steps():
+    """Row c of a chunk at pos is the decode step at pos + c."""
+    rng = np.random.default_rng(3)
+    b, kvh, g, c, hd, s = 2, 2, 2, 4, 64, 32
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, c, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, ks, v, vs = _cache(rng, (b, kvh, s, hd), True)
+    out = t_da.chunk_attention(q, k, ks, v, vs, 10)
+    for i in range(c):
+        step = t_da.decode_attention(q[:, :, :, i], k, ks, v, vs, 10 + i)
+        torch.testing.assert_close(out[:, :, :, i], step, rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_impl_switch_and_cpu_refusal():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 1, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, _, v, _ = _cache(rng, (1, 1, 8, 64), False)
+    a = t_da.decode_attention(q, k, None, v, None, 3, impl="torch")
+    torch.testing.assert_close(t_da.decode_attention(q, k, None, v, None, 3),
+                               a, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown impl"):
+        t_da.decode_attention(q, k, None, v, None, 3, impl="pallas")
+    # the kernel wrappers refuse a CPU tensor instead of running plain
+    with pytest.raises(ValueError, match="CUDA"):
+        t_da._decode_cuda(q, k, None, v, None, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_da._chunk_cuda(q[:, :, :, None], k, None, v, None, 3)
+
+
+def test_kernel_sizing():
+    """Shared memory the wrappers ask for, at the 7B and draft shapes."""
+    assert t_da.decode_smem(1, 704, 128) == 4 * (704 + 8 * 128)
+    assert t_da.decode_smem(8, 704, 64) <= t_da.SMEM_LIMIT
+    s_pad, smem = t_da.chunk_smem(640, 128)
+    assert s_pad == 640 and smem <= t_da.SMEM_LIMIT
+    assert t_da.chunk_smem(2048, 128)[1] <= t_da.SMEM_LIMIT
+    assert t_da.hd_scale(128) == float(np.float32(1 / 128 ** 0.5))

@@ -42,12 +42,15 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
         "print(' '.join(names))\n")
     assert r.returncode == 0, r.stderr[-2000:]
     count, loaded, names = r.stdout.strip().splitlines()
-    assert int(count) >= 36
+    assert int(count) >= 46
     assert loaded == "[]"
     for mod in ("index.ivf", "index.stream", "ops.kmeans",
                 "search.prototypes", "ops.allpairs", "govern.dedup",
                 "govern.hashing", "govern.native", "govern.normalize",
-                "govern.manifest", "govern.vqa"):
+                "govern.manifest", "govern.vqa", "ops.decode_attention",
+                "models.llama", "models.llava", "models.speculative",
+                "models.sentencepiece", "search.metrics", "cascade",
+                "cascade.verifier", "cascade.pipeline"):
         assert f"mmrs_tpu_torch.{mod}" in names.split()
 
 

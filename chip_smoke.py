@@ -20,7 +20,10 @@ nonzero exit and no result line:
      K7 values within 1e-5 and ids equal where scores are separated), K9
      (all-pairs first match over 131,072 x 512 planted rows, f32 and bf16:
      keep-first, cross set, ring halves with row offsets, ragged N; every
-     id equal); K2 at the 336-px L/14 tower's [8, 577, 1024] / 16 heads,
+     id equal); K1/K4/K5 and K7/K8 at k = 300 and 1000 (past one 256-row
+     scan chunk) against plain; K2 at the 336-px L/14 tower's [8, 577,
+     1024] / 16 heads and at T = 65 and T = 1 (ragged key tiles), and its
+     f32 route within 1e-5,
      K6 at its MLP ([4616, 1024] -> 4096, equal in every element); K10 /
      K11 (chunk / decode attention over the KV cache) on layer views of
      stacked 32-layer caches at the LLaVA-v1.5-7B shapes (B=8, 32 kv heads,
@@ -41,8 +44,10 @@ nonzero exit and no result line:
         and int4 buckets, image and prototype (mean, cluster, robust_mean)
         queries (hits = the plain IVF top-k), the saved sidecar loaded by a
         second engine with k-means disabled (same hits), ann_target_recall
-        0.95; then the clustered 1M gallery: nprobe = C against flat K1
-        (bf16) and K5 (int4), recall@10 at nprobe = 128, sidecar load;
+        0.95; k = 300 through flat bf16 / int8 / int4 and IVF engines
+        (= the plain top-300) and `mmrs-torch search -k 300` on each route
+        (300 hits); then the clustered 1M gallery: nprobe = C against flat
+        K1 (bf16) and K5 (int4), recall@10 at nprobe = 128, sidecar load;
      d. governance: `mmrs-torch dedup --mode embedding` over a 131,072 x
         512 f16 index of planted rows (DUP lines = the planted pairs = the
         plain report); over phase 4a's index with 64 exact image copies
@@ -74,7 +79,9 @@ nonzero exit and no result line:
      larger of its bytes over 3.35 TB/s and its operations over the peak
      rate of their type) and, for K2, K10 and K11 (bf16 caches), PyTorch's
      scaled_dot_product_attention on the same inputs as a yardstick; K2 and
-     K6 at the L/14 shapes; the verifier end to end per pack (encode,
+     K6 at the L/14 shapes; K2 and K10 as multiples of SDPA and of
+     their bounds; flat bf16 top-300 at Q=8; the verifier end to end per
+     pack (encode,
      prefill, decode ms a step and tokens/s for bf16 and int8 + int8 KV,
      speculative tokens/s).
 The line before the last is the kernels' JSON summary; the last line is
@@ -142,6 +149,8 @@ PREFILL_LOGIT_TOL = {"bf16": 0.5, "int8": 1.5}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s, FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# k past one 256-row scan chunk: the engine passes any k <= N
+LARGE_K = (300, 1000)
 
 
 def say(*parts) -> None:
@@ -1074,7 +1083,8 @@ def main() -> int:
 
         errs["mha_short_seq"] = 0.0
         for b, t, w, h in ((EMBED_BATCH, 50, 768, 12), (32, 257, 1024, 16),
-                           (LLAVA_B, 577, 1024, 16)):
+                           (LLAVA_B, 577, 1024, 16), (LLAVA_B, 65, 1024, 16),
+                           (LLAVA_B, 1, 768, 12)):
             q, k, v = (torch.randn((b, t, w), device=dev, generator=gen)
                        .to(torch.bfloat16) for _ in range(3))
             q = q * (w // h) ** -0.5
@@ -1085,6 +1095,17 @@ def main() -> int:
             errs["mha_short_seq"] = max(errs["mha_short_seq"], d)
             say(f"phase 3 K2 mha_short_seq [{b},{t},{w}]/{h} bf16: max|d| "
                 f"{d:.3e}")
+        # the f32 route (CUDA-core FMAs, never TF32): within 1e-5 of plain
+        for b, t, w, h in ((2, 50, 768, 12), (2, 257, 1024, 16)):
+            q, k, v = (torch.randn((b, t, w), device=dev, generator=gen)
+                       for _ in range(3))
+            q = q * (w // h) ** -0.5
+            d = float((mha_short_seq(q, k, v, h)
+                       - mha_short_seq(q, k, v, h, impl="torch")).abs().max())
+            check(d <= 1e-5,
+                  f"mha_short_seq f32 [{b},{t},{w}]/{h}: max|d| {d}")
+            say(f"phase 3 K2 mha_short_seq [{b},{t},{w}]/{h} f32: max|d| "
+                f"{d:.3e} (limit 1e-5)")
 
         g = torch.randn((GALLERY_ROWS, DIM), device=dev, generator=gen)
         g = (g / g.norm(dim=1, keepdim=True)).to(torch.bfloat16)
@@ -1121,6 +1142,31 @@ def main() -> int:
                     say(f"phase 3 {'K4' if mode == 'int8' else 'K5'} "
                         f"{fn.__name__} {mode} N={GALLERY_ROWS} D={DIM} "
                         f"Q={nq} k={k}: ids and values equal to plain")
+        # k past one 256-row chunk (sort merges of up to 8192 candidates,
+        # C.1): K1 ids where separated, K4 / K5 ids and values equal
+        for nq in (1, 8):
+            rows = torch.randint(0, GALLERY_ROWS, (nq,), device=dev,
+                                 generator=gen)
+            qv = g[rows].float() + 0.05 * torch.randn((nq, DIM), device=dev,
+                                                      generator=gen)
+            qv = qv / qv.norm(dim=1, keepdim=True)
+            for k in LARGE_K:
+                vals, ids = cosine_topk(qv.to(torch.bfloat16), g, k)
+                rv, ri = cosine_topk(qv.to(torch.bfloat16), g, k + 1,
+                                     impl="torch")
+                errs["cosine_topk"] = max(errs["cosine_topk"],
+                                          topk_agree(vals, ids, rv, ri))
+                check(vals.shape == (nq, k) and len(set(ids[0].tolist()))
+                      == k, f"K1 k={k}: {tuple(vals.shape)}, repeated ids")
+                for mode, (fn, _) in quant_topk.items():
+                    vals, ids = fn(qv, *packed[mode], k)
+                    rv, ri = fn(qv, *packed[mode], k, impl="torch")
+                    check(torch.equal(ids, ri) and torch.equal(vals, rv),
+                          f"{fn.__name__} Q={nq} k={k}: kernel != plain "
+                          f"(ids differ at {int((ids != ri).sum())})")
+            say(f"phase 3 K1/K4/K5 N={GALLERY_ROWS} D={DIM} Q={nq} k="
+                f"{','.join(map(str, LARGE_K))}: K1 ids agree where "
+                f"separated, K4/K5 ids and values equal to plain")
         tie = torch.randn((1000, DIM), device=dev, generator=gen)
         tie[500] = tie[20]
         tie[900] = tie[20]
@@ -1256,6 +1302,30 @@ def main() -> int:
                     f"nprobe={nprobe} k=10,100: K7 max|dv| "
                     f"{errs['probe_buckets']:.3e}, ids agree where "
                     f"separated; K8 ids and values equal to plain")
+        # k past one chunk through the probes' merges (C.1), Q=8
+        rows = torch.randint(0, GALLERY_ROWS, (8,), device=dev,
+                             generator=gen)
+        qv = ivf_gal[rows].float() + 0.02 * torch.randn(
+            (8, DIM), device=dev, generator=gen)
+        qv = qv / qv.norm(dim=1, keepdim=True)
+        for mode, ivf in ivfs.items():
+            fn, args = probe_call(ivf, qv, ivf_mod.probe_lists(qv, ivf,
+                                                               IVF_NPROBE))
+            rv, ri = fn(*args, LARGE_K[-1] + 1, impl="torch")
+            for k in LARGE_K:
+                vals, ids = fn(*args, k)
+                if mode == "int4":
+                    check(torch.equal(ids, ri[:, :k])
+                          and torch.equal(vals, rv[:, :k]),
+                          f"K8 k={k}: kernel != plain (ids differ at "
+                          f"{int((ids != ri[:, :k]).sum())})")
+                else:
+                    errs["probe_buckets"] = max(
+                        errs["probe_buckets"],
+                        topk_agree(vals, ids, rv, ri, tol=1e-5))
+        say(f"phase 3 K7/K8 C={IVF_CLUSTERS} Q=8 nprobe={IVF_NPROBE} k="
+            f"{','.join(map(str, LARGE_K))}: K7 ids agree where separated "
+            f"(max|dv| {errs['probe_buckets']:.3e}), K8 ids and values equal")
         # equal scores: rows IVF_DUPS share row 77's bucket and come back
         # in slot order, after an earlier-probed bucket
         for mode, ivf in ivfs.items():
@@ -1649,6 +1719,55 @@ def main() -> int:
         f"{tuned['nprobe']} (recall {tuned['recall']:.4f}, curve "
         f"{tuned['curve']}), {time.perf_counter() - t0:.1f} s")
 
+    # k = 300, past one 256-row scan chunk (C.1), through every engine
+    # route: query_vectors against the plain top-k, and `mmrs-torch search
+    # -k 300` on the index directory (the CLI's own towers and engine)
+    t0 = time.perf_counter()
+    from PIL import Image
+
+    qpath = os.path.join(tmp.name, "query300.png")
+    Image.fromarray(qpx[0]).save(qpath)
+    n_c = eng_t.ivf.n_clusters
+    routes = (("bf16", cosine_topk, {}, [], {}),
+              ("int8", cosine_topk_quantized, {"quantize": "int8"},
+               ["--gallery-quant", "int8"], {}),
+              ("int4", cosine_topk_int4, {"quantize": "int4"},
+               ["--gallery-quant", "int4"], {}),
+              ("ivf", probe_buckets, {}, ["--ann-nprobe", str(n_c)],
+               {"ann": "ivf", "ann_nprobe": n_c}))
+    for name, fn, kw, flags, ckw in routes:
+        eng = SearchEngine(idx, SearchConfig(**ckw), device=dev, **kw)
+        q300 = torch.from_numpy(qvec[:2]).to(dev)
+        hits = launched((fn,), lambda: eng.query_vectors(q300, top_k=300),
+                        f"{name} query_vectors k=300")
+        check(all(len(h) == 300 and len({x.path for x in h}) == 300
+                  for h in hits), f"{name} k=300: not 300 distinct hits")
+        if name == "ivf":
+            ivf_hits_equal_plain(eng, hits, q300, "IVF k=300")
+        elif name == "bf16":
+            with torch.inference_mode():
+                rv, ri = cosine_topk(l2_normalize(q300).to(torch.bfloat16),
+                                     eng.gallery, 301, impl="torch")
+            scale = eng.config.logit_scale
+            topk_agree(torch.tensor([[x.score / scale for x in h]
+                                     for h in hits], device=dev),
+                       torch.tensor([[row_of[x.path] for x in h]
+                                     for h in hits], dtype=torch.int32,
+                                    device=dev), rv, ri, tol=1e-5)
+        else:
+            hits_equal_plain(eng, fn, hits, q300, f"{name} k=300")
+        code, lines = run_cli(["search", "--index", idx.directory,
+                               "--image", qpath, "-k", "300", *flags])
+        ranks = [int(ln.split("\t")[1]) for ln in lines
+                 if ln.startswith("0\t")]
+        check(code == 0 and ranks == list(range(300)),
+              f"mmrs-torch search -k 300 {' '.join(flags)}: exit {code}, "
+              f"{len(ranks)} hits")
+    say(f"phase 4c C.1 k=300 on the card: query_vectors through flat bf16, "
+        f"int8, int4 and ann=ivf (nprobe {n_c}) engines = the plain top-300;"
+        f" mmrs-torch search -k 300 prints 300 hits on each route, "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # the clustered 1M gallery: nprobe = C is the flat scan; recall at 128
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1923,6 +2042,10 @@ def main() -> int:
         times["cosine_topk"] = time_pair(
             lambda: cosine_topk(qb, big_engine.gallery, 10),
             lambda: cosine_topk(qb, big_engine.gallery, 10, impl="torch"))
+        # k = 300: the scan keeps whole chunks, two merge passes (C.1)
+        top300 = time_pair(
+            lambda: cosine_topk(qb, big_engine.gallery, 300),
+            lambda: cosine_topk(qb, big_engine.gallery, 300, impl="torch"))
         for mode, (fn, _) in quant_topk.items():
             eng = big_quant[mode]
             times[fn.__name__] = time_pair(
@@ -2079,6 +2202,27 @@ def main() -> int:
             f"{kind} 7B B={LLAVA_B} cache {kv_cache_len} slots, {shape}: "
             f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
             f"({by})" + (f", SDPA {lib:.4f} ms" if lib is not None else ""))
+    # the rebuilt attention kernels against their yardsticks: kernel ms
+    # over SDPA's and over the bound, in this run
+    bound50 = least_ms(4 * EMBED_BATCH * 50 * 768 * 2,
+                       4 * EMBED_BATCH * 12 * 50 * 50 * 64, "bf16")
+    for what, kms, lib, (bms, by) in (
+            (f"K2 [{EMBED_BATCH},50,768]/12", times["mha_short_seq"][0],
+             library_ms["mha_short_seq"], bound50),
+            (f"K2 [{LLAVA_B},577,1024]/16", l14["mha_short_seq"][0], l14_lib,
+             l14_bounds["mha_short_seq"]),
+            *((f"K10 {kind} C={kv_c}", kv_times[("chunk_attention", kind)][0],
+               kv_times[("chunk_attention", kind)][3],
+               kv_times[("chunk_attention", kind)][2])
+              for kind in ("bf16", "int8"))):
+        say(f"  {what}: kernel {kms:.4f} ms = "
+            + (f"{kms / lib:.2f}x SDPA ({lib:.4f} ms), " if lib else "")
+            + f"{kms / bms:.2f}x its bound ({bms:.4f} ms, {by})")
+    cut = GALLERY_ROWS * DIM * 2 + 8 * DIM * 2 + 8 * 300 * 8
+    b300 = least_ms(cut, 2 * 8 * GALLERY_ROWS * DIM, "bf16")
+    say(f"  top-300 over {GALLERY_ROWS}x{DIM} bf16 at Q=8 (C.1): kernel "
+        f"{top300[0]:.4f} ms (top-10 {times['cosine_topk'][0]:.4f} ms), "
+        f"plain {top300[1]:.4f} ms, bound {b300[0]:.4f} ms ({b300[1]})")
     for name, e in llava_ctx["e2e"].items():
         say(f"  verifier {name} pack of {LLAVA_B} (prompt "
             f"{llava_ctx['prompt_len']} tokens, {LLAVA_MAX_NEW} new): "
@@ -2153,6 +2297,8 @@ def main() -> int:
         "bf16_bound_ms": k9_bf16_bound[0],
         "gpairs_s": {n: DEDUP_ROWS ** 2 / t[0] / 1e6
                      for n, t in k9_ms.items()}}}
+    extra["cosine_topk"] = {"k300_ms": top300[0], "k300_plain_ms": top300[1],
+                            "k300_bound_ms": b300[0]}
     for name in ("mha_short_seq", "mlp_int8_fused"):   # the L/14 shapes
         extra[name] = {"l14_ms": l14[name][0], "l14_plain_ms": l14[name][1],
                        "l14_bound_ms": l14_bounds[name][0],

@@ -19,18 +19,22 @@
 // What bounds them on the H100: bytes. Decode reads the live cache once
 // per step (at 7B, batch 8 and ~700 slots, ~92 MB of bf16 K/V per layer
 // call against 0.4 MFLOP per key row); a prefill chunk of 64 rows reads
-// its cache prefix once per 16-row tile. K11 gives one block to each
-// (batch row, kv head): K rows are streamed warp by warp with a 32-lane
-// dot product per key and query head, the [G, S] f32 logits stay in shared
-// memory, and V is streamed once more for the [G, HD] output, each warp
-// summing its own keys, the warps' partials added in a fixed order. K10
-// gives one block to each (batch row, kv head, 16 query rows) and runs
-// Q K^T and P V on mma.sync m16n8k16 bf16 -> f32 (exact products) over
-// 64-key tiles staged in shared memory; its [16, S] f32 scores stay there
-// too. Later work: split S across blocks where B * KVH underfills the 132
-// SMs (two-pass flash decoding), 16-byte K11 loads, K10 K/V tiles loaded
-// once for all query tiles of a head.
+// its cache prefix once. K11 gives one block to each (batch row, kv head):
+// K rows are streamed warp by warp with a 32-lane dot product per key and
+// query head, the [G, S] f32 logits stay in shared memory, and V is
+// streamed once more for the [G, HD] output, each warp summing its own
+// keys, the warps' partials added in a fixed order. K10 gives one block to
+// each (batch row, kv head, 64 rows of the G * C row axis), 4 warps of 16
+// rows, so a 64-row prefill chunk reads its head's prefix in one block:
+// K and V tiles of 64 keys stream through a double-buffered cp.async ring
+// (int8 tiles staged raw, half the bytes, and widened exactly to bf16 in
+// shared memory), Q K^T and P V run on mma.sync m16n8k16 bf16 -> f32, and
+// the softmax is attention_mma.cuh's exact two-pass form in registers:
+// nothing in shared memory grows with S. Later work: split S across
+// blocks where B * KVH underfills the 132 SMs (two-pass flash decoding),
+// 16-byte K11 loads.
 
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 #include <math.h>
@@ -186,187 +190,208 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
 // ---------------------------------------------------------------------------
 // K10: T = C > 1. q [B, KVH, G, C, HD] bf16 (the G * C rows of a kv head
 // are one row axis r = g * C + c, query position pos[b] + c), out f32 of
-// the same shape; grid (ceil(G * C / 16), KVH, B).
+// the same shape; grid (ceil(G * C / rows), KVH, B), rows = 16 * warps.
 constexpr int kChunkThreads = 128;
-constexpr int kRows = 16;     // query rows per block: one mma M tile
-constexpr int kKeys = 64;     // keys per staged K / V tile: 16 per warp
+constexpr int kKeys = mmrs::kAttnKeys;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 values -> one mma operand word, the first in the low half
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// eight elements of a row -> eight bf16 (int8 widens exactly)
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 load8(const int8_t* p) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t word = i < 2 ? w.x : w.y;
-    const int sh = 16 * (i & 1);
-    o[i] = pack2(__float2bfloat16_rn(static_cast<float>(static_cast<int8_t>(word >> sh))),
-                 __float2bfloat16_rn(static_cast<float>(static_cast<int8_t>(word >> (sh + 8)))));
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// keys k0 .. k0 + 63 of one head into a [64][HD + 8] bf16 tile; keys at
-// or past the cache's end are zeros (masked anyway)
+// Shared memory of chunk_kernel<T, HD> (ops/decode_attention.py:chunk_plan
+// computes the same): the Q tile [64][HD + 8] bf16, the ring of two stages
+// of K and V tiles [64][HD + 8] bf16 (int8: [64][HD] raw, plus the widened
+// bf16 K and V tiles and two stages of K and V scales [64] f32).
 template <typename T, int HD>
-__device__ __forceinline__ void stage_keys(__nv_bfloat16* tile, const T* src, int k0, int s) {
-  constexpr int LD = HD + 8, VPR = HD / 8;
-  for (int e = threadIdx.x; e < kKeys * VPR; e += kChunkThreads) {
-    const int r = e / VPR, d = (e - r * VPR) * 8;
-    const int key = k0 + r;
-    const uint4 val = key < s ? load8(src + (size_t)key * HD + d) : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(tile + r * LD + d) = val;
-  }
+constexpr int chunk_smem_bytes() {
+  constexpr int tile = kKeys * (HD + 8) * 2;
+  return sizeof(T) == 2 ? 5 * tile : 3 * tile + 4 * kKeys * HD + 4 * kKeys * 4;
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kChunkThreads)
 chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __restrict__ pos,
-             int pos0, int G, int C, float hd_scale, int s_pad, float* __restrict__ out) {
-  constexpr int LD = HD + 8;
+             int pos0, int G, int C, float hd_scale, float* __restrict__ out) {
+  constexpr bool INT8 = sizeof(T) == 1;
+  constexpr int LD = HD + 8, NT = kKeys / 8, TILE = kKeys * LD;
+  // the raw stage of one step: K then V, each [kKeys][HD] elements of T
+  // (bf16: [kKeys][LD], read in place)
+  constexpr int RAW = INT8 ? kKeys * HD : TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [16][LD]
-  __nv_bfloat16* KV = Qs + kRows * LD;                              // [64][LD]
-  float* P = reinterpret_cast<float*>(KV + kKeys * LD);             // [16][s_pad]
-  __shared__ int qpos[kRows];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);       // [64][LD]
+  __nv_bfloat16* wide = Qs + 64 * LD;                // int8: widened K, V [2][TILE]
+  T* ring = reinterpret_cast<T*>(wide + (INT8 ? 2 * TILE : 0));         // [2][K, V][RAW]
+  float* scl = reinterpret_cast<float*>(ring + 4 * RAW);               // [2][K, V][kKeys]
 
   const int h = blockIdx.y, b = blockIdx.z, kvh = gridDim.y;
-  const int R = G * C, r0 = blockIdx.x * kRows;
-  const int rows = min(kRows, R - r0);
+  const int rows = blockDim.x / 2;   // 16 per warp
+  const int R = G * C, r0 = blockIdx.x * rows;
+  const int nrows = min(rows, R - r0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t head = (size_t)b * kvh + h;
   const int p0 = pos ? pos[b] : pos0;
 
   // the tile's largest query position bounds the keys it reads
-  const int rl = r0 + rows - 1;
+  const int rl = r0 + nrows - 1;
   const int cmax = (r0 / C != rl / C) ? C - 1 : rl % C;
   const int nk = min(c.s, p0 + cmax + 1);
-  if (threadIdx.x < kRows) {
-    const int r = r0 + threadIdx.x;
-    qpos[threadIdx.x] = threadIdx.x < rows ? p0 + r % C : p0;
-  }
   float* ob = out + head * R * HD;
   if (nk <= 0) {   // every key masked: the reference's softmax is NaN
-    for (int e = threadIdx.x; e < rows * HD; e += kChunkThreads) ob[(size_t)r0 * HD + e] = NAN;
+    for (int e = threadIdx.x; e < nrows * HD; e += blockDim.x) ob[(size_t)r0 * HD + e] = NAN;
     return;
   }
-  const __nv_bfloat16* qb = q + (head * R + r0) * HD;
-  for (int e = threadIdx.x; e < kRows * (HD / 8); e += kChunkThreads) {
-    const int r = e / (HD / 8), d = (e - r * (HD / 8)) * 8;
-    *reinterpret_cast<uint4*>(Qs + r * LD + d) =
-        r < rows ? *reinterpret_cast<const uint4*>(qb + (size_t)r * HD + d)
-                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
+  // this thread's two rows (g, g + 8 of its warp) and their query positions
+  int qpos[2];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const __nv_bfloat16* r = Qs + g * LD + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(r);
-    qa[kk][1] = ld32(r + 8 * LD);
-    qa[kk][2] = ld32(r + 8);
-    qa[kk][3] = ld32(r + 8 * LD + 8);
-  }
+  for (int hh = 0; hh < 2; ++hh) qpos[hh] = p0 + (r0 + warp * 16 + g + 8 * hh) % C;
+  // the keys this warp's live rows may attend: below `wlim` (warp-uniform;
+  // 0 for a warp whose rows all lie past R, which only stages tiles)
+  int wlim = 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    if (warp * 16 + g + 8 * hh < nrows) wlim = max(wlim, min(nk, qpos[hh] + 1));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) wlim = max(wlim, __shfl_xor_sync(0xffffffffu, wlim, off));
+  const bool active = warp * 16 < nrows;
 
   const T* K = static_cast<const T*>(c.k) + b * c.sb + h * c.sh;
   const T* V = static_cast<const T*>(c.v) + b * c.sb + h * c.sh;
   const float* ks = c.ks ? c.ks + b * c.ssb + h * c.ssh : nullptr;
   const float* vs = c.vs ? c.vs + b * c.ssb + h * c.ssh : nullptr;
-  const int tiles = (nk + kKeys - 1) / kKeys;
-  const int span = tiles * kKeys;   // <= s_pad
+  const int ntiles = (nk + kKeys - 1) / kKeys;
+  const bool single = ntiles == 1;   // one tile: pass 2 reuses pass 1's scores
+  const int steps = single ? 1 : 2 * ntiles;
 
-  // scores: warp w takes keys w * 16 .. + 15 of each tile (two n tiles)
-  for (int kt = 0; kt < tiles; ++kt) {
-    const int k0 = kt * kKeys;
-    stage_keys<T, HD>(KV, K, k0, c.s);
-    __syncthreads();
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const __nv_bfloat16* r = KV + (warp * 16 + nt * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t bf[2] = {ld32(r), ld32(r + 8)};
-        mma_bf16(acc[nt], qa[kk], bf);
+  // keys k0 .. k0 + 63 of K or V into a stage (16-byte cp.async, zeros at
+  // and past nk: those keys are never read) and their scales
+  auto stage = [&](T* dst, float* sdst, const T* src, const float* ssrc, int k0) {
+    constexpr int EPC = 16 / sizeof(T), CPR = HD / EPC;   // elements, chunks a row
+    constexpr int STRIDE = INT8 ? HD : LD;
+    for (int e = threadIdx.x; e < kKeys * CPR; e += blockDim.x) {
+      const int r = e / CPR, d = (e - r * CPR) * EPC;
+      const bool ok = k0 + r < nk;
+      mmrs::cp_async<16>(dst + r * STRIDE + d, ok ? src + (size_t)(k0 + r) * HD + d : src, ok);
+    }
+    if (ssrc != nullptr) {
+      for (int i = threadIdx.x; i < kKeys; i += blockDim.x) {
+        const bool ok = k0 + i < nk;
+        mmrs::cp_async<4>(sdst + i, ok ? ssrc + k0 + i : ssrc, ok);
       }
     }
+  };
+  // step st < ntiles: K tile st (pass 1); st >= ntiles: K and V tile
+  // st - ntiles (pass 2); stage st & 1
+  auto prefetch = [&](int st) {
+    const int k0 = (st < ntiles ? st : st - ntiles) * kKeys;
+    T* buf = ring + (st & 1) * 2 * RAW;
+    float* sbuf = scl + (st & 1) * 2 * kKeys;
+    stage(buf, sbuf, K, ks, k0);
+    if (st >= ntiles || single) stage(buf + RAW, sbuf + kKeys, V, vs, k0);
+  };
+
+  {  // the Q tile; rows past R are zeros and are never stored
+    const __nv_bfloat16* qb = q + (head * R + r0) * HD;
+    for (int e = threadIdx.x; e < rows * (HD / 8); e += blockDim.x) {
+      const int r = e / (HD / 8), d = (e - r * (HD / 8)) * 8;
+      const bool ok = r < nrows;
+      mmrs::cp_async<16>(Qs + r * LD + d, ok ? qb + (size_t)r * HD + d : qb, ok);
+    }
+  }
+  prefetch(0);
+  mmrs::cp_async_commit();
+
+  uint32_t qa[HD / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float o[HD / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      prefetch(st + 1);
+      mmrs::cp_async_commit();
+      mmrs::cp_async_wait<1>();
+    } else {
+      mmrs::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool pass2 = st >= ntiles || single;   // P V in this step
+    const T* buf = ring + (st & 1) * 2 * RAW;
+    const float* sk = scl + (st & 1) * 2 * kKeys;
+    const __nv_bfloat16* Kt;
+    const __nv_bfloat16* Vt;
+    if constexpr (INT8) {   // widen the raw tiles, 4 codes a thread at a time
+      const int n = (pass2 ? 2 : 1) * kKeys * HD / 4;
+      for (int e = threadIdx.x; e < n; e += blockDim.x) {
+        const int which = e / (kKeys * HD / 4), x = e - which * (kKeys * HD / 4);
+        const int r = x / (HD / 4), d = (x - r * (HD / 4)) * 4;
+        const int w = *reinterpret_cast<const int*>(buf + which * RAW + r * HD + d);
+        uint2 pk;
+        pk.x = mmrs::pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)((w >> 8) & 0xff));
+        pk.y = mmrs::pack_bf16((float)(int8_t)((w >> 16) & 0xff), (float)(int8_t)(w >> 24));
+        *reinterpret_cast<uint2*>(wide + which * TILE + r * LD + d) = pk;
+      }
+      __syncthreads();
+      Kt = wide;
+      Vt = wide + TILE;
+    } else {
+      Kt = reinterpret_cast<const __nv_bfloat16*>(buf);
+      Vt = reinterpret_cast<const __nv_bfloat16*>(buf + RAW);
+    }
+    if (!active) {   // rows past R: stage (and widen) tiles, compute nothing
+      __syncthreads();
+      continue;
+    }
+    if (st == 0) mmrs::q_fragments<HD, LD>(qa, Qs, warp, lane);
+    const int k0 = (st >= ntiles ? st - ntiles : st) * kKeys;
+    const int live = wlim - k0;   // keys past it are masked for every row
+    float s[NT][4];
+    mmrs::scores_tile<HD, LD>(s, qa, Kt, live, lane);
+    // logits = (q . k) [* k_scale] * hd_scale, then the causal mask
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = g + (e >> 1) * 8;
-        const int key = k0 + warp * 16 + nt * 8 + 2 * t + (e & 1);
-        float l = acc[nt][e];
-        if (ks && key < c.s) l *= ks[key];
-        l *= hd_scale;
-        P[row * s_pad + key] = (key < nk && key <= qpos[row]) ? l : -INFINITY;
+        const int j = nt * 8 + 2 * t + (e & 1), key = k0 + j;
+        float x = s[nt][e];
+        if (ks) x *= sk[j];
+        x *= hd_scale;
+        s[nt][e] = (key < nk && key <= qpos[e >> 1]) ? x : -INFINITY;
       }
-    __syncthreads();
-  }
-  for (int row = warp; row < kRows; row += kChunkThreads / 32)
-    softmax_row(P + row * s_pad, span, vs, nk, lane);
-  __syncthreads();
-
-  // out: warp w takes output columns w * HD / 4 .. + HD / 4 - 1
-  constexpr int NT = HD / 32;
-  float acc[NT][4];
+    if (st < ntiles) {
+      mmrs::running_stats(s, m, l);
+      if (st == ntiles - 1) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int kt = 0; kt < tiles; ++kt) {
-    const int k0 = kt * kKeys;
-    stage_keys<T, HD>(KV, V, k0, c.s);
-    __syncthreads();
-#pragma unroll
-    for (int ks16 = 0; ks16 < kKeys; ks16 += 16) {
-      const float* pr = P + g * s_pad + k0 + ks16 + 2 * t;
-      const uint32_t pa[4] = {
-          pack2(__float2bfloat16_rn(pr[0]), __float2bfloat16_rn(pr[1])),
-          pack2(__float2bfloat16_rn(pr[8 * s_pad]), __float2bfloat16_rn(pr[8 * s_pad + 1])),
-          pack2(__float2bfloat16_rn(pr[8]), __float2bfloat16_rn(pr[9])),
-          pack2(__float2bfloat16_rn(pr[8 * s_pad + 8]), __float2bfloat16_rn(pr[8 * s_pad + 9]))};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = warp * (HD / 4) + nt * 8 + g;
-        const __nv_bfloat16* v0 = KV + (ks16 + 2 * t) * LD + col;
-        const uint32_t bf[2] = {pack2(v0[0], v0[LD]), pack2(v0[8 * LD], v0[9 * LD])};
-        mma_bf16(acc[nt], pa, bf);
+        for (int hh = 0; hh < 2; ++hh) {
+          l[hh] = mmrs::quad_sum(l[hh]);
+          inv_l[hh] = __frcp_rn(l[hh]);
+        }
       }
+    }
+    if (pass2) {
+      // p = e / sum [* v_scale] in f32 (a row with every key masked has
+      // l = 0: 0 / 0 = NaN, the reference's answer)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = mmrs::div_by(mmrs::exp_shift(s[nt][e], m[e >> 1]), l[e >> 1], inv_l[e >> 1]);
+          if (vs) p *= sk[kKeys + nt * 8 + 2 * t + (e & 1)];
+          s[nt][e] = p;
+        }
+      mmrs::pv_tile<HD, LD>(o, s, Vt, live, lane);
     }
     __syncthreads();
   }
+  if (!active) return;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = warp * (HD / 4) + nt * 8 + 2 * t;
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = g + half * 8;
-      if (row < rows) {
-        float* o = ob + (size_t)(r0 + row) * HD + col;
-        o[0] = acc[nt][2 * half];
-        o[1] = acc[nt][2 * half + 1];
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = warp * 16 + g + 8 * hh;
+      if (row < nrows)
+        *reinterpret_cast<float2*>(ob + (size_t)(r0 + row) * HD + col) =
+            make_float2(o[nt][2 * hh], o[nt][2 * hh + 1]);
     }
   }
 }
@@ -397,15 +422,18 @@ int decode_by_group(int G, const void* q, const CacheView& c, const void* pos, i
 
 template <typename T, int HD>
 int launch_chunk(const void* q, const CacheView& c, const void* pos, int pos0, void* out,
-                 int B, int KVH, int G, int C, float hd_scale, int s_pad, int smem,
+                 int B, int KVH, int G, int C, float hd_scale, int warps, int smem,
                  cudaStream_t stream) {
+  if (warps < 1 || warps > 4 || smem != chunk_smem_bytes<T, HD>())
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = chunk_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((G * C + kRows - 1) / kRows, KVH, B);
-  kern<<<grid, kChunkThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), c, static_cast<const int*>(pos), pos0, G, C,
-      hd_scale, s_pad, static_cast<float*>(out));
+  const int rows = 16 * warps;
+  const dim3 grid((G * C + rows - 1) / rows, KVH, B);
+  kern<<<grid, 32 * warps, smem, stream>>>(static_cast<const __nv_bfloat16*>(q), c,
+                                           static_cast<const int*>(pos), pos0, G, C, hd_scale,
+                                           static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,27 +473,27 @@ int mmrs_decode_attention(const void* q, const void* k, const void* v, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As above, for q [B, KVH, G, C, HD]; s_pad = S rounded up to 64 (the
-// score rows' stride), smem from `chunk_smem`.
+// As above, for q [B, KVH, G, C, HD]; warps (1-4: rows per block / 16) and
+// smem (checked against chunk_smem_bytes) from `chunk_plan`.
 int mmrs_chunk_attention(const void* q, const void* k, const void* v, const void* ks,
                          const void* vs, const void* pos, int pos0, void* out, int B,
                          int KVH, int G, int C, int HD, int S, long long sb, long long sh,
-                         long long ssb, long long ssh, int quant, float hd_scale, int s_pad,
+                         long long ssb, long long ssh, int quant, float hd_scale, int warps,
                          int smem, void* stream) {
   const CacheView c = make_view(k, v, ks, vs, sb, sh, ssb, ssh, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (quant && HD == 128)
-    return launch_chunk<int8_t, 128>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale, s_pad,
+    return launch_chunk<int8_t, 128>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale, warps,
                                      smem, s);
   if (quant && HD == 64)
-    return launch_chunk<int8_t, 64>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale, s_pad,
+    return launch_chunk<int8_t, 64>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale, warps,
                                     smem, s);
   if (!quant && HD == 128)
     return launch_chunk<__nv_bfloat16, 128>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale,
-                                            s_pad, smem, s);
+                                            warps, smem, s);
   if (!quant && HD == 64)
     return launch_chunk<__nv_bfloat16, 64>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale,
-                                           s_pad, smem, s);
+                                           warps, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -219,8 +219,8 @@ extern "C" {
 
 // K7 scan pass: partials [Q, ceil(P * cap / 256), k] for `mmrs_topk_merge`.
 // The caller (mmrs_tpu_torch/index/ivf.py) checks: CUDA, contiguous, 16-byte
-// aligned, dtypes, D % 8 == 0, D <= 2048, 1 <= k <= 256, 1 <= Q <= 65535,
-// P * cap < 2^31; `scales` is null unless int8 != 0.
+// aligned, dtypes, D % 8 == 0, D <= 2048, 1 <= k <= 256 (the partial list
+// length, min(k, 256) of the call), 1 <= Q <= 65535, P * cap < 2^31; `scales` is null unless int8 != 0.
 int mmrs_probe_scan(const void* q, const void* probe, const void* buckets,
                     const void* bucket_ids, const void* scales, int int8, int Q, int P,
                     int C, int cap, int D, int k, void* part_v, void* part_i,

@@ -10,18 +10,31 @@
 // f32 and the output is rounded to the input type.
 //
 // What bounds it on the H100: at the vision towers' T (50 for B/32, 257 for
-// L/14) attention is a few percent of a block's FLOPs and its cost in a
-// generic implementation is the traffic of the [B, H, T, T] logits and of
-// transposing q/k/v into a head-major layout. This kernel moves only the
-// four [B, T, W] tensors: one block per (image, head, tile of query rows)
-// reads its head's column slice straight from [B, T, W] (no transpose in
-// device memory), keeps K and V of that head in shared memory, and keeps
-// the tile's logits there too, so the [T, T] scores never reach device
-// memory. The query-row tile bounds shared memory: a [257, 257] f32 logits
-// block alone would be 264 KB, above the 227 KB a block may use.
-// Plain FMA loops on CUDA cores; tensor cores (mma.sync / wgmma) are later
-// work.
+// L/14, 577 for the 336-px L/14) the products are 4 T^2 hd flops a head
+// against 8 T hd bytes, so the bound is bytes below T ~ 600 and a generic
+// implementation loses to the [B, H, T, T] logits' traffic and to head
+// transposes in device memory. Every route here moves only the four
+// [B, T, W] tensors: a block reads its head's column slice straight from
+// [B, T, W] (each key row of a head is hd contiguous elements) and the
+// scores never leave the chip.
+//
+// bf16, hd <= 128 (every shipped tower): `mha_mma_kernel`, on tensor
+// cores. One block per (image, head, up to 128 query rows), up to 8 warps
+// of 16 rows (ops/attention.py:mha_plan), each warp's Q fragments in
+// registers; a warp whose rows all lie past T only helps stage the tiles; K and V tiles of 64 keys staged by
+// cp.async into a double-buffered ring and read with ldmatrix (.trans for
+// V); QK^T and PV on mma.sync m16n8k16 with f32 accumulators; the exact
+// two-pass softmax of attention_mma.cuh (pass 1: running max and sum;
+// pass 2: recomputed scores, p = exp(s - m) / l rounded to bf16 once, PV).
+// Keys past T score -inf (a zero score would take probability mass); a
+// head width that is not a multiple of 16 is zero-padded in shared memory.
+// Shared memory does not grow with T (55 KB at hd 64 and 8 warps).
+//
+// f32 inputs (off the main path, held to 1e-5) and bf16 with hd > 128:
+// `mha_kernel`, exact f32 FMAs on CUDA cores (never TF32), the [tq, T]
+// logits tile in shared memory, one block per (image, head, tq rows).
 
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 #include <math.h>
@@ -99,6 +112,160 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores. HDP: hd padded to 32, 64 or 128. VEC: 16-byte
+// cp.async rows (hd % 8 == 0, W % 8 == 0, 16-byte aligned pointers); else
+// element loads. Grid (ceil(T / rows), heads, B), rows = 16 * warps.
+constexpr int kMmaThreads = 256;   // 8 warps at most
+
+template <int HDP, bool VEC>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                           int nrows, int Tn, int W, int hd) {
+  constexpr int LD = HDP + 8, CPR = HDP / 8;
+  for (int e = threadIdx.x; e < nrows * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = (e - r * CPR) * 8;
+    const int row = r0 + r;
+    __nv_bfloat16* d = dst + r * LD + c;
+    if constexpr (VEC) {
+      const bool ok = row < Tn && c < hd;
+      mmrs::cp_async<16>(d, ok ? src + (size_t)row * W + c : src, ok);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        d[j] = (row < Tn && c + j < hd) ? src[(size_t)row * W + c + j] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+template <int HDP, bool VEC>
+__global__ void __launch_bounds__(kMmaThreads)
+mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Tn,
+               int W, int hd) {
+  constexpr int LD = HDP + 8, KEYS = mmrs::kAttnKeys, NT = KEYS / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = blockDim.x / 2;             // 16 per warp
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [rows][LD]
+  __nv_bfloat16* ring = Qs + rows * LD;        // [2][K, V][KEYS][LD]
+
+  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
+  const size_t head = (size_t)b * Tn * W + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ntiles = (Tn + KEYS - 1) / KEYS;
+  const bool single = ntiles == 1;             // T <= 64: one pass does both
+  const int steps = single ? 1 : 2 * ntiles;
+  const bool active = q0 + warp * 16 < Tn;     // warp-uniform
+
+  // step st < ntiles: K tile st (pass 1); st >= ntiles: K and V tile
+  // st - ntiles (pass 2); buffer st & 1. One tile: K and V in one step.
+  auto prefetch = [&](int st) {
+    const int kt = st < ntiles ? st : st - ntiles;
+    __nv_bfloat16* buf = ring + (st & 1) * 2 * KEYS * LD;
+    stage_rows<HDP, VEC>(buf, k + head, kt * KEYS, KEYS, Tn, W, hd);
+    if (st >= ntiles || single)
+      stage_rows<HDP, VEC>(buf + KEYS * LD, v + head, kt * KEYS, KEYS, Tn, W, hd);
+  };
+  stage_rows<HDP, VEC>(Qs, q + head, q0, rows, Tn, W, hd);
+  prefetch(0);
+  mmrs::cp_async_commit();
+
+  uint32_t qa[HDP / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HDP / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      prefetch(st + 1);
+      mmrs::cp_async_commit();
+      mmrs::cp_async_wait<1>();
+    } else {
+      mmrs::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!active) {   // rows past T: stage tiles, compute nothing
+      __syncthreads();
+      continue;
+    }
+    if (st == 0) mmrs::q_fragments<HDP, LD>(qa, Qs, warp, lane);
+    const __nv_bfloat16* Ks = ring + (st & 1) * 2 * KEYS * LD;
+    const int k0 = (st < ntiles ? st : st - ntiles) * KEYS;
+    const int live = Tn - k0;
+    float s[NT][4];
+    mmrs::scores_tile<HDP, LD>(s, qa, Ks, live, lane);
+    if (live < KEYS) {   // the last tile: keys past T score -inf
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (nt * 8 + 2 * t + (e & 1) >= live) s[nt][e] = -INFINITY;
+    }
+    if (st < ntiles) {
+      mmrs::running_stats(s, m, l);
+      if (st == ntiles - 1) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          l[hh] = mmrs::quad_sum(l[hh]);
+          inv_l[hh] = __frcp_rn(l[hh]);
+        }
+      }
+    }
+    if (st >= ntiles || single) {   // p = e / sum, rounded to bf16 in pv_tile
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = mmrs::div_by(mmrs::exp_shift(s[nt][e], m[e >> 1]), l[e >> 1], inv_l[e >> 1]);
+      mmrs::pv_tile<HDP, LD>(o, s, Ks + KEYS * LD, live, lane);
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int nt = 0; nt < HDP / 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + warp * 16 + g + 8 * half;
+      if (row >= Tn) continue;
+      __nv_bfloat16* dst = out + head + (size_t)row * W + col;
+      if constexpr (VEC) {
+        if (col < hd)
+          *reinterpret_cast<uint32_t*>(dst) = mmrs::pack_bf16(o[nt][2 * half], o[nt][2 * half + 1]);
+      } else {
+        if (col < hd) dst[0] = __float2bfloat16_rn(o[nt][2 * half]);
+        if (col + 1 < hd) dst[1] = __float2bfloat16_rn(o[nt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+template <int HDP, bool VEC>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tn, int W,
+               int heads, int warps, int smem, cudaStream_t stream) {
+  auto kern = mha_mma_kernel<HDP, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = 16 * warps;
+  const dim3 grid((Tn + rows - 1) / rows, heads, B);
+  kern<<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Tn, W, W / heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HDP>
+int launch_mma_vec(int vec, const void* q, const void* k, const void* v, void* out, int B,
+                   int Tn, int W, int heads, int warps, int smem, cudaStream_t s) {
+  return vec ? launch_mma<HDP, true>(q, k, v, out, B, Tn, W, heads, warps, smem, s)
+             : launch_mma<HDP, false>(q, k, v, out, B, Tn, W, heads, warps, smem, s);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Tn, int W,
            int heads, int tq, int smem, cudaStream_t stream) {
@@ -117,9 +284,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tn
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32. The caller (mmrs_tpu_torch/ops/attention.py:
-// _mha_cuda) picks the query tile `tq` and the shared-memory size with
-// `mha_tile`, and checks: CUDA, contiguous, q/k/v of one [B, T, W] shape and
+// The CUDA-core route. dtype: 0 = bf16, 1 = f32. The caller
+// (mmrs_tpu_torch/ops/attention.py: _mha_cuda) picks the query tile `tq`
+// and the shared-memory size with `mha_plan`, and checks: CUDA, contiguous, q/k/v of one [B, T, W] shape and
 // one dtype, W % heads == 0, 1 <= B <= 65535, heads <= 65535.
 int mmrs_mha_short_seq(const void* q, const void* k, const void* v, void* out, int B,
                        int Tn, int W, int heads, int dtype, int tq, int smem, void* stream) {
@@ -127,6 +294,23 @@ int mmrs_mha_short_seq(const void* q, const void* k, const void* v, void* out, i
   if (dtype == 0)
     return launch<__nv_bfloat16>(q, k, v, out, B, Tn, W, heads, tq, smem, s);
   if (dtype == 1) return launch<float>(q, k, v, out, B, Tn, W, heads, tq, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 on tensor cores, hd = W / heads <= 128. The caller
+// (mmrs_tpu_torch/ops/attention.py: _mha_cuda) picks warps (1-8: query rows
+// per block / 16) and the shared-memory size with `mha_plan`, sets vec = 1
+// when hd % 8 == 0, W % 8 == 0 and the pointers are 16-byte aligned, and
+// checks the rest as above.
+int mmrs_mha_short_seq_mma(const void* q, const void* k, const void* v, void* out, int B,
+                           int Tn, int W, int heads, int vec, int warps, int smem,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hd = W / heads;
+  if (warps < 1 || warps > kMmaThreads / 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 32) return launch_mma_vec<32>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
+  if (hd <= 64) return launch_mma_vec<64>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
+  if (hd <= 128) return launch_mma_vec<128>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

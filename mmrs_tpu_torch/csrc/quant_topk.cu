@@ -229,8 +229,9 @@ extern "C" {
 
 // Scan passes: partials [Q, ceil(N / 256), k] for `mmrs_topk_merge`. The
 // caller (mmrs_tpu_torch/ops/quant.py, quant4.py) checks: CUDA, contiguous,
-// 16-byte aligned, dtypes, D % 16 == 0, D <= 2048, 1 <= k <= 256,
-// 1 <= Q <= 65535, qt in {1, 2, 4, 8}.
+// 16-byte aligned, dtypes, D % 16 == 0, D <= 2048, 1 <= k <= 256 (the
+// partial list length, min(k, 256) of the call), 1 <= Q <= 65535, qt in
+// {1, 2, 4, 8}.
 int mmrs_topk_scan_q8(const void* q, const void* q_scale, const void* g, const void* g_scale,
                       int Q, int N, int D, int k, int qt, void* part_v, void* part_i,
                       void* stream) {

@@ -1,12 +1,14 @@
 // What every gallery top-k scan shares (cosine_topk.cu: bf16; quant_topk.cu:
-// int8 and int4): the chunk of gallery rows one scan block scores, the merge
-// width, and the block-wide bitonic sort both passes use.
+// int8 and int4; ivf_probe.cu: the bucket probes): the chunk of gallery rows
+// one scan block scores, the merge's largest shared-memory group, and the
+// block-wide bitonic sort of a chunk's candidates.
 //
-// A scan block writes the best k (score, row id) pairs of its 256-row chunk,
-// sorted, as partials [Q, n_chunks, k]; `mmrs_topk_merge` (cosine_topk.cu)
-// reduces them to one sorted list per query. The order is (score desc, row
-// id asc): the tie rule of mmrs_tpu/ops/topk.py:_topk_merge (first argmax,
-// earlier rows first); rows past N enter as (-inf, -1), its sentinel.
+// A scan block writes the best kc = min(k, 256) (score, row id) pairs of its
+// 256-row chunk, sorted, as partials [Q, n_chunks, kc]; `mmrs_topk_merge`
+// (cosine_topk.cu) reduces them to one sorted list of k per query. The
+// order is (score desc, row id asc): the tie rule of
+// mmrs_tpu/ops/topk.py:_topk_merge (first argmax, earlier rows first); rows
+// past N enter as (-inf, -1), its sentinel.
 #pragma once
 
 #include "common.cuh"
@@ -15,7 +17,7 @@ namespace mmrs {
 
 constexpr int kChunk = 256;        // gallery rows per scan block
 constexpr int kThreads = 256;      // 8 warps per block, scan and merge
-constexpr int kMergeWidth = 1024;  // candidates sorted per merge block
+constexpr int kMaxSort = 8192;     // most candidates a merge block holds (64 KB)
 
 // "a ranks before b": higher score first, equal scores by lower row id.
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
@@ -45,7 +47,7 @@ __device__ inline void sort_segments(float* sv, int* si, int len, int total) {
 }
 
 // The chunk's sorted candidates, QT segments of kChunk in shared memory,
-// -> the best k of each valid query as partials [Q, n_chunks, k].
+// -> the best k (<= kChunk) of each valid query as partials [Q, n_chunks, k].
 __device__ inline void write_partials(const float* sv, const int* si, int QT, int q0,
                                       int Q, int chunk, int n_chunks, int k,
                                       float* __restrict__ part_v, int* __restrict__ part_i) {

@@ -492,17 +492,25 @@ def _probe_cuda(name: str, q_rows: torch.Tensor, probe, bucket_ids, k: int,
     buckets, slot after slot: position r * cap + s) through the gallery
     scans' merge passes (ops/topk.scan_and_merge), then map the winning
     positions to global ids. The partials carry positions, so the merge's
-    (score desc, id asc) order is exactly the tie rule."""
+    (score desc, id asc) order is exactly the tie rule. `scan(a, b, qt,
+    kc, part_v, part_i, stream)` launches the scan for queries a..b-1."""
     qn, p = probe.shape
     c, cap = bucket_ids.shape
     lib = _cuda.library()
-    vals, pos = topk.scan_and_merge(qn, p * cap, k, q_rows.device, scan, name)
-    ids = torch.empty((qn, k), dtype=torch.int32, device=q_rows.device)
-    _cuda.check(lib.mmrs_probe_ids(
-        vals.data_ptr(), pos.data_ptr(), probe.data_ptr(),
-        bucket_ids.data_ptr(), qn, p, c, cap, k, ids.data_ptr(),
-        _cuda.stream_of(q_rows)), f"{name} ids")
-    return vals, ids
+
+    def run(a: int, b: int):
+        vals, pos = topk.scan_and_merge(
+            b - a, p * cap, k, q_rows.device,
+            lambda *args: scan(a, b, *args), name)
+        ids = torch.empty((b - a, k), dtype=torch.int32,
+                          device=q_rows.device)
+        _cuda.check(lib.mmrs_probe_ids(
+            vals.data_ptr(), pos.data_ptr(), probe[a:b].data_ptr(),
+            bucket_ids.data_ptr(), b - a, p, c, cap, k, ids.data_ptr(),
+            _cuda.stream_of(q_rows)), f"{name} ids")
+        return vals, ids
+
+    return topk.by_query_slices(qn, run)
 
 
 def _probe_buckets_cuda(q, probe, buckets, bucket_ids, scales, k):
@@ -526,10 +534,10 @@ def _probe_buckets_cuda(q, probe, buckets, bucket_ids, scales, k):
     p = probe.shape[1]
     out = _probe_cuda(
         name, q, probe, bucket_ids, k,
-        lambda qt, pv, pi, stream: _cuda.library().mmrs_probe_scan(
-            q.data_ptr(), probe.data_ptr(), buckets.data_ptr(),
+        lambda a, b, qt, kc, pv, pi, stream: _cuda.library().mmrs_probe_scan(
+            q[a:b].data_ptr(), probe[a:b].data_ptr(), buckets.data_ptr(),
             bucket_ids.data_ptr(), 0 if scales is None else scales.data_ptr(),
-            int(buckets.dtype == torch.int8), qn, p, c, cap, d, k, pv, pi,
+            int(buckets.dtype == torch.int8), b - a, p, c, cap, d, kc, pv, pi,
             stream))
     probe_buckets.launches += 1
     return out
@@ -587,10 +595,11 @@ def _probe_buckets_q4_cuda(q_q, q_scale, rs_q, probe, buckets, bucket_ids,
     p = probe.shape[1]
     out = _probe_cuda(
         name, q_q, probe, bucket_ids, k,
-        lambda qt, pv, pi, stream: _cuda.library().mmrs_probe_scan_q4(
-            q_q.data_ptr(), q_scale.data_ptr(), rs_q.data_ptr(),
-            probe.data_ptr(), buckets.data_ptr(), bucket_ids.data_ptr(),
-            scales.data_ptr(), qn, p, c, cap, d, k, pv, pi, stream))
+        lambda a, b, qt, kc, pv, pi, stream: _cuda.library().mmrs_probe_scan_q4(
+            q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
+            rs_q[a:b].data_ptr(), probe[a:b].data_ptr(), buckets.data_ptr(),
+            bucket_ids.data_ptr(), scales.data_ptr(), b - a, p, c, cap, d,
+            kc, pv, pi, stream))
     probe_buckets_q4.launches += 1
     return out
 

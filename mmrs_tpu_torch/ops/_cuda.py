@@ -45,12 +45,14 @@ _LL = ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype)
 _SIGNATURES = {
     "mmrs_topk_chunk_rows": ((), _I),
-    "mmrs_topk_merge_width": ((), _I),
+    "mmrs_topk_max_sort": ((), _I),
     "mmrs_error_string": ((_I,), ctypes.c_char_p),
     "mmrs_topk_scan": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P), _I),
-    "mmrs_topk_merge": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
+    "mmrs_topk_merge": ((_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P), _I),
     "mmrs_mha_short_seq": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
                            _I),
+    "mmrs_mha_short_seq_mma": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P), _I),
     "mmrs_topk_scan_q8": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
                           _I),
     "mmrs_topk_scan_q4": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,

@@ -3,10 +3,12 @@ plain PyTorch version.
 
 Counterpart of mmrs_tpu/ops/attention.py. The vision towers' attention is
 unmasked over short sequences (T = 50 for B/32, 257 for L/14, 577 for the
-336-px L/14). The kernel (`csrc/mha_short_seq.cu`) reads each head's column
-slice straight from the [B, T, W] projections and keeps the [T, T] logits
-in shared memory; the plain version splits heads with views and runs the
-same math in f32.
+336-px L/14). The kernels (`csrc/mha_short_seq.cu`) read each head's column
+slice straight from the [B, T, W] projections: bf16 heads up to 128 wide
+run on tensor cores (key tiles streamed through shared memory, an exact
+two-pass softmax in registers); f32, and bf16 heads wider than 128, on
+CUDA cores with the logits tile in shared memory. The plain version splits
+heads with views and runs the same math in f32.
 
 Math (both versions, as the Pallas `_mha_kernel`): q already carries
 1/sqrt(hd); logits and softmax in f32; the probabilities are rounded to
@@ -19,13 +21,16 @@ tensors) or "torch" (the plain version anywhere).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple
 
 import torch
 
 from mmrs_tpu_torch.ops import _cuda
 
 SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
+MMA_MAX_HD = 128      # widest bf16 head of the tensor-core route
+MMA_KEYS = 64         # csrc/attention_mma.cuh kAttnKeys
+MMA_WARPS = 8         # csrc/mha_short_seq.cu kMmaThreads / 32
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -43,20 +48,40 @@ def _mha_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
     return out.transpose(1, 2).reshape(b, t, w).to(q.dtype)
 
 
-def mha_tile(t: int, hd: int, itemsize: int) -> Tuple[int, int]:
-    """(query rows per block, dynamic shared-memory bytes) for the kernel:
-    f32 logits [tq, T] and queries [tq, hd], plus K (rows padded by one
-    32-bit word) and V [T, hd] in the input type. Tiles shrink until the
-    block fits in Hopper's 227 KB."""
+class MhaPlan(NamedTuple):
+    route: str    # "mma": bf16 on tensor cores; "fma": CUDA cores
+    rows: int     # query rows per block
+    smem: int     # dynamic shared-memory bytes
+
+
+def mha_plan(t: int, hd: int, dtype: torch.dtype) -> MhaPlan:
+    """Launch shape of the kernel. bf16 with hd <= 128: tensor cores, 16
+    query rows per warp, 4 to 8 warps (fewer for T < 64), shared memory
+    bounded whatever T is: the Q tile [rows, hdp + 8] and a double-buffered
+    ring of K and V tiles [64, hdp + 8], hdp = hd padded to 32, 64 or 128.
+    Otherwise the CUDA-core route: f32 logits [tq, T] and queries [tq,
+    hd], plus K (rows padded by one 32-bit word) and V [T, hd] in the
+    input type, the query tile shrinking until the block fits in Hopper's
+    227 KB."""
+    if dtype == torch.bfloat16 and hd <= MMA_MAX_HD:
+        hdp = 32 if hd <= 32 else 64 if hd <= 64 else 128
+        # the fewest padded query rows, then the most warps (fewer blocks
+        # restaging K and V): 8 warps at T = 577, 6 at 257, 4 at 50
+        fewest = min(4, -(-t // 16))
+        rows = 16 * min(range(fewest, MMA_WARPS + 1),
+                        key=lambda w: (-(-t // (16 * w)) * w, -w))
+        return MhaPlan("mma", rows, 2 * (rows + 4 * MMA_KEYS) * (hdp + 8))
+    itemsize = torch.empty((), dtype=dtype).element_size()
     tq = min(t, 64) if t <= 64 else 32
     while True:
         smem = 4 * tq * (t + hd) + itemsize * t * (2 * hd + 4 // itemsize)
         if smem <= SMEM_LIMIT:
-            return tq, smem
+            return MhaPlan("fma", tq, smem)
         if tq <= 8:
             raise ValueError(
-                f"mha_short_seq kernel: T={t}, hd={hd} needs {smem} bytes of "
-                f"shared memory at the smallest tile (limit {SMEM_LIMIT})")
+                f"mha_short_seq kernel: T={t}, hd={hd} in {dtype} needs "
+                f"{smem} bytes of shared memory at the smallest tile (limit "
+                f"{SMEM_LIMIT})")
         tq //= 2
 
 
@@ -75,13 +100,24 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
         raise ValueError(f"width {w} is not a multiple of heads={heads}")
     if not (1 <= b <= 65535 and heads <= 65535):
         raise ValueError(f"mha_short_seq kernel needs B <= 65535, got {b}")
-    tq, smem = mha_tile(t, w // heads, q.element_size())
+    hd = w // heads
+    plan = mha_plan(t, hd, q.dtype)
     out = torch.empty_like(q)
+    lib = _cuda.library()
     with torch.cuda.device(q.device):
-        _cuda.check(_cuda.library().mmrs_mha_short_seq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, w, heads, _DTYPE_CODE[q.dtype], tq, smem,
-            _cuda.stream_of(q)), "mha_short_seq")
+        if plan.route == "mma":
+            vec = hd % 8 == 0 and w % 8 == 0 and all(
+                x.data_ptr() % 16 == 0 for x in (q, k, v, out))
+            err = lib.mmrs_mha_short_seq_mma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                t, w, heads, int(vec), plan.rows // 16, plan.smem,
+                _cuda.stream_of(q))
+        else:
+            err = lib.mmrs_mha_short_seq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                t, w, heads, _DTYPE_CODE[q.dtype], plan.rows, plan.smem,
+                _cuda.stream_of(q))
+        _cuda.check(err, "mha_short_seq")
     mha_short_seq.launches += 1
     return out
 

@@ -33,7 +33,7 @@ from mmrs_tpu_torch.ops import _cuda
 
 SMEM_LIMIT = 232448       # shared memory one block may use on Hopper
 _DEC_WARPS = 8            # K11 warps per block (csrc: kDecThreads / 32)
-_ROWS, _KEYS = 16, 64     # K10 query rows per block, keys per staged tile
+_KEYS = 64                # K10 keys per staged tile (csrc: kAttnKeys)
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 
@@ -135,12 +135,15 @@ def decode_smem(g: int, s: int, hd: int) -> int:
     return 4 * (g * s + _DEC_WARPS * g * hd)
 
 
-def chunk_smem(s: int, hd: int) -> Tuple[int, int]:
-    """(score row stride, dynamic shared-memory bytes) of K10: the bf16 q
-    tile [16, HD + 8] and K/V tile [64, HD + 8], the f32 scores [16, S
-    rounded up to 64]."""
-    s_pad = -(-s // _KEYS) * _KEYS
-    return s_pad, 2 * (_ROWS + _KEYS) * (hd + 8) + 4 * _ROWS * s_pad
+def chunk_plan(rows: int, hd: int, quant: bool) -> Tuple[int, int]:
+    """(warps per block, dynamic shared-memory bytes) of K10 for `rows` =
+    G * C query rows a kv head: 16 rows a warp, up to 4 warps; the bf16 Q
+    tile [64, HD + 8], and two stages of K and V tiles [64, HD + 8] bf16,
+    or for an int8 cache two stages of raw [64, HD] int8 tiles and their
+    f32 scales plus the widened bf16 K and V tiles. Nothing grows with S."""
+    tile = 2 * _KEYS * (hd + 8)
+    smem = 3 * tile + 4 * _KEYS * hd + 16 * _KEYS if quant else 5 * tile
+    return min(4, -(-rows // 16)), smem
 
 
 def _common_checks(name: str, q: torch.Tensor, g: int, hd: int) -> None:
@@ -195,11 +198,11 @@ def _chunk_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
         raise ValueError(f"chunk_attention kernel: G * C = {g * c} rows")
     quant, strides = _cache_args("chunk_attention", q, k_cache, k_scales,
                                  v_cache, v_scales)
+    if any(st * k_cache.element_size() % 16 for st in k_cache.stride()[:2]):
+        raise ValueError("chunk_attention kernel needs 16-byte aligned cache "
+                         "rows")
     s = k_cache.shape[2]
-    s_pad, smem = chunk_smem(s, hd)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"chunk_attention kernel: S={s} needs {smem} bytes "
-                         f"of shared memory (limit {SMEM_LIMIT})")
+    warps, smem = chunk_plan(g * c, hd, bool(quant))
     q = q.contiguous()
     pos_t, pos0 = _pos_args(pos, b, q.device)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -209,7 +212,7 @@ def _chunk_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None,
             None if pos_t is None else pos_t.data_ptr(), pos0, out.data_ptr(),
-            b, kvh, g, c, hd, s, *strides, quant, hd_scale(hd), s_pad, smem,
+            b, kvh, g, c, hd, s, *strides, quant, hd_scale(hd), warps, smem,
             _cuda.stream_of(q)), "chunk_attention")
     chunk_attention.launches += 1
     return out

@@ -73,12 +73,13 @@ def _topk_quant_cuda(q_q, q_scale, gallery_q, scales, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kernel_inputs(q_q, q_scale, gallery_q, scales, k)
     (q, d), n = q_q.shape, gallery_q.shape[0]
-    out = topk.scan_and_merge(
-        q, n, k, q_q.device,
-        lambda qt, pv, pi, stream: _cuda.library().mmrs_topk_scan_q8(
-            q_q.data_ptr(), q_scale.data_ptr(), gallery_q.data_ptr(),
-            scales.data_ptr(), q, n, d, k, qt, pv, pi, stream),
-        "cosine_topk_quantized")
+    out = topk.by_query_slices(q, lambda a, b: topk.scan_and_merge(
+        b - a, n, k, q_q.device,
+        lambda qt, kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q8(
+            q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
+            gallery_q.data_ptr(), scales.data_ptr(), b - a, n, d, kc, qt, pv,
+            pi, stream),
+        "cosine_topk_quantized"))
     cosine_topk_quantized.launches += 1
     return out
 

@@ -119,13 +119,13 @@ def _topk_int4_cuda(q_q, q_scale, rs_q, packed, scales, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kernel_inputs(q_q, q_scale, rs_q, packed, scales, k)
     (q, d), n = q_q.shape, packed.shape[0]
-    out = topk.scan_and_merge(
-        q, n, k, q_q.device,
-        lambda qt, pv, pi, stream: _cuda.library().mmrs_topk_scan_q4(
-            q_q.data_ptr(), q_scale.data_ptr(), rs_q.data_ptr(),
-            packed.data_ptr(), scales.data_ptr(), q, n, d, k, qt, pv, pi,
-            stream),
-        "cosine_topk_int4")
+    out = topk.by_query_slices(q, lambda a, b: topk.scan_and_merge(
+        b - a, n, k, q_q.device,
+        lambda qt, kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q4(
+            q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
+            rs_q[a:b].data_ptr(), packed.data_ptr(), scales.data_ptr(),
+            b - a, n, d, kc, qt, pv, pi, stream),
+        "cosine_topk_int4"))
     cosine_topk_int4.launches += 1
     return out
 

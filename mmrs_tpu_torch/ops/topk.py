@@ -3,9 +3,10 @@
 Counterpart of mmrs_tpu/ops/topk.py. The query engine's hot op: the best k
 cosine scores of each query against the whole gallery, and their row ids,
 without writing the [Q, N] score matrix to device memory. The kernel is
-`csrc/cosine_topk.cu` (a scan pass that keeps each 256-row chunk's best k,
-then merge passes); the plain version scores with an f32 matmul and takes a
-stable descending sort.
+`csrc/cosine_topk.cu` (a scan pass that keeps each 256-row chunk's best
+min(k, 256), then merge passes down to one list of k); the plain version
+scores with an f32 matmul and takes a stable descending sort. Any k runs
+on the card, as in mmrs_tpu: past the gallery's rows the answer is padded.
 
 Both keep the reference kernel's tie rule (`_topk_merge`: first argmax,
 earlier rows first): equal scores come back lowest row id first, and when
@@ -19,26 +20,23 @@ the gallery has fewer than k rows the missing places are (-inf, -1).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
 from mmrs_tpu_torch.ops import _cuda
 
 NEG_INF = float("-inf")
-MAX_K = 256           # the scan keeps at most one 256-row chunk per list
 MAX_DIM = 2048        # staged queries must fit the scan block's shared memory
 CHUNK_ROWS = 256      # csrc/topk_common.cuh kChunk; checked at first load
-MERGE_WIDTH = 1024    # csrc/topk_common.cuh kMergeWidth; checked at first load
+SORT_MAX = 8192       # csrc/topk_common.cuh kMaxSort; checked at first load
+MERGE_WIDTH = 1024    # most candidates a merge block takes while k <= 256
+MAX_QUERIES = 65535   # queries a launch takes (the merge grid's y extent)
 
 
-def sorted_topk(scores: torch.Tensor, k: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain top-k of every scan here: stable descending sort of the
-    f32 scores [Q, N] (lowest row first among equal scores), first k
-    columns; padded with (-inf, -1) past the gallery."""
-    vals, idxs = torch.sort(scores, dim=1, descending=True, stable=True)
-    vals, idxs = vals[:, :k], idxs[:, :k].to(torch.int32)
+def _pad(vals: torch.Tensor, idxs: torch.Tensor, k: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad [Q, n] lists to k columns with (-inf, -1)."""
     short = k - vals.shape[1]
     if short > 0:
         q = vals.shape[0]
@@ -47,22 +45,57 @@ def sorted_topk(scores: torch.Tensor, k: int
     return vals, idxs
 
 
+def sorted_topk(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain top-k of every scan here: stable descending sort of the
+    f32 scores [Q, N] (lowest row first among equal scores), first k
+    columns; padded with (-inf, -1) past the gallery."""
+    vals, idxs = torch.sort(scores, dim=1, descending=True, stable=True)
+    return _pad(vals[:, :k], idxs[:, :k].to(torch.int32), k)
+
+
 def _cosine_topk_torch(queries: torch.Tensor, gallery: torch.Tensor, k: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     return sorted_topk(queries.float() @ gallery.float().T, k)
 
 
-def scan_plan(q: int, n: int, k: int) -> Tuple[int, int, int, list]:
-    """Launch shapes: (queries per scan block, gallery chunks, partial lists
-    merged per merge block, list count after each pass). The last count is
-    1: that pass's output is the answer."""
+class MergePass(NamedTuple):
+    """One merge pass: `lists` sorted lists of `length` -> ceil(lists /
+    per) lists of `out`. width > 0: each block merges `per` lists in
+    shared memory, each padded to a power of two, the group to `width`
+    entries; width == 0: a merge-path pass over list pairs (per == 2)."""
+    lists: int
+    length: int
+    per: int
+    width: int
+    out: int
+
+
+def scan_plan(q: int, n: int, k: int) -> Tuple[int, int, int,
+                                                List[MergePass]]:
+    """Launch shapes: (queries per scan block, gallery chunks, the scan's
+    partial list length kc = min(k, 256), the merge passes). Every pass
+    merges at least two lists, so the list count falls to 1 for any k;
+    the last pass's lists hold min(k, n_chunks * kc) entries (the caller
+    pads to k). Up to k = 256 a pass merges at most MERGE_WIDTH candidates
+    per block (many blocks at small k); above, up to SORT_MAX, and lists
+    too long for two to fit are merged in pairs by merge path."""
     qt = 1 if q == 1 else 2 if q == 2 else 4 if q <= 4 else 8
     n_chunks = -(-n // CHUNK_ROWS)
-    per = MERGE_WIDTH // k
-    lists = [n_chunks]
-    while lists[-1] > 1:
-        lists.append(-(-lists[-1] // per))
-    return qt, n_chunks, per, lists
+    kc = min(k, CHUNK_ROWS)
+    cap = MERGE_WIDTH if k <= CHUNK_ROWS else SORT_MAX
+    passes, lists, length = [], n_chunks, kc
+    while lists > 1:
+        padded = 1 << (length - 1).bit_length()     # a list's run in the sort
+        if 2 * padded <= cap:
+            per = min(lists, cap // padded)
+            width = padded << (per - 1).bit_length()
+        else:
+            per, width = 2, 0
+        out = min(k, per * length)
+        passes.append(MergePass(lists, length, per, width, out))
+        lists, length = -(-lists // per), out
+    return qt, n_chunks, kc, passes
 
 
 @lru_cache(maxsize=None)
@@ -70,11 +103,11 @@ def _library():
     """The kernel library, after checking that its launch geometry is the
     one `scan_plan` sizes the partial buffers for."""
     lib = _cuda.library()
-    built = (lib.mmrs_topk_chunk_rows(), lib.mmrs_topk_merge_width())
-    if built != (CHUNK_ROWS, MERGE_WIDTH):
+    built = (lib.mmrs_topk_chunk_rows(), lib.mmrs_topk_max_sort())
+    if built != (CHUNK_ROWS, SORT_MAX):
         raise RuntimeError(
-            f"csrc/topk_common.cuh has (kChunk, kMergeWidth) = {built}, but "
-            f"ops/topk.py plans for {(CHUNK_ROWS, MERGE_WIDTH)}")
+            f"csrc/topk_common.cuh has (kChunk, kMaxSort) = {built}, but "
+            f"ops/topk.py plans for {(CHUNK_ROWS, SORT_MAX)}")
     return lib
 
 
@@ -98,56 +131,78 @@ def _check_kernel_inputs(queries: torch.Tensor, gallery: torch.Tensor, k: int
 
 
 def scan_and_merge(q: int, n: int, k: int, device: torch.device,
-                   scan: Callable[[int, int, int, int], int], what: str
+                   scan: Callable[[int, int, int, int, int], int], what: str
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a gallery scan kernel and the merge passes that reduce its
-    per-chunk partials to the top k. `scan(qt, part_v, part_i, stream)`
-    launches the scan (pointers as ints) and returns its CUDA error code;
-    it writes the best k of each 256-row chunk, sorted, into partials
-    [Q, n_chunks, k] (f32 values, int32 ids), the format `mmrs_topk_merge`
-    reads. Every gallery scan (bf16, int8, int4) shares this plumbing."""
+    per-chunk partials to the top k. `scan(qt, kc, part_v, part_i,
+    stream)` launches the scan (pointers as ints) and returns its CUDA
+    error code; it writes the best kc of each 256-row chunk, sorted, into
+    partials [Q, n_chunks, kc] (f32 values, int32 ids), the format
+    `mmrs_topk_merge` reads. Every gallery scan (bf16, int8, int4, the
+    IVF probes) shares this plumbing. Q <= MAX_QUERIES (`by_query_slices`)."""
     lib = _library()
-    qt, n_chunks, per, lists = scan_plan(q, n, k)
+    qt, n_chunks, kc, passes = scan_plan(q, n, k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        vals = torch.empty((q, n_chunks, k), dtype=torch.float32,
+        vals = torch.empty((q, n_chunks, kc), dtype=torch.float32,
                            device=device)
-        idxs = torch.empty((q, n_chunks, k), dtype=torch.int32,
+        idxs = torch.empty((q, n_chunks, kc), dtype=torch.int32,
                            device=device)
-        _cuda.check(scan(qt, vals.data_ptr(), idxs.data_ptr(), stream),
+        _cuda.check(scan(qt, kc, vals.data_ptr(), idxs.data_ptr(), stream),
                     f"{what} scan")
-        for s, groups in zip(lists, lists[1:]):
-            nv = torch.empty((q, groups, k), dtype=torch.float32,
+        for p in passes:
+            groups = -(-p.lists // p.per)
+            nv = torch.empty((q, groups, p.out), dtype=torch.float32,
                              device=device)
-            ni = torch.empty((q, groups, k), dtype=torch.int32,
+            ni = torch.empty((q, groups, p.out), dtype=torch.int32,
                              device=device)
             _cuda.check(lib.mmrs_topk_merge(
-                vals.data_ptr(), idxs.data_ptr(), q, s, k, per,
-                nv.data_ptr(), ni.data_ptr(), stream), f"{what} merge")
+                vals.data_ptr(), idxs.data_ptr(), q, p.lists, p.length,
+                p.per, p.width, p.out, nv.data_ptr(), ni.data_ptr(), stream),
+                f"{what} merge")
             vals, idxs = nv, ni
-    return vals.view(q, k), idxs.view(q, k)
+    return _pad(vals.view(q, -1), idxs.view(q, -1), k)
+
+
+def by_query_slices(q: int, run: Callable[[int, int], Tuple[torch.Tensor,
+                                                            torch.Tensor]]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`run(start, stop)` over query slices of at most MAX_QUERIES (one
+    launch sequence each), the results concatenated along Q."""
+    if q <= MAX_QUERIES:
+        return run(0, q)
+    parts = [run(a, min(q, a + MAX_QUERIES))
+             for a in range(0, q, MAX_QUERIES)]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([i for _, i in parts]))
 
 
 def check_scan_shapes(name: str, q: int, n: int, k: int) -> None:
-    """Limits every gallery scan kernel shares (one 256-row chunk per
-    partial list, the grid's query tiles)."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{name} kernel supports 1 <= k <= {MAX_K}, "
-                         f"got k={k}")
-    if not (1 <= q <= 65535 and 1 <= n < 2 ** 31):
-        raise ValueError(f"{name} kernel needs 1 <= Q <= 65535 and "
-                         f"1 <= N < 2^31, got Q={q}, N={n}")
+    """Limits every gallery scan kernel shares: any k (past the gallery
+    the answer is padded with (-inf, -1)), the [Q, k] outputs and the
+    gallery positions indexed in 32 bits."""
+    if not (1 <= k and min(q, MAX_QUERIES) * k < 2 ** 31):
+        raise ValueError(f"{name} kernel needs 1 <= k and min(Q, "
+                         f"{MAX_QUERIES}) * k < 2^31, got Q={q}, k={k}")
+    if not (1 <= q and 1 <= n < 2 ** 31):
+        raise ValueError(f"{name} kernel needs 1 <= Q and 1 <= N < 2^31, "
+                         f"got Q={q}, N={n}")
 
 
 def _cosine_topk_cuda(queries: torch.Tensor, gallery: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kernel_inputs(queries, gallery, k)
     (q, d), n = queries.shape, gallery.shape[0]
-    out = scan_and_merge(
-        q, n, k, queries.device,
-        lambda qt, pv, pi, stream: _library().mmrs_topk_scan(
-            queries.data_ptr(), gallery.data_ptr(), q, n, d, k, qt, pv, pi,
-            stream), "cosine_topk")
+
+    def run(a: int, b: int):
+        qs = queries[a:b]
+        return scan_and_merge(
+            b - a, n, k, queries.device,
+            lambda qt, kc, pv, pi, stream: _library().mmrs_topk_scan(
+                qs.data_ptr(), gallery.data_ptr(), b - a, n, d, kc, qt, pv,
+                pi, stream), "cosine_topk")
+
+    out = by_query_slices(q, run)
     cosine_topk.launches += 1
     return out
 

@@ -6,9 +6,11 @@ machine (which has no JAX, so the JAX conftest is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Shapes include the edges the kernels handle in their own code: ragged
-gallery chunks, N < k, multi-level top-k merges, k = 256, ties, query tiles
-over T, ragged row tiles of the int8 MLP, f32 inputs, masked bucket slots
-and equal scores across probed buckets. The int8 and int4 scans and the
+gallery chunks, N < k, multi-level top-k merges, k = 256, k past one
+chunk (sort merges and merge-path merges, k = N), more queries than one
+launch takes, ties, query tiles over T, ragged key tiles and narrow heads
+of the tensor-core attention, ragged row tiles of the int8 MLP, f32
+inputs, masked bucket slots and equal scores across probed buckets. The int8 and int4 scans and the
 int4 bucket probe must equal their plain versions exactly (ids and values),
 and so must the fused int8 MLP (nonzero biases, rows of exact rounding
 ties) and the all-pairs first match (every id, f32 and bf16 inputs). The
@@ -18,6 +20,8 @@ versions to 2e-2 (both round the probabilities to bf16, and a last-bit
 difference of exp() or of the f32 sums can flip one rounding: one ulp of
 a probability, 2^-8 at most, times |v| < 5), 99% of the outputs to 1e-4.
 """
+
+from functools import lru_cache
 
 import pytest
 import torch
@@ -99,8 +103,8 @@ def test_cosine_topk_ties_lowest_row_first(dev):
 
 def test_cosine_topk_kernel_rejects_what_it_cannot_run(dev):
     gal = _unit_rows(100, 64, dev, seed=0)
-    with pytest.raises(ValueError, match="k <= 256"):
-        cosine_topk(gal[:1], gal, 257)
+    with pytest.raises(ValueError, match="1 <= k"):
+        cosine_topk(gal[:1], gal, 0)
     with pytest.raises(ValueError, match="bf16"):
         cosine_topk(gal[:1].float(), gal.float(), 5)
     with pytest.raises(ValueError, match="D % 8"):
@@ -114,6 +118,14 @@ def test_cosine_topk_kernel_rejects_what_it_cannot_run(dev):
     (2, 7, 96, 3, torch.float32, 1e-5),         # odd T and heads
     (2, 65, 128, 2, torch.float32, 1e-5),       # T just over one tile
     (1, 257, 1024, 16, torch.float32, 1e-5),
+    (2, 1, 96, 3, torch.bfloat16, 2e-2),        # hd 32 on tensor cores:
+    (2, 16, 96, 3, torch.bfloat16, 2e-2),       # one warp's rows,
+    (2, 17, 96, 3, torch.bfloat16, 2e-2),       # one row into the next,
+    (2, 63, 96, 3, torch.bfloat16, 2e-2),       # a ragged key tile,
+    (2, 65, 96, 3, torch.bfloat16, 2e-2),       # one key past a tile,
+    (2, 129, 96, 3, torch.bfloat16, 2e-2),      # three key tiles
+    (2, 33, 120, 3, torch.bfloat16, 2e-2),      # hd 40, zero-padded to 64
+    (2, 70, 100, 4, torch.bfloat16, 2e-2),      # hd 25: element loads
 ])
 def test_mha_kernel_matches_plain(dev, b, t, w, heads, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(t)
@@ -197,8 +209,8 @@ def test_quantized_topk_kernels_reject_what_they_cannot_run(dev):
     gal = _unit_rows(100, 64, dev, seed=0).float()
     q8, q4 = quantize_rows(gal), quantize_rows_int4(gal)
     for fn, packed in ((cosine_topk_quantized, q8), (cosine_topk_int4, q4)):
-        with pytest.raises(ValueError, match="k <= 256"):
-            fn(gal[:1], *packed, 257)
+        with pytest.raises(ValueError, match="1 <= k"):
+            fn(gal[:1], *packed, 0)
     odd = _unit_rows(10, 24, dev, seed=1).float()       # D % 16 != 0
     with pytest.raises(ValueError, match="D % 16"):
         cosine_topk_quantized(odd[:1], *quantize_rows(odd), 3)
@@ -385,8 +397,8 @@ def test_ivf_topk_on_the_card_matches_plain_with_a_big_spill(dev, quant):
 def test_probe_kernels_reject_what_they_cannot_run(dev):
     rows, ivf = _probe_index(1000, 64, 4, "", dev, seed=0)
     probe = _probe_lists(1, 4, 2, dev, seed=0)
-    with pytest.raises(ValueError, match="k <= 256"):
-        _probe(ivf, rows[:1], probe, 257)
+    with pytest.raises(ValueError, match="1 <= k"):
+        _probe(ivf, rows[:1], probe, 0)
     with pytest.raises(ValueError, match="scales"):
         probe_buckets(rows[:1].bfloat16(), probe, ivf.buckets.to(torch.int8),
                       ivf.bucket_ids, None, 5)
@@ -590,6 +602,116 @@ def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
         _decode_cuda(*cpu, 3)
     with pytest.raises(ValueError, match="CUDA"):
         _chunk_cuda(cpu[0][:, :, :, None], *cpu[1:], 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((1, 1, 8000, 64), dtype=torch.bfloat16, device=dev)
-        chunk_attention(q[:1, :1, :, None], big, None, big, None, 0)
+    with pytest.raises(ValueError, match="head dims"):
+        odd = torch.zeros((2, 2, 64, 96), dtype=torch.bfloat16, device=dev)
+        chunk_attention(torch.zeros((2, 2, 1, 3, 96), dtype=torch.bfloat16,
+                                    device=dev), odd, None, odd, None, 0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_chunk_attention_kernel_runs_a_long_cache(dev, quantized):
+    """S = 8000, where a [16, S] f32 score tile would not fit shared
+    memory: the two-pass kernel's shared memory does not grow with S."""
+    k, ks, v, vs = _kv_cache(dev, 1, 1, 2, 8000, 64, quantized, seed=8)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((1, 2, 2, 9, 64), device=dev, generator=gen).bfloat16()
+    args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+    for pos in (7990, 4000):
+        _attn_close(chunk_attention(*args, pos),
+                    chunk_attention(*args, pos, impl="torch"))
+
+
+# -- C.1: any k, and any Q, through the scans' merge passes --------------------
+
+LARGE_K = [257, 300, 513, 1000, 1025, 4097, 20_000]     # 20,000 = N
+
+
+def _scan(kind, qs, gal, k, impl="auto"):
+    """K1 (bf16) or K4 / K5 (int8 / int4, `gal` a packed tuple)."""
+    if kind == "bf16":
+        return cosine_topk(qs.bfloat16(), gal, k, impl=impl)
+    fn = cosine_topk_quantized if kind == "int8" else cosine_topk_int4
+    return fn(qs, *gal, k, impl=impl)
+
+
+def _gallery(kind, rows):
+    return {"bf16": lambda r: r.bfloat16(), "int8": quantize_rows,
+            "int4": quantize_rows_int4}[kind](rows)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("q", [1, 8])
+@pytest.mark.parametrize("k", LARGE_K)
+def test_topk_kernels_any_k_match_plain(dev, kind, q, k):
+    """k > 256: bf16 ids equal plain where scores are separated (values
+    within 1e-5); int8 / int4 ids and values equal."""
+    rows = _unit_rows(20_000, 512, dev, seed=11).float()
+    qs = rows[:q] + 0.05 * _unit_rows(q, 512, dev, seed=q).float()
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    gal = _gallery(kind, rows)
+    fn = {"bf16": cosine_topk, "int8": cosine_topk_quantized,
+          "int4": cosine_topk_int4}[kind]
+    before = fn.launches
+    vals, ids = _scan(kind, qs, gal, k)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    rv, ri = _scan(kind, qs, gal, k, impl="torch")
+    assert vals.shape == (q, k) and ids.dtype == torch.int32
+    _assert_probe_matches(vals, ids, rv, ri, exact=kind != "bf16")
+    assert len(set(ids[0].tolist())) == k           # every row once at k = N
+
+
+@lru_cache(maxsize=None)
+def _large_k_index(quant):
+    """An IVF index over 20,000 seeded rows at C = 16, every bucket probed:
+    the virtual gallery holds each live row once."""
+    return _probe_index(20_000, 512, 16, quant, torch.device("cuda"),
+                        seed=12)
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+@pytest.mark.parametrize("q", [1, 8])
+@pytest.mark.parametrize("k", LARGE_K)
+def test_probe_kernels_any_k_match_plain(dev, quant, q, k):
+    rows, ivf = _large_k_index(quant)
+    qs = rows[:q] + 0.05 * _unit_rows(q, 512, dev, seed=q).float()
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    probe = _probe_lists(q, 16, 16, dev, seed=q)
+    fn = probe_buckets_q4 if quant == "int4" else probe_buckets
+    before = fn.launches
+    vals, ids = _probe(ivf, qs, probe, k)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    rv, ri = _probe(ivf, qs, probe, k, impl="torch")
+    assert vals.shape == (q, k) and ids.dtype == torch.int32
+    _assert_probe_matches(vals, ids, rv, ri, exact=quant == "int4")
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_topk_kernels_split_70000_queries(dev, kind):
+    """Q = 70,000 > 65,535 (the merge grid's y extent): two launch
+    sequences, the same answer as plain."""
+    rows = _unit_rows(1000, 128, dev, seed=13).float()
+    qs = _unit_rows(70_000, 128, dev, seed=14).float()
+    gal = _gallery(kind, rows)
+    vals, ids = _scan(kind, qs, gal, 5)
+    rv, ri = _scan(kind, qs, gal, 5, impl="torch")
+    assert vals.shape == (70_000, 5)
+    _assert_probe_matches(vals, ids, rv, ri, exact=kind != "bf16")
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+def test_probe_kernels_split_70000_queries(dev, quant):
+    """The IVF probes over Q = 70,000: equal to the same kernel run on
+    slices of the queries, and to plain on the first and last 50."""
+    rows, ivf = _probe_index(3000, 128, 8, quant, dev, seed=15)
+    qs = _unit_rows(70_000, 128, dev, seed=16).float()
+    probe = _probe_lists(1, 8, 4, dev, seed=0).repeat(70_000, 1)
+    vals, ids = _probe(ivf, qs, probe, 5)
+    for a, b in ((0, 35_000), (35_000, 70_000)):
+        sv, si = _probe(ivf, qs[a:b], probe[a:b], 5)
+        assert torch.equal(vals[a:b], sv) and torch.equal(ids[a:b], si)
+    for sl in (slice(0, 50), slice(-50, None)):
+        rv, ri = _probe(ivf, qs[sl], probe[sl], 5, impl="torch")
+        _assert_probe_matches(vals[sl], ids[sl], rv, ri,
+                              exact=quant == "int4")

@@ -197,7 +197,9 @@ def test_kernel_sizing():
     """Shared memory the wrappers ask for, at the 7B and draft shapes."""
     assert t_da.decode_smem(1, 704, 128) == 4 * (704 + 8 * 128)
     assert t_da.decode_smem(8, 704, 64) <= t_da.SMEM_LIMIT
-    s_pad, smem = t_da.chunk_smem(640, 128)
-    assert s_pad == 640 and smem <= t_da.SMEM_LIMIT
-    assert t_da.chunk_smem(2048, 128)[1] <= t_da.SMEM_LIMIT
+    warps, smem = t_da.chunk_plan(64, 128, quant=False)   # one 7B chunk
+    assert warps == 4 and smem == 5 * 2 * 64 * 136 <= t_da.SMEM_LIMIT
+    assert t_da.chunk_plan(16, 64, quant=True)[0] == 1   # draft: G=8, C=2
+    assert max(t_da.chunk_plan(5, hd, quant)[1] for hd in (64, 128)
+               for quant in (False, True)) <= t_da.SMEM_LIMIT
     assert t_da.hd_scale(128) == float(np.float32(1 / 128 ** 0.5))

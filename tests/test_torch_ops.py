@@ -117,16 +117,75 @@ def test_cosine_topk_ties_return_lowest_row_first():
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
 
 
+def _merge_plan_model(scores: torch.Tensor, k: int):
+    """What the scan and merge kernels compute, pass by pass, in plain
+    PyTorch: each 256-row chunk's best kc, then each planned pass (a sort
+    of `per` lists, or a merge of list pairs) keeps the best `out` of its
+    candidates. Lists are ordered (score desc, id asc), the kernels' rule."""
+    q, n = scores.shape
+    _, n_chunks, kc, passes = topk.scan_plan(q, n, k)
+    pad = n_chunks * topk.CHUNK_ROWS - n
+    v = torch.cat([scores, scores.new_full((q, pad), float("-inf"))], 1)
+    i = torch.cat([torch.arange(n).expand(q, n),
+                   torch.full((q, pad), -1)], 1)
+
+    def best(v, i, keep):          # rows of candidates -> their best `keep`
+        _, o = torch.sort(i, dim=-1, stable=True)              # id asc
+        v, i = v.gather(-1, o), i.gather(-1, o)
+        _, o = torch.sort(v, dim=-1, descending=True, stable=True)
+        return v.gather(-1, o)[..., :keep], i.gather(-1, o)[..., :keep]
+
+    v, i = best(v.view(q, n_chunks, -1), i.view(q, n_chunks, -1), kc)
+    for p in passes:
+        groups = -(-p.lists // p.per)
+        extra = groups * p.per - p.lists
+        v = torch.cat([v, v.new_full((q, extra, p.length), float("-inf"))],
+                      1)
+        i = torch.cat([i, i.new_full((q, extra, p.length), -1)], 1)
+        v, i = best(v.reshape(q, groups, -1), i.reshape(q, groups, -1),
+                    p.out)
+    return topk._pad(v.reshape(q, -1), i.reshape(q, -1).int(), k)
+
+
 @pytest.mark.parametrize("q,n,k", [(1, 1, 1), (1, 1 << 20, 10),
                                    (64, 70000, 10), (5, 20000, 256),
-                                   (9, 257, 100)])
+                                   (9, 257, 100), (2, 20000, 257),
+                                   (1, 20000, 513), (1, 20000, 1025),
+                                   (1, 20000, 5000)])
 def test_topk_scan_plan_ends_in_one_list(q, n, k):
-    qt, n_chunks, per, lists = topk.scan_plan(q, n, k)
+    qt, n_chunks, kc, passes = topk.scan_plan(q, n, k)
     assert qt == min(8, 1 << (q - 1).bit_length())   # smallest tile >= q
     assert n_chunks * topk.CHUNK_ROWS >= n > (n_chunks - 1) * topk.CHUNK_ROWS
-    assert per * k <= topk.MERGE_WIDTH and per >= 4
-    assert lists[0] == n_chunks and lists[-1] == 1
-    assert all(b == -(-a // per) for a, b in zip(lists, lists[1:]))
+    assert kc == min(k, topk.CHUNK_ROWS)
+    lists, length = n_chunks, kc
+    for p in passes:                  # each pass reads what the last wrote
+        assert (p.lists, p.length) == (lists, length)
+        if p.width:                   # a sort of >= 2 lists in shared memory
+            assert p.per >= min(2 if k > topk.CHUNK_ROWS else 4, p.lists)
+            assert p.per * p.length <= p.width <= (
+                topk.MERGE_WIDTH if k <= topk.CHUNK_ROWS else topk.SORT_MAX)
+            assert p.width & (p.width - 1) == 0
+        else:                         # merge path: pairs too long to sort
+            assert p.per == 2 and 2 * p.length > topk.SORT_MAX
+        assert p.out == min(k, p.per * p.length)
+        lists, length = -(-lists // p.per), p.out
+        assert lists < p.lists        # the count strictly falls ...
+    assert lists == 1                 # ... to one list
+    assert length == min(k, n_chunks * kc)
+
+
+@pytest.mark.parametrize("q,n,k", [(2, 3000, 10), (1, 20000, 300),
+                                   (2, 9000, 4500), (1, 20000, 20000),
+                                   (1, 3000, 5000)])
+def test_topk_scan_plan_model_equals_plain_topk(q, n, k):
+    """The planned passes keep the plain top-k, ties (scores rounded to
+    0.01) lowest row first, k past N padded with (-inf, -1)."""
+    rng = np.random.default_rng(n + k)
+    s = torch.from_numpy(np.round(rng.standard_normal((q, n)), 2)
+                         .astype(np.float32))
+    v, i = _merge_plan_model(s, k)
+    rv, ri = topk.sorted_topk(s, k)
+    assert torch.equal(i, ri) and torch.equal(v, rv)
 
 
 # -- mha_short_seq (K2) ---------------------------------------------------------
@@ -146,17 +205,26 @@ def test_mha_matches_jax_pallas(jax_impl, b, t, w, heads):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("t,hd,itemsize,tq", [
-    (50, 64, 2, 50), (257, 64, 2, 32), (577, 64, 2, 32), (257, 64, 4, 32),
-    (7, 32, 4, 7)])
-def test_mha_tile_fits_hopper_shared_memory(t, hd, itemsize, tq):
-    got_tq, smem = attention.mha_tile(t, hd, itemsize)
-    assert got_tq == tq and smem <= attention.SMEM_LIMIT
+@pytest.mark.parametrize("t,hd,dtype,route,rows", [
+    (50, 64, torch.bfloat16, "mma", 64), (257, 64, torch.bfloat16, "mma", 96),
+    (577, 64, torch.bfloat16, "mma", 128), (257, 64, torch.float32, "fma", 32),
+    (7, 32, torch.float32, "fma", 7), (1, 32, torch.bfloat16, "mma", 16),
+    (64, 256, torch.bfloat16, "fma", 64)])
+def test_mha_plan_fits_hopper_shared_memory(t, hd, dtype, route, rows):
+    plan = attention.mha_plan(t, hd, dtype)
+    assert (plan.route, plan.rows) == (route, rows)
+    assert plan.smem <= attention.SMEM_LIMIT
+    if route == "mma":   # Q tile and two K/V stages, bounded whatever T is
+        hdp = 32 if hd <= 32 else 64 if hd <= 64 else 128
+        assert plan.smem == 2 * (rows + 4 * 64) * (hdp + 8)
+        most = 2 * (128 + 4 * 64) * (hdp + 8)   # 8 warps
+        assert plan.smem <= most
+        assert attention.mha_plan(100_000, hd, dtype).smem <= most
 
 
-def test_mha_tile_refuses_what_cannot_fit():
+def test_mha_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="shared memory"):
-        attention.mha_tile(4096, 128, 4)
+        attention.mha_plan(4096, 128, torch.float32)
 
 
 # -- dispatch -------------------------------------------------------------------

@@ -13,14 +13,17 @@ nonzero exit and no result line:
      kernel, from the sources in mmrs_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version at main-path shapes:
      K1-K3 as before, K4/K5 (int8/int4 top-k over a 1,048,576 x 512
-     gallery, ids and values equal), K6 (fused int8 MLP at the ViT-B/32
-     serving shape, nonzero biases, equal in every element), K7/K8 (the
+     gallery, ids and values equal), K6 (int8 MLP at the ViT-B/32
+     serving shape, nonzero biases and rows of rounding ties, ragged M,
+     f32 x, W/H = 512/2048 and 1024/8192, equal in every element), K7/K8 (the
      IVF bucket probes over bf16 / int8 / int4 buckets of a clustered
      1,048,576 x 512 gallery at C = 1024, built on the card: K8 equal,
      K7 values within 1e-5 and ids equal where scores are separated), K9
      (all-pairs first match over 131,072 x 512 planted rows, f32 and bf16:
-     keep-first, cross set, ring halves with row offsets, ragged N; every
-     id equal); K1/K4/K5 and K7/K8 at k = 300 and 1000 (past one 256-row
+     keep-first, cross set, ring halves with row offsets, ragged N, f32
+     rows of f16 values and of magnitudes down to 1e-6; every id equal;
+     f32 copies NEAR_TAU either side of tau decided as f64 dots decide
+     them, where bf16 rows must not); K1/K4/K5 and K7/K8 at k = 300 and 1000 (past one 256-row
      scan chunk) against plain; K2 at the 336-px L/14 tower's [8, 577,
      1024] / 16 heads and at T = 65 and T = 1 (ragged key tiles), and its
      f32 route within 1e-5,
@@ -78,8 +81,10 @@ nonzero exit and no result line:
      K9 in Gpairs/s as bench.py counts them; each kernel's bound (the
      larger of its bytes over 3.35 TB/s and its operations over the peak
      rate of their type) and, for K2, K10 and K11 (bf16 caches), PyTorch's
-     scaled_dot_product_attention on the same inputs as a yardstick; K2 and
-     K6 at the L/14 shapes; K2 and K10 as multiples of SDPA and of
+     scaled_dot_product_attention on the same inputs as a yardstick, for
+     K6 its two products through torch._int_mm and each of its four
+     launches timed alone; K2 and K6 at the L/14
+     shapes; K2 and K10 as multiples of SDPA and of
      their bounds; flat bf16 top-300 at Q=8; the verifier end to end per
      pack (encode,
      prefill, decode ms a step and tokens/s for bf16 and int8 + int8 KV,
@@ -130,6 +135,9 @@ DEDUP_TEST_ROWS = 16_384
 DEDUP_TAU = 0.99
 DEDUP_PLANTS = 1024           # noisy copies; near misses and chains: 256 each
 DEDUP_COPIES = 64             # exact image copies added to phase 4a's index
+# K9's f32 route against f64 dots: copies this far either side of tau,
+# rows with a score within a quarter of it of tau left undecided
+NEAR_TAU = 2e-6
 # the LLaVA cascade verifier (phase 4e): LLaVA-v1.5-7B at full width and
 # depth, the CLI's serving options; verify packs of 8, 32 new tokens
 LLAVA_IMAGES = 16
@@ -194,6 +202,32 @@ def time_pair(kernel_fn, plain_fn, iters: int = 10, warmup: int = 3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def int_mm_pair(m: int, w1_q: torch.Tensor, w2_q: torch.Tensor, gen) -> float:
+    """ms of an int8 MLP's two products through torch._int_mm (cuBLAS) on
+    [m, W] and [m, H] int8 codes, int32 out: a yardstick the port never
+    calls."""
+    dev = w1_q.device
+    xq = torch.randint(-127, 128, (m, w1_q.shape[1]), dtype=torch.int8,
+                       device=dev, generator=gen)
+    hq = torch.randint(-127, 128, (m, w1_q.shape[0]), dtype=torch.int8,
+                       device=dev, generator=gen)
+    return time_ms(lambda: (torch._int_mm(xq, w1_q.T), torch._int_mm(hq, w2_q.T)),
+                   iters=20)
+
+
+def k6_launch_ms(args, act: str = "quick_gelu"):
+    """ms of each of K6's four launches alone (row-quantize x, x.w1 with its
+    activation epilogue, row-quantize h, h.w2), on the scratch one whole
+    call left; not counted as launches."""
+    from mmrs_tpu_torch.ops import mlp_int8 as k6
+    x = args[0]
+    plan = k6.mlp_plan(x.shape[0], x.shape[1], args[1].shape[0])
+    out, scratch = torch.empty_like(x), k6._scratch(x, plan)
+    k6._launch(*args, act, out, scratch)
+    return [time_ms(lambda: k6._launch(*args, act, out, scratch, only=i),
+                    iters=20) for i in range(4)]
+
+
 def least_ms(nbytes: float, ops: float, kind: str):
     """(least ms the card could take, what bounds it): the larger of the
     bytes over the memory rate and the operations over the peak rate of
@@ -213,10 +247,13 @@ def ptxas_lines(log_path: str):
                 # drop the anonymous namespace's mangled prefix
                 line = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
                               line)
-                m = re.search(r"(\w+?_kernel)(?:I(?:Li(\d+)E|Lb(\d)E|(f)|"
-                              r"13__nv_(bfloat16)))?", line)
-                name = m.group(1) + "".join(
-                    f"<{a}>" for a in m.groups()[1:] if a) if m else "?"
+                m = re.search(r"(\w+?_kernel)(I(?:Li\d+E|Lb\dE|f|"
+                              r"13__nv_bfloat16)+E)?", line)
+                args = [next(a for a in g if a) for g in re.findall(
+                    r"Li(\d+)E|Lb(\d)E|(f)|13__nv_(bfloat16)",
+                    (m.group(2) or "") if m else "")]
+                name = (m.group(1) + (f"<{','.join(args)}>" if args else "")
+                        if m else "?")
             elif "Used" in line:
                 yield name, line.split(":", 1)[1].strip()
             elif "spill" in line and "0 bytes spill stores" not in line:
@@ -342,10 +379,10 @@ class SyntheticImages:
                         ok=np.ones(len(chunk), bool))
 
 
-def near_rows(x: torch.Tensor, cos: float, g) -> torch.Tensor:
-    """Unit rows at exactly `cos` to the unit rows x (a random direction
-    orthogonal to each row)."""
-    z = torch.randn(x.shape, device=x.device, generator=g)
+def near_rows(x: torch.Tensor, cos, g) -> torch.Tensor:
+    """Unit rows at exactly `cos` (a number, or one a row as [rows, 1]) to
+    the unit rows x (a random direction orthogonal to each row)."""
+    z = torch.randn(x.shape, device=x.device, dtype=x.dtype, generator=g)
     z -= (z * x).sum(1, keepdim=True) * x
     z /= z.norm(dim=1, keepdim=True)
     return cos * x + (1.0 - cos * cos) ** 0.5 * z
@@ -382,6 +419,68 @@ def planted_dedup_rows(dev, seed: int):
             if earlier:
                 first[r] = min(earlier)
     return x, first
+
+
+def mixed_magnitude_rows(dev, seed: int, n: int):
+    """[n, DIM] f32 unit rows a quarter of whose entries are scaled by
+    10^(-6u), u uniform in [0, 1) (magnitudes down to 1e-6 of the rest:
+    every bf16 plane of the f32 route's split is busy), with n // 64
+    copies at cosine 0.995 planted after the scaling. Returns (rows, the
+    first-match vector they must give, int32 on the card)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, DIM), device=dev, generator=g)
+    x *= torch.where(torch.rand(x.shape, device=dev, generator=g) < 0.25,
+                     10.0 ** (-6 * torch.rand(x.shape, device=dev,
+                                              generator=g)), 1.0)
+    x /= x.norm(dim=1, keepdim=True)
+    perm = torch.randperm(n, device=dev, generator=g)
+    src, dup = perm[:n // 64], perm[n // 64:n // 32]
+    x[dup] = near_rows(x[src], 0.995, g)
+    want = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    want[torch.maximum(src, dup)] = torch.minimum(src, dup).int()
+    return x, want
+
+
+def near_tau_rows(dev, seed: int, n: int, margins):
+    """[n, DIM] f32 unit rows with n // 8 copies planted at cosines
+    f32(DEDUP_TAU) + margin, the margins taken in turn: made in f64 and
+    rounded once to f32, which moves a cosine by about 1e-8."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, DIM), device=dev, dtype=torch.float64, generator=g)
+    x /= x.norm(dim=1, keepdim=True)
+    perm = torch.randperm(n, device=dev, generator=g)
+    p = n // 8
+    src, dup = perm[:p], perm[p:2 * p]
+    margin = torch.tensor(margins, dtype=torch.float64,
+                          device=dev).repeat(-(-p // len(margins)))[:p]
+    x[dup] = near_rows(x[src], float(np.float32(DEDUP_TAU)) + margin[:, None],
+                       g)
+    return x.float()
+
+
+def first_match_f64(a, b, intra: bool, band: float):
+    """The first-match vector of the f32 rows a against b at f32(DEDUP_TAU)
+    from f64 dots (exact to about 1e-16 for unit rows), and the rows it
+    decides: those with no counting column scored within `band` of tau,
+    where an f32 sum may fall on either side."""
+    tau = float(np.float32(DEDUP_TAU))
+    b64 = b.double()
+    cols = torch.arange(b.shape[0], device=a.device)
+    ids = torch.full((a.shape[0],), -1, dtype=torch.int32, device=a.device)
+    clear = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+    for r0 in range(0, a.shape[0], 2048):
+        s = a[r0:r0 + 2048].double() @ b64.T
+        counts = torch.ones_like(s, dtype=torch.bool)
+        if intra:
+            rows = torch.arange(r0, r0 + s.shape[0], device=a.device)
+            counts = cols[None, :] < rows[:, None]
+        first = torch.where(counts & (s >= tau), cols[None, :],
+                            b.shape[0]).amin(dim=1)
+        ids[r0:r0 + s.shape[0]] = torch.where(first < b.shape[0], first,
+                                              -1).int()
+        clear[r0:r0 + s.shape[0]] = ~(counts & ((s - tau).abs() <= band)
+                                      ).any(dim=1)
+    return ids, clear
 
 
 def keeper_pairs(first, paths):
@@ -1238,6 +1337,49 @@ def main() -> int:
         say(f"phase 3 K6 mlp_int8_fused quick_gelu [{x14.shape[0]},1024]->"
             f"4096 bf16 (the 336-px L/14 MLP), biases N(0, 0.3), tie rows: "
             f"equal to plain in every element")
+        # ragged M (the last 128-row GEMM tile part full, a lone row), f32 x
+        # at B/32, and W/H = 512/2048
+        mlp512 = MLP(512, 2048, quick_gelu).to(dev)
+        for lin in (mlp512.w1, mlp512.w2):
+            torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+            torch.nn.init.normal_(lin.bias, std=0.3, generator=gen)
+        quantize_tree(mlp512)
+        x512 = torch.randn((EMBED_BATCH * 50, 512), device=dev,
+                           generator=gen).to(torch.bfloat16)
+        x512[0], x512[1] = ties.repeat(512 // 768 + 1)[:512], \
+            -ties.repeat(512 // 768 + 1)[:512]
+        k6_cases = [(f"[{m},768] bf16 quick_gelu", x[:m], mlp.w1.q, mlp.w1.s,
+                     b1, mlp.w2.q, mlp.w2.s, b2, "quick_gelu")
+                    for m in (1, 17, 127, 129, EMBED_BATCH * 50 - 1)]
+        k6_cases += [(f"[{x.shape[0]},768] f32 {act}", x.float(), mlp.w1.q,
+                      mlp.w1.s, b1, mlp.w2.q, mlp.w2.s, b2, act)
+                     for act in ("quick_gelu", "gelu")]
+        k6_cases += [(f"[{x512.shape[0]},512]->2048 bf16 {act}", x512,
+                      mlp512.w1.q, mlp512.w1.s, mlp512.w1.bias, mlp512.w2.q,
+                      mlp512.w2.s, mlp512.w2.bias, act)
+                     for act in ("quick_gelu", "gelu")]
+        # H = 8192: f32 h rows of 32 KB, more than a block could keep in
+        # shared memory for a useful row tile
+        mlp8k = MLP(1024, 8192, quick_gelu).to(dev)
+        for lin in (mlp8k.w1, mlp8k.w2):
+            torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+            torch.nn.init.normal_(lin.bias, std=0.3, generator=gen)
+        quantize_tree(mlp8k)
+        x8k = torch.randn((577, 1024), device=dev, generator=gen)
+        k6_cases += [("[577,1024]->8192 f32 gelu", x8k, mlp8k.w1.q,
+                      mlp8k.w1.s, mlp8k.w1.bias, mlp8k.w2.q, mlp8k.w2.s,
+                      mlp8k.w2.bias, "gelu")]
+        for what, *args_c, act in k6_cases:
+            out = mlp_int8_fused(*args_c, act=act)
+            ref = mlp_int8_fused(*args_c, act=act, impl="torch")
+            check(out.shape == ref.shape and torch.equal(out, ref),
+                  f"mlp_int8_fused {what}: kernel != plain in "
+                  f"{int((out != ref).sum())} elements")
+        say(f"phase 3 K6 mlp_int8_fused ragged M (1, 17, 127, 129, "
+            f"{EMBED_BATCH * 50 - 1}), f32 x at B/32 (both activations), "
+            f"[{x512.shape[0]},512]->2048 (both activations), "
+            f"[577,1024]->8192 f32: equal to plain in every element")
+        del mlp512, x512, mlp8k, x8k, k6_cases
         del g, px, packed, x
 
         # K10 / K11 at the LLaVA-v1.5-7B and 1.1B-draft cache shapes
@@ -1415,6 +1557,53 @@ def main() -> int:
             check(torch.equal(got, want_cross),
                   f"K9 {name} cross set != the planted leaks at "
                   f"{int((got != want_cross).sum())} rows")
+        # f32 rows holding f16 values, as the dedup command's f16 index gives
+        # them (their lo planes are zero), and rows of mixed magnitudes
+        x16 = dedup_x.half().float()
+        got = k9_equal(x16, x16, "f32 on f16 values intra", intra=True)
+        check(torch.equal(got, want_first),
+              f"K9 f32 on f16 values != the planted pairs at "
+              f"{int((got != want_first).sum())} rows")
+        mixed, want_mixed = mixed_magnitude_rows(dev, SEED + 2,
+                                                 DEDUP_TEST_ROWS)
+        got = k9_equal(mixed, mixed, "f32 mixed magnitudes intra", intra=True)
+        check(torch.equal(got, want_mixed),
+              f"K9 f32 mixed magnitudes != the planted copies at "
+              f"{int((got != want_mixed).sum())} rows")
+        k9_report.append(f"f32 on f16 values = planted; f32 "
+                         f"{DEDUP_TEST_ROWS}x{DIM} with entries down to 1e-6 "
+                         f"of the rest: {int((got >= 0).sum())} copies = "
+                         f"planted")
+        # copies 2e-6 either side of tau: the f32 route must decide each row
+        # as an f64 dot of the f32 rows does; bf16 rows (the hi.hi product
+        # alone) must not, or this check could not catch a lost plane
+        near = near_tau_rows(dev, SEED + 3, DEDUP_TEST_ROWS,
+                             (NEAR_TAU, -NEAR_TAU))
+        near_a = near[:DEDUP_TEST_ROWS // 2]
+        near_bad = []
+        for what, a, intra in (("intra", near, True), ("cross", near_a, False)):
+            want_near, clear = first_match_f64(a, near, intra, NEAR_TAU / 4)
+            check(bool(clear.all()), f"K9 near tau {what}: "
+                  f"{int((~clear).sum())} rows within {NEAR_TAU / 4} of tau")
+            for route in ("cuda", "torch"):
+                got = first_match(a, near, DEDUP_TAU, intra=intra, impl=route)
+                off = got != want_near
+                check(not bool(off.any()),
+                      f"K9 f32 near tau {what} ({route}) != the f64 decision "
+                      f"at {int(off.sum())} rows: "
+                      f"{int((off & (want_near >= 0)).sum())} with a copy "
+                      f"above tau, {int((off & (want_near < 0)).sum())} "
+                      f"without")
+            nb, ab = near.bfloat16(), a.bfloat16()
+            near_bad.append(int((first_match(ab, nb, DEDUP_TAU, intra=intra)
+                                 != want_near).sum()))
+        check(min(near_bad) > 0, "K9 near tau: bf16 rows decided every row "
+              "as f64 does, so the check cannot tell a lost plane")
+        k9_report.append(f"f32 with {DEDUP_TEST_ROWS // 8} copies at tau +- "
+                         f"{NEAR_TAU:g} = the f64 decision, intra and cross "
+                         f"(bf16 rows on the same data: {near_bad[0]} / "
+                         f"{near_bad[1]} rows differ)")
+        del x16, mixed, want_mixed, near, near_a
         del train, test_rows
         errs["first_match"] = 0.0       # ids: equal in every element
         say(f"phase 3 K9 first_match {DEDUP_ROWS}x{DIM} tau {DEDUP_TAU} "
@@ -2060,6 +2249,10 @@ def main() -> int:
         times["mlp_int8_fused"] = time_pair(
             lambda: mlp_int8_fused(*args),
             lambda: mlp_int8_fused(*args, impl="torch"), iters=20)
+        # the yardstick beside K6 (not its "Library" column: no one call
+        # computes K6's function): its two products through torch._int_mm
+        int_mm_ms = {"b32": int_mm_pair(x.shape[0], mlp.w1.q, mlp.w2.q, gen)}
+        k6_split = {"b32": k6_launch_ms(args)}
         embed = {}
         for name, tw in (("bf16", towers), ("int8", towers8)):
             embed[name] = time_pair(
@@ -2124,6 +2317,8 @@ def main() -> int:
         l14["mlp_int8_fused"] = time_pair(
             lambda: mlp_int8_fused(*args),
             lambda: mlp_int8_fused(*args, impl="torch"), iters=20)
+        int_mm_ms["l14"] = int_mm_pair(x.shape[0], mlp_l.w1.q, mlp_l.w2.q, gen)
+        k6_split["l14"] = k6_launch_ms(args)
         kv_times, kv_cache_len, (kv_start, kv_c, kv_lim) = \
             kv_attention_times(dev, gen, llava_ctx["prompt_len"])
         for name in ("chunk_attention", "decode_attention"):
@@ -2192,7 +2387,19 @@ def main() -> int:
         f"kernel {l14['mlp_int8_fused'][0]:.4f} ms, plain "
         f"{l14['mlp_int8_fused'][1]:.4f} ms, bound "
         f"{l14_bounds['mlp_int8_fused'][0]:.4f} ms "
-        f"({l14_bounds['mlp_int8_fused'][1]})")
+        f"({l14_bounds['mlp_int8_fused'][1]}); its two products through "
+        f"torch._int_mm {int_mm_ms['l14']:.4f} ms")
+    say(f"  K6 mlp_int8_fused [{EMBED_BATCH * 50},768]->3072 (ViT-B/32 "
+        f"int8): kernel {times['mlp_int8_fused'][0]:.4f} ms, plain "
+        f"{times['mlp_int8_fused'][1]:.4f} ms; its two products through "
+        f"torch._int_mm {int_mm_ms['b32']:.4f} ms (a yardstick: not one call "
+        f"computing K6's function)")
+    for shape, key in (("[11200,768]->3072", "b32"),
+                       ("[4616,1024]->4096", "l14")):
+        ms4 = k6_split[key]
+        say(f"  K6 {shape} launches alone: row-quantize x {ms4[0]:.4f} ms, "
+            f"x.w1 + activation {ms4[1]:.4f} ms, row-quantize h "
+            f"{ms4[2]:.4f} ms, h.w2 {ms4[3]:.4f} ms (sum {sum(ms4):.4f})")
     for (name, kind), (kms, pms, (bms, by), lib) in kv_times.items():
         shape = (f"decode step at pos {llava_ctx['prompt_len'] + 16}"
                  if name == "decode_attention" else
@@ -2254,17 +2461,24 @@ def main() -> int:
             2 * 2 * EMBED_BATCH * 50 * w_mlp, "int8"),
         "probe_buckets": probe_bound["bf16"],
         "probe_buckets_q4": probe_bound["int4"],
+        # f32 rows as the kernel runs them: six bf16 products of the exact
+        # hi/mid/lo split on the tensor cores
         "first_match": least_ms(DEDUP_ROWS * DIM * 4 + DEDUP_ROWS * 4,
-                                2 * DIM * pairs, "f32"),
+                                6 * 2 * DIM * pairs, "bf16"),
     }
     k9_bf16_bound = least_ms(DEDUP_ROWS * DIM * 2 + DEDUP_ROWS * 4,
                              2 * DIM * pairs, "bf16")
+    k9_fma_bound = least_ms(DEDUP_ROWS * DIM * 4 + DEDUP_ROWS * 4,
+                            2 * DIM * pairs, "f32")
     other_rung = {"first_match": ("bf16", k9_bf16_bound),
                   "probe_buckets": ("int8", probe_bound["int8"])}
     for name, (ms, by) in bounds.items():
         rung, (oms, oby) = other_rung.get(name, ("", (0.0, "")))
         say(f"  bound {name}: {ms:.4f} ms ({by})"
             + (f"; {rung} {oms:.4f} ms ({oby})" if rung else ""))
+    say(f"  bound first_match f32 on CUDA-core FMAs (the rate of the "
+        f"earlier FMA design, for comparison): {k9_fma_bound[0]:.4f} ms "
+        f"({k9_fma_bound[1]})")
 
     meta = {
         "cosine_topk": ("cuda", "mmrs_tpu_torch/csrc/cosine_topk.cu",
@@ -2295,15 +2509,20 @@ def main() -> int:
     extra = {"first_match": {   # ms/plain_ms/bound_ms above are f32's
         "bf16_ms": k9_ms["bf16"][0], "bf16_plain_ms": k9_ms["bf16"][1],
         "bf16_bound_ms": k9_bf16_bound[0],
+        "f32_fma_bound_ms": k9_fma_bound[0],
         "gpairs_s": {n: DEDUP_ROWS ** 2 / t[0] / 1e6
                      for n, t in k9_ms.items()}}}
     extra["cosine_topk"] = {"k300_ms": top300[0], "k300_plain_ms": top300[1],
                             "k300_bound_ms": b300[0]}
+    extra["mlp_int8_fused"] = {"int_mm_ms": int_mm_ms["b32"],
+                               "l14_int_mm_ms": int_mm_ms["l14"],
+                               "launch_ms": k6_split["b32"],
+                               "l14_launch_ms": k6_split["l14"]}
     for name in ("mha_short_seq", "mlp_int8_fused"):   # the L/14 shapes
-        extra[name] = {"l14_ms": l14[name][0], "l14_plain_ms": l14[name][1],
-                       "l14_bound_ms": l14_bounds[name][0],
-                       "l14_library_ms": l14_lib if name == "mha_short_seq"
-                       else None}
+        extra.setdefault(name, {}).update(
+            l14_ms=l14[name][0], l14_plain_ms=l14[name][1],
+            l14_bound_ms=l14_bounds[name][0],
+            l14_library_ms=l14_lib if name == "mha_short_seq" else None)
     for name in ("chunk_attention", "decode_attention"):  # ms: bf16 cache
         kms, pms, (bms, _), _ = kv_times[(name, "int8")]
         extra[name] = {"int8_ms": kms, "int8_plain_ms": pms,

@@ -10,15 +10,14 @@
 //
 // What bounds it on the H100: operations. At N = M = 131,072, D = 512 with
 // `intra` the triangle is 8.8 TFLOP: 8.9 ms at the 989 TFLOP/s bf16 tensor
-// rate, 131 ms at the 67 TFLOP/s f32 CUDA-core rate; its inputs are 134 MB
-// (bf16), 0.04 ms of device memory.
+// rate. f32 rows run six such products (below): 53.4 ms.
 //
 // Design. The TPU grid runs its column tiles in order and computes all of
 // them, carrying a running minimum in VMEM. Here one block owns a 128-row
-// tile and walks the 128-column tiles in ascending order itself, so a
-// row's first match is final as soon as it is found and the running
-// minimum stays in shared memory: no atomics across blocks, no merge pass,
-// a deterministic result. Two exits the TPU grid could not take, with the
+// tile and walks the column tiles in ascending order itself, so a row's
+// first match is final as soon as it is found and the running minimum
+// stays in shared memory: no atomics across blocks, no merge pass, a
+// deterministic result. Two exits the TPU grid could not take, with the
 // same function:
 //   - with `intra`, the walk stops at the first column tile that no row of
 //     the row tile may match (about half the work of the full square);
@@ -27,270 +26,272 @@
 // Block b takes row tile (tiles - 1 - b): the longest walks of the
 // triangle are launched first, so its tail does not idle the card.
 //
-// Arithmetic: sums are f32 in both kernels. bf16 inputs go through
-// mma.sync m16n8k16 bf16 -> f32 (exact products; only the order of the
-// sums differs from the reference). f32 inputs (what embedding dedup
-// passes) use FMAs on the CUDA cores with 8 x 8 register tiles, never
-// TF32, which keeps about three digits and would flip decisions near tau.
-// Each D chunk of the a and b tiles is staged in shared memory, the next
-// chunk loaded into registers meanwhile; ragged N, M and D are masked
-// (D % 8 == 0, so a 16-byte vector is wholly inside or outside a row).
-// TMA-fed tiles and wgmma are later work.
+// Products: two warpgroups, 64 rows each, run wgmma m64n256k16 bf16 -> f32
+// (each A row read once for all 256 columns). The walk is one stream of K steps
+// through a cp.async ring of A [128 rows] and B [256 rows] tiles in shared
+// memory (wgmma_common.cuh), running on from one column tile into the
+// next, one step's products in flight while the next step's are issued.
+// bf16 rows take K steps of 64 values (128-byte rows, 4 stages of 48 KB).
+// Ragged N, M and D are zero-filled on load (D % 8 == 0: a 16-byte chunk
+// lies wholly inside or outside a row) and masked in the epilogue (sim >=
+// tau, the intra bound, the lowest column per row reduced in registers
+// and across the row's four lanes). What binds: the tiles come from L2,
+// and every staged byte is written to and read from shared memory by
+// both warpgroups' products (B twice).
+//
+// f32 rows: split_kernel writes each row as three bf16 planes, hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (every subtraction
+// exact in f32, hi + mid + lo == x for normal values). A stage then holds
+// all three planes of A and of B at one K step of 32 values (64-byte rows,
+// 3 stages of 72 KB). A column tile's K is walked twice into one f32
+// sum: first the five correction products, smallest first: lo.hi, hi.lo,
+// mid.mid, mid.hi, hi.mid (each staged byte feeds up to two), then hi.hi
+// alone, a stage holding three K steps of the hi planes. The three
+// dropped products are at most 3 * 2^-24 * sum |a_i b_i|, below the
+// rounding of an f32 sum over D = 512. Products on tensor cores are exact,
+// but each wgmma's addition to the f32 accumulator drops low bits toward
+// zero, a fraction of an ulp of the running sum: issued after hi.hi at
+// every K step, the corrections were added to a sum near the score and
+// pulled scores near tau below it by a few 1e-6 (chip_smoke.py's near-tau
+// check fails on that). Summed first, they keep the accumulator about
+// 2^-8 of the score while they are added, and hi.hi adds D / 16
+// instructions, as the bf16 route does. Never TF32, which keeps about
+// three digits and would flip decisions near tau.
 
 #include "common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
-constexpr int kTile = 128;  // rows (and columns) of one tile
+constexpr int kTileM = 128;  // rows of a block: one m64 a warpgroup
+constexpr int kTileN = 256;  // columns of a walk step: one wgmma n256
 constexpr int kThreads = 256;
 constexpr int kNone = 0x7fffffff;
+// the planes (0 hi, 1 mid, 2 lo) of the f32 route's products, in the order
+// they are summed, smallest first, one 4-bit field each: the first five in
+// the first pass over K, hi.hi in the second
+constexpr uint32_t kPlaneA = 0x001102;  // lo, hi, mid, mid, hi, hi
+constexpr uint32_t kPlaneB = 0x010120;  // hi, lo, mid, hi, mid, hi
+
+// Geometry by input planes. bf16 rows (1): K steps of 64 values (128-byte
+// rows), 4 stages of 48 KB. f32 rows (3 planes: hi, mid, lo): K steps of
+// 32 values (64-byte rows), 3 stages of all planes' tiles, 72 KB each (in
+// the hi.hi pass, three K steps of the hi planes). Both keep one step's products in flight while the
+// next step's are issued, and load kStages - 2 steps ahead.
+template <int PLANES>
+struct Walk {
+  static constexpr int kRow = PLANES == 1 ? 128 : 64;  // bytes of K a tile row
+  static constexpr int kKStep = kRow / 2;              // bf16 values
+  static constexpr int kChunks = kRow / 16;            // 16-byte copies a row
+  static constexpr int kStages = PLANES == 1 ? 4 : 3;
+  static constexpr int kAhead = kStages - 2;           // steps loading ahead
+  static constexpr int kATile = kTileM * kRow;
+  static constexpr int kBTile = kTileN * kRow;
+  static constexpr int kStageBytes = PLANES * (kATile + kBTile);
+  static constexpr int kSmem = kStages * kStageBytes + mmrs::kTileAlign;
+};
 
 struct Problem {
   int n, m, d, intra;
   float tau;
   long long row_off, col_off;
+  long long a_plane, b_plane;  // elements from one plane to the next
 };
 
 // Columns [0, limit) may match a row of the tile starting at r0.
 __device__ __forceinline__ int column_limit(const Problem& p, int r0) {
   if (!p.intra) return p.m;
   // column j may match row i only if j < i + row_off - col_off
-  const long long lim = (long long)min(r0 + kTile, p.n) - 1 + p.row_off - p.col_off;
+  const long long lim = (long long)min(r0 + kTileM, p.n) - 1 + p.row_off - p.col_off;
   return (int)max(0LL, min((long long)p.m, lim));
 }
 
-__device__ __forceinline__ bool counts(const Problem& p, float sim, int row, int col) {
-  return sim >= p.tau && row < p.n && col < p.m &&
-         (!p.intra || col + p.col_off < row + p.row_off);
+// Columns [0, bound) may match row `row`: none past M, none for rows past
+// N, and under `intra` only global columns before the row's.
+__device__ __forceinline__ int row_bound(const Problem& p, int row) {
+  if (row >= p.n) return 0;
+  if (!p.intra) return p.m;
+  const long long lim = (long long)row + p.row_off - p.col_off;
+  return (int)max(0LL, min((long long)p.m, lim));
 }
 
-// After a column tile: every live row of the tile has its match.
-__device__ __forceinline__ bool tile_done(const Problem& p, int r0, const int* best0,
-                                          const int* best1) {
-  __syncthreads();
-  const int r = threadIdx.x;
-  const bool ok =
-      r >= kTile || r0 + r >= p.n || best0[r] != kNone || (best1 && best1[r] != kNone);
-  return __syncthreads_and(ok);
-}
+template <int PLANES>
+__global__ void __launch_bounds__(kThreads, 1)
+first_match_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+                   Problem p, int* __restrict__ out) {
+  using W = Walk<PLANES>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int best[kTileM];
+  const uint32_t raw = mmrs::shared_u32(smem_raw);
+  const uint32_t base = (raw + mmrs::kTileAlign - 1) & ~uint32_t(mmrs::kTileAlign - 1);
 
-// ---------------------------------------------------------------------------
-// f32 inputs: CUDA-core FMAs. Thread (ty, tx) of a 16 x 16 grid owns rows
-// {ty*4 .. ty*4+3, 64+ty*4 .. 64+ty*4+3} and the same columns from tx.
-constexpr int kChunk32 = 8;  // D per staged chunk
+  const int tiles = (p.n + kTileM - 1) / kTileM;
+  const int r0 = (tiles - 1 - (int)blockIdx.x) * kTileM;
+  const int tid = threadIdx.x;
+  if (tid < kTileM) best[tid] = kNone;
 
-__global__ void __launch_bounds__(kThreads)
-first_match_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, Problem p,
-                       int* __restrict__ out) {
-  __shared__ __align__(16) float As[kChunk32][kTile + 4];  // transposed tiles
-  __shared__ __align__(16) float Bs[kChunk32][kTile + 4];
-  __shared__ int best[kTile];
-
-  const int tiles = (p.n + kTile - 1) / kTile;
-  const int r0 = (tiles - 1 - (int)blockIdx.x) * kTile;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  if (tid < kTile) best[tid] = kNone;
-
-  // loader: one float4 of a and one of b per chunk; row tid / 2, k (tid & 1) * 4
-  const int lr = tid >> 1, lk = (tid & 1) * 4;
-  const bool a_live = r0 + lr < p.n;
-  const float* a_row = a + (size_t)(a_live ? r0 + lr : 0) * p.d + lk;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // K steps of a column tile. f32 rows walk K twice: first the five
+  // correction products from all planes (steps1), then hi.hi alone, three
+  // K steps of the hi planes a stage (see the f32 note above)
+  const int steps1 = (p.d + W::kKStep - 1) / W::kKStep;
+  const int steps = PLANES == 1 ? steps1 : steps1 + (p.d + 3 * W::kKStep - 1) / (3 * W::kKStep);
   const int limit = column_limit(p, r0);
+  const int col_tiles = (limit + kTileN - 1) / kTileN;
+  const long long total = (long long)col_tiles * steps;
 
-  for (int c0 = 0; c0 < limit; c0 += kTile) {
-    const bool b_live = c0 + lr < p.m;
-    const float* b_row = b + (size_t)(b_live ? c0 + lr : 0) * p.d + lk;
-    float acc[8][8];
+  // copies of the walk's next K step, in order: every plane's A [128 rows]
+  // and B [256 rows] tile, 16-byte chunks; stage layout: A planes, then B
+  // planes
+  long long loaded = 0;
+  int ld_c0 = 0, ld_k0 = 0, ld_s = 0;  // its column tile, K offset and step
+  auto load_next = [&]() {
+    const uint32_t sA = base + (uint32_t)(loaded % W::kStages) * W::kStageBytes;
+    const uint32_t sB = sA + PLANES * W::kATile;
+    const bool hi_only = PLANES == 3 && ld_s >= steps1;  // slot pl: hi at K + pl * kKStep
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < kTileN * W::kChunks / kThreads; ++i) {
+      const int id = tid + i * kThreads, r = id / W::kChunks, c = id % W::kChunks;
+      const bool ra = r0 + r < p.n, rb = ld_c0 + r < p.m;
+      const int at = mmrs::swizzled<W::kRow>(r, c);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    float4 ra = a_live ? __ldg(reinterpret_cast<const float4*>(a_row)) : zero;
-    float4 rb = b_live ? __ldg(reinterpret_cast<const float4*>(b_row)) : zero;
-    for (int k0 = 0; k0 < p.d; k0 += kChunk32) {
-      As[lk + 0][lr] = ra.x; As[lk + 1][lr] = ra.y; As[lk + 2][lr] = ra.z; As[lk + 3][lr] = ra.w;
-      Bs[lk + 0][lr] = rb.x; Bs[lk + 1][lr] = rb.y; Bs[lk + 2][lr] = rb.z; Bs[lk + 3][lr] = rb.w;
-      __syncthreads();
-      if (k0 + kChunk32 < p.d) {  // the next chunk is in flight during the FMAs
-        ra = a_live ? __ldg(reinterpret_cast<const float4*>(a_row + k0 + kChunk32)) : zero;
-        rb = b_live ? __ldg(reinterpret_cast<const float4*>(b_row + k0 + kChunk32)) : zero;
+      for (int pl = 0; pl < PLANES; ++pl) {
+        const int k = ld_k0 + 8 * c + (hi_only ? pl * W::kKStep : 0);
+        const long long plane = hi_only ? 0 : pl;
+        const bool va = k < p.d && ra, vb = k < p.d && rb;
+        const size_t ea = va ? (size_t)(r0 + r) * p.d + k : 0;
+        const size_t eb = vb ? (size_t)(ld_c0 + r) * p.d + k : 0;
+        if (i < kTileM * W::kChunks / kThreads)
+          mmrs::cp_async16(sA + pl * W::kATile + at, a + plane * p.a_plane + ea, va);
+        mmrs::cp_async16(sB + pl * W::kBTile + at, b + plane * p.b_plane + eb, vb);
       }
-#pragma unroll
-      for (int k = 0; k < kChunk32; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
     }
+    ++loaded;
+    ld_k0 += (hi_only ? 3 : 1) * W::kKStep;
+    if (++ld_s == steps1) ld_k0 = 0;
+    if (ld_s == steps) {
+      ld_s = ld_k0 = 0;
+      ld_c0 += kTileN;
+    }
+  };
 
-    // epilogue: each row's lowest matching column, over the 16 tx lanes of
-    // its half-warp, folded into best[] by lane tx == 0 (its only writer)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // this thread's two rows (local g + 8h of its warp's 16) and their bounds
+  const int rl[2] = {wg * 64 + warp * 16 + g, wg * 64 + warp * 16 + g + 8};
+  const int bound[2] = {row_bound(p, r0 + rl[0]), row_bound(p, r0 + rl[1])};
+
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int rl = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+  for (int s = 0; s < W::kAhead; ++s) {
+    if (loaded < total) load_next();
+    mmrs::cp_async_commit_group();
+  }
+  long long it = 0;
+  for (int ct = 0; ct < col_tiles; ++ct) {
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    mmrs::fence_regs(acc);
+    for (int kk = 0; kk < steps; ++kk, ++it) {
+      mmrs::cp_async_wait_group<W::kAhead - 1>();  // this thread's copies of step it landed
+      mmrs::fence_proxy_async();
+      // every copy of step it landed; every warpgroup's products of step
+      // it - 2 are done, so that step's stage may be refilled
+      __syncthreads();
+      if (loaded < total) load_next();  // step it + kAhead
+      mmrs::cp_async_commit_group();
+      const uint32_t sA = base + (uint32_t)(it % W::kStages) * W::kStageBytes;
+      const uint64_t da = mmrs::sw_desc<W::kRow>(sA + wg * 64 * W::kRow);
+      const uint64_t db = mmrs::sw_desc<W::kRow>(sA + PLANES * W::kATile);
+      mmrs::wgmma_fence();
+      if (PLANES == 1 || kk >= steps1) {  // bf16 rows; f32 rows' hi.hi, one a slot
+#pragma unroll
+        for (int pl = 0; pl < PLANES; ++pl)
+#pragma unroll
+          for (int j = 0; j < W::kRow / 32; ++j)
+            mmrs::wgmma_bf16_m64n256k16(acc, da + (pl * W::kATile >> 4) + 2 * j,
+                                        db + (pl * W::kBTile >> 4) + 2 * j);
+      } else {  // f32 rows' five correction products
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+          const int pa = (kPlaneA >> (4 * q)) & 0xf, pb = (kPlaneB >> (4 * q)) & 0xf;
+#pragma unroll
+          for (int j = 0; j < W::kRow / 32; ++j)
+            mmrs::wgmma_bf16_m64n256k16(acc, da + (pa * W::kATile >> 4) + 2 * j,
+                                        db + (pb * W::kBTile >> 4) + 2 * j);
+        }
+      }
+      mmrs::wgmma_commit();
+      mmrs::wgmma_wait<1>();  // step it - 1's products are done
+      mmrs::fence_regs(acc);
+    }
+    mmrs::wgmma_wait<0>();
+    mmrs::fence_regs(acc);
+
+    // epilogue: register 4j + 2h + e is row rl[h], column c0 + 8j + 2t + e;
+    // each row's lowest counting column over the row's four lanes, folded
+    // into best[] by lane t == 0 (its only writer)
+    const int c0 = ct * kTileN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       int cand = kNone;
 #pragma unroll
-      for (int j = 7; j >= 0; --j) {  // descending: the last hit is the lowest
-        const int col = c0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-        if (counts(p, acc[i][j], r0 + rl, col)) cand = col;
-      }
+      for (int j = kTileN / 8 - 1; j >= 0; --j) {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, off));
-      if (tx == 0 && cand < best[rl]) best[rl] = cand;
+        for (int e = 1; e >= 0; --e) {  // descending: the last hit is the lowest
+          const int col = c0 + 8 * j + 2 * t + e;
+          if (acc[4 * j + 2 * h + e] >= p.tau && col < bound[h]) cand = col;
+        }
+      }
+      cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, 1));
+      cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, 2));
+      if (t == 0 && cand < best[rl[h]]) best[rl[h]] = cand;
     }
-    if (tile_done(p, r0, best, nullptr)) break;
+    __syncthreads();
+    // every live row of the tile has its match: a later column cannot win
+    const bool ok = tid >= kTileM || r0 + tid >= p.n || best[tid] != kNone;
+    if (__syncthreads_and(ok)) break;
   }
-  __syncthreads();
-  if (tid < kTile && r0 + tid < p.n) out[r0 + tid] = best[tid] == kNone ? -1 : best[tid];
+  mmrs::cp_async_wait_group<0>();
+  if (tid < kTileM && r0 + tid < p.n) out[r0 + tid] = best[tid] == kNone ? -1 : best[tid];
 }
 
-// ---------------------------------------------------------------------------
-// bf16 inputs: tensor cores. Warp w computes rows (w & 3) * 32 .. +31 and
-// columns (w >> 2) * 64 .. +63 of the tile: 2 x 8 mma tiles of 16 x 8.
-constexpr int kChunk16 = 32;         // D per staged chunk (two k16 steps)
-constexpr int kLd = kChunk16 + 8;    // padded shared row: conflict-free fragments
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int PLANES>
+int walk(const void* a, const void* b, const Problem& p, void* out, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(first_match_kernel<PLANES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Walk<PLANES>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (p.n + kTileM - 1) / kTileM;
+  first_match_kernel<PLANES><<<blocks, kThreads, Walk<PLANES>::kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), p,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-first_match_bf16_kernel(const __nv_bfloat16* __restrict__ a,
-                        const __nv_bfloat16* __restrict__ b, Problem p,
-                        int* __restrict__ out) {
-  __shared__ __align__(16) __nv_bfloat16 As[kTile][kLd];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kTile][kLd];
-  __shared__ int best[2][kTile];  // per column half: one writer per entry
-
-  const int tiles = (p.n + kTile - 1) / kTile;
-  const int r0 = (tiles - 1 - (int)blockIdx.x) * kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  if (tid < kTile) best[0][tid] = best[1][tid] = kNone;
-
-  // loader: rows tid / 4 and 64 + tid / 4, eight bf16 at k (tid & 3) * 8
-  const int lr = tid >> 2, lk = (tid & 3) * 8;
-  bool a_live[2];
-  const __nv_bfloat16* a_row[2];
+// out[3, count] bf16 planes hi, mid, lo of x[count] f32 (count % 4 == 0,
+// 16-byte aligned): an elementwise pass, written in CUDA beside the kernel
+// that reads it (Triton would serve as well).
+__global__ void split_kernel(const float4* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                             long long count) {
+  const long long quads = count / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < quads;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[2] = {0u, 0u}, mid[2] = {0u, 0u}, lo[2] = {0u, 0u};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    a_live[h] = r0 + lr + 64 * h < p.n;
-    a_row[h] = a + (size_t)(a_live[h] ? r0 + lr + 64 * h : 0) * p.d + lk;
-  }
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const int limit = column_limit(p, r0);
-
-  for (int c0 = 0; c0 < limit; c0 += kTile) {
-    bool b_live[2];
-    const __nv_bfloat16* b_row[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      b_live[h] = c0 + lr + 64 * h < p.m;
-      b_row[h] = b + (size_t)(b_live[h] ? c0 + lr + 64 * h : 0) * p.d + lk;
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(f[j]);
+      const float r1 = __fsub_rn(f[j], __bfloat162float(h));
+      const __nv_bfloat16 md = __float2bfloat16_rn(r1);
+      const __nv_bfloat16 l = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(md)));
+      const int sh = 16 * (j & 1);  // the first of two values in the low half
+      hi[j >> 1] |= (uint32_t)__bfloat16_as_ushort(h) << sh;
+      mid[j >> 1] |= (uint32_t)__bfloat16_as_ushort(md) << sh;
+      lo[j >> 1] |= (uint32_t)__bfloat16_as_ushort(l) << sh;
     }
-    float acc[2][8][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-    uint4 ra[2], rb[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ra[h] = a_live[h] && lk < p.d ? __ldg(reinterpret_cast<const uint4*>(a_row[h])) : zero;
-      rb[h] = b_live[h] && lk < p.d ? __ldg(reinterpret_cast<const uint4*>(b_row[h])) : zero;
-    }
-    for (int k0 = 0; k0 < p.d; k0 += kChunk16) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        *reinterpret_cast<uint4*>(&As[lr + 64 * h][lk]) = ra[h];
-        *reinterpret_cast<uint4*>(&Bs[lr + 64 * h][lk]) = rb[h];
-      }
-      __syncthreads();
-      const int kn = k0 + kChunk16 + lk;  // this thread's next vector
-      if (k0 + kChunk16 < p.d) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          ra[h] = a_live[h] && kn < p.d
-                      ? __ldg(reinterpret_cast<const uint4*>(a_row[h] + k0 + kChunk16))
-                      : zero;
-          rb[h] = b_live[h] && kn < p.d
-                      ? __ldg(reinterpret_cast<const uint4*>(b_row[h] + k0 + kChunk16))
-                      : zero;
-        }
-      }
-#pragma unroll
-      for (int ks = 0; ks < kChunk16; ks += 16) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const __nv_bfloat16* r = &As[wm * 32 + mt * 16 + g][ks + 2 * t];
-          af[mt][0] = ld32(r);
-          af[mt][1] = ld32(r + 8 * kLd);
-          af[mt][2] = ld32(r + 8);
-          af[mt][3] = ld32(r + 8 * kLd + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const __nv_bfloat16* r = &Bs[wn * 64 + nt * 8 + g][ks + 2 * t];
-          const uint32_t bf[2] = {ld32(r), ld32(r + 8)};
-          mma_bf16(acc[0][nt], af[0], bf);
-          mma_bf16(acc[1][nt], af[1], bf);
-        }
-      }
-      __syncthreads();
-    }
-
-    // epilogue: accumulator e of tile (mt, nt) is row g + 8 * (e >> 1) of
-    // m-tile mt and column 2t + (e & 1) of n-tile nt; the four lanes of a
-    // group hold one row's 64 columns of this warp
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = wm * 32 + mt * 16 + 8 * h + g;
-        int cand = kNone;
-#pragma unroll
-        for (int nt = 7; nt >= 0; --nt) {
-#pragma unroll
-          for (int e = 1; e >= 0; --e) {  // descending: the last hit is the lowest
-            const int col = c0 + wn * 64 + nt * 8 + 2 * t + e;
-            if (counts(p, acc[mt][nt][2 * h + e], r0 + rl, col)) cand = col;
-          }
-        }
-        cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, 1));
-        cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, 2));
-        if (t == 0 && cand < best[wn][rl]) best[wn][rl] = cand;
-      }
-    }
-    if (tile_done(p, r0, best[0], best[1])) break;
-  }
-  __syncthreads();
-  if (tid < kTile && r0 + tid < p.n) {
-    const int v = min(best[0][tid], best[1][tid]);
-    out[r0 + tid] = v == kNone ? -1 : v;
+    *reinterpret_cast<uint2*>(out + 4 * i) = make_uint2(hi[0], hi[1]);
+    *reinterpret_cast<uint2*>(out + count + 4 * i) = make_uint2(mid[0], mid[1]);
+    *reinterpret_cast<uint2*>(out + 2 * count + 4 * i) = make_uint2(lo[0], lo[1]);
   }
 }
 
@@ -298,26 +299,41 @@ first_match_bf16_kernel(const __nv_bfloat16* __restrict__ a,
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32. The caller (mmrs_tpu_torch/ops/allpairs.py)
-// checks: CUDA, contiguous, one dtype, D % 8 == 0, 16-byte aligned rows,
-// 1 <= N, 0 <= M < 2^31.
-int mmrs_first_match(const void* a, const void* b, int n, int m, int d, float tau,
-                     int intra, long long row_off, long long col_off, int dtype, void* out,
+// Tile rows, tile columns, then the K step (bf16 values), ring stages and
+// dynamic shared memory of the bf16 and the f32 walks, for the caller's
+// plan (mmrs_tpu_torch/ops/allpairs.py: first_match_plan).
+int mmrs_first_match_geometry(int what) {
+  const int v[8] = {kTileM,          kTileN,           Walk<1>::kKStep, Walk<1>::kStages,
+                    Walk<1>::kSmem,  Walk<3>::kKStep,  Walk<3>::kStages, Walk<3>::kSmem};
+  return what >= 0 && what < 8 ? v[what] : -1;
+}
+
+// The hi/mid/lo bf16 planes [3, count] of count f32 values.
+int mmrs_split_bf16x3(const void* x, void* out, long long count, void* stream) {
+  if (count < 0 || count % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (count == 0) return 0;
+  const long long quads = count / 4;
+  const long long want = (quads + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  split_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<__nv_bfloat16*>(out), count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// planes == 1: a bf16 [N, D], b bf16 [M, D]; planes == 3: a [3, N, D] and b
+// [3, M, D], the hi/mid/lo planes of f32 rows. The caller (mmrs_tpu_torch/
+// ops/allpairs.py) checks: CUDA, contiguous, one dtype, D % 8 == 0, 16-byte
+// aligned rows, 1 <= N, 0 <= M < 2^31.
+int mmrs_first_match(const void* a, const void* b, int n, int m, int d, float tau, int intra,
+                     long long row_off, long long col_off, int planes, void* out,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || m < 0 || d <= 0 || d % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const Problem p{n, m, d, intra ? 1 : 0, tau, row_off, col_off};
-  const int blocks = (n + kTile - 1) / kTile;
-  if (dtype == 0)
-    first_match_bf16_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), p,
-        static_cast<int*>(out));
-  else if (dtype == 1)
-    first_match_f32_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), p, static_cast<int*>(out));
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const Problem p{n, m, d, intra ? 1 : 0, tau, row_off, col_off, (long long)n * d,
+                  (long long)m * d};
+  if (planes == 1) return walk<1>(a, b, p, out, s);
+  if (planes == 3) return walk<3>(a, b, p, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -57,13 +57,16 @@ _SIGNATURES = {
                           _I),
     "mmrs_topk_scan_q4": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                            _P), _I),
-    "mmrs_mlp_int8": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _P), _I),
+    "mmrs_mlp_int8_geometry": ((_I,), _I),
+    "mmrs_mlp_int8": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "mmrs_probe_scan": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                          _P, _P), _I),
     "mmrs_probe_scan_q4": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P), _I),
     "mmrs_probe_ids": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
+    "mmrs_first_match_geometry": ((_I,), _I),
+    "mmrs_split_bf16x3": ((_P, _P, _LL, _P), _I),
     "mmrs_first_match": ((_P, _P, _I, _I, _I, _F, _I, _LL, _LL, _I, _P, _P),
                          _I),
     "mmrs_decode_attention": ((_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,

@@ -1,23 +1,27 @@
-"""Fused int8 transformer MLP — Hopper CUDA kernel + plain PyTorch version.
+"""Int8 transformer MLP — Hopper CUDA kernels + plain PyTorch version.
 
 Counterpart of mmrs_tpu/ops/mlp_int8.py: one int8 MLP block, quantize ->
 int8 w1 -> bias, GELU -> quantize -> int8 w2 -> bias, for the int8 serving
-tower. The kernel (`csrc/mlp_int8.cu`) keeps the f32 hidden activations in
-shared memory; the plain version is `mlp_int8_reference`'s math in
-PyTorch: per-row int8 activation quantization (half to even), exact int8
-products, f32 rescale and bias, the activation in f32 (h is never rounded
-to bf16), and the output rounded once to x's dtype.
+tower. On the card (`csrc/mlp_int8.cu`) a call is four launches: a row
+quantization of x, an s8 tensor-core GEMM with w1 whose epilogue applies
+scales, bias and the activation and writes f32 h (and each row's max |h|
+per column tile) to device memory, a row quantization of h, and the same
+GEMM with w2 whose epilogue writes x's dtype. The plain version is `mlp_int8_reference`'s math in PyTorch:
+per-row int8 activation quantization (half to even), exact int8 products,
+f32 rescale and bias, the activation in f32 (h is never rounded to bf16),
+and the output rounded once to x's dtype. Both give the same bits.
 
 Weights are in the port's [out, in] layout: w1_q [H, W], w2_q [W, H], with
 per-output-channel f32 scales and biases.
 
-`mlp_int8_fused(..., impl=)`: "auto" (the kernel for CUDA tensors, the
+`mlp_int8_fused(..., impl=)`: "auto" (the kernels for CUDA tensors, the
 plain version for CPU tensors) or "torch" (the plain version anywhere).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,14 +29,17 @@ import torch.nn.functional as F
 from mmrs_tpu_torch.ops import _cuda
 from mmrs_tpu_torch.ops.int8 import int8_linear, quantize_act
 
-SMEM_LIMIT = 232448     # shared memory one block may use on Hopper
-_STATIC_SMEM = 256      # the kernel's static row scales and maxima
+# csrc/mlp_int8.cu's GEMM geometry (kTileM, kTileN, kStages, kSmemBytes),
+# checked against the built library at first load: 128 x 128 output
+# tiles, a ring of K steps of 128 bytes (an A and a B tile of 128-byte rows
+# a stage), plus the 1024-byte tile alignment
+TILE_M = 128
+TILE_N = 128
+STAGES = 3
+SMEM_BYTES = STAGES * (TILE_M + TILE_N) * 128 + 1024
+MAX_GRID_Y = 65535
 _ACT_CODE = {"quick_gelu": 0, "gelu": 1}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _activation(h: torch.Tensor, act: str) -> torch.Tensor:
@@ -48,21 +55,44 @@ def _mlp_int8_torch(x, w1_q, s1, b1, w2_q, s2, b2, act: str) -> torch.Tensor:
     return int8_linear(hq, sh, w2_q, s2, b2, x.dtype)
 
 
-def mlp_tile(w: int, h: int) -> Tuple[int, int, int, int, int]:
-    """(rows per block, x-code stride, f32 h stride, int8 h stride, dynamic
-    shared-memory bytes) for the kernel. Strides are padded so the MMA
-    operand loads and the f32 h stores hit distinct shared-memory banks;
-    the int8 h row fits inside the f32 one (the kernel quantizes h in
-    place). 16 rows (one MMA tile) where they fit, else 8."""
-    xs = _round_up(w, 128) + 32
-    hs = _round_up(h, 32) + 8
-    hqs = _round_up(h, 128) + 32
-    for rows in (16, 8):
-        smem = rows * (4 * hs + xs)
-        if smem + _STATIC_SMEM <= SMEM_LIMIT:
-            return rows, xs, hs, hqs, smem
-    raise ValueError(f"mlp_int8 kernel: W={w}, H={h} needs {smem} bytes of "
-                     f"shared memory at 8 rows (limit {SMEM_LIMIT})")
+class MlpPlan(NamedTuple):
+    tile_m: int           # rows of a GEMM block (two warpgroups of 64)
+    tile_n: int           # output columns of a GEMM block (one wgmma n128)
+    stages: int           # cp.async ring depth, K steps of 128 bytes
+    h_shape: Tuple[int, int]     # the f32 h buffer [M, H] (its int8 codes alike)
+    hmax_shape: Tuple[int, int]  # each row's max |h| per column tile of x.w1
+
+
+def mlp_plan(m: int, w: int, h: int) -> MlpPlan:
+    """Launch shape of the kernels for x [m, w], w1 [h, w], w2 [w, h]: two
+    s8 GEMMs of 128 x 128 output tiles fed by a 3-stage ring, with f32 h
+    [m, h], its per-tile row maxima and the int8 codes of x and h in device
+    memory between them. Refuses, with a message, what they cannot run: W
+    or H not a multiple of 32 (whole 16-byte chunks of both operands,
+    4-value row quantization), M < 1, or more than 65,535 column tiles."""
+    if w % 32 or h % 32 or w < 32 or h < 32:
+        raise ValueError(f"mlp_int8 kernel needs W % 32 == 0 and H % 32 == "
+                         f"0 (32-byte K steps), got W={w}, H={h}")
+    if not 1 <= m < 2 ** 31:
+        raise ValueError(f"mlp_int8 kernel needs 1 <= M < 2^31, got M={m}")
+    if -(-max(w, h) // TILE_N) > MAX_GRID_Y:
+        raise ValueError(f"mlp_int8 kernel: W={w}, H={h} need more than "
+                         f"{MAX_GRID_Y} column tiles of {TILE_N}")
+    return MlpPlan(TILE_M, TILE_N, STAGES, (m, h), (m, -(-h // TILE_N)))
+
+
+@lru_cache(maxsize=None)
+def _library():
+    """The kernel library, after checking that its GEMM geometry is the one
+    `mlp_plan` describes."""
+    lib = _cuda.library()
+    built = tuple(lib.mmrs_mlp_int8_geometry(i) for i in range(4))
+    want = (TILE_M, TILE_N, STAGES, SMEM_BYTES)
+    if built != want:
+        raise RuntimeError(
+            f"csrc/mlp_int8.cu has (kTileM, kTileN, kStages, kSmemBytes) = "
+            f"{built}, but ops/mlp_int8.py plans for {want}")
+    return lib
 
 
 def _mlp_int8_cuda(x, w1_q, s1, b1, w2_q, s2, b2, act: str) -> torch.Tensor:
@@ -83,23 +113,41 @@ def _mlp_int8_cuda(x, w1_q, s1, b1, w2_q, s2, b2, act: str) -> torch.Tensor:
             t.dtype != torch.float32 for t in (s1, b1, s2, b2)):
         raise ValueError("mlp_int8 kernel takes int8 weights and f32 "
                          "scales and biases")
-    if w % 32 or h % 32:
-        raise ValueError(f"mlp_int8 kernel needs W % 32 == 0 and H % 32 == "
-                         f"0 (32-wide MMA steps), got W={w}, H={h}")
-    if not 1 <= m < 2 ** 31 // 16:
-        raise ValueError(f"mlp_int8 kernel needs 1 <= M < 2^27, got M={m}")
+    plan = mlp_plan(m, w, h)
     if w1_q.data_ptr() % 16 or w2_q.data_ptr() % 16:
         raise ValueError("mlp_int8 kernel needs 16-byte aligned weights")
-    rows, xs, hs, hqs, smem = mlp_tile(w, h)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _cuda.check(_cuda.library().mmrs_mlp_int8(
-            x.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-            w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            m, w, h, rows, xs, hs, hqs, smem, _DTYPE_CODE[x.dtype],
-            _ACT_CODE[act], _cuda.stream_of(x)), "mlp_int8")
+    _launch(x, w1_q, s1, b1, w2_q, s2, b2, act, out, _scratch(x, plan))
     mlp_int8_fused.launches += 1
     return out
+
+
+def _scratch(x: torch.Tensor, plan: MlpPlan) -> Tuple[torch.Tensor, ...]:
+    """The buffers between the four launches: the codes and row scales of
+    x, f32 h and its per-tile row maxima, the codes and row scales of h."""
+    m, w = x.shape
+    dev = x.device
+    return (torch.empty((m, w), dtype=torch.int8, device=dev),
+            torch.empty((m,), dtype=torch.float32, device=dev),
+            torch.empty(plan.h_shape, dtype=torch.float32, device=dev),
+            torch.empty(plan.hmax_shape, dtype=torch.float32, device=dev),
+            torch.empty(plan.h_shape, dtype=torch.int8, device=dev),
+            torch.empty((m,), dtype=torch.float32, device=dev))
+
+
+def _launch(x, w1_q, s1, b1, w2_q, s2, b2, act, out, scratch,
+            only: int = -1) -> None:
+    """The four launches on checked inputs, or (`only` 0-3) one of them
+    alone on the scratch a whole call left (for timing a launch)."""
+    xq, sx, hbuf, hmax, hq, sh = scratch
+    (m, w), h = x.shape, w1_q.shape[0]
+    with torch.cuda.device(x.device):
+        _cuda.check(_library().mmrs_mlp_int8(
+            x.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), hbuf.data_ptr(), hmax.data_ptr(),
+            hq.data_ptr(), sh.data_ptr(), m, w, h, _DTYPE_CODE[x.dtype],
+            _ACT_CODE[act], only, _cuda.stream_of(x)), "mlp_int8")
 
 
 def mlp_int8_fused(
@@ -124,4 +172,4 @@ def mlp_int8_fused(
     return _mlp_int8_cuda(x, w1_q, s1, b1, w2_q, s2, b2, act)
 
 
-mlp_int8_fused.launches = 0   # kernel launches, for showing the path ran it
+mlp_int8_fused.launches = 0   # calls that launched the kernels (four a call)

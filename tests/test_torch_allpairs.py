@@ -197,3 +197,151 @@ def test_kernel_path_refuses_cpu_tensors_and_unknown_impl():
         allpairs.first_match(a, a, 0.5, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         allpairs.first_match(a, a, 0.5, impl="pallas")
+
+
+# -- the kernel's f32 route: an exact bf16 split, six products ------------------
+
+def _mixed_rows(seed, n, d, spread):
+    """f32 rows, a quarter of whose entries are scaled by 10^(-spread u),
+    u uniform in [0, 1): magnitudes down to 10^-spread of the rest."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d))
+    scale = np.where(rng.random((n, d)) < 0.25,
+                     10.0 ** (-spread * rng.random((n, d))), 1.0)
+    x *= scale
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,n,d,spread", [
+    (0, 256, 512, 0), (1, 128, 768, 6), (2, 64, 40, 12), (3, 1, 8, 30)])
+def test_split_bf16x3_sums_back_to_the_row_bit_for_bit(seed, n, d, spread):
+    x = _mixed_rows(seed, n, d, spread)
+    planes = allpairs.split_bf16x3(torch.from_numpy(x))
+    assert planes.dtype == torch.bfloat16 and planes.shape == (3, n, d)
+    hi, mid, lo = planes.float()
+    assert torch.equal((hi + mid) + lo, torch.from_numpy(x))
+    # each plane is the rounding of what the ones before it leave
+    assert torch.equal(hi, torch.from_numpy(x).bfloat16().float())
+    r1 = torch.from_numpy(x) - hi
+    assert torch.equal(mid, r1.bfloat16().float())
+    assert torch.equal(lo, (r1 - mid).bfloat16().float())
+
+
+def test_split_products_are_six_of_the_nine_smallest_first():
+    prods = allpairs.SPLIT_PRODUCTS
+    assert len(prods) == 6 == len(set(prods))
+    # dropped: mid.lo, lo.mid, lo.lo; plane i is about 2^-8i of the row
+    assert set(prods) == {(i, j) for i in range(3) for j in range(3)
+                          if i + j <= 2}
+    order = [i + j for i, j in prods]
+    assert order == sorted(order, reverse=True)
+
+
+@pytest.mark.parametrize("seed,n,m,d,spread", [
+    (0, 64, 80, 512, 0), (1, 48, 48, 768, 6), (2, 40, 24, 8, 6),
+    (3, 32, 32, 512, 12)])
+def test_six_term_dot_is_within_the_bound_of_an_f64_dot(seed, n, m, d,
+                                                        spread):
+    a = _mixed_rows(seed, n, d, spread)
+    b = _mixed_rows(seed + 100, m, d, spread)
+    pa = allpairs.split_bf16x3(torch.from_numpy(a)).double().numpy()
+    pb = allpairs.split_bf16x3(torch.from_numpy(b)).double().numpy()
+    six = sum(pa[i] @ pb[j].T for i, j in allpairs.SPLIT_PRODUCTS)
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    bound = 3 * 2.0 ** -24 * (np.abs(a.astype(np.float64))
+                              @ np.abs(b.astype(np.float64)).T)
+    assert (np.abs(six - exact) <= bound).all()
+    # the gap is the three dropped products, and bf16 products are exact
+    dropped = sum(pa[i] @ pb[j].T for i in range(3) for j in range(3)
+                  if (i, j) not in allpairs.SPLIT_PRODUCTS)
+    np.testing.assert_allclose(six + dropped, exact, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("n,m,d,dtype,planes,k_step", [
+    (131_072, 131_072, 512, torch.float32, 3, 32),    # dedup bench
+    (131_072, 16_384, 512, torch.float32, 3, 32),     # leakage
+    (131_072, 131_072, 512, torch.bfloat16, 1, 64),
+    (577, 300, 768, torch.float32, 3, 32),
+    (1, 0, 8, torch.bfloat16, 1, 64),
+])
+def test_first_match_plan_accepts_what_the_kernel_runs(n, m, d, dtype,
+                                                       planes, k_step):
+    plan = allpairs.first_match_plan(n, m, d, dtype)
+    assert (plan.planes, plan.k_step) == (planes, k_step)
+    assert (plan.tile_m, plan.tile_n) == (128, 256)
+    # a ring stage holds every plane's A and B tile; the ring and the
+    # 1024-byte tile alignment fit an SM's 227 KB of shared memory
+    smem = allpairs.SMEM_BYTES[planes]
+    assert smem == plan.stages * planes * (128 + 256) * 2 * k_step + 1024
+    assert smem <= 232448
+
+
+@pytest.mark.parametrize("n,m,d,dtype,match", [
+    (10, 10, 12, torch.float32, "D % 8"),
+    (10, 10, 4, torch.bfloat16, "D % 8"),
+    (10, 10, 16, torch.float16, "f32 or bf16"),
+    (2 ** 31, 10, 16, torch.float32, "N, M < 2"),
+    (10, 2 ** 31, 16, torch.bfloat16, "N, M < 2"),
+])
+def test_first_match_plan_refuses_what_the_kernel_cannot_run(n, m, d, dtype,
+                                                             match):
+    with pytest.raises(ValueError, match=match):
+        allpairs.first_match_plan(n, m, d, dtype)
+
+
+# -- decisions near tau: the f32 route must keep f32 precision ---------------------
+
+def _near_tau_rows(seed, n, d, margin):
+    """f32 unit rows with n // 8 copies at cosines f32(0.99) + margin and
+    - margin in turn: made in f64 and rounded once to f32, which moves a
+    cosine by about 1e-8."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    perm = rng.permutation(n)
+    p = n // 8
+    src, dup = perm[:p], perm[p:2 * p]
+    cos = float(np.float32(0.99)) + margin * np.where(np.arange(p) % 2, -1, 1)
+    z = rng.standard_normal((p, d))
+    z -= (z * x[src]).sum(1, keepdims=True) * x[src]
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    x[dup] = cos[:, None] * x[src] + np.sqrt(1 - cos * cos)[:, None] * z
+    return x.astype(np.float32)
+
+
+def _intra_first(scores, band=0.0):
+    """Keep-first first match of an [n, n] score matrix at f32(0.99), and
+    the rows no earlier score within `band` of tau leaves undecided."""
+    tau = float(np.float32(0.99))
+    n = scores.shape[0]
+    counts = np.arange(n)[None, :] < np.arange(n)[:, None]
+    hit = counts & (scores >= tau)
+    first = np.where(hit.any(1), hit.argmax(1), -1)
+    clear = ~(counts & (np.abs(scores - tau) <= band)).any(1)
+    return first, clear
+
+
+@pytest.mark.parametrize("seed,d", [(0, 512), (1, 768)])
+def test_near_tau_pairs_tell_f32_sums_from_shorter_ones(seed, d):
+    """Copies 2e-6 either side of tau: the plain version's f32 sums and the
+    kernel's six plane products (exact products, summed here in f64) decide
+    every row as the f64 dot does; bf16 rows (hi.hi alone) and a sum
+    without hi.mid do not, so a check on these rows catches a kernel that
+    loses f32 precision."""
+    x = _near_tau_rows(seed, 1024, d, 2e-6)
+    x64 = x.astype(np.float64)
+    want, clear = _intra_first(x64 @ x64.T, band=5e-7)
+    assert clear.all() and (want >= 0).sum() >= 1024 // 16
+    t = torch.from_numpy(x)
+    got = allpairs.first_match(t, t, 0.99, intra=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    planes = allpairs.split_bf16x3(t).double().numpy()
+    six = sum(planes[i] @ planes[j].T for i, j in allpairs.SPLIT_PRODUCTS)
+    np.testing.assert_array_equal(_intra_first(six)[0], want)
+    five = six - planes[0] @ planes[1].T
+    assert (_intra_first(five)[0] != want).any()
+    hi = planes[0]
+    assert (_intra_first(hi @ hi.T)[0] != want).any()
+    b = t.bfloat16()
+    assert (allpairs.first_match(b, b, 0.99, intra=True).numpy()
+            != want).any()

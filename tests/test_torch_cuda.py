@@ -23,6 +23,7 @@ a probability, 2^-8 at most, times |v| < 5), 99% of the outputs to 1e-4.
 
 from functools import lru_cache
 
+import numpy as np
 import pytest
 import torch
 
@@ -266,6 +267,31 @@ def test_mlp_int8_kernel_matches_plain(dev, m, w, h, dtype, act):
     assert torch.equal(out, ref), int((out != ref).sum())
 
 
+@pytest.mark.parametrize("m,w,h", [
+    (1, 512, 2048), (16, 512, 2048), (17, 512, 2048), (129, 512, 2048),
+    (4616, 1024, 4096),                       # L/14-336: 8 x 577 rows
+    (129, 96, 384),                           # ragged column tiles
+    (577, 1024, 8192),                        # 32 KB f32 h rows
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_mlp_int8_kernel_ragged_rows_match_plain(dev, m, w, h, dtype, act):
+    """Row counts that leave the last 128-row GEMM tile ragged (or a lone
+    row): rows past M are neither read nor written, and every element
+    equals the plain version."""
+    w1, w2 = _mlp_weights(w, h, dev, seed=m + w)
+    x = _mlp_input(m + 1, w, dtype, dev, seed=m)[1:] if m > 1 else \
+        _mlp_input(2, w, dtype, dev, seed=m)[:1]
+    args = (x.contiguous(), w1.q, w1.s, w1.bias, w2.q, w2.s, w2.bias)
+    before = mlp_int8_fused.launches
+    out = mlp_int8_fused(*args, act=act)
+    torch.cuda.synchronize()
+    assert mlp_int8_fused.launches == before + 1
+    ref = mlp_int8_fused(*args, act=act, impl="torch")
+    assert out.dtype == dtype and out.shape == (m, w)
+    assert torch.equal(out, ref), int((out != ref).sum())
+
+
 def test_mlp_int8_kernel_rejects_what_it_cannot_run(dev):
     w1, w2 = _mlp_weights(96, 384, dev, seed=0)
     x = torch.randn((5, 96), device=dev).bfloat16()
@@ -499,6 +525,92 @@ def test_first_match_kernel_early_exit_and_masks(dev):
     v = x[:1]
     assert first_match(-v.repeat(5, 1), v, -0.5).tolist() == [-1] * 5
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64, 512, 768])
+@pytest.mark.parametrize("n,m", [(1000, 777), (129, 257), (257, 1)])
+def test_first_match_kernel_ragged_shapes_match_plain(dev, dtype, d, n, m):
+    """Ragged N and M against every column tile width and K step, cross
+    set and intra with offsets (rows n.. of the set against columns
+    m..)."""
+    x, _ = _planted_rows(n + m, d, dev, seed=n + m + d)
+    x = x.to(dtype)
+    _k9(x[:n], x[n:])
+    _k9(x[m:m + n], x[:m], intra=True, row_offset=m)
+    _k9(x[:n], x[:n], intra=True)
+
+
+def test_first_match_kernel_f32_exact_split_inputs(dev):
+    """f32 rows whose bf16 lo planes are zero (f16 values, as the dedup
+    command's f16 index gives them), and rows whose entries span
+    magnitudes down to 1e-6 of the rest: ids equal to plain."""
+    x, g = _planted_rows(3000, 512, dev, seed=11)
+    _k9(x.half().float(), x.half().float(), intra=True)
+    # copies planted after the scaling, at exactly 0.995
+    y = torch.randn(x.shape, device=dev, generator=g)
+    y *= torch.where(torch.rand(x.shape, device=dev, generator=g) < 0.25,
+                     10.0 ** (-6 * torch.rand(x.shape, device=dev,
+                                              generator=g)), 1.0)
+    y /= y.norm(dim=1, keepdim=True)
+    y[1000:1100] = _near(y[:100], 0.995, g)
+    got = _k9(y, y, intra=True)
+    assert bool((got[1000:1100] >= 0).all())
+
+
+def _near_tau_rows(n, d, dev, seed, margin):
+    """f32 unit rows with n // 8 copies at cosines f32(0.99) + margin and
+    - margin in turn, made in f64 and rounded once to f32 (which moves a
+    cosine by about 1e-8)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), device=dev, dtype=torch.float64, generator=g)
+    x /= x.norm(dim=1, keepdim=True)
+    pos = torch.randperm(n, device=dev, generator=g)
+    p = n // 8
+    src, dup = pos[:p], pos[p:2 * p]
+    sign = 1.0 - 2.0 * (torch.arange(p, device=dev) % 2)
+    cos = (float(np.float32(0.99)) + margin * sign)[:, None].double()
+    z = torch.randn((p, d), device=dev, dtype=torch.float64, generator=g)
+    z -= (z * x[src]).sum(1, keepdim=True) * x[src]
+    z /= z.norm(dim=1, keepdim=True)
+    x[dup] = cos * x[src] + (1.0 - cos * cos) ** 0.5 * z
+    return x.float()
+
+
+def _first_f64(a, b, intra, band=5e-7):
+    """First match at f32(0.99) from f64 dots of the f32 rows, and the rows
+    no counting score within `band` of tau leaves undecided."""
+    tau = float(np.float32(0.99))
+    s = a.double() @ b.double().T
+    counts = torch.ones_like(s, dtype=torch.bool)
+    if intra:
+        idx = torch.arange(a.shape[0], device=a.device)
+        counts = idx[None, :b.shape[0]] < idx[:, None]
+    hit = counts & (s >= tau)
+    cols = torch.arange(b.shape[0], device=a.device)
+    first = torch.where(hit, cols[None, :], b.shape[0]).amin(dim=1)
+    first = torch.where(first < b.shape[0], first, -1).int()
+    return first, ~(counts & ((s - tau).abs() <= band)).any(dim=1)
+
+
+@pytest.mark.parametrize("d", [512, 768])
+def test_first_match_kernel_f32_keeps_f32_precision_near_tau(dev, d):
+    """Copies 2e-6 either side of tau: the f32 route (six bf16 plane
+    products) decides every row as an f64 dot does, intra and cross set;
+    bf16 rows (the hi.hi product alone) do not, so this catches an f32
+    route that loses a plane."""
+    x = _near_tau_rows(4000, d, dev, seed=d, margin=2e-6)
+    want, clear = _first_f64(x, x, True)
+    assert bool(clear.all()) and int((want >= 0).sum()) >= 4000 // 16
+    got = _k9(x, x, intra=True)
+    assert torch.equal(got, want), int((got != want).sum())
+    a = x[1000:3000]
+    want_c, clear_c = _first_f64(a, x, False)
+    assert bool(clear_c.all())
+    got = _k9(a, x)
+    assert torch.equal(got, want_c), int((got != want_c).sum())
+    b = x.bfloat16()
+    assert bool((first_match(b, b, 0.99, intra=True) != want).any())
 
 
 def test_first_match_kernel_rejects_what_it_cannot_run(dev):

@@ -174,15 +174,46 @@ def test_mlp_int8_plain_matches_jax_kernel(act, m, dtype):
 
 
 def test_mlp_tile_fits_hopper_shared_memory():
-    for (w, h), rows in (((768, 3072), 16), ((1024, 4096), 8),
-                         ((64, 256), 16), ((128, 512), 16)):
-        got, xs, hs, hqs, smem = mlp_int8.mlp_tile(w, h)
-        assert got == rows and smem + 256 <= mlp_int8.SMEM_LIMIT
-        assert xs >= w and hs >= h and hqs >= h
-        assert hqs <= 4 * hs               # int8 h fits inside f32 h rows
-        assert (xs // 4) % 32 == 8 and (hqs // 4) % 32 == 8 and hs % 32 == 8
-    with pytest.raises(ValueError, match="shared memory"):
-        mlp_int8.mlp_tile(1024, 8192)
+    """The kernels' GEMM block fits Hopper's shared memory twice an SM (one
+    block's epilogue runs under the other's products)."""
+    ring = mlp_int8.STAGES * (mlp_int8.TILE_M + mlp_int8.TILE_N) * 128
+    assert mlp_int8.SMEM_BYTES == ring + 1024
+    assert 2 * (mlp_int8.SMEM_BYTES + 1024) <= 233472   # + 1 KB reserved each
+    for (w, h) in ((768, 3072), (1024, 4096), (64, 256), (512, 2048)):
+        plan = mlp_int8.mlp_plan(300, w, h)
+        assert (plan.tile_m, plan.tile_n, plan.stages) == (
+            mlp_int8.TILE_M, mlp_int8.TILE_N, mlp_int8.STAGES)
+    with pytest.raises(ValueError, match="W % 32"):
+        mlp_int8.mlp_plan(300, 1024, 8200)
+
+
+@pytest.mark.parametrize("m,w,h,grid1,grid2", [
+    (224 * 50, 768, 3072, (88, 24), (88, 6)),     # ViT-B/32 serving batch
+    (8 * 577, 1024, 4096, (37, 32), (37, 8)),     # L/14-336, verifier pack
+    (11200 - 1, 512, 2048, (88, 16), (88, 4)),    # W/H = 512/2048
+    (1, 768, 3072, (1, 24), (1, 6)),
+    (129, 96, 384, (2, 3), (2, 1)),               # ragged column tiles
+])
+def test_mlp_plan_accepts_the_served_shapes(m, w, h, grid1, grid2):
+    """grid1 / grid2: the GEMM blocks (row tiles, column tiles) of x.w1 and
+    of h.w2 that the plan's tiles give."""
+    plan = mlp_int8.mlp_plan(m, w, h)
+    assert (plan.tile_m, plan.tile_n, plan.stages) == (128, 128, 3)
+    for grid, cols in ((grid1, h), (grid2, w)):
+        assert grid == (-(-m // plan.tile_m), -(-cols // plan.tile_n))
+    assert grid1[0] * 128 >= m > (grid1[0] - 1) * 128  # ragged M: one tile more
+    # f32 h [M, H] and each row's max |h| per column tile of x.w1
+    assert plan.h_shape == (m, h) and plan.hmax_shape == (m, grid1[1])
+
+
+@pytest.mark.parametrize("m,w,h,match", [
+    (16, 80, 384, "W % 32"), (16, 768, 3000, "H % 32"), (16, 16, 64, "W % 32"),
+    (0, 768, 3072, "1 <= M"), (2 ** 31, 768, 3072, "1 <= M"),
+    (16, 768, 65536 * 256, "column tiles"),
+])
+def test_mlp_plan_refuses_what_the_kernel_cannot_run(m, w, h, match):
+    with pytest.raises(ValueError, match=match):
+        mlp_int8.mlp_plan(m, w, h)
 
 
 # -- the int8 tower ------------------------------------------------------------------

@@ -202,6 +202,51 @@ def time_pair(kernel_fn, plain_fn, iters: int = 10, warmup: int = 3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def spread_ms(fn, iters: int = 50, warmup: int = 3):
+    """(min, median, max) ms of single calls of fn, each between its own
+    pair of CUDA events: how far one call's time moves within a run."""
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sorted(start.elapsed_time(end) for start, end in events)
+    return ms[0], ms[len(ms) // 2], ms[-1]
+
+
+def graph_ms(fn, n: int = 20, reps: int = 20):
+    """(mean, min, median, max) ms of one call of fn on the card alone:
+    n calls captured in a CUDA graph, each replay timed by CUDA events and
+    divided by n, so the host's dispatch of a small kernel (tens of us a
+    call through the Python wrapper) is not timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sorted(start.elapsed_time(end) / n for start, end in events)
+    return sum(ms) / reps, ms[0], ms[reps // 2], ms[-1]
+
+
 def int_mm_pair(m: int, w1_q: torch.Tensor, w2_q: torch.Tensor, gen) -> float:
     """ms of an int8 MLP's two products through torch._int_mm (cuBLAS) on
     [m, W] and [m, H] int8 codes, int32 out: a yardstick the port never
@@ -1021,17 +1066,44 @@ def kv_attention_checks(dev, gen):
                 f"C={'/'.join(str(c[0]) for c in cases)} (window 640, 64; "
                 f"per-row starts) max|d| {e10:.3e}; limit {KV_ATTN_TOL}")
             del k, ks, v, vs
+        # C.2: the draft's head shape at S = 8192, past one block's shared
+        # memory in the single-block design (its own generator: the later
+        # phases draw the same data as before this case was added)
+        s_long, g2 = 8192, torch.Generator(device=dev).manual_seed(SEED + 8)
+        k, ks, v, vs = kv_cache(dev, g2, 1, LLAVA_B, 4, s_long, 64,
+                                quantized)
+        view = (k[0], None if ks is None else ks[0], v[0],
+                None if vs is None else vs[0])
+        q1 = torch.randn((LLAVA_B, 4, 8, 64), device=dev,
+                         generator=g2).to(torch.bfloat16)
+        rows = torch.randint(0, s_long, (LLAVA_B,), device=dev,
+                             generator=g2)
+        e11 = max(attn_err(decode_attention(q1, *view, p),
+                           decode_attention(q1, *view, p, impl="torch"),
+                           f"K11 draft {kind} S={s_long} pos {p}")
+                  for p in (s_long - 1, 3000, rows))
+        errs["decode_attention"] = max(errs["decode_attention"], e11)
+        lines.append(
+            f"phase 3 K11 draft {kind} cache [1,{LLAVA_B},4,{s_long},64] "
+            f"G=8: pos {s_long - 1} / 3000 / per row max|d| {e11:.3e}; "
+            f"limit {KV_ATTN_TOL}")
+        del k, ks, v, vs
     return errs, lines
 
 
 def kv_attention_times(dev, gen, prompt_len: int):
     """Phase 6 for K10 / K11 at the 7B verify pack's shapes (B=8, 32 kv
     heads, HD=128, the cache of this run's prompt): the middle decode step
-    (K11) and the last prefill chunk (K10), bf16 and int8 caches, kernel
-    and plain in turns, each beside its bound and (bf16) PyTorch's
+    (K11, also at the draft's head shape: 4 kv heads, G=8, HD=64) and the
+    last prefill chunk (K10), bf16 and int8 caches, kernel and plain in
+    turns, each beside its bound and (bf16) PyTorch's
     scaled_dot_product_attention on the same inputs with a boolean
-    key_pos <= q_pos mask. {(name, kind): (ms, plain ms, (bound ms, by),
-    library ms or None)}."""
+    key_pos <= q_pos mask. K11 and its SDPA yardstick are timed on the
+    card alone (`graph_ms`), K10 and the plain versions eagerly.
+    {(name, kind): (ms, plain ms, (bound ms, by), library ms or None)}
+    with name "decode_draft" for the draft's K11; ({(name, kind): (min,
+    median, max) ms of a K11 call across graph replays}, {(name, kind):
+    ms of an eager K11 call})."""
     from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
                                                      decode_attention,
                                                      hd_scale)
@@ -1039,7 +1111,43 @@ def kv_attention_times(dev, gen, prompt_len: int):
     b, kvh, hd = LLAVA_B, 32, 128
     cache_len = -(-(prompt_len + LLAVA_MAX_NEW) // 64) * 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {}
+    out, spreads, eager = {}, {}, {}
+    # K11: decode step 16 attends to pos + 1 keys per row
+    pos = prompt_len + LLAVA_MAX_NEW // 2
+    n = pos + 1
+    dmask = (torch.arange(cache_len, device=dev) <= pos)[None, None, None]
+    for quantized in (False, True):
+        kind = "int8" if quantized else "bf16"
+        for name, (dkvh, g, dhd) in (("decode_attention", (kvh, 1, hd)),
+                                     ("decode_draft", (4, 8, 64))):
+            k, ks, v, vs = kv_cache(dev, gen, 1, b, dkvh, cache_len, dhd,
+                                    quantized)
+            view = (k[0], None if ks is None else ks[0], v[0],
+                    None if vs is None else vs[0])
+            per_key = 2 * dhd * k.element_size() + (8 if quantized else 0)
+            q1 = torch.randn((b, dkvh, g, dhd), device=dev,
+                             generator=gen).to(torch.bfloat16)
+            # the kernel alone (a CUDA graph of its launches: the eager
+            # call's host dispatch is as long as the kernel), in turns
+            # with the plain version; the eager call beside it
+            kernel = lambda: decode_attention(q1, *view, pos)
+            plain = lambda: decode_attention(q1, *view, pos, impl="torch")
+            p1, k1, k2, p2 = (time_ms(plain, 50), graph_ms(kernel),
+                              graph_ms(kernel), time_ms(plain, 50))
+            kms, pms = (k1[0] + k2[0]) / 2, (p1 + p2) / 2
+            spreads[(name, kind)] = k1[1:]
+            eager[(name, kind)] = time_ms(kernel, 50)
+            bound = least_ms(b * dkvh * (n * per_key + g * dhd * (2 + 4)),
+                             4 * b * dkvh * g * n * dhd, "bf16")
+            lib = None
+            if not quantized:
+                qh = q1.view(b, dkvh * g, 1, dhd)
+                lib = graph_ms(lambda: sdpa(qh, view[0], view[2],
+                                            attn_mask=dmask,
+                                            scale=hd_scale(dhd),
+                                            enable_gqa=g > 1))[0]
+            out[(name, kind)] = (kms, pms, bound, lib)
+            del k, ks, v, vs
     for quantized in (False, True):
         kind = "int8" if quantized else "bf16"
         k, ks, v, vs = kv_cache(dev, gen, 2, b, kvh, cache_len, hd,
@@ -1047,24 +1155,6 @@ def kv_attention_times(dev, gen, prompt_len: int):
         view = (k[1], None if ks is None else ks[1], v[1],
                 None if vs is None else vs[1])
         per_key = 2 * hd * k.element_size() + (8 if quantized else 0)
-        # K11: decode step 16 attends to pos + 1 keys per row
-        pos = prompt_len + LLAVA_MAX_NEW // 2
-        q1 = torch.randn((b, kvh, 1, hd), device=dev, generator=gen).to(
-            torch.bfloat16)
-        kms, pms = time_pair(lambda: decode_attention(q1, *view, pos),
-                             lambda: decode_attention(q1, *view, pos,
-                                                      impl="torch"),
-                             iters=50)
-        n = pos + 1
-        bound = least_ms(b * kvh * (n * per_key + hd * 2 + hd * 4),
-                         4 * b * kvh * n * hd, "bf16")
-        lib = None
-        if not quantized:
-            mask = (torch.arange(cache_len, device=dev) <= pos)[None, None,
-                                                                None]
-            lib = time_ms(lambda: sdpa(q1, view[0], view[2], attn_mask=mask,
-                                       scale=hd_scale(hd)), iters=50)
-        out[("decode_attention", kind)] = (kms, pms, bound, lib)
         # K10: the last 64-token chunk of the chunked prefill
         start = (prompt_len - 1) // 64 * 64
         c = prompt_len - start
@@ -1088,7 +1178,7 @@ def kv_attention_times(dev, gen, prompt_len: int):
                 attn_mask=mask, scale=hd_scale(hd)), iters=50)
         out[("chunk_attention", kind)] = (kms, pms, bound, lib)
         del k, ks, v, vs
-    return out, cache_len, (start, c, lim)
+    return out, (spreads, eager), cache_len, (start, c, lim)
 
 
 def main() -> int:
@@ -1468,6 +1558,27 @@ def main() -> int:
         say(f"phase 3 K7/K8 C={IVF_CLUSTERS} Q=8 nprobe={IVF_NPROBE} k="
             f"{','.join(map(str, LARGE_K))}: K7 ids agree where separated "
             f"(max|dv| {errs['probe_buckets']:.3e}), K8 ids and values equal")
+        # K7 is bucket-major: 8 queries on one probe list (each bucket read
+        # once for all of them) and on 8 disjoint lists (no bucket shared)
+        npr = min(IVF_NPROBE, IVF_CLUSTERS // 8)
+        perm = torch.randperm(IVF_CLUSTERS, device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(SEED + 8))
+        k7_lists = {
+            "shared": ivf_mod.probe_lists(qv, ivfs[""], npr)[:1].repeat(8, 1),
+            "disjoint": perm[:8 * npr].view(8, npr).int()}
+        for mode in ("", "int8"):
+            for lists in k7_lists.values():
+                fn, args = probe_call(ivfs[mode], qv, lists)
+                rv, ri = fn(*args, 101, impl="torch")
+                for k in (10, 100):
+                    vals, ids = fn(*args, k)
+                    errs["probe_buckets"] = max(
+                        errs["probe_buckets"],
+                        topk_agree(vals, ids, rv, ri, tol=1e-5))
+        say(f"phase 3 K7 Q=8 nprobe={npr} k=10,100, all queries on one list "
+            f"and on 8 disjoint lists: ids agree where separated (max|dv| "
+            f"{errs['probe_buckets']:.3e})")
         # equal scores: rows IVF_DUPS share row 77's bucket and come back
         # in slot order, after an earlier-probed bucket
         for mode, ivf in ivfs.items():
@@ -2262,16 +2373,24 @@ def main() -> int:
                     attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)
         # the bucket probes alone at Q=8, nprobe=128, k=10; then IVF top-10
         # end to end (centroid scores, probe, spill, merge) beside flat K1
-        probe_ms, probe_bound = {}, {}
+        probe_ms, probe_bound, probe_spread, probe_split = {}, {}, {}, {}
         for mode, ivf in ivfs.items():
             plist = ivf_mod.probe_lists(qc[:8], ivf, IVF_NPROBE)
             fn, args = probe_call(ivf, qc[:8], plist)
             probe_ms[IVF_RUNGS[mode]] = time_pair(
                 lambda: fn(*args, 10), lambda: fn(*args, 10, impl="torch"))
-            # the live rows of the distinct probed buckets, read once, and
-            # their slot ids; each query scores its own buckets' live rows
+            probe_spread[IVF_RUNGS[mode]] = spread_ms(lambda: fn(*args, 10))
+            # one call's kernels (the scan, the merge passes, the id map);
+            # the first profile of a process may drop kernels: take the
+            # second
+            for _ in range(2):
+                probe_split[IVF_RUNGS[mode]] = profile_device(
+                    lambda: [fn(*args, 10) for _ in range(10)], top=4)
+            # the live rows of the distinct probed buckets (the owners of
+            # K7's one tile of 8 queries), read once, and their slot ids;
+            # each query scores its own buckets' live rows
             live = (ivf.bucket_ids >= 0).sum(1)
-            distinct = torch.unique(plist)
+            distinct = plist[ivf_mod.bucket_owners(plist)]
             row_bytes = {"": DIM * 2, "int8": DIM + 4, "int4": DIM // 2 + 4}
             probe_bound[IVF_RUNGS[mode]] = least_ms(
                 int(live[distinct].sum()) * row_bytes[mode]
@@ -2319,8 +2438,9 @@ def main() -> int:
             lambda: mlp_int8_fused(*args, impl="torch"), iters=20)
         int_mm_ms["l14"] = int_mm_pair(x.shape[0], mlp_l.w1.q, mlp_l.w2.q, gen)
         k6_split["l14"] = k6_launch_ms(args)
-        kv_times, kv_cache_len, (kv_start, kv_c, kv_lim) = \
-            kv_attention_times(dev, gen, llava_ctx["prompt_len"])
+        kv_times, (kv_spreads, kv_eager), kv_cache_len, \
+            (kv_start, kv_c, kv_lim) = kv_attention_times(
+                dev, gen, llava_ctx["prompt_len"])
         for name in ("chunk_attention", "decode_attention"):
             times[name] = kv_times[(name, "bf16")][:2]
             library_ms[name] = kv_times[(name, "bf16")][3]
@@ -2346,7 +2466,13 @@ def main() -> int:
     for rung, (kms, pms) in probe_ms.items():
         say(f"  IVF bucket probe {rung} ({'K8' if rung == 'int4' else 'K7'})"
             f" Q=8 nprobe={IVF_NPROBE} k=10, clustered 1M x 512 C="
-            f"{IVF_CLUSTERS}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+            f"{IVF_CLUSTERS}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{probe_bound[rung][0]:.4f} ms ({probe_bound[rung][1]}); single "
+            "calls min / median / max {:.4f} / {:.4f} / {:.4f} ms".format(
+                *probe_spread[rung])
+            + "; per call by kernel (torch.profiler, 10 calls): " + "; ".join(
+                f"{k[:40]} {ms / 10:.4f} ms x{n // 10}"
+                for k, ms, n in probe_split[rung][2]))
     for (rung, nq), (ims, fms) in ivf_ms.items():
         say(f"  IVF top-10 {rung} Q={nq} nprobe={IVF_NPROBE}: {ims:.4f} ms "
             f"(kernel path, end to end); flat K1 bf16 top-10 over the same "
@@ -2401,14 +2527,21 @@ def main() -> int:
             f"x.w1 + activation {ms4[1]:.4f} ms, row-quantize h "
             f"{ms4[2]:.4f} ms, h.w2 {ms4[3]:.4f} ms (sum {sum(ms4):.4f})")
     for (name, kind), (kms, pms, (bms, by), lib) in kv_times.items():
-        shape = (f"decode step at pos {llava_ctx['prompt_len'] + 16}"
-                 if name == "decode_attention" else
-                 f"last prefill chunk C={kv_c} at {kv_start}, window "
-                 f"{kv_lim}")
-        say(f"  {'K11' if name == 'decode_attention' else 'K10'} {name} "
-            f"{kind} 7B B={LLAVA_B} cache {kv_cache_len} slots, {shape}: "
-            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-            f"({by})" + (f", SDPA {lib:.4f} ms" if lib is not None else ""))
+        shape = (f"last prefill chunk C={kv_c} at {kv_start}, window "
+                 f"{kv_lim}" if name == "chunk_attention" else
+                 f"decode step at pos {llava_ctx['prompt_len'] + 16}")
+        model = ("draft (4 kv heads, G=8, HD=64)" if name == "decode_draft"
+                 else "7B")
+        spread = kv_spreads.get((name, kind))
+        say(f"  {'K10' if name == 'chunk_attention' else 'K11'} {name} "
+            f"{kind} {model} B={LLAVA_B} cache {kv_cache_len} slots, "
+            f"{shape}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})"
+            + (f", SDPA {lib:.4f} ms" if lib is not None else "")
+            + (" ; on the card alone (CUDA graph of 20 calls, 20 replays), "
+               "min / median / max {:.4f} / {:.4f} / {:.4f} ms a call; "
+               "eager calls {:.4f} ms (host dispatch included)".format(
+                   *spread, kv_eager[(name, kind)]) if spread else ""))
     # the rebuilt attention kernels against their yardsticks: kernel ms
     # over SDPA's and over the bound, in this run
     bound50 = least_ms(4 * EMBED_BATCH * 50 * 768 * 2,
@@ -2418,9 +2551,11 @@ def main() -> int:
              library_ms["mha_short_seq"], bound50),
             (f"K2 [{LLAVA_B},577,1024]/16", l14["mha_short_seq"][0], l14_lib,
              l14_bounds["mha_short_seq"]),
-            *((f"K10 {kind} C={kv_c}", kv_times[("chunk_attention", kind)][0],
-               kv_times[("chunk_attention", kind)][3],
-               kv_times[("chunk_attention", kind)][2])
+            *((f"{label} {kind}", kv_times[(name, kind)][0],
+               kv_times[(name, kind)][3], kv_times[(name, kind)][2])
+              for name, label in (("chunk_attention", f"K10 C={kv_c}"),
+                                  ("decode_attention", "K11 7B"),
+                                  ("decode_draft", "K11 draft"))
               for kind in ("bf16", "int8"))):
         say(f"  {what}: kernel {kms:.4f} ms = "
             + (f"{kms / lib:.2f}x SDPA ({lib:.4f} ms), " if lib else "")
@@ -2528,6 +2663,21 @@ def main() -> int:
         extra[name] = {"int8_ms": kms, "int8_plain_ms": pms,
                        "int8_bound_ms": bms}
         bounds[name] = kv_times[(name, "bf16")][2]
+    for kind in ("bf16", "int8"):   # K11 at the draft's head shape
+        kms, pms, (bms, _), lib = kv_times[("decode_draft", kind)]
+        extra["decode_attention"].update({
+            f"draft_{kind}_ms": kms, f"draft_{kind}_plain_ms": pms,
+            f"draft_{kind}_bound_ms": bms, f"draft_{kind}_library_ms": lib})
+    extra["decode_attention"]["spread_ms"] = {
+        f"{name}_{kind}": v for (name, kind), v in kv_spreads.items()}
+    extra["decode_attention"]["eager_ms"] = {
+        f"{name}_{kind}": v for (name, kind), v in kv_eager.items()}
+    extra["probe_buckets"] = {
+        "int8_ms": probe_ms["int8"][0], "int8_plain_ms": probe_ms["int8"][1],
+        "int8_bound_ms": probe_bound["int8"][0],
+        "spread_ms": {r: probe_spread[r] for r in ("bf16", "int8")},
+        "split_ms": {r: [(k[:40], ms / 10) for k, ms, _ in probe_split[r][2]]
+                     for r in ("bf16", "int8")}}
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -23,6 +23,28 @@ __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
   f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
 }
 
+// Four int8 (a word, memory order) -> exact floats without the 64-bit-
+// path conversion units (I2F runs at a quarter of the FP32 add rate): each
+// byte + 128 becomes the low mantissa bits of 2^23, and 2^23 + 128 is
+// subtracted, exactly.
+__device__ __forceinline__ void s8x4_to_float(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// The two int8 of w's low half -> a bf16x2 word (the first in the low
+// half), exactly: |x| <= 128 needs 8 significant bits, so the bf16 is the
+// f32's top half.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w) {
+  const uint32_t u = w ^ 0x8080u;
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(float x) { return x; }
 

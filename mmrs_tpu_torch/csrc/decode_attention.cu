@@ -19,24 +19,24 @@
 // What bounds them on the H100: bytes. Decode reads the live cache once
 // per step (at 7B, batch 8 and ~700 slots, ~92 MB of bf16 K/V per layer
 // call against 0.4 MFLOP per key row); a prefill chunk of 64 rows reads
-// its cache prefix once. K11 gives one block to each (batch row, kv head):
-// K rows are streamed warp by warp with a 32-lane dot product per key and
-// query head, the [G, S] f32 logits stay in shared memory, and V is
-// streamed once more for the [G, HD] output, each warp summing its own
-// keys, the warps' partials added in a fixed order. K10 gives one block to
+// its cache prefix once. K11 splits each (batch row, kv head)'s keys
+// across a thread-block cluster (up to 8 blocks, one launch): each block
+// streams its span of K and V through a cp.async ring, and the softmax's
+// max, sum and the P.V partials are exchanged through distributed shared
+// memory, so a 32-head draft still fills the card and no block's shared
+// memory grows with S past a fixed budget (any S runs). K10 gives one block to
 // each (batch row, kv head, 64 rows of the G * C row axis), 4 warps of 16
 // rows, so a 64-row prefill chunk reads its head's prefix in one block:
 // K and V tiles of 64 keys stream through a double-buffered cp.async ring
 // (int8 tiles staged raw, half the bytes, and widened exactly to bf16 in
 // shared memory), Q K^T and P V run on mma.sync m16n8k16 bf16 -> f32, and
 // the softmax is attention_mma.cuh's exact two-pass form in registers:
-// nothing in shared memory grows with S. Later work: split S across
-// blocks where B * KVH underfills the 132 SMs (two-pass flash decoding),
-// 16-byte K11 loads.
+// nothing in shared memory grows with S.
 
 #include "attention_mma.cuh"
 #include "common.cuh"
 
+#include <cooperative_groups.h>
 #include <math.h>
 
 namespace {
@@ -53,138 +53,361 @@ struct CacheView {
   int s;               // slots the call may read
 };
 
-// EPL consecutive elements of a row -> floats (one 4- or 8-byte load)
-template <typename T, int EPL>
-__device__ __forceinline__ void load_lane(const T* p, float (&f)[EPL]) {
-  if constexpr (sizeof(T) == 2 && EPL == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    f[0] = mmrs::bf16_lo(w.x); f[1] = mmrs::bf16_hi(w.x);
-    f[2] = mmrs::bf16_lo(w.y); f[3] = mmrs::bf16_hi(w.y);
-  } else if constexpr (sizeof(T) == 2 && EPL == 2) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-    f[0] = mmrs::bf16_lo(w); f[1] = mmrs::bf16_hi(w);
-  } else if constexpr (sizeof(T) == 1 && EPL == 4) {
-    const int w = *reinterpret_cast<const int*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
-  } else {
-    static_assert(sizeof(T) == 1 && EPL == 2, "unsupported row load");
-    const short w = *reinterpret_cast<const short*>(p);
-    f[0] = static_cast<float>(static_cast<int8_t>(w & 0xff));
-    f[1] = static_cast<float>(static_cast<int8_t>(w >> 8));
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// softmax over row[0, n) in place, by one warp: p = e / sum, then the V
-// scale of keys below nv in f32 (the others are masked: p = 0), then the
-// one rounding to bf16 (kept as a float)
-__device__ __forceinline__ void softmax_row(float* row, int n, const float* vs, int nv,
-                                            int lane) {
-  float m = -INFINITY;
-  for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
-  m = warp_max(m);
-  float sum = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float e = expf(row[j] - m);
-    row[j] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  for (int j = lane; j < n; j += 32) {
-    float p = row[j] / sum;
-    if (vs && j < nv) p *= vs[j];
-    row[j] = __bfloat162float(__float2bfloat16_rn(p));
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K11: T = 1. q [B, KVH, G, HD] bf16, out [B, KVH, G, HD] f32; grid (KVH, B).
+// K11: T = 1. q [B, KVH, G, HD] bf16, out [B, KVH, G, HD] f32.
+//
+// One cluster of `cs` blocks for each (kv head, batch row): grid (cs * KVH,
+// B), cluster (cs, 1, 1), cs from the shapes alone (decode_plan in
+// ops/decode_attention.py: enough blocks to fill the card in one launch,
+// at most 8). Block rank r owns keys [r * span, (r + 1) * span) of the
+// view, and only those below the row's frontier n = min(S, pos + 1): a
+// block whose span lies past it loads nothing and contributes (max -inf,
+// sum 0, output 0). Its keys stream as 16 KB tiles of rows through a ring
+// of kDecStages stages (16-byte cp.async, int8 tiles raw, scales beside
+// them): the K tiles, then the V tiles, so the V tiles are in flight
+// while the softmax is exchanged. A key row is scored by a segment of
+// HD / 8 lanes, 8 elements a lane (a segmented shuffle sum), so a warp
+// scores 32 / (HD / 8) keys a step.
+//
+// The softmax is the reference's, exchanged through distributed shared
+// memory: (1) each block's max, combined (exact in any order); (2) each
+// block's sum of exp(x - m) under the row's global m, in f64, added in
+// rank order and rounded once to f32 (the plain version's l, in any
+// order); (3) p = e / l in f32, times the V scale, rounded to bf16 once;
+// (4) the blocks' P.V partials [G, HD], added in rank order, each rank
+// writing a slice of the output. The logits are summed in the order the
+// plain version repeats, so the two round the same probabilities. When a
+// span's [G, span] f32 logits fit the budget (`cached`), pass 1 keeps
+// them in shared memory; otherwise K is streamed three times (max, sum,
+// then K and V together) and nothing grows with S.
 constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecStages = 4;    // ring depth: tiles in flight
+constexpr int kDecMaxCluster = 8;
+
+// keys a staged tile: 16 KB of rows, at most 128 keys (64 bf16 rows of
+// HD = 128; 128 rows otherwise)
+template <typename T, int HD>
+__host__ __device__ constexpr int dec_keys() {
+  return 16384 / (HD * (int)sizeof(T)) < 128 ? 16384 / (HD * (int)sizeof(T)) : 128;
+}
+
+template <typename T, int HD>
+__host__ __device__ constexpr int dec_stage_bytes() {
+  return dec_keys<T, HD>() * (HD * (int)sizeof(T) + 4);
+}
+
+// Dynamic shared memory of decode_kernel<T, HD, G> (decode_plan computes
+// the same): the ring, the logits (cached: [G][span], else [G][keys]),
+// the block reductions [warps][G] f64, the exchanged sum [G] f64 and max
+// [G] f32.
+template <typename T, int HD, int G>
+int decode_smem_bytes(int span, bool cached) {
+  return kDecStages * dec_stage_bytes<T, HD>() + 4 * G * (cached ? span : dec_keys<T, HD>()) +
+         8 * kDecWarps * G + 12 * G;
+}
+
+// eight consecutive elements of a staged row -> floats (exact)
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    mmrs::unpack8(*reinterpret_cast<const uint4*>(p), f);
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    mmrs::s8x4_to_float(w.x, f);
+    mmrs::s8x4_to_float(w.y, f + 4);
+  }
+}
+
+// per-g block reduction (max or sum) of one value per thread, in a fixed
+// order: xor trees within warps, then warps in order; thread g < G
+// writes the result for g to out[g]
+template <int G, bool MAX, typename F>
+__device__ __forceinline__ void block_reduce(const F (&x)[G], F* scratch, F* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    F v = x[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const F o = __shfl_xor_sync(0xffffffffu, v, off);
+      v = MAX ? fmax(v, o) : v + o;
+    }
+    if (lane == 0) scratch[warp * G + g] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {
+    F v = scratch[threadIdx.x];
+    for (int w = 1; w < kDecWarps; ++w)
+      v = MAX ? fmax(v, scratch[w * G + threadIdx.x]) : v + scratch[w * G + threadIdx.x];
+    out[threadIdx.x] = v;
+  }
+}
 
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kDecThreads)
+__global__ void __launch_bounds__(kDecThreads, G == 1 ? 3 : 1)
 decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __restrict__ pos,
-              int pos0, float hd_scale, float* __restrict__ out) {
-  constexpr int EPL = HD / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* L = smem;              // [G][S] logits, then bf16-rounded probabilities
-  float* red = L + G * c.s;     // [warps][G][HD] partial outputs
-  const int h = blockIdx.x, b = blockIdx.y, kvh = gridDim.x;
+              int pos0, float hd_scale, int span, int cached, float* __restrict__ out) {
+  constexpr int LPR = HD / 8;             // lanes a key row
+  constexpr int KPW = 32 / LPR;           // keys a warp step
+  constexpr int TK = dec_keys<T, HD>();  // keys a tile
+  constexpr int ITERS = TK / (kDecWarps * KPW);
+  constexpr int ROW = HD * (int)sizeof(T);
+  constexpr int STAGE = dec_stage_bytes<T, HD>();
+  constexpr int NST = kDecStages;
+  static_assert(ITERS >= 1 && TK % (kDecWarps * KPW) == 0, "tile shape");
+  static_assert(NST * STAGE >= kDecWarps * G * HD * 4, "the ring holds the warps' partials");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                                   // [NST][STAGE]
+  float* L = reinterpret_cast<float*>(smem + NST * STAGE);      // logits / p
+  const int lstride = cached ? span : TK;
+  double* scratch = reinterpret_cast<double*>(L + G * lstride); // [warps][G]
+  double* xl = scratch + kDecWarps * G;                         // [G] block sum
+  float* xm = reinterpret_cast<float*>(xl + G);                 // [G] block max
+
+  const int h = blockIdx.x / cs, b = blockIdx.y, kvh = gridDim.x / cs;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg = lane % LPR, kg = lane / LPR;
   const size_t head = (size_t)b * kvh + h;
   float* o = out + head * G * HD;
   const int n = min(c.s, (pos ? pos[b] : pos0) + 1);   // keys 0 .. pos
-  if (n <= 0) {   // every key masked: the reference's softmax is NaN
-    for (int e = threadIdx.x; e < G * HD; e += kDecThreads) o[e] = NAN;
+  if (n <= 0) {   // every key masked (the whole cluster): the reference gives NaN
+    if (rank == 0)
+      for (int e = threadIdx.x; e < G * HD; e += kDecThreads) o[e] = NAN;
     return;
   }
-  const T* K = static_cast<const T*>(c.k) + b * c.sb + h * c.sh + lane * EPL;
-  const T* V = static_cast<const T*>(c.v) + b * c.sb + h * c.sh + lane * EPL;
+  const int lo = rank * span, hi = min(lo + span, n);
+  const int nt = hi > lo ? (hi - lo + TK - 1) / TK : 0;   // live tiles
+  const int total = cached ? 2 * nt : 4 * nt;                           // ring steps
+  const unsigned char* K = static_cast<const unsigned char*>(c.k) + (b * c.sb + h * c.sh) * (long long)sizeof(T);
+  const unsigned char* V = static_cast<const unsigned char*>(c.v) + (b * c.sb + h * c.sh) * (long long)sizeof(T);
   const float* ks = c.ks ? c.ks + b * c.ssb + h * c.ssh : nullptr;
   const float* vs = c.vs ? c.vs + b * c.ssb + h * c.ssh : nullptr;
 
-  float qr[G][EPL];
-  const __nv_bfloat16* qb = q + head * G * HD + lane * EPL;
-#pragma unroll
-  for (int g = 0; g < G; ++g) load_lane<__nv_bfloat16, EPL>(qb + g * HD, qr[g]);
+  // step st -> (tile, V?): cached: K tiles, then V tiles; else K tiles
+  // (max), K tiles (sum), then K, V of each tile (p, then P.V)
+  auto step_of = [&](int st, int& tile, bool& isv) {
+    if (st < nt) { tile = st; isv = false; }
+    else if (cached) { tile = st - nt; isv = true; }
+    else if (st < 2 * nt) { tile = st - nt; isv = false; }
+    else { tile = (st - 2 * nt) >> 1; isv = (st - 2 * nt) & 1; }
+  };
+  // stage step st (zeros at and past hi: those keys are never read), and
+  // commit a group even when there is nothing to stage
+  auto issue = [&](int st) {
+    if (st < total) {
+      int tile; bool isv;
+      step_of(st, tile, isv);
+      const int k0 = lo + tile * TK;
+      unsigned char* dst = ring + (st % NST) * STAGE;
+      const unsigned char* src = (isv ? V : K) + (size_t)k0 * ROW;
+      for (int e = threadIdx.x; e < TK * (ROW / 16); e += kDecThreads) {
+        const int r = e / (ROW / 16), off = (e - r * (ROW / 16)) * 16;
+        const bool ok = k0 + r < hi;
+        mmrs::cp_async<16>(dst + r * ROW + off, ok ? src + (size_t)r * ROW + off : src, ok);
+      }
+      const float* sc = isv ? vs : ks;
+      if (sc != nullptr) {
+        float* sdst = reinterpret_cast<float*>(dst + TK * ROW);
+        for (int i = threadIdx.x; i < TK; i += kDecThreads) {
+          const bool ok = k0 + i < hi;
+          mmrs::cp_async<4>(sdst + i, ok ? sc + k0 + i : sc, ok);
+        }
+      }
+    }
+    mmrs::cp_async_commit();
+  };
+  int st = 0;
+  // wait for step st's stage (keeping NST - 1 later steps in flight)
+  auto begin_step = [&]() -> const unsigned char* {
+    issue(st + NST - 1);
+    mmrs::cp_async_wait<NST - 1>();
+    __syncthreads();
+    return ring + (st % NST) * STAGE;
+  };
+  auto end_step = [&]() {
+    __syncthreads();
+    ++st;
+  };
 
-  for (int j = warp; j < n; j += kDecWarps) {
-    float kr[EPL];
-    load_lane<T, EPL>(K + (size_t)j * HD, kr);
+  float qr[G][8];
+  {
+    const __nv_bfloat16* qb = q + head * G * HD + seg * 8;
+#pragma unroll
+    for (int g = 0; g < G; ++g) load8(qb + g * HD, qr[g]);
+  }
+  // the logits x[g] of key jl of a staged K tile (all lanes of its
+  // segment): each lane's 8 products in turn, then the lanes by halves,
+  // the order the plain version repeats (ops/decode_attention.py:
+  // _lane_logits; a bf16 product is exact in f32, so its bits match)
+  auto score = [&](const unsigned char* buf, int jl, int key, float (&x)[G]) {
+    float kf[8];
+    load8(reinterpret_cast<const T*>(buf + jl * ROW) + seg * 8, kf);
+    const float sk = ks ? reinterpret_cast<const float*>(buf + TK * ROW)[jl] : 1.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float d = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) d = fmaf(qr[g][e], kr[e], d);
-      d = warp_sum(d);
-      if (lane == 0) {
-        if (ks) d *= ks[j];
-        L[g * c.s + j] = d * hd_scale;
+      for (int e = 0; e < 8; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (ks) d *= sk;
+      x[g] = key < hi ? d * hd_scale : -INFINITY;
+    }
+  };
+
+  for (int i = 0; i < NST - 1; ++i) issue(i);
+
+  // pass 1: the block's max (cached: the logits kept)
+  float part[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) part[g] = -INFINITY;
+  for (int t = 0; t < nt; ++t) {
+    const unsigned char* buf = begin_step();
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int jl = (it * kDecWarps + warp) * KPW + kg;
+      float x[G];
+      score(buf, jl, lo + t * TK + jl, x);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        part[g] = fmaxf(part[g], x[g]);
+        if (cached && seg == 0) L[g * lstride + t * TK + jl] = x[g];
       }
     }
+    end_step();
+  }
+  block_reduce<G, true>(part, reinterpret_cast<float*>(scratch), xm);
+  cluster.sync();
+  float* mg = reinterpret_cast<float*>(scratch);   // [G] the row's max, then sum
+  if (threadIdx.x < G) {
+    float m = -INFINITY;
+    for (int r = 0; r < cs; ++r) m = fmaxf(m, cluster.map_shared_rank(xm, r)[threadIdx.x]);
+    mg[threadIdx.x] = m;
   }
   __syncthreads();
-  for (int g = warp; g < G; g += kDecWarps) softmax_row(L + g * c.s, n, vs, n, lane);
-  __syncthreads();
+  float m[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) m[g] = mg[g];
+  __syncthreads();   // scratch is reused by the next reduction
 
-  float acc[G][EPL];
+  // pass 2: the block's sum of exp(x - m), in f64 (rounded once to f32
+  // after the cluster's sum: the same l in any order, as plain's)
+  double lsum[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < G; ++g) lsum[g] = 0.0;
+  if (cached) {
+    for (int j = threadIdx.x; j < hi - lo; j += kDecThreads)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-  for (int j = warp; j < n; j += kDecWarps) {
-    float vr[EPL];
-    load_lane<T, EPL>(V + (size_t)j * HD, vr);
+      for (int g = 0; g < G; ++g) lsum[g] += expf(L[g * lstride + j] - m[g]);
+  } else {
+    for (int t = 0; t < nt; ++t) {
+      const unsigned char* buf = begin_step();
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = L[g * c.s + j];
+      for (int it = 0; it < ITERS; ++it) {
+        const int jl = (it * kDecWarps + warp) * KPW + kg;
+        const int key = lo + t * TK + jl;
+        float x[G];
+        score(buf, jl, key, x);
+        if (seg == 0 && key < hi)
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vr[e], acc[g][e]);
+          for (int g = 0; g < G; ++g) lsum[g] += expf(x[g] - m[g]);
+      }
+      end_step();
     }
   }
+  block_reduce<G, false>(lsum, scratch, xl);
+  cluster.sync();
+  if (threadIdx.x < G) {
+    double l = 0.0;
+    for (int r = 0; r < cs; ++r) l += cluster.map_shared_rank(xl, r)[threadIdx.x];
+    mg[threadIdx.x] = __double2float_rn(l);
+  }
+  __syncthreads();
+  float l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) l[g] = mg[g];
+
+  // pass 3: p = e / l (f32) into L, then P.V; the V scale and the one
+  // bf16 rounding are applied as each p is used
+  if (cached) {
+    for (int j = threadIdx.x; j < nt * TK; j += kDecThreads)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float* p = L + g * lstride + j;
+        *p = __fdiv_rn(mmrs::exp_shift(*p, m[g]), l[g]);
+      }
+    __syncthreads();
+  }
+  float acc[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) red[(warp * G + g) * HD + lane * EPL + e] = acc[g][e];
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    if (!cached) {   // this tile's K: its probabilities into L [G][TK]
+      const unsigned char* buf = begin_step();
+#pragma unroll
+      for (int it = 0; it < ITERS; ++it) {
+        const int jl = (it * kDecWarps + warp) * KPW + kg;
+        float x[G];
+        score(buf, jl, lo + t * TK + jl, x);
+        if (seg == 0)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            L[g * lstride + jl] = __fdiv_rn(mmrs::exp_shift(x[g], m[g]), l[g]);
+      }
+      end_step();
+    }
+    const unsigned char* buf = begin_step();
+    const float* pt = L + (cached ? t * TK : 0);
+    const float* sv = reinterpret_cast<const float*>(buf + TK * ROW);
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int jl = (it * kDecWarps + warp) * KPW + kg;
+      float vf[8];
+      load8(reinterpret_cast<const T*>(buf + jl * ROW) + seg * 8, vf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float p = pt[g * lstride + jl];
+        if (vs) p *= sv[jl];
+        p = __bfloat162float(__float2bfloat16_rn(p));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+    end_step();
+  }
+  mmrs::cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the warps' partials [warps][G][HD]
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float v = acc[g][e];
+#pragma unroll
+      for (int off = LPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (kg == 0) red[(warp * G + g) * HD + seg * 8 + e] = v;
+    }
   __syncthreads();
   for (int e = threadIdx.x; e < G * HD; e += kDecThreads) {
+    float s = red[e];
+    for (int w = 1; w < kDecWarps; ++w) s += red[w * G * HD + e];
+    red[e] = s;
+  }
+  cluster.sync();
+  const int per = (G * HD + cs - 1) / cs;
+  for (int e = rank * per + threadIdx.x; e < min(G * HD, (rank + 1) * per); e += kDecThreads) {
     float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) s += red[w * G * HD + e];
+    for (int r = 0; r < cs; ++r) s += cluster.map_shared_rank(red, r)[e];
     o[e] = s;
   }
+  cluster.sync();   // no block leaves while another reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
@@ -396,26 +619,75 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
   }
 }
 
+// the largest dynamic shared memory given to this instantiation, per
+// device: the attribute is set once, not at every decode step
+template <typename T, int HD, int G>
+int allow_smem(int smem) {
+  static int smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(decode_kernel<T, HD, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  return 0;
+}
+
+// blocks of decode_kernel<T, HD, G> with `smem` bytes the card holds at once
+template <typename T, int HD, int G>
+int decode_slots(int smem) {
+  if (allow_smem<T, HD, G>(smem) != 0) return -1;
+  int dev = 0, per_sm = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<T, HD, G>,
+                                                    kDecThreads, smem) != cudaSuccess)
+    return -1;
+  return per_sm * sms;
+}
+
 template <typename T, int HD, int G>
 int launch_decode(const void* q, const CacheView& c, const void* pos, int pos0, void* out,
-                  int B, int KVH, float hd_scale, int smem, cudaStream_t stream) {
+                  int B, int KVH, float hd_scale, int cs, int span, int cached, int smem,
+                  cudaStream_t stream) {
+  constexpr int K = dec_keys<T, HD>();
+  if (cs < 1 || cs > kDecMaxCluster || span < K || span % K || (long long)cs * span < c.s ||
+      (long long)(cs - 1) * span >= c.s || smem != decode_smem_bytes<T, HD, G>(span, cached != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = decode_kernel<T, HD, G>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int set = allow_smem<T, HD, G>(smem);
+  if (set != 0) return set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs * KVH, B, 1);
+  cfg.blockDim = dim3(kDecThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, static_cast<const __nv_bfloat16*>(q), c,
+                           static_cast<const int*>(pos), pos0, hd_scale, span, cached,
+                           static_cast<float*>(out));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(KVH, B), kDecThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), c, static_cast<const int*>(pos), pos0,
-      hd_scale, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int decode_by_group(int G, const void* q, const CacheView& c, const void* pos, int pos0,
-                    void* out, int B, int KVH, float hd_scale, int smem, cudaStream_t s) {
+                    void* out, int B, int KVH, float hd_scale, int cs, int span, int cached,
+                    int smem, cudaStream_t s) {
   switch (G) {
-    case 1: return launch_decode<T, HD, 1>(q, c, pos, pos0, out, B, KVH, hd_scale, smem, s);
-    case 2: return launch_decode<T, HD, 2>(q, c, pos, pos0, out, B, KVH, hd_scale, smem, s);
-    case 4: return launch_decode<T, HD, 4>(q, c, pos, pos0, out, B, KVH, hd_scale, smem, s);
-    case 8: return launch_decode<T, HD, 8>(q, c, pos, pos0, out, B, KVH, hd_scale, smem, s);
+    case 1: return launch_decode<T, HD, 1>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
+    case 2: return launch_decode<T, HD, 2>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
+    case 4: return launch_decode<T, HD, 4>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
+    case 8: return launch_decode<T, HD, 8>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -451,26 +723,50 @@ extern "C" {
 // or 128 and G one of 1, 2, 4, 8. pos holds one int32 position per batch
 // row, or is null and every row is at pos0. The caller
 // (mmrs_tpu_torch/ops/decode_attention.py: _decode_cuda) checks CUDA, the
-// dtypes, the shapes, q/out contiguous, K/V rows contiguous with 16-byte
-// aligned strides, and picks the shared-memory size with `decode_smem`.
+// dtypes, the shapes, q/out contiguous and 16-byte aligned, K/V rows
+// contiguous with 16-byte aligned strides, and takes the cluster size, the
+// span, the cached flag and the shared-memory size from `decode_plan`
+// (checked here against the kernel's own arithmetic).
 int mmrs_decode_attention(const void* q, const void* k, const void* v, const void* ks,
                           const void* vs, const void* pos, int pos0, void* out, int B,
                           int KVH, int G, int HD, int S, long long sb, long long sh,
-                          long long ssb, long long ssh, int quant, float hd_scale, int smem,
-                          void* stream) {
+                          long long ssb, long long ssh, int quant, float hd_scale, int cs,
+                          int span, int cached, int smem, void* stream) {
   const CacheView c = make_view(k, v, ks, vs, sb, sh, ssb, ssh, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (quant && HD == 128)
-    return decode_by_group<int8_t, 128>(G, q, c, pos, pos0, out, B, KVH, hd_scale, smem, s);
+    return decode_by_group<int8_t, 128>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs, span,
+                                        cached, smem, s);
   if (quant && HD == 64)
-    return decode_by_group<int8_t, 64>(G, q, c, pos, pos0, out, B, KVH, hd_scale, smem, s);
+    return decode_by_group<int8_t, 64>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs, span,
+                                       cached, smem, s);
   if (!quant && HD == 128)
-    return decode_by_group<__nv_bfloat16, 128>(G, q, c, pos, pos0, out, B, KVH, hd_scale,
-                                               smem, s);
+    return decode_by_group<__nv_bfloat16, 128>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs,
+                                               span, cached, smem, s);
   if (!quant && HD == 64)
-    return decode_by_group<__nv_bfloat16, 64>(G, q, c, pos, pos0, out, B, KVH, hd_scale,
-                                              smem, s);
+    return decode_by_group<__nv_bfloat16, 64>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs,
+                                              span, cached, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K11 blocks of one launch's kind (quant, HD, G) with `smem` bytes of
+// shared memory that the current card holds at once (-1 on an error):
+// `decode_plan` sizes its clusters so that one launch fills the card.
+int mmrs_decode_slots(int quant, int HD, int G, int smem) {
+#define MMRS_SLOTS(T, H)                                              \
+  switch (G) {                                                        \
+    case 1: return decode_slots<T, H, 1>(smem);                       \
+    case 2: return decode_slots<T, H, 2>(smem);                       \
+    case 4: return decode_slots<T, H, 4>(smem);                       \
+    case 8: return decode_slots<T, H, 8>(smem);                       \
+    default: return -1;                                               \
+  }
+  if (quant && HD == 128) { MMRS_SLOTS(int8_t, 128) }
+  if (quant && HD == 64) { MMRS_SLOTS(int8_t, 64) }
+  if (!quant && HD == 128) { MMRS_SLOTS(__nv_bfloat16, 128) }
+  if (!quant && HD == 64) { MMRS_SLOTS(__nv_bfloat16, 64) }
+#undef MMRS_SLOTS
+  return -1;
 }
 
 // As above, for q [B, KVH, G, C, HD]; warps (1-4: rows per block / 16) and

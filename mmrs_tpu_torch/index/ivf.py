@@ -486,21 +486,41 @@ def _check_probe(name: str, qn: int, d: int, probe, buckets, bucket_ids,
     topk.check_scan_shapes(name, qn, probe.shape[1] * cap, k)
 
 
+PROBE_TILE = 8   # K7's queries a tile (csrc/ivf_probe.cu kProbeQT)
+
+
+def bucket_owners(probe: torch.Tensor) -> torch.Tensor:
+    """K7's ownership rule, in plain PyTorch: [Q, P] bool, True where entry
+    (q, r) is the first entry of its tile of PROBE_TILE queries, in
+    row-major (q, r) order, to name its bucket. The kernel reads each
+    owner's bucket once and writes its scores for every entry of the tile
+    naming it."""
+    qn, p = probe.shape
+    width = PROBE_TILE * p
+    pad = -(-qn // PROBE_TILE) * PROBE_TILE - qn
+    flat = torch.cat([probe, probe.new_full((pad, p), 0)]).reshape(-1, width)
+    order = torch.arange(width, device=probe.device)
+    same = flat[:, :, None] == flat[:, None, :]            # [tiles, e, e']
+    earlier = same & (order[None, :] < order[:, None])[None]
+    return ~earlier.any(2).reshape(-1, p)[:qn]
+
+
 def _probe_cuda(name: str, q_rows: torch.Tensor, probe, bucket_ids, k: int,
-                scan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run a probe scan over each query's virtual gallery (its probed
-    buckets, slot after slot: position r * cap + s) through the gallery
-    scans' merge passes (ops/topk.scan_and_merge), then map the winning
-    positions to global ids. The partials carry positions, so the merge's
-    (score desc, id asc) order is exactly the tie rule. `scan(a, b, qt,
-    kc, part_v, part_i, stream)` launches the scan for queries a..b-1."""
+                scan, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a probe scan through the gallery scans' merge passes
+    (ops/topk.scan_and_merge) over partial lists of n / 256 chunks a
+    query, then map the winning positions to global ids. The partials
+    carry the virtual position r * cap + s (slot s of the query's r-th
+    probed bucket), so the merge's (score desc, id asc) order is exactly
+    the tie rule. `scan(a, b, qt, kc, part_v, part_i, stream)` launches
+    the scan for queries a..b-1."""
     qn, p = probe.shape
     c, cap = bucket_ids.shape
     lib = _cuda.library()
 
     def run(a: int, b: int):
         vals, pos = topk.scan_and_merge(
-            b - a, p * cap, k, q_rows.device,
+            b - a, n, k, q_rows.device,
             lambda *args: scan(a, b, *args), name)
         ids = torch.empty((b - a, k), dtype=torch.int32,
                           device=q_rows.device)
@@ -538,7 +558,7 @@ def _probe_buckets_cuda(q, probe, buckets, bucket_ids, scales, k):
             q[a:b].data_ptr(), probe[a:b].data_ptr(), buckets.data_ptr(),
             bucket_ids.data_ptr(), 0 if scales is None else scales.data_ptr(),
             int(buckets.dtype == torch.int8), b - a, p, c, cap, d, kc, pv, pi,
-            stream))
+            stream), p * -(-cap // topk.CHUNK_ROWS) * topk.CHUNK_ROWS)
     probe_buckets.launches += 1
     return out
 
@@ -599,7 +619,7 @@ def _probe_buckets_q4_cuda(q_q, q_scale, rs_q, probe, buckets, bucket_ids,
             q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
             rs_q[a:b].data_ptr(), probe[a:b].data_ptr(), buckets.data_ptr(),
             bucket_ids.data_ptr(), scales.data_ptr(), b - a, p, c, cap, d,
-            kc, pv, pi, stream))
+            kc, pv, pi, stream), p * cap)
     probe_buckets_q4.launches += 1
     return out
 

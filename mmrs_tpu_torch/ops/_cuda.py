@@ -70,7 +70,9 @@ _SIGNATURES = {
     "mmrs_first_match": ((_P, _P, _I, _I, _I, _F, _I, _LL, _LL, _I, _P, _P),
                          _I),
     "mmrs_decode_attention": ((_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                               _I, _LL, _LL, _LL, _LL, _I, _F, _I, _P), _I),
+                               _I, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _I, _I,
+                               _P), _I),
+    "mmrs_decode_slots": ((_I, _I, _I, _I), _I),
     "mmrs_chunk_attention": ((_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                               _I, _I, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _P),
                              _I),

@@ -24,7 +24,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +34,11 @@ from mmrs_tpu_torch.ops import _cuda
 
 SMEM_LIMIT = 232448       # shared memory one block may use on Hopper
 _DEC_WARPS = 8            # K11 warps per block (csrc: kDecThreads / 32)
+_DEC_STAGES = 4           # K11 ring depth (csrc: kDecStages)
+DEC_MAX_CLUSTER = 8       # K11 blocks a cluster (csrc: kDecMaxCluster)
+DEC_MIN_TILES = 2         # K11 tiles a block's span holds at least
+DEC_LOGIT_BUDGET = 96 * 1024   # K11 bytes of [G, span] f32 logits kept
+DEC_MAX_SLOTS = 1 << 24   # the longest view K11 plans for
 _KEYS = 64                # K10 keys per staged tile (csrc: kAttnKeys)
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
@@ -53,14 +59,39 @@ def query_positions(pos: Pos, b: int, t: int, device) -> torch.Tensor:
     return (pos + steps).expand(b, t)
 
 
+def _lane_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B, KVH, G, T, HD] and k [B, KVH, S, HD], bf16 values held in f32,
+    -> q . k [B, KVH, G, T, S] f32 summed in K11's order: lane l of a key's
+    HD / 8 lanes adds the products of dims 8l .. 8l + 7 in turn, then the
+    lanes add by halves (lane l + lane l ^ off for off = HD / 16 .. 1).
+    A bf16 product is exact in f32, so each step rounds as the kernel's
+    fmaf does and the logits are the kernel's bits."""
+    lpr = q.shape[-1] // 8
+    qv = q.unflatten(-1, (lpr, 8))[:, :, :, :, None]         # [..,T,1,L,8]
+    kv = k.unflatten(-1, (lpr, 8))[:, :, None, None]         # [..,1,S,L,8]
+    acc = qv[..., 0] * kv[..., 0]
+    for e in range(1, 8):
+        acc = acc + qv[..., e] * kv[..., e]
+    lanes = torch.arange(lpr, device=q.device)
+    off = lpr // 2
+    while off:
+        acc = acc + acc[..., lanes ^ off]
+        off //= 2
+    return acc[..., 0]
+
+
 def _attn_torch(q: torch.Tensor, k_cache, k_scales, v_cache, v_scales,
-                q_pos: torch.Tensor) -> torch.Tensor:
+                q_pos: torch.Tensor, lanes: bool = False) -> torch.Tensor:
     """q [B, KVH, G, T, HD], caches [B, KVH, S, HD], q_pos [B, T] -> f32
-    [B, KVH, G, T, HD]."""
+    [B, KVH, G, T, HD]. lanes (K11's plain version): the logits in the
+    kernel's order (`_lane_logits`) and the softmax sum in f64, rounded
+    once (the same l in any order)."""
     s = k_cache.shape[2]
     k = k_cache.to(torch.bfloat16).float()[:, :, None]       # [B,KVH,1,S,HD]
     v = v_cache.to(torch.bfloat16).float()[:, :, None]
-    logits = q.to(torch.bfloat16).float() @ k.transpose(-1, -2)
+    qf = q.to(torch.bfloat16).float()
+    logits = (_lane_logits(qf, k[:, :, 0]) if lanes
+              else qf @ k.transpose(-1, -2))
     if k_scales is not None:
         logits = logits * k_scales[:, :, None, None, :]
     logits = logits * hd_scale(q.shape[-1])
@@ -68,7 +99,9 @@ def _attn_torch(q: torch.Tensor, k_cache, k_scales, v_cache, v_scales,
     mask = key_pos <= q_pos[:, :, None]                       # [B, T, S]
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = e / e.sum(-1, keepdim=True)
+    total = (e.double().sum(-1, keepdim=True).float() if lanes
+             else e.sum(-1, keepdim=True))
+    p = e / total
     if v_scales is not None:
         p = p * v_scales[:, :, None, None, :]
     return p.to(torch.bfloat16).float() @ v
@@ -129,10 +162,70 @@ def _pos_args(pos: Pos, b: int, dev) -> Tuple[Optional[int], int]:
     return pos.to(torch.int32).contiguous(), 0
 
 
-def decode_smem(g: int, s: int, hd: int) -> int:
-    """K11's dynamic shared memory: f32 logits [G, S] and the warps'
-    partial outputs [8, G, HD]."""
-    return 4 * (g * s + _DEC_WARPS * g * hd)
+class DecodePlan(NamedTuple):
+    """K11's launch: `cluster` blocks a (batch row, kv head), each owning
+    `span` consecutive keys (whole tiles); `cached`: a span's [G,
+    span] f32 logits stay in shared memory (else K is streamed three
+    times); `smem`: dynamic shared-memory bytes of a block."""
+    cluster: int
+    span: int
+    cached: bool
+    smem: int
+
+
+def dec_keys(hd: int, quant: bool) -> int:
+    """K11's keys a staged tile (csrc: dec_keys): 16 KB of rows, at most
+    128 keys."""
+    return min(128, 16384 // (hd * (1 if quant else 2)))
+
+
+def _dec_smem(span: int, g: int, hd: int, quant: bool, cached: bool) -> int:
+    """K11's dynamic shared memory (csrc: decode_smem_bytes): the ring of
+    K or V tiles with their scales, the logits ([G, span] when kept, else
+    [G, keys] f32), the block reductions [8, G] f64 and the exchanged sum
+    [G] f64 and max [G] f32."""
+    keys = dec_keys(hd, quant)
+    stage = keys * (hd * (1 if quant else 2) + 4)
+    return (_DEC_STAGES * stage + 4 * g * (span if cached else keys)
+            + 8 * _DEC_WARPS * g + 12 * g)
+
+
+@lru_cache(maxsize=None)
+def decode_plan(s: int, g: int, hd: int, quant: bool, heads: int,
+                slots: int) -> DecodePlan:
+    """K11's launch for a view of S slots and `heads` = B * KVH (batch
+    row, kv head) pairs, on a card that holds `slots` blocks of this kind
+    at once: a cluster of slots // heads blocks a pair (so one launch
+    fills the card; at most DEC_MAX_CLUSTER, and no block with fewer than
+    DEC_MIN_TILES tiles of `dec_keys`), each block a contiguous span.
+    Shapes only, never pos: a captured decode step replays any position.
+    The logits are kept while G * span f32 fit DEC_LOGIT_BUDGET. Any 1 <=
+    S <= DEC_MAX_SLOTS runs."""
+    if not 1 <= s <= DEC_MAX_SLOTS:
+        raise ValueError(f"decode_attention kernel plans 1 <= S <= "
+                         f"{DEC_MAX_SLOTS} slots, got S={s}")
+    keys = dec_keys(hd, quant)
+    tiles = -(-s // keys)
+    cluster = max(1, min(DEC_MAX_CLUSTER, slots // max(1, heads),
+                         -(-tiles // DEC_MIN_TILES)))
+    per = -(-tiles // cluster)
+    span = per * keys
+    cached = 4 * g * span <= DEC_LOGIT_BUDGET
+    return DecodePlan(-(-tiles // per), span, cached,
+                      _dec_smem(span, g, hd, quant, cached))
+
+
+@lru_cache(maxsize=None)
+def _dec_slots(quant: bool, g: int, hd: int, device: int) -> int:
+    """Blocks of K11's kind that the card holds at once (the occupancy of
+    its uncached shared memory, times the SMs)."""
+    with torch.cuda.device(device):
+        n = _cuda.library().mmrs_decode_slots(
+            int(quant), hd, g, _dec_smem(0, g, hd, quant, False))
+    if n < 1:
+        raise RuntimeError(f"decode_attention kernel: no occupancy for "
+                           f"G={g}, HD={hd}, quant={quant} ({n})")
+    return n
 
 
 def chunk_plan(rows: int, hd: int, quant: bool) -> Tuple[int, int]:
@@ -170,12 +263,15 @@ def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
                          f"got {g}")
     quant, strides = _cache_args("decode_attention", q, k_cache, k_scales,
                                  v_cache, v_scales)
+    if any(st * k_cache.element_size() % 16 for st in k_cache.stride()[:2]):
+        raise ValueError("decode_attention kernel needs 16-byte aligned cache "
+                         "rows")
     s = k_cache.shape[2]
-    smem = decode_smem(g, s, hd)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"decode_attention kernel: G={g}, S={s} needs {smem}"
-                         f" bytes of shared memory (limit {SMEM_LIMIT})")
+    plan = decode_plan(s, g, hd, bool(quant), b * kvh,
+                       _dec_slots(bool(quant), g, hd, q.device.index or 0))
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     pos_t, pos0 = _pos_args(pos, b, q.device)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -184,8 +280,9 @@ def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None,
             None if pos_t is None else pos_t.data_ptr(), pos0, out.data_ptr(),
-            b, kvh, g, hd, s, *strides, quant, hd_scale(hd), smem,
-            _cuda.stream_of(q)), "decode_attention")
+            b, kvh, g, hd, s, *strides, quant, hd_scale(hd), plan.cluster,
+            plan.span, int(plan.cached), plan.smem, _cuda.stream_of(q)),
+            "decode_attention")
     decode_attention.launches += 1
     return out
 
@@ -238,7 +335,7 @@ def decode_attention(
         b = q.shape[0]
         q_pos = query_positions(pos, b, 1, q.device)
         return _attn_torch(q[:, :, :, None], k_cache, k_scales, v_cache,
-                           v_scales, q_pos)[:, :, :, 0]
+                           v_scales, q_pos, lanes=True)[:, :, :, 0]
     return _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos)
 
 

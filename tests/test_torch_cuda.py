@@ -420,6 +420,69 @@ def test_ivf_topk_on_the_card_matches_plain_with_a_big_spill(dev, quant):
                                                           device=dev))
 
 
+@lru_cache(maxsize=None)
+def _k7_index(quant, d):
+    """An IVF index over 30,000 seeded rows at C = 64 (cap ~600: three
+    chunks a bucket, the last ragged) for the bucket-major probe tests."""
+    return _probe_index(30_000, d, 64, quant, torch.device("cuda"),
+                        seed=d + 1)
+
+
+def _k7_lists(kind, q, c, dev, seed):
+    """Probe lists [q, p] of one kind: every query the same list; no two
+    entries of a query tile sharing a bucket; each list naming one bucket
+    twice; or lists with out-of-range cluster ids (c + 5 and -3)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "shared":
+        return _probe_lists(1, c, 16, dev, seed).repeat(q, 1)
+    if kind == "disjoint":
+        p = max(1, c // min(q, 8))
+        perm = torch.randperm(c, device=dev, generator=g)
+        return torch.stack([perm[(i % 8) * p:(i % 8 + 1) * p]
+                            for i in range(q)]).int()
+    lists = _probe_lists(q, c, 12, dev, seed)
+    if kind == "repeats":
+        return torch.cat([lists[:, :5], lists[:, 2:3], lists[:, 5:]], dim=1)
+    bad = torch.rand(lists.shape, device=dev, generator=g) < 0.25
+    lists[bad] = torch.where(torch.rand(lists.shape, device=dev,
+                                        generator=g)[bad] < 0.5, c + 5,
+                             -3).int()
+    return lists
+
+
+@pytest.mark.parametrize("quant", ["", "int8"])
+@pytest.mark.parametrize("d", [512, 520])
+@pytest.mark.parametrize("kind", ["shared", "disjoint", "repeats",
+                                  "out_of_range"])
+@pytest.mark.parametrize("q", [1, 8, 64])
+@pytest.mark.parametrize("k", [1, 10, 300, 1000])
+def test_probe_kernel_bucket_major_matches_plain(dev, quant, d, kind, q, k):
+    """K7 reads each bucket a query tile probes once and scores it for
+    every query of the tile naming it: shared and disjoint lists, a bucket
+    twice in one list (both virtual positions), out-of-range ids (empty
+    slots, never read: plain sees an empty bucket C in their place),
+    D % 16 == 8, k past one chunk."""
+    rows, ivf = _k7_index(quant, d)
+    c, cap = ivf.bucket_ids.shape
+    qs = rows[:q] + 0.05 * _unit_rows(q, d, dev, seed=q).float()
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    probe = _k7_lists(kind, q, c, dev, seed=q + k)
+    before = probe_buckets.launches
+    vals, ids = _probe(ivf, qs, probe, k)
+    torch.cuda.synchronize()
+    assert probe_buckets.launches == before + 1
+    plain_probe = torch.where((probe < 0) | (probe >= c), c, probe)
+    buckets = torch.cat([ivf.buckets, ivf.buckets[:1]])
+    bucket_ids = torch.cat([ivf.bucket_ids, torch.full_like(
+        ivf.bucket_ids[:1], -1)])
+    scales = None if ivf.bucket_scales is None else torch.cat(
+        [ivf.bucket_scales, ivf.bucket_scales[:1]])
+    rv, ri = probe_buckets(qs.bfloat16(), plain_probe, buckets, bucket_ids,
+                           scales, k, impl="torch")
+    assert vals.shape == (q, k) and ids.dtype == torch.int32
+    _assert_probe_matches(vals, ids, rv, ri, exact=False)
+
+
 def test_probe_kernels_reject_what_they_cannot_run(dev):
     rows, ivf = _probe_index(1000, 64, 4, "", dev, seed=0)
     probe = _probe_lists(1, 4, 2, dev, seed=0)
@@ -718,6 +781,64 @@ def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
         odd = torch.zeros((2, 2, 64, 96), dtype=torch.bfloat16, device=dev)
         chunk_attention(torch.zeros((2, 2, 1, 3, 96), dtype=torch.bfloat16,
                                     device=dev), odd, None, odd, None, 0)
+
+
+def _decode_pair(args, pos):
+    """K11 (counted) and its plain version on the same inputs."""
+    before = decode_attention.launches
+    out = decode_attention(*args, pos)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    return out, decode_attention(*args, pos, impl="torch")
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("b,kvh,g,hd", [(8, 32, 1, 128), (8, 4, 8, 64)])
+@pytest.mark.parametrize("s", [704, 1000, 5000])
+def test_decode_attention_kernel_masked_rows_and_ragged_spans(
+        dev, quantized, b, kvh, g, hd, s):
+    """The 7B and draft shapes: pos 0; per-row positions with dead tails
+    and a row whose every key is masked (NaN, as plain); S = 1000 and
+    5000, whose last span is shorter than the others."""
+    k, ks, v, vs = _kv_cache(dev, 1, b, kvh, s, hd, quantized, seed=s + g)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, kvh, g, hd), device=dev, generator=gen).bfloat16()
+    args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+    _attn_close(*_decode_pair(args, 0))
+    rows = torch.randint(0, s, (b,), device=dev, generator=gen)
+    rows[1] = -1                                   # every key masked
+    rows[2] = s - 1
+    out, ref = _decode_pair(args, rows.int())
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan) and bool(nan[1].all())
+    _attn_close(out[~nan].view(b - 1, -1), ref[~nan].view(b - 1, -1))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("g,hd", [(1, 128), (8, 64)])
+@pytest.mark.parametrize("s", [8192, 32768])
+def test_decode_attention_kernel_long_caches_match_plain(dev, quantized, g,
+                                                         hd, s):
+    """C.2: S past one block's shared memory at G = 8 (the logits of a
+    span kept in shared memory at 8192, streamed three times at 32768)."""
+    k, ks, v, vs = _kv_cache(dev, 1, 2, 2, s, hd, quantized, seed=s)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, 2, g, hd), device=dev, generator=gen).bfloat16()
+    args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+    for pos in (s - 1, s // 3):
+        _attn_close(*_decode_pair(args, pos))
+    rows = torch.tensor([s - 1, 100], device=dev)
+    _attn_close(*_decode_pair(args, rows))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_decode_attention_kernel_runs_65536_slots(dev, g):
+    for quantized in (False, True):
+        k, ks, v, vs = _kv_cache(dev, 1, 1, 2, 65536, 128, quantized, seed=g)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        q = torch.randn((1, 2, g, 128), device=dev, generator=gen).bfloat16()
+        args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+        _attn_close(*_decode_pair(args, 65535))
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -195,11 +195,53 @@ def test_impl_switch_and_cpu_refusal():
 
 def test_kernel_sizing():
     """Shared memory the wrappers ask for, at the 7B and draft shapes."""
-    assert t_da.decode_smem(1, 704, 128) == 4 * (704 + 8 * 128)
-    assert t_da.decode_smem(8, 704, 64) <= t_da.SMEM_LIMIT
+    # one 7B step (B * KVH = 256 heads) on a card holding 396 such blocks
+    plan = t_da.decode_plan(704, 1, 128, False, 256, 396)
+    assert plan == (1, 704, True, 4 * 64 * (128 * 2 + 4) + 4 * 704 + 76)
+    assert t_da.decode_plan(704, 8, 64, True, 32, 132).smem <= \
+        t_da.SMEM_LIMIT
     warps, smem = t_da.chunk_plan(64, 128, quant=False)   # one 7B chunk
     assert warps == 4 and smem == 5 * 2 * 64 * 136 <= t_da.SMEM_LIMIT
     assert t_da.chunk_plan(16, 64, quant=True)[0] == 1   # draft: G=8, C=2
     assert max(t_da.chunk_plan(5, hd, quant)[1] for hd in (64, 128)
                for quant in (False, True)) <= t_da.SMEM_LIMIT
     assert t_da.hd_scale(128) == float(np.float32(1 / 128 ** 0.5))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_plan_from_shapes(g, hd, quant):
+    """K11's launch comes from the shapes alone (S, G, HD, B * KVH and what
+    the card holds): as many blocks a head as fill the card, at most 8,
+    none with fewer than two 16 KB tiles unless S is one tile; the spans
+    cover S with no empty block; the logits are kept while they fit
+    their budget; any S up to DEC_MAX_SLOTS runs within one block's
+    shared memory, and only past it does the plan refuse."""
+    keys = t_da.dec_keys(hd, quant)
+    assert keys * hd * (1 if quant else 2) <= 16384 and keys <= 128
+    for heads, slots in ((256, 396), (32, 132), (2, 264), (1, 1)):
+        for s in (1, 63, 64, 129, 704, 1000, 5000, 8192, 32768, 65536,
+                  t_da.DEC_MAX_SLOTS):
+            plan = t_da.decode_plan(s, g, hd, quant, heads, slots)
+            tiles = -(-s // keys)
+            assert 1 <= plan.cluster <= min(t_da.DEC_MAX_CLUSTER,
+                                            max(1, slots // heads))
+            assert plan.span % keys == 0
+            assert plan.span >= min(2, tiles) * keys
+            assert (plan.cluster - 1) * plan.span < s <= \
+                plan.cluster * plan.span
+            assert plan.cached == (4 * g * plan.span
+                                   <= t_da.DEC_LOGIT_BUDGET)
+            assert plan.smem <= t_da.SMEM_LIMIT
+    # the 7B step fills the card with one block a head, the draft's 32
+    # heads with clusters of 3 or 4, a lone head with 8
+    assert t_da.decode_plan(704, g, hd, quant, 256, 396)[:2] == (
+        1, -(-704 // keys) * keys)
+    assert t_da.decode_plan(704, g, hd, quant, 32, 132)[:2] == (
+        (4, 192) if keys == 64 else (3, 256))
+    assert t_da.decode_plan(65536, g, hd, quant, 2, 264)[:2] == (8, 8192)
+    assert t_da.decode_plan(32768, 8, hd, quant, 2, 264).cached is False
+    for bad in (0, t_da.DEC_MAX_SLOTS + 1):
+        with pytest.raises(ValueError, match="plans 1 <= S"):
+            t_da.decode_plan(bad, g, hd, quant, 2, 264)

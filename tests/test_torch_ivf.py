@@ -393,6 +393,100 @@ def test_probe_ties_short_lists_and_out_of_order_probes():
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jid))
 
 
+def _owners_loop(probe, tile):
+    """The ownership rule as a Python loop over each tile's entries."""
+    out = np.zeros(probe.shape, bool)
+    for t0 in range(0, probe.shape[0], tile):
+        seen = set()
+        for qi in range(t0, min(t0 + tile, probe.shape[0])):
+            for r in range(probe.shape[1]):
+                out[qi, r] = int(probe[qi, r]) not in seen
+                seen.add(int(probe[qi, r]))
+    return out
+
+
+@pytest.mark.parametrize("q,p,c", [(1, 5, 8), (8, 16, 20), (13, 7, 6),
+                                   (64, 4, 300)])
+@pytest.mark.parametrize("kind", ["random", "duplicated"])
+def test_bucket_owners_match_a_python_loop(q, p, c, kind):
+    """K7's bucket-major rule (`ivf.bucket_owners`): an entry owns its
+    bucket iff no earlier entry of its 8-query tile names it; every
+    distinct bucket of a tile has exactly one owner."""
+    rng = np.random.default_rng(q * p + c)
+    probe = rng.integers(-2, c + 2, (q, p)).astype(np.int32)
+    if kind == "duplicated":       # whole lists repeated, and repeats inside
+        probe[1::2] = probe[0]
+        probe[:, -1] = probe[:, 0]
+    own = T.bucket_owners(torch.from_numpy(probe)).numpy()
+    np.testing.assert_array_equal(own, _owners_loop(probe, T.PROBE_TILE))
+    for t0 in range(0, q, T.PROBE_TILE):
+        tile = probe[t0:t0 + T.PROBE_TILE]
+        assert own[t0:t0 + T.PROBE_TILE].sum() == len(np.unique(tile))
+
+
+def _bucket_major_model(q, probe, ivf, k):
+    """K7's algorithm in plain PyTorch: the owner of each distinct bucket
+    of a tile scores its 256-slot chunks for every query, keeps each
+    chunk's best min(k, 256) by (score desc, slot asc), and writes them as
+    list r * n_cc + c of every entry (qi, r) naming the bucket, carrying
+    r * cap + slot; the lists are merged by (score desc, position asc)."""
+    c_n, cap = ivf.bucket_ids.shape
+    n_cc, kc = -(-cap // 256), min(k, 256)
+    qn, p = probe.shape
+    own = T.bucket_owners(probe)
+    lists = {}
+    for qi, r in zip(*np.nonzero(own.numpy())):
+        t0 = qi // T.PROBE_TILE * T.PROBE_TILE
+        b = int(probe[qi, r])
+        ids = (ivf.bucket_ids[b] if 0 <= b < c_n
+               else torch.full((cap,), -1, dtype=torch.int32))
+        rows = ivf.buckets[b % c_n].float()
+        for q2 in range(t0, min(t0 + T.PROBE_TILE, qn)):
+            scores = rows @ q[q2].float()
+            if ivf.bucket_scales is not None:
+                scores = scores * ivf.bucket_scales[b % c_n]
+            scores = torch.where(ids >= 0, scores, float("-inf"))
+            for r2 in np.nonzero((probe[q2] == b).numpy())[0]:
+                for cc in range(n_cc):
+                    sl = scores[cc * 256:(cc + 1) * 256]
+                    order = np.lexsort((np.arange(sl.numel()), -sl.numpy()))
+                    top = order[:kc]
+                    lists[(q2, r2 * n_cc + cc)] = (
+                        sl[top], r2 * cap + cc * 256 + torch.from_numpy(top))
+    vals = torch.full((qn, k), float("-inf"))
+    out = torch.full((qn, k), -1, dtype=torch.int32)
+    for q2 in range(qn):
+        v = torch.cat([lists[(q2, j)][0] for j in range(p * n_cc)])
+        pos = torch.cat([lists[(q2, j)][1] for j in range(p * n_cc)])
+        order = np.lexsort((pos.numpy(), -v.numpy()))[:k]
+        vals[q2, :len(order)] = v[order]
+        for j, o in enumerate(order):
+            r2, slot = divmod(int(pos[o]), cap)
+            b = int(probe[q2, r2])
+            if v[o] > float("-inf") and 0 <= b < c_n:
+                out[q2, j] = ivf.bucket_ids[b, slot]
+    return vals, out
+
+
+@pytest.mark.parametrize("quant", ["", "int8"])
+def test_bucket_major_model_equals_the_plain_probe(blobs, quant):
+    """The bucket-major partials (positions r * cap + slot, lists r * n_cc
+    + c, repeated and shared buckets) merge to the plain probe's answer."""
+    g, cents, q = blobs
+    ti = T.build_ivf(g, n_clusters=16, centroids=cents, quantize=quant,
+                     device=CPU, bucket_cap=300)
+    probe = _t(_probe_list(q, ti, 6, seed=3))
+    probe[1] = probe[0]                       # a shared list
+    probe[2, 4] = probe[2, 1]                 # a bucket twice in one list
+    qb = _t(q).to(torch.bfloat16)
+    for k in (1, 10, 300):
+        mv, mi = _bucket_major_model(qb, probe, ti, k)
+        tv, tid = T.probe_buckets(qb, probe, ti.buckets, ti.bucket_ids,
+                                  ti.bucket_scales, k)
+        np.testing.assert_allclose(mv.numpy(), tv.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(mi.numpy(), tid.numpy())
+
+
 # -- ivf_topk -----------------------------------------------------------------
 
 def _assert_ids_equal_where_separated(tv, tid, jv, jid, sep=1e-5):

@@ -3,6 +3,13 @@
 once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
+    python3 chip_smoke.py --parent DIR
+        (DIR: an unpacked earlier commit of this repository; phase 6 also
+        times that tree's flat scans K1 / K4 / K5 on the same data, in a
+        process of their own before and after this tree's)
+    python3 chip_smoke.py --flat-times ROOT
+        (only phase 6's flat-scan timing, of the package under ROOT, as
+        one JSON line: what --parent runs)
 
 Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
@@ -32,7 +39,9 @@ nonzero exit and no result line:
      stacked 32-layer caches at the LLaVA-v1.5-7B shapes (B=8, 32 kv heads,
      HD 128, 704 slots) and the 1.1B draft's (4 kv heads, G=8, HD 64), bf16
      and int8 caches, scalar and per-row positions with dead tails, K10 at
-     C=64 with kv_limit windows and at T=2 / T=5;
+     C=64 with kv_limit windows and at T=2 / T=5; K1 / K5 at the edges of
+     their spans (N = R - 1, R, R + 1 and 2R + 17 rows, R = 2048 forced;
+     Q = 8, k = 10 and 32);
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -85,7 +94,11 @@ nonzero exit and no result line:
      K6 its two products through torch._int_mm and each of its four
      launches timed alone; K2 and K6 at the L/14
      shapes; K2 and K10 as multiples of SDPA and of
-     their bounds; flat bf16 top-300 at Q=8; the verifier end to end per
+     their bounds; flat bf16 top-300 at Q=8; the flat scans K1 / K4 / K5
+     over a seeded 1,048,576 x 512 gallery at Q = 1, 8, 64 (k = 10) and
+     Q = 8, k = 300: eager, on the card alone (`graph_ms`) and split by
+     torch.profiler into query prep, scan and merge passes, beside their
+     bounds (and --parent's kernels); the verifier end to end per
      pack (encode,
      prefill, decode ms a step and tokens/s for bf16 and int8 + int8 KV,
      speculative tokens/s).
@@ -159,6 +172,9 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # k past one 256-row scan chunk: the engine passes any k <= N
 LARGE_K = (300, 1000)
+# phase 6's flat scans: (Q, k) over FLAT_SEED's 1M x 512 gallery
+FLAT_SHAPES = ((1, 10), (8, 10), (64, 10), (8, 300))
+FLAT_SEED = 9
 
 
 def say(*parts) -> None:
@@ -281,6 +297,76 @@ def least_ms(nbytes: float, ops: float, kind: str):
     by_ops = ops / PEAK_OPS[kind] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def flat_gallery(dev) -> torch.Tensor:
+    """[GALLERY_ROWS, DIM] bf16 unit rows from FLAT_SEED, made on the card:
+    the same rows in every process (phase 6 and --flat-times)."""
+    gen = torch.Generator(device=dev).manual_seed(FLAT_SEED)
+    g = torch.randn((GALLERY_ROWS, DIM), device=dev, generator=gen)
+    return (g / g.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+
+def flat_bound(nq: int, k: int, row_bytes: float, kind: str):
+    """Least time of a flat top-k: the gallery (and its row scales) read
+    once, the queries read, k (value, id) pairs a query written; 2 Q N D
+    operations of the rows' type."""
+    return least_ms(GALLERY_ROWS * row_bytes + nq * DIM * (2 if kind == "bf16"
+                                                           else 4)
+                    + nq * k * 8, 2 * nq * GALLERY_ROWS * DIM, kind)
+
+
+def flat_scan_times(dev) -> dict:
+    """The flat scans K1 / K4 / K5 of the `mmrs_tpu_torch` on sys.path over
+    flat_gallery, at each FLAT_SHAPES (Q, k): eager ms (CUDA events around
+    20 calls), on the card alone (`graph_ms`: mean, min, median, max) and
+    the device time of each kernel a launch with the launches seen in 10
+    calls (torch.profiler: the query prep, the scan and the merge passes;
+    the profiler can miss launches, so a launch's mean is what it reads).
+    Launches here are not counted as the main path's: the caller resets or
+    reads counts elsewhere."""
+    from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
+    from mmrs_tpu_torch.ops.quant4 import cosine_topk_int4, quantize_rows_int4
+    from mmrs_tpu_torch.ops.topk import cosine_topk
+
+    g = flat_gallery(dev)
+    scans = {"bf16": (cosine_topk, (g,)),
+             "int8": (cosine_topk_quantized, quantize_rows(g.float())),
+             "int4": (cosine_topk_int4, quantize_rows_int4(g.float()))}
+    out = {}
+    with torch.inference_mode():
+        for kind, (fn, gal) in scans.items():
+            for nq, k in FLAT_SHAPES:
+                qb = g[torch.arange(nq, device=dev) * 997 % GALLERY_ROWS]
+                if kind != "bf16":
+                    qb = qb.float()
+                call = (lambda fn=fn, qb=qb, gal=gal, k=k: fn(qb, *gal, k))
+                eager = time_ms(call, iters=20)
+                graph = graph_ms(call)
+                for _ in range(2):   # a process's first profile may drop kernels
+                    split = profile_device(lambda: [call() for _ in range(10)],
+                                           top=6)
+                out[f"{kind} Q={nq} k={k}"] = {
+                    "eager_ms": eager, "graph_ms": graph,
+                    "split": [(name[:48], ms / max(n, 1), n)
+                              for name, ms, n in split[2]]}
+    del g, scans
+    torch.cuda.empty_cache()
+    return out
+
+
+def parent_flat_times(root: str) -> dict:
+    """flat_scan_times of the package under `root` (an earlier commit), in
+    a process of its own (it builds that tree's kernels into its own
+    _build/)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--flat-times", root],
+        capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"--flat-times {root} failed ({proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
 
 
 def ptxas_lines(log_path: str):
@@ -1181,10 +1267,20 @@ def kv_attention_times(dev, gen, prompt_len: int):
     return out, (spreads, eager), cache_len, (start, c, lim)
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if argv[:1] == ["--flat-times"] and len(argv) == 2:
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        print(json.dumps(flat_scan_times(torch.device("cuda", 0))))
+        return 0
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = os.path.abspath(argv[1])
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mmrs_tpu_torch.config import Config, ModelConfig, SearchConfig
@@ -1208,7 +1304,9 @@ def main() -> int:
     from mmrs_tpu_torch.ops.normalize import l2_normalize
     from mmrs_tpu_torch.ops.preprocess import normalize_images
     from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
-    from mmrs_tpu_torch.ops.quant4 import cosine_topk_int4, quantize_rows_int4
+    from mmrs_tpu_torch.ops import topk as topk_mod
+    from mmrs_tpu_torch.ops.quant4 import (_topk_int4_cuda, cosine_topk_int4,
+                                           prep_queries, quantize_rows_int4)
     from mmrs_tpu_torch.ops.topk import cosine_topk
     from mmrs_tpu_torch.pipeline import build_towers
     from mmrs_tpu_torch.search import calibrate
@@ -1356,6 +1454,34 @@ def main() -> int:
             say(f"phase 3 K1/K4/K5 N={GALLERY_ROWS} D={DIM} Q={nq} k="
                 f"{','.join(map(str, LARGE_K))}: K1 ids agree where "
                 f"separated, K4/K5 ids and values equal to plain")
+        # K1 / K5 at the edges of their spans: R = SPAN_MAX rows forced (the
+        # wrappers pick it at N = 2^20), N = R - 1, R, R + 1 and 2R + 17
+        # (a ragged last span): K5 equal to plain, K1 within 1e-5
+        span = topk_mod.SPAN_MAX
+        for n in (span - 1, span, span + 1, 2 * span + 17):
+            rows = torch.randint(0, n, (8,), device=dev, generator=gen)
+            qv = g[rows].float() + 0.05 * torch.randn((8, DIM), device=dev,
+                                                      generator=gen)
+            qv = qv / qv.norm(dim=1, keepdim=True)
+            for k in (10, 32):
+                vals, ids = topk_mod._cosine_topk_cuda(
+                    qv.to(torch.bfloat16), g[:n], k, span)
+                rv, ri = cosine_topk(qv.to(torch.bfloat16), g[:n], k + 1,
+                                     impl="torch")
+                errs["cosine_topk"] = max(errs["cosine_topk"],
+                                          topk_agree(vals, ids, rv, ri,
+                                                     tol=1e-5))
+                p4, s4 = packed["int4"]
+                vals, ids = _topk_int4_cuda(*prep_queries(qv), p4[:n], s4[:n],
+                                            k, span)
+                rv, ri = cosine_topk_int4(qv, p4[:n], s4[:n], k, impl="torch")
+                check(torch.equal(ids, ri) and torch.equal(vals, rv),
+                      f"K5 span {span} N={n} k={k}: kernel != plain (ids "
+                      f"differ at {int((ids != ri).sum())})")
+        say(f"phase 3 K1/K5 span edges (R={span} forced), N = "
+            f"{span - 1}, {span}, {span + 1}, {2 * span + 17}, Q=8, k=10, 32: "
+            f"K1 within 1e-5 and ids agree where separated, K5 ids and "
+            f"values equal to plain")
         tie = torch.randn((1000, DIM), device=dev, generator=gen)
         tie[500] = tie[20]
         tie[900] = tie[20]
@@ -2352,6 +2478,12 @@ def main() -> int:
                 lambda: fn(qb.float(), eng.gallery, eng.gallery_scales, 10),
                 lambda: fn(qb.float(), eng.gallery, eng.gallery_scales, 10,
                            impl="torch"))
+        # the flat scans over FLAT_SEED's gallery, this tree's between two
+        # runs of --parent's (each in a process of its own)
+        flat_parent = [parent_flat_times(parent)] if parent else []
+        flat = flat_scan_times(dev)
+        if parent:
+            flat_parent.append(parent_flat_times(parent))
         mlp = towers8.params.visual.blocks[0].mlp
         x = torch.randn((EMBED_BATCH * 50, 768), device=dev,
                         generator=gen).to(torch.bfloat16)
@@ -2463,6 +2595,43 @@ def main() -> int:
         f"{times['cosine_topk'][0]:.4f} ms, int8 kernel "
         f"{times['cosine_topk_quantized'][0]:.4f} ms, int4 kernel "
         f"{times['cosine_topk_int4'][0]:.4f} ms")
+    flat_names = {"bf16": "cosine_topk", "int8": "cosine_topk_quantized",
+                  "int4": "cosine_topk_int4"}
+    flat_rows = {"bf16": DIM * 2, "int8": DIM + 4, "int4": DIM // 2 + 4}
+    flat_extra = {}
+    say(f"  flat scans over {GALLERY_ROWS}x{DIM} (seed {FLAT_SEED}): on the "
+        f"card alone = a CUDA graph of 20 calls (mean, min / median / max "
+        f"a call), eager = CUDA events around 20 calls; parent = --parent's "
+        f"kernels in the same call, before / after this tree's"
+        + ("" if parent else " (not given)"))
+    for kind, name in flat_names.items():
+        for nq, k in FLAT_SHAPES:
+            key = f"{kind} Q={nq} k={k}"
+            r = flat[key]
+            bms, by = flat_bound(nq, k, flat_rows[kind],
+                                 "bf16" if kind == "bf16" else "int8")
+            par = [p[key] for p in flat_parent]
+            flat_extra.setdefault(name, {})[f"Q={nq} k={k}"] = {
+                "graph_ms": r["graph_ms"][0], "graph_spread_ms":
+                r["graph_ms"][1:], "eager_ms": r["eager_ms"],
+                "bound_ms": bms,
+                "parent_graph_ms": [p["graph_ms"][0] for p in par],
+                "parent_eager_ms": [p["eager_ms"] for p in par],
+                "split_ms": r["split"]}
+            say(f"  {key} ({name}): on the card alone {r['graph_ms'][0]:.4f}"
+                " ms ({:.4f} / {:.4f} / {:.4f}), eager {:.4f} ms, bound "
+                "{:.4f} ms ({}) = {:.2f}x".format(
+                    *r["graph_ms"][1:], r["eager_ms"], bms, by,
+                    r["graph_ms"][0] / bms)
+                + "".join(f"; parent alone {p['graph_ms'][0]:.4f}, eager "
+                          f"{p['eager_ms']:.4f}" for p in par)
+                + "; by kernel (torch.profiler, 10 calls): " + "; ".join(
+                    f"{n} {ms:.4f} ms a launch x{c}" for n, ms, c in r["split"]))
+            for i, p in enumerate(par):
+                say(f"    parent ({'before' if i == 0 else 'after'}) by "
+                    "kernel: " + "; ".join(
+                        f"{n} {ms:.4f} ms a launch x{c}"
+                        for n, ms, c in p["split"]))
     for rung, (kms, pms) in probe_ms.items():
         say(f"  IVF bucket probe {rung} ({'K8' if rung == 'int4' else 'K7'})"
             f" Q=8 nprobe={IVF_NPROBE} k=10, clustered 1M x 512 C="
@@ -2678,6 +2847,8 @@ def main() -> int:
         "spread_ms": {r: probe_spread[r] for r in ("bf16", "int8")},
         "split_ms": {r: [(k[:40], ms / 10) for k, ms, _ in probe_split[r][2]]
                      for r in ("bf16", "int8")}}
+    for name, d in flat_extra.items():
+        extra.setdefault(name, {})["flat"] = d
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,
          "launches": launches[name], "max_abs_err": errs[name],
@@ -2692,4 +2863,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,14 +10,14 @@
 // so the floor is one read of the gallery (1 GiB at N=2^20, D=512: ~0.32 ms
 // at 3.35 TB/s). The design reads every gallery row from device memory once
 // per call and never writes the [Q, N] score matrix:
-//   - scan pass: one block per (chunk of 256 rows, tile of <= 8 queries);
-//     the query tiles of one chunk are neighbours in the launch order, so
-//     the chunk comes from DRAM once and from L2 for the other tiles. A
-//     warp scores one row for all the tile's queries (16-byte coalesced
-//     loads, f32 FMA), the chunk's scores go to shared memory, a bitonic
-//     network sorts each query's 256 candidates and the best k are written
-//     as partials [Q, n_chunks, kc], kc = min(k, 256): above k = 256 a
-//     chunk's partial list is the whole chunk, sorted.
+//   - scan pass (span_scan.cuh, shared with the int4 scan): one block per
+//     (span of rows, tile of 8 queries), the query tiles of one span
+//     neighbours in the launch order; rows stream through a cp.async ring
+//     into mma.sync m16n8k16 against the tile's queries (rows as M,
+//     queries as N, f32 sums); a block keeps each query's best kc of its
+//     span by a running threshold and a warp arg-max (kc <= 32; spans of
+//     up to 2048 rows), or sorts each 256-row chunk's candidates (kc > 32)
+//     and writes partials [Q, n_parts, kc], kc = min(k, 256).
 //   - merge passes (repeated until one list is left; ops/topk.py:scan_plan
 //     plans them, each merging at least two lists, so any k terminates):
 //     while two lists fit kMaxSort (8192 candidates, 64 KB), one block per
@@ -31,8 +31,8 @@
 // blocks run in no order, hence partials plus merge. Both passes order by
 // (score desc, row id asc), which is `_topk_merge`'s tie rule (first argmax,
 // earlier rows first), and rows past N enter as (-inf, -1), its sentinel.
-// Tensor cores, TMA and a persistent grid are later work.
 
+#include "span_scan.cuh"
 #include "topk_common.cuh"
 
 #include <math.h>
@@ -42,71 +42,6 @@ namespace {
 using mmrs::kChunk;
 using mmrs::kMaxSort;
 using mmrs::kThreads;
-using mmrs::sort_segments;
-
-template <int QT>
-__global__ void __launch_bounds__(kThreads)
-topk_scan_kernel(const uint16_t* __restrict__ q,   // [Q, D] bf16 bits
-                 const uint16_t* __restrict__ g,   // [N, D] bf16 bits
-                 int Q, int N, int D, int k, int n_qtiles,
-                 float* __restrict__ part_v,       // [Q, n_chunks, k]
-                 int* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sv = reinterpret_cast<float*>(smem);                     // [QT][kChunk]
-  int* si = reinterpret_cast<int*>(sv + QT * kChunk);             // [QT][kChunk]
-  uint16_t* qs = reinterpret_cast<uint16_t*>(si + QT * kChunk);   // [QT][D]
-
-  const int n_chunks = gridDim.x / n_qtiles;
-  const int chunk = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * QT;
-  const int row0 = chunk * kChunk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // stage the tile's queries; rows past Q read as zeros and are never written
-  for (int e = threadIdx.x; e < QT * D; e += kThreads) {
-    const int qi = e / D;
-    qs[e] = (q0 + qi < Q) ? q[(size_t)(q0 + qi) * D + (e - qi * D)] : 0;
-  }
-  __syncthreads();
-
-  for (int r = warp; r < kChunk; r += kThreads / 32) {
-    const int row = row0 + r;
-    float acc[QT];
-#pragma unroll
-    for (int qi = 0; qi < QT; ++qi) acc[qi] = 0.f;
-    if (row < N) {  // warp-uniform
-      const uint16_t* grow = g + (size_t)row * D;
-      for (int d0 = lane * 8; d0 < D; d0 += 256) {
-        float gf[8];
-        mmrs::unpack8(*reinterpret_cast<const uint4*>(grow + d0), gf);
-#pragma unroll
-        for (int qi = 0; qi < QT; ++qi) {
-          float qf[8];
-          mmrs::unpack8(*reinterpret_cast<const uint4*>(qs + qi * D + d0), qf);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[qi] = fmaf(qf[j], gf[j], acc[qi]);
-        }
-      }
-    }
-#pragma unroll
-    for (int qi = 0; qi < QT; ++qi) {
-      float s = acc[qi];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      acc[qi] = s;
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int qi = 0; qi < QT; ++qi) {
-        sv[qi * kChunk + r] = row < N ? acc[qi] : -INFINITY;
-        si[qi * kChunk + r] = row < N ? row : -1;
-      }
-    }
-  }
-  __syncthreads();
-  sort_segments(sv, si, kChunk, QT * kChunk);
-  mmrs::write_partials(sv, si, QT, q0, Q, chunk, n_chunks, k, part_v, part_i);
-}
 
 // Sort merge: groups of `per` sorted lists of L -> the best Lout of each
 // group, sorted. Each list sits in shared memory padded to LP = 2^ceil(log2
@@ -225,43 +160,26 @@ topk_merge_path_kernel(const float* __restrict__ in_v,  // [Q, S, L]
   out_i[o] = take_a ? ai[i] : bi[x];
 }
 
-template <int QT>
-void launch_scan(const void* q, const void* g, int Q, int N, int D, int k,
-                 void* part_v, void* part_i, cudaStream_t stream) {
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  const int n_qtiles = (Q + QT - 1) / QT;
-  const size_t smem = (size_t)QT * kChunk * (sizeof(float) + sizeof(int)) +
-                      (size_t)QT * D * sizeof(uint16_t);
-  topk_scan_kernel<QT><<<n_chunks * n_qtiles, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(g), Q, N, D, k,
-      n_qtiles, static_cast<float*>(part_v), static_cast<int*>(part_i));
-}
-
 }  // namespace
 
 extern "C" {
 
 int mmrs_topk_chunk_rows() { return kChunk; }
 int mmrs_topk_max_sort() { return kMaxSort; }
+int mmrs_topk_select_max() { return mmrs::kSelectMax; }
 
 const char* mmrs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Scan pass: partials [Q, ceil(N / 256), k], k the partial list length
-// (min(k, 256) of the call). The caller checks shapes: D % 8 == 0,
-// D <= 2048, 1 <= k <= 256, 1 <= Q <= 65535, qt in {1, 2, 4, 8}.
-int mmrs_topk_scan(const void* q, const void* g, int Q, int N, int D, int k, int qt,
+// Scan pass: partials [Q, ceil(N / span), k], k the partial list length
+// (min(k, 256) of the call), span the rows a list covers (a multiple of
+// 256; 256 when k > kSelectMax). The caller checks shapes: D % 8 == 0,
+// D <= 2048, 1 <= Q <= 65535, 16-byte aligned rows.
+int mmrs_topk_scan(const void* q, const void* g, int Q, int N, int D, int k, int span,
                    void* part_v, void* part_i, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (qt) {
-    case 1: launch_scan<1>(q, g, Q, N, D, k, part_v, part_i, s); break;
-    case 2: launch_scan<2>(q, g, Q, N, D, k, part_v, part_i, s); break;
-    case 4: launch_scan<4>(q, g, Q, N, D, k, part_v, part_i, s); break;
-    case 8: launch_scan<8>(q, g, Q, N, D, k, part_v, part_i, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_span_scan<false>(q, nullptr, nullptr, g, nullptr, Q, N, D, k, span, part_v,
+                                 part_i, static_cast<cudaStream_t>(stream));
 }
 
 // Merge pass over partials [Q, S, L] -> [Q, ceil(S / per), Lout]. width > 0:

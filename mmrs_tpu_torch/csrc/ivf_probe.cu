@@ -39,7 +39,8 @@
 //      slices (empty slots are never read; int8 rows staged raw), scores
 //      them on mma.sync m16n8k16 (rows as M, the tile's queries as N,
 //      bf16 -> f32), and keeps each probing query's best min(k, 256) by k
-//      rounds of a warp arg-max (k <= 32) or a bitonic sort, written once
+//      rounds of a warp arg-max (k <= 32, topk_common.cuh `warp_select`) or
+//      a bitonic sort, written once
 //      for every entry naming the bucket: list r * n_cc + c,
 //      positions r * cap + slot, so a bucket listed twice in one query's
 //      list still gives both virtual positions. An out-of-range cluster id
@@ -91,44 +92,6 @@ template <bool INT8> __host__ __device__ constexpr int probe_ring() {
 template <int SLICE>
 __device__ __forceinline__ int piece(int r, int c) {
   return r * SLICE + ((SLICE == 128 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3))) << 4);
-}
-constexpr int kProbeSelect = 32;   // lists up to this long: warp arg-max rounds
-
-// The best kc (<= kProbeSelect) of the warp's 256 candidates sv[0..256)
-// (slot = index), sorted by (score desc, slot asc), into sv/si[0..kc): kc
-// rounds, each taking the best entry not yet taken (each lane's best of
-// its 8, then a butterfly over the lanes; a strict order, so every lane
-// agrees on the winner).
-__device__ __forceinline__ void warp_select(float* sv, int* si, int kc, int lane) {
-  float v[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = sv[j * 32 + lane];
-  __syncwarp();
-  uint32_t taken = 0;
-  for (int n = 0; n < kc; ++n) {
-    float bv = -INFINITY;
-    int bs = 0x7fffffff;   // ranks after every candidate, -inf ones too
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (!((taken >> j) & 1u) && mmrs::before(v[j], j * 32 + lane, bv, bs)) {
-        bv = v[j];
-        bs = j * 32 + lane;
-      }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int os = __shfl_xor_sync(0xffffffffu, bs, off);
-      if (mmrs::before(ov, os, bv, bs)) {
-        bv = ov;
-        bs = os;
-      }
-    }
-    if ((bs & 31) == lane) taken |= 1u << (bs >> 5);
-    if (lane == 0) {
-      sv[n] = bv;
-      si[n] = bs;
-    }
-  }
 }
 
 // K7, bucket-major. grid (nq * P entries of a query tile, ceil(cap / 256)
@@ -297,8 +260,10 @@ probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
   // each probing query's best kc of the chunk, sorted, at sv/si[qi * 256 ..]
   if (!any_live) {   // every score -inf: the chunk's first kc slots
     for (int x = tid; x < kProbeQT * kChunk; x += kThreads) si[x] = x & (kChunk - 1);
-  } else if (kc <= kProbeSelect) {
-    if ((qmask >> warp) & 1) warp_select(sv + warp * kChunk, si + warp * kChunk, kc, lane);
+  } else if (kc <= mmrs::kSelectMax) {
+    if ((qmask >> warp) & 1)
+      mmrs::warp_select(sv + warp * kChunk, nullptr, kChunk, kc, sv + warp * kChunk,
+                        si + warp * kChunk, lane);
   } else {
     for (int x = tid; x < kProbeQT * kChunk; x += kThreads) si[x] = x & (kChunk - 1);
     __syncthreads();

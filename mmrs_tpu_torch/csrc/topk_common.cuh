@@ -1,10 +1,12 @@
 // What every gallery top-k scan shares (cosine_topk.cu: bf16; quant_topk.cu:
 // int8 and int4; ivf_probe.cu: the bucket probes): the chunk of gallery rows
-// one scan block scores, the merge's largest shared-memory group, and the
-// block-wide bitonic sort of a chunk's candidates.
+// one scan block scores, the merge's largest shared-memory group, the
+// block-wide bitonic sort of a chunk's candidates and the warp's arg-max
+// select of a short list.
 //
 // A scan block writes the best kc = min(k, 256) (score, row id) pairs of its
-// 256-row chunk, sorted, as partials [Q, n_chunks, kc]; `mmrs_topk_merge`
+// 256-row chunk (K1 and K5 at kc <= kSelectMax: of a longer span, see
+// span_scan.cuh), sorted, as partials [Q, n_parts, kc]; `mmrs_topk_merge`
 // (cosine_topk.cu) reduces them to one sorted list of k per query. The
 // order is (score desc, row id asc): the tie rule of
 // mmrs_tpu/ops/topk.py:_topk_merge (first argmax, earlier rows first); rows
@@ -13,11 +15,14 @@
 
 #include "common.cuh"
 
+#include <math.h>
+
 namespace mmrs {
 
 constexpr int kChunk = 256;        // gallery rows per scan block
 constexpr int kThreads = 256;      // 8 warps per block, scan and merge
 constexpr int kMaxSort = 8192;     // most candidates a merge block holds (64 KB)
+constexpr int kSelectMax = 32;     // lists up to this long: warp arg-max rounds
 
 // "a ranks before b": higher score first, equal scores by lower row id.
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
@@ -57,6 +62,57 @@ __device__ inline void write_partials(const float* sv, const int* si, int QT, in
       const size_t o = ((size_t)(q0 + qi) * n_chunks + chunk) * k + j;
       part_v[o] = sv[qi * kChunk + j];
       part_i[o] = si[qi * kChunk + j];
+    }
+  }
+}
+
+// The best kc of one warp's cnt (<= 32 * PER) candidates vals[0..cnt), by
+// (score desc, id asc), into out_v/out_i[0..kc), sorted: kc (<= cnt)
+// rounds, each taking the best candidate not yet taken (each lane's best of
+// its PER, then a butterfly over the lanes; the ids are distinct, so every
+// lane agrees on the winner, and the lane that held it marks it taken).
+// `ids` holds the candidates' ids, or is null when a candidate's id is its
+// index. Every candidate is read before the first write, so the output may
+// be the input. Lane 0 writes.
+template <int PER = 8>
+__device__ __forceinline__ void warp_select(const float* vals, const int* ids, int cnt, int kc,
+                                            float* out_v, int* out_i, int lane) {
+  static_assert(PER <= 32, "taken bits");
+  float v[PER];
+  int id[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int x = j * 32 + lane;
+    v[j] = x < cnt ? vals[x] : -INFINITY;
+    id[j] = x < cnt ? (ids ? ids[x] : x) : 0x7fffffff;
+  }
+  __syncwarp();
+  uint32_t taken = 0;
+  for (int n = 0; n < kc; ++n) {
+    float bv = -INFINITY;
+    int bs = 0x7fffffff;   // ranks after every candidate, -inf ones too
+    int bj = -1;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (!((taken >> j) & 1u) && before(v[j], id[j], bv, bs)) {
+        bv = v[j];
+        bs = id[j];
+        bj = j;
+      }
+    const int mine = bs;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int os = __shfl_xor_sync(0xffffffffu, bs, off);
+      if (before(ov, os, bv, bs)) {
+        bv = ov;
+        bs = os;
+      }
+    }
+    if (bj >= 0 && mine == bs) taken |= 1u << bj;
+    if (lane == 0) {
+      out_v[n] = bv;
+      out_i[n] = bs;
     }
   }
 }

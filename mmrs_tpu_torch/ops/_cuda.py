@@ -46,6 +46,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "mmrs_topk_chunk_rows": ((), _I),
     "mmrs_topk_max_sort": ((), _I),
+    "mmrs_topk_select_max": ((), _I),
     "mmrs_error_string": ((_I,), ctypes.c_char_p),
     "mmrs_topk_scan": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P), _I),
     "mmrs_topk_merge": ((_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P), _I),

@@ -41,7 +41,7 @@ DEC_LOGIT_BUDGET = 96 * 1024   # K11 bytes of [G, span] f32 logits kept
 DEC_MAX_SLOTS = 1 << 24   # the longest view K11 plans for
 _KEYS = 64                # K10 keys per staged tile (csrc: kAttnKeys)
 _HEAD_DIMS = (64, 128)
-_GROUPS = (1, 2, 4, 8)
+_GROUPS = (1, 2, 4, 8)    # K11's instances (csrc: decode_by_group)
 
 Pos = Union[int, torch.Tensor]
 
@@ -254,25 +254,31 @@ def _common_checks(name: str, q: torch.Tensor, g: int, hd: int) -> None:
                          f"B={b}, KVH={kvh}, G={g}")
 
 
-def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
-                 ) -> torch.Tensor:
+def group_pieces(g: int) -> Tuple[Tuple[int, int, int], ...]:
+    """K11 at any G: the (first head, heads, width) of each launch. Each
+    launch reads the whole view once, so there are as few as the largest
+    instance allows (ceil(G / 8)): pieces of 8 heads, the last one's
+    heads padded with zero queries up to the smallest instance that holds
+    them (G = 7 -> one launch at 8; 12 -> 8 + 4). Every head's softmax is
+    its own, so a split changes no result; padded heads are dropped."""
+    top = _GROUPS[-1]
+    pieces = []
+    for start in range(0, g, top):
+        heads = min(top, g - start)
+        pieces.append((start, heads, next(w for w in _GROUPS if w >= heads)))
+    return tuple(pieces)
+
+
+def _decode_launch(q, k_cache, k_scales, v_cache, v_scales, pos_t, pos0,
+                   quant: int, strides) -> torch.Tensor:
+    """One K11 launch on q [B, KVH, G, HD] (G an instance of _GROUPS)."""
     b, kvh, g, hd = q.shape
-    _common_checks("decode_attention", q, g, hd)
-    if g not in _GROUPS:
-        raise ValueError(f"decode_attention kernel takes G in {_GROUPS}, "
-                         f"got {g}")
-    quant, strides = _cache_args("decode_attention", q, k_cache, k_scales,
-                                 v_cache, v_scales)
-    if any(st * k_cache.element_size() % 16 for st in k_cache.stride()[:2]):
-        raise ValueError("decode_attention kernel needs 16-byte aligned cache "
-                         "rows")
     s = k_cache.shape[2]
     plan = decode_plan(s, g, hd, bool(quant), b * kvh,
                        _dec_slots(bool(quant), g, hd, q.device.index or 0))
     q = q.contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
-    pos_t, pos0 = _pos_args(pos, b, q.device)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _cuda.check(_cuda.library().mmrs_decode_attention(
@@ -284,6 +290,29 @@ def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
             plan.span, int(plan.cached), plan.smem, _cuda.stream_of(q)),
             "decode_attention")
     decode_attention.launches += 1
+    return out
+
+
+def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
+                 ) -> torch.Tensor:
+    b, kvh, g, hd = q.shape
+    _common_checks("decode_attention", q, g, hd)
+    quant, strides = _cache_args("decode_attention", q, k_cache, k_scales,
+                                 v_cache, v_scales)
+    if any(st * k_cache.element_size() % 16 for st in k_cache.stride()[:2]):
+        raise ValueError("decode_attention kernel needs 16-byte aligned cache "
+                         "rows")
+    pos_t, pos0 = _pos_args(pos, b, q.device)
+    args = (k_cache, k_scales, v_cache, v_scales, pos_t, pos0, quant, strides)
+    pieces = group_pieces(g)
+    if len(pieces) == 1 and pieces[0][2] == g:
+        return _decode_launch(q, *args)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for start, heads, width in pieces:
+        qp = q[:, :, start:start + heads]
+        if width > heads:
+            qp = torch.cat([qp, qp.new_zeros((b, kvh, width - heads, hd))], 2)
+        out[:, :, start:start + heads] = _decode_launch(qp, *args)[:, :, :heads]
     return out
 
 

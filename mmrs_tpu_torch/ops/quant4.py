@@ -14,8 +14,10 @@ operands of the two dots, as in the JAX package:
 
 The JAX package stores the same nibbles transposed as [D/8, N] int32 words,
 a TPU sublane artefact; the unpacked codes and the scales are bit-identical.
-The f32 epilogue `_score_f32` is one expression for the kernel
-(`csrc/quant_topk.cu`), the plain version and `similarities_int4`, so
+The kernel (`csrc/quant_topk.cu` over `csrc/span_scan.cuh`) runs both dots
+on s8 tensor cores from the packed bytes and keeps each span's best k by a
+running threshold (`ops/topk.span_rows`). The f32 epilogue `_score_f32` is
+one expression for the kernel, the plain version and `similarities_int4`, so
 scores are bit-identical across all three and the JAX package.
 
 `cosine_topk_int4(..., impl=)`: "auto" (the kernel for CUDA tensors, the
@@ -24,7 +26,7 @@ plain version for CPU tensors) or "torch" (the plain version anywhere).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -115,17 +117,21 @@ def _check_kernel_inputs(q_q, q_scale, rs_q, packed, scales, k: int) -> None:
         raise ValueError("cosine_topk_int4 kernel needs 16-byte aligned rows")
 
 
-def _topk_int4_cuda(q_q, q_scale, rs_q, packed, scales, k: int
+def _topk_int4_cuda(q_q, q_scale, rs_q, packed, scales, k: int,
+                    rows: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel path; `rows` (tests only) forces the span that
+    `topk.span_rows` would pick."""
     _check_kernel_inputs(q_q, q_scale, rs_q, packed, scales, k)
     (q, d), n = q_q.shape, packed.shape[0]
+    rows = rows or topk.span_rows(n, k)
     out = topk.by_query_slices(q, lambda a, b: topk.scan_and_merge(
         b - a, n, k, q_q.device,
         lambda qt, kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q4(
             q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
             rs_q[a:b].data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            b - a, n, d, kc, qt, pv, pi, stream),
-        "cosine_topk_int4"))
+            b - a, n, d, kc, rows, pv, pi, stream),
+        "cosine_topk_int4", rows))
     cosine_topk_int4.launches += 1
     return out
 

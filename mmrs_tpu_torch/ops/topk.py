@@ -3,8 +3,10 @@
 Counterpart of mmrs_tpu/ops/topk.py. The query engine's hot op: the best k
 cosine scores of each query against the whole gallery, and their row ids,
 without writing the [Q, N] score matrix to device memory. The kernel is
-`csrc/cosine_topk.cu` (a scan pass that keeps each 256-row chunk's best
-min(k, 256), then merge passes down to one list of k); the plain version
+`csrc/cosine_topk.cu` (a scan pass on tensor cores, `csrc/span_scan.cuh`,
+that keeps each span's best k by a running threshold when k <= 32, else
+each 256-row chunk's best min(k, 256), then merge passes down to one list
+of k; `span_rows` sizes the spans); the plain version
 scores with an f32 matmul and takes a stable descending sort. Any k runs
 on the card, as in mmrs_tpu: past the gallery's rows the answer is padded.
 
@@ -20,7 +22,7 @@ the gallery has fewer than k rows the missing places are (-inf, -1).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +32,9 @@ NEG_INF = float("-inf")
 MAX_DIM = 2048        # staged queries must fit the scan block's shared memory
 CHUNK_ROWS = 256      # csrc/topk_common.cuh kChunk; checked at first load
 SORT_MAX = 8192       # csrc/topk_common.cuh kMaxSort; checked at first load
+SELECT_MAX = 32       # csrc/topk_common.cuh kSelectMax; checked at first load
+SPAN_MAX = 2048       # most rows one K1 / K5 partial list covers
+SPANS = 512           # K1 / K5 partial lists wanted for a large gallery
 MERGE_WIDTH = 1024    # most candidates a merge block takes while k <= 256
 MAX_QUERIES = 65535   # queries a launch takes (the merge grid's y extent)
 
@@ -71,20 +76,35 @@ class MergePass(NamedTuple):
     out: int
 
 
-def scan_plan(q: int, n: int, k: int) -> Tuple[int, int, int,
-                                                List[MergePass]]:
-    """Launch shapes: (queries per scan block, gallery chunks, the scan's
-    partial list length kc = min(k, 256), the merge passes). Every pass
+def span_rows(n: int, k: int) -> int:
+    """Rows one partial list of the span scans (K1, K5) covers: a 256-row
+    chunk when k > SELECT_MAX (the chunk's candidates are sorted); else a
+    span of whole chunks, up to SPAN_MAX rows, sized from N so that a
+    large gallery gives about SPANS lists (2048 rows at N = 2^20): a block
+    walks its span, so fewer lists cost fewer merges and block starts, but
+    the card needs a few blocks per SM."""
+    if k > SELECT_MAX:
+        return CHUNK_ROWS
+    chunks = -(-n // (SPANS * CHUNK_ROWS))
+    return min(SPAN_MAX, max(1, chunks) * CHUNK_ROWS)
+
+
+def scan_plan(q: int, n: int, k: int, rows: int = CHUNK_ROWS
+              ) -> Tuple[int, int, int, List[MergePass]]:
+    """Launch shapes: (queries per scan block, partial lists a query =
+    ceil(n / rows), the scan's partial list length kc = min(k, 256), the
+    merge passes). `rows`: the gallery rows one partial list covers (256
+    for the chunk scans K4, K7, K8; `span_rows` for K1 and K5). Every pass
     merges at least two lists, so the list count falls to 1 for any k;
-    the last pass's lists hold min(k, n_chunks * kc) entries (the caller
+    the last pass's lists hold min(k, n_parts * kc) entries (the caller
     pads to k). Up to k = 256 a pass merges at most MERGE_WIDTH candidates
     per block (many blocks at small k); above, up to SORT_MAX, and lists
     too long for two to fit are merged in pairs by merge path."""
     qt = 1 if q == 1 else 2 if q == 2 else 4 if q <= 4 else 8
-    n_chunks = -(-n // CHUNK_ROWS)
+    n_parts = -(-n // rows)
     kc = min(k, CHUNK_ROWS)
     cap = MERGE_WIDTH if k <= CHUNK_ROWS else SORT_MAX
-    passes, lists, length = [], n_chunks, kc
+    passes, lists, length = [], n_parts, kc
     while lists > 1:
         padded = 1 << (length - 1).bit_length()     # a list's run in the sort
         if 2 * padded <= cap:
@@ -95,7 +115,7 @@ def scan_plan(q: int, n: int, k: int) -> Tuple[int, int, int,
         out = min(k, per * length)
         passes.append(MergePass(lists, length, per, width, out))
         lists, length = -(-lists // per), out
-    return qt, n_chunks, kc, passes
+    return qt, n_parts, kc, passes
 
 
 @lru_cache(maxsize=None)
@@ -103,11 +123,13 @@ def _library():
     """The kernel library, after checking that its launch geometry is the
     one `scan_plan` sizes the partial buffers for."""
     lib = _cuda.library()
-    built = (lib.mmrs_topk_chunk_rows(), lib.mmrs_topk_max_sort())
-    if built != (CHUNK_ROWS, SORT_MAX):
+    built = (lib.mmrs_topk_chunk_rows(), lib.mmrs_topk_max_sort(),
+             lib.mmrs_topk_select_max())
+    if built != (CHUNK_ROWS, SORT_MAX, SELECT_MAX):
         raise RuntimeError(
-            f"csrc/topk_common.cuh has (kChunk, kMaxSort) = {built}, but "
-            f"ops/topk.py plans for {(CHUNK_ROWS, SORT_MAX)}")
+            f"csrc/topk_common.cuh has (kChunk, kMaxSort, kSelectMax) = "
+            f"{built}, but ops/topk.py plans for "
+            f"{(CHUNK_ROWS, SORT_MAX, SELECT_MAX)}")
     return lib
 
 
@@ -131,22 +153,22 @@ def _check_kernel_inputs(queries: torch.Tensor, gallery: torch.Tensor, k: int
 
 
 def scan_and_merge(q: int, n: int, k: int, device: torch.device,
-                   scan: Callable[[int, int, int, int, int], int], what: str
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   scan: Callable[[int, int, int, int, int], int], what: str,
+                   rows: int = CHUNK_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a gallery scan kernel and the merge passes that reduce its
-    per-chunk partials to the top k. `scan(qt, kc, part_v, part_i,
-    stream)` launches the scan (pointers as ints) and returns its CUDA
-    error code; it writes the best kc of each 256-row chunk, sorted, into
-    partials [Q, n_chunks, kc] (f32 values, int32 ids), the format
+    partials to the top k. `scan(qt, kc, part_v, part_i, stream)` launches
+    the scan (pointers as ints) and returns its CUDA error code; it writes
+    the best kc of each `rows` gallery rows, sorted, into partials [Q,
+    ceil(n / rows), kc] (f32 values, int32 ids), the format
     `mmrs_topk_merge` reads. Every gallery scan (bf16, int8, int4, the
     IVF probes) shares this plumbing. Q <= MAX_QUERIES (`by_query_slices`)."""
     lib = _library()
-    qt, n_chunks, kc, passes = scan_plan(q, n, k)
+    qt, n_parts, kc, passes = scan_plan(q, n, k, rows)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        vals = torch.empty((q, n_chunks, kc), dtype=torch.float32,
+        vals = torch.empty((q, n_parts, kc), dtype=torch.float32,
                            device=device)
-        idxs = torch.empty((q, n_chunks, kc), dtype=torch.int32,
+        idxs = torch.empty((q, n_parts, kc), dtype=torch.int32,
                            device=device)
         _cuda.check(scan(qt, kc, vals.data_ptr(), idxs.data_ptr(), stream),
                     f"{what} scan")
@@ -189,18 +211,22 @@ def check_scan_shapes(name: str, q: int, n: int, k: int) -> None:
                          f"got Q={q}, N={n}")
 
 
-def _cosine_topk_cuda(queries: torch.Tensor, gallery: torch.Tensor, k: int
+def _cosine_topk_cuda(queries: torch.Tensor, gallery: torch.Tensor, k: int,
+                      rows: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel path; `rows` (tests only) forces the span that
+    `span_rows` would pick."""
     _check_kernel_inputs(queries, gallery, k)
     (q, d), n = queries.shape, gallery.shape[0]
+    rows = rows or span_rows(n, k)
 
     def run(a: int, b: int):
         qs = queries[a:b]
         return scan_and_merge(
             b - a, n, k, queries.device,
             lambda qt, kc, pv, pi, stream: _library().mmrs_topk_scan(
-                qs.data_ptr(), gallery.data_ptr(), b - a, n, d, kc, qt, pv,
-                pi, stream), "cosine_topk")
+                qs.data_ptr(), gallery.data_ptr(), b - a, n, d, kc, rows, pv,
+                pi, stream), "cosine_topk", rows)
 
     out = by_query_slices(q, run)
     cosine_topk.launches += 1

@@ -32,15 +32,17 @@ from mmrs_tpu_torch.index.ivf import (build_ivf_streaming, ivf_topk,
 from mmrs_tpu_torch.models import layers
 from mmrs_tpu_torch.models.llama import _quantize_kv
 from mmrs_tpu_torch.ops.allpairs import first_match
+from mmrs_tpu_torch.ops import topk as topk_mod
 from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
                                                  chunk_attention,
-                                                 decode_attention)
+                                                 decode_attention,
+                                                 group_pieces)
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
-from mmrs_tpu_torch.ops.quant4 import (cosine_topk_int4, prep_queries,
-                                       quantize_rows_int4)
+from mmrs_tpu_torch.ops.quant4 import (_topk_int4_cuda, cosine_topk_int4,
+                                       prep_queries, quantize_rows_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
 
 torch.set_num_threads(2)
@@ -770,8 +772,6 @@ def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
     with pytest.raises(ValueError, match="head dims"):
         decode_attention(q[..., :32].contiguous(), k[0, ..., :32].contiguous(),
                          ks[0], v[0, ..., :32].contiguous(), vs[0], 3)
-    with pytest.raises(ValueError, match="G in"):
-        decode_attention(q.repeat(1, 1, 3, 1), k[0], ks[0], v[0], vs[0], 3)
     cpu = [t.cpu() for t in (q, k[0], ks[0], v[0], vs[0])]
     with pytest.raises(ValueError, match="CUDA"):
         _decode_cuda(*cpu, 3)
@@ -948,3 +948,150 @@ def test_probe_kernels_split_70000_queries(dev, quant):
         rv, ri = _probe(ivf, qs[sl], probe[sl], 5, impl="torch")
         _assert_probe_matches(vals[sl], ids[sl], rv, ri,
                               exact=quant == "int4")
+
+
+# -- K11 and K10 at any G (query heads over kv heads) ------------------------
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("g", [3, 5, 6, 7, 12, 16])
+@pytest.mark.parametrize("s", [704, 8192])
+def test_decode_attention_kernel_any_group_matches_plain(dev, quantized, g,
+                                                         s):
+    """G outside K11's instances (1, 2, 4, 8): the wrapper launches
+    ceil(G / 8) pieces, the last padded with zero heads (G = 7 -> one
+    launch at 8); each head's softmax is its own, so the answer is the
+    plain version's."""
+    k, ks, v, vs = _kv_cache(dev, 1, 2, 3, s, 128, quantized, seed=s + g)
+    gen = torch.Generator(device=dev).manual_seed(g)
+    q = torch.randn((2, 3, g, 128), device=dev, generator=gen).bfloat16()
+    args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+    for pos in (s - 1, s // 3, torch.tensor([s - 1, 100], device=dev)):
+        before = decode_attention.launches
+        out = decode_attention(*args, pos)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + len(group_pieces(g))
+        _attn_close(out, decode_attention(*args, pos, impl="torch"))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_chunk_attention_kernel_any_group_matches_plain(dev, quantized):
+    """K10 has no G limit: its rows are G * C of a kv head."""
+    for g in (3, 5, 6, 7, 12, 16):
+        k, ks, v, vs = _kv_cache(dev, 1, 2, 3, 704, 128, quantized, seed=g)
+        gen = torch.Generator(device=dev).manual_seed(g)
+        q = torch.randn((2, 3, g, 5, 128), device=dev,
+                        generator=gen).bfloat16()
+        args = (q, k[0], _layer(ks, 0), v[0], _layer(vs, 0))
+        before = chunk_attention.launches
+        out = chunk_attention(*args, 600)
+        torch.cuda.synchronize()
+        assert chunk_attention.launches == before + 1
+        _attn_close(out, chunk_attention(*args, 600, impl="torch"))
+
+
+# -- K1 and K5: spans of rows on tensor cores, the threshold select ------------
+
+SPAN_QS = [1, 7, 8, 9, 64]
+SPAN_KS = [1, 10, 32, 33, 256, 257, 1000]
+SPAN_NS = [topk_mod.SPAN_MAX - 1, topk_mod.SPAN_MAX, topk_mod.SPAN_MAX + 1,
+           2 * topk_mod.SPAN_MAX + 17]
+
+
+def _span_case(kind, q, n, d, seed):
+    """(queries, gallery) with each query near a gallery row; bf16 rows,
+    or int4 packed rows (queries stay f32: the wrapper codes them)."""
+    rows = _unit_rows(n, d, dev=torch.device("cuda"), seed=seed).float()
+    src = torch.arange(q, device=rows.device) * 7 % n
+    qs = rows[src] + 0.05 * _unit_rows(q, d, rows.device, seed + 1).float()
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    if kind == "bf16":
+        return qs.bfloat16(), rows.bfloat16()
+    return qs, quantize_rows_int4(rows)
+
+
+def _span_scan(kind, qs, gal, k, rows=None, impl="auto"):
+    """K1 / K5 through the public wrapper, or (rows given) through the
+    kernel path with that span forced."""
+    if rows is None:
+        if kind == "bf16":
+            return cosine_topk(qs, gal, k, impl=impl)
+        return cosine_topk_int4(qs, *gal, k, impl=impl)
+    if kind == "bf16":
+        return topk_mod._cosine_topk_cuda(qs, gal, k, rows)
+    return _topk_int4_cuda(*prep_queries(qs), *gal, k, rows)
+
+
+def _assert_scan_close(kind, vals, ids, rv, ri):
+    """int4: equal to plain. bf16: values within 1e-5 of the f32 plain
+    version; ids equal wherever the plain scores (k + 1 of them) are more
+    than 1e-5 from both neighbours."""
+    k = vals.shape[1]
+    if kind == "int4":
+        assert torch.equal(ids, ri[:, :k]) and torch.equal(vals, rv[:, :k])
+        return
+    finite = torch.isfinite(rv[:, :k])
+    assert torch.equal(torch.isfinite(vals), finite)
+    assert torch.equal(ids[~finite], ri[:, :k][~finite])
+    assert float((vals[finite] - rv[:, :k][finite]).abs().max()) <= 1e-5
+    rvd = rv.double()
+    diff = (rvd[:, :-1] - rvd[:, 1:]).abs()
+    left = torch.cat([torch.full_like(diff[:, :1], float("inf")),
+                      diff[:, :k - 1]], 1)
+    clear = finite & (left > 1e-5) & (diff[:, :k] > 1e-5)
+    assert torch.equal(ids[clear], ri[:, :k][clear])
+
+
+@pytest.mark.parametrize("kind,d", [(kind, d) for kind, first in
+                                    (("bf16", 24), ("int4", 16))
+                                    for d in (first, 48, 512, 768, 2048)])
+@pytest.mark.parametrize("q", SPAN_QS)
+@pytest.mark.parametrize("k", SPAN_KS)
+def test_span_scans_match_plain_across_span_edges(dev, kind, d, q, k):
+    """N = R - 1, R, R + 1 and 2R + 17 rows with the span forced to R =
+    SPAN_MAX (k <= 32; 256-row chunks above), then the public wrapper
+    (its own span) at the last N: K5 equal to plain, K1 within 1e-5."""
+    fn = cosine_topk if kind == "bf16" else cosine_topk_int4
+    for n in SPAN_NS:
+        qs, gal = _span_case(kind, q, n, d, seed=n + d)
+        rv, ri = _span_scan(kind, qs, gal, k + 1, impl="torch")
+        rows = topk_mod.SPAN_MAX if k <= topk_mod.SELECT_MAX else 256
+        vals, ids = _span_scan(kind, qs, gal, k, rows)
+        assert vals.shape == (q, k) and ids.dtype == torch.int32
+        _assert_scan_close(kind, vals, ids, rv, ri)
+    before = fn.launches
+    vals, ids = _span_scan(kind, qs, gal, k)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_scan_close(kind, vals, ids, rv, ri)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 300])
+def test_span_scans_identical_rows_give_the_first_ids(dev, kind, k):
+    """Every row the same: every score ties, so the answer is rows
+    0..k-1 (the threshold test is strict after the first compaction)."""
+    row = _unit_rows(1, 512, dev, seed=3).float()
+    rows = row.expand(5000, 512).contiguous()
+    qs = (row + 0.1 * _unit_rows(2, 512, dev, seed=4).float())
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    gal = rows.bfloat16() if kind == "bf16" else quantize_rows_int4(rows)
+    if kind == "bf16":
+        qs = qs.bfloat16()
+    for span in (None, topk_mod.SPAN_MAX if k <= topk_mod.SELECT_MAX
+                 else None):
+        vals, ids = _span_scan(kind, qs, gal, k, span)
+        assert ids.tolist() == [list(range(k))] * 2
+        rv, ri = _span_scan(kind, qs, gal, k, impl="torch")
+        assert torch.equal(ids, ri)
+        assert torch.equal(vals, rv) if kind == "int4" else \
+            float((vals - rv).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_span_scans_1m_rows_match_plain(dev, kind):
+    """The main path's shape: 2^20 x 512, Q = 8, k = 10 (2048-row spans)."""
+    qs, gal = _span_case(kind, 8, 1 << 20, 512, seed=21)
+    vals, ids = _span_scan(kind, qs, gal, 10)
+    rv, ri = _span_scan(kind, qs, gal, 11, impl="torch")
+    _assert_scan_close(kind, vals, ids, rv, ri)
+    assert ids[:, 0].tolist() == [i * 7 for i in range(8)]

@@ -5,11 +5,12 @@ once on one NVIDIA GPU.
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --parent DIR
         (DIR: an unpacked earlier commit of this repository; phase 6 also
-        times that tree's flat scans K1 / K4 / K5 on the same data, in a
-        process of their own before and after this tree's)
+        times that tree's flat scans K1 / K4 / K5 and bucket probes K7 / K8
+        on the same data, in a process of their own before and after this
+        tree's)
     python3 chip_smoke.py --flat-times ROOT
-        (only phase 6's flat-scan timing, of the package under ROOT, as
-        one JSON line: what --parent runs)
+        (only phase 6's flat-scan and bucket-probe timing, of the package
+        under ROOT, as one JSON line: what --parent runs)
 
 Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
@@ -25,7 +26,9 @@ nonzero exit and no result line:
      f32 x, W/H = 512/2048 and 1024/8192, equal in every element), K7/K8 (the
      IVF bucket probes over bf16 / int8 / int4 buckets of a clustered
      1,048,576 x 512 gallery at C = 1024, built on the card: K8 equal,
-     K7 values within 1e-5 and ids equal where scores are separated), K9
+     K7 values within 1e-5 and ids equal where scores are separated; K8
+     also at Q = 1, 8, 9, 64 and k = 1, 10, 33, 300; both on shared lists,
+     disjoint lists, a bucket twice in a list and out-of-range ids), K9
      (all-pairs first match over 131,072 x 512 planted rows, f32 and bf16:
      keep-first, cross set, ring halves with row offsets, ragged N, f32
      rows of f16 values and of magnitudes down to 1e-6; every id equal;
@@ -39,9 +42,10 @@ nonzero exit and no result line:
      stacked 32-layer caches at the LLaVA-v1.5-7B shapes (B=8, 32 kv heads,
      HD 128, 704 slots) and the 1.1B draft's (4 kv heads, G=8, HD 64), bf16
      and int8 caches, scalar and per-row positions with dead tails, K10 at
-     C=64 with kv_limit windows and at T=2 / T=5; K1 / K5 at the edges of
-     their spans (N = R - 1, R, R + 1 and 2R + 17 rows, R = 2048 forced;
-     Q = 8, k = 10 and 32);
+     C=64 with kv_limit windows and at T=2 / T=5, and at head dims 80 and
+     96 (2 layers, 8 kv heads, G=4); K1 / K4 / K5 at the edges of their
+     spans (N = R - 1, R, R + 1 and 2R + 17 rows, R = 2048 forced; Q = 8,
+     K4 also 1 and 64; k = 10 and 32);
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -98,7 +102,9 @@ nonzero exit and no result line:
      over a seeded 1,048,576 x 512 gallery at Q = 1, 8, 64 (k = 10) and
      Q = 8, k = 300: eager, on the card alone (`graph_ms`) and split by
      torch.profiler into query prep, scan and merge passes, beside their
-     bounds (and --parent's kernels); the verifier end to end per
+     bounds (and --parent's kernels); the bucket probes K7 / K8 at Q=8,
+     nprobe=128, k=10 the same way (and --parent's); the verifier end to
+     end per
      pack (encode,
      prefill, decode ms a step and tokens/s for bf16 and int8 + int8 KV,
      speculative tokens/s).
@@ -216,23 +222,6 @@ def time_pair(kernel_fn, plain_fn, iters: int = 10, warmup: int = 3):
     p1, k1, k2, p2 = (time_ms(fn, iters, warmup) for fn in
                       (plain_fn, kernel_fn, kernel_fn, plain_fn))
     return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def spread_ms(fn, iters: int = 50, warmup: int = 3):
-    """(min, median, max) ms of single calls of fn, each between its own
-    pair of CUDA events: how far one call's time moves within a run."""
-    for _ in range(warmup):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda.synchronize()
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    ms = sorted(start.elapsed_time(end) for start, end in events)
-    return ms[0], ms[len(ms) // 2], ms[-1]
 
 
 def graph_ms(fn, n: int = 20, reps: int = 20):
@@ -355,10 +344,84 @@ def flat_scan_times(dev) -> dict:
     return out
 
 
-def parent_flat_times(root: str) -> dict:
-    """flat_scan_times of the package under `root` (an earlier commit), in
-    a process of its own (it builds that tree's kernels into its own
-    _build/)."""
+def clustered_ivfs(dev):
+    """The clustered 1M gallery (seed SEED) and its IVF index at C =
+    IVF_CLUSTERS for every rung from one set of centroids, built on the
+    card by the `mmrs_tpu_torch` on sys.path: (gallery, {mode: index},
+    {"train": s, mode: build seconds})."""
+    from mmrs_tpu_torch.index import ivf as ivf_mod
+
+    gal = clustered_gallery(dev, SEED)
+
+    def chunks():
+        return (gal[a:a + IVF_CHUNK] for a in range(0, GALLERY_ROWS, IVF_CHUNK))
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cents = ivf_mod.train_centroids(gal[::4], IVF_CLUSTERS, device=dev)
+    torch.cuda.synchronize()
+    seconds = {"train": time.perf_counter() - t1}
+    ivfs = {}
+    for mode in IVF_RUNGS:
+        ivfs[mode] = ivf_mod.build_ivf_streaming(
+            chunks, GALLERY_ROWS, DIM, n_clusters=IVF_CLUSTERS,
+            chunk=IVF_CHUNK, centroids=cents, quantize=mode, device=dev)
+        seconds[mode] = ivfs[mode].build_seconds
+    return gal, ivfs, seconds
+
+
+def probe_scan_times(dev, gal, ivfs, plain: bool = False) -> dict:
+    """The bucket probes K7 (bf16, int8) and K8 (int4) of the
+    `mmrs_tpu_torch` on sys.path at Q=8, nprobe=IVF_NPROBE, k=10 over the
+    clustered gallery's indexes (clustered_ivfs), 8 queries near rows i *
+    997 (noise from FLAT_SEED): eager ms (CUDA events around 20 calls), on
+    the card alone (`graph_ms`), the device time of each kernel a launch
+    with the launches seen in 10 calls (torch.profiler, the second of two
+    profiles; it can miss launches, so a launch's mean is what it reads),
+    the bound
+    (the live rows of the distinct probed buckets, which K7 / K8 read once
+    for the tile, and their slot ids; 2 D operations a live row and
+    query), and with `plain` the plain version's eager ms. Launches here
+    are not counted as the main path's."""
+    from mmrs_tpu_torch.index import ivf as ivf_mod
+
+    gen = torch.Generator(device=dev).manual_seed(FLAT_SEED + 1)
+    rows = torch.arange(8, device=dev) * 997
+    qv = gal[rows].float() + 0.02 * torch.randn((8, DIM), device=dev,
+                                                generator=gen)
+    qv = qv / qv.norm(dim=1, keepdim=True)
+    out = {}
+    with torch.inference_mode():
+        for mode, ivf in ivfs.items():
+            plist = ivf_mod.probe_lists(qv, ivf, IVF_NPROBE)
+            fn, args = probe_call(ivf, qv, plist)
+            call = (lambda fn=fn, args=args: fn(*args, 10))
+            r = {"eager_ms": time_ms(call, iters=20), "graph_ms": graph_ms(call)}
+            for _ in range(2):   # a process's first profile may drop kernels
+                split = profile_device(lambda: [call() for _ in range(10)],
+                                       top=4)
+            r["split"] = [(name[:40], ms / max(n, 1), n)
+                          for name, ms, n in split[2]]
+            if plain:
+                r["plain_ms"] = time_ms(lambda: fn(*args, 10, impl="torch"))
+            live = (ivf.bucket_ids >= 0).sum(1)
+            distinct = plist[ivf_mod.bucket_owners(plist)]
+            row_bytes = {"": DIM * 2, "int8": DIM + 4, "int4": DIM // 2 + 4}
+            r["bound"] = least_ms(
+                int(live[distinct].sum()) * row_bytes[mode]
+                + distinct.numel() * ivf.bucket_cap * 4 + 8 * DIM * 2
+                + 8 * 10 * 8,
+                2 * DIM * int(live[plist.long()].sum()),
+                "bf16" if mode == "" else "int8")
+            out[IVF_RUNGS[mode]] = r
+    return out
+
+
+def parent_times(root: str) -> dict:
+    """flat_scan_times and probe_scan_times of the package under `root` (an
+    earlier commit), in a process of its own (it builds that tree's
+    kernels into its own _build/ and its own IVF indexes from the same
+    seed): {"flat": ..., "probe": ...}."""
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--flat-times", root],
         capture_output=True, text=True, timeout=900)
@@ -367,6 +430,26 @@ def parent_flat_times(root: str) -> dict:
           f"--flat-times {root} failed ({proc.returncode}): "
           f"{proc.stderr[-2000:]}")
     return json.loads(lines[-1])
+
+
+def probe_pair(ivf, queries, lists, k: int):
+    """The bucket probe over `lists` (kernel, top k) and its plain version
+    (top k + 1): ((vals, ids), (plain vals, plain ids)). Out-of-range
+    cluster ids, which the kernel scores as empty slots and never reads,
+    name an appended empty bucket C for the plain version."""
+    c = ivf.bucket_ids.shape[0]
+    fn, args = probe_call(ivf, queries, lists)
+    got = fn(*args, k)
+    *head, _, buckets, bucket_ids, scales = args
+    if bool(((lists < 0) | (lists >= c)).any()):
+        lists = torch.where((lists < 0) | (lists >= c), c, lists)
+        buckets = torch.cat([buckets, torch.zeros_like(buckets[:1])])
+        bucket_ids = torch.cat([bucket_ids,
+                                torch.full_like(bucket_ids[:1], -1)])
+        if scales is not None:
+            scales = torch.cat([scales, torch.ones_like(scales[:1])])
+    return got, fn(*head, lists, buckets, bucket_ids, scales, k + 1,
+                   impl="torch")
 
 
 def ptxas_lines(log_path: str):
@@ -1174,6 +1257,40 @@ def kv_attention_checks(dev, gen):
             f"G=8: pos {s_long - 1} / 3000 / per row max|d| {e11:.3e}; "
             f"limit {KV_ATTN_TOL}")
         del k, ks, v, vs
+        # head dims 80 and 96 (LLaMA-family models between the 64 / 128
+        # instances; run on the 128 instance, the cache read as it is) at a
+        # small depth: 2 layers, 8 kv heads, G = 4 (own generator)
+        g3 = torch.Generator(device=dev).manual_seed(SEED + 9)
+        for hd in (80, 96):
+            k, ks, v, vs = kv_cache(dev, g3, 2, LLAVA_B, 8, KV_SLOTS, hd,
+                                    quantized)
+            view = (k[1], None if ks is None else ks[1], v[1],
+                    None if vs is None else vs[1])
+            q1 = torch.randn((LLAVA_B, 8, 4, hd), device=dev,
+                             generator=g3).to(torch.bfloat16)
+            rows = torch.randint(0, KV_SLOTS, (LLAVA_B,), device=dev,
+                                 generator=g3)
+            e11 = max(attn_err(decode_attention(q1, *view, p),
+                               decode_attention(q1, *view, p, impl="torch"),
+                               f"K11 HD={hd} {kind} pos {p}")
+                      for p in (650, rows))
+            e10 = 0.0
+            for c, p, lim in ((64, 576, 640), (5, 600, None)):
+                qc = torch.randn((LLAVA_B, 8, 4, c, hd), device=dev,
+                                 generator=g3).to(torch.bfloat16)
+                e10 = max(e10, attn_err(
+                    chunk_attention(qc, *view, p, kv_limit=lim),
+                    chunk_attention(qc, *view, p, kv_limit=lim,
+                                    impl="torch"),
+                    f"K10 HD={hd} {kind} C={c}"))
+            errs["decode_attention"] = max(errs["decode_attention"], e11)
+            errs["chunk_attention"] = max(errs["chunk_attention"], e10)
+            lines.append(
+                f"phase 3 K10/K11 HD={hd} {kind} cache [2,{LLAVA_B},8,"
+                f"{KV_SLOTS},{hd}] G=4, layer 1's view: K11 at pos 650 / per "
+                f"row max|d| {e11:.3e}; K10 C=64 (window 640) / 5 max|d| "
+                f"{e10:.3e}; limit {KV_ATTN_TOL}")
+            del k, ks, v, vs
     return errs, lines
 
 
@@ -1274,7 +1391,11 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["--flat-times"] and len(argv) == 2:
         sys.path.insert(0, os.path.abspath(argv[1]))
-        print(json.dumps(flat_scan_times(torch.device("cuda", 0))))
+        dev = torch.device("cuda", 0)
+        flat = flat_scan_times(dev)
+        gal, ivfs, _ = clustered_ivfs(dev)
+        print(json.dumps({"flat": flat,
+                          "probe": probe_scan_times(dev, gal, ivfs)}))
         return 0
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -1303,7 +1424,9 @@ def main(argv) -> int:
     from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
     from mmrs_tpu_torch.ops.normalize import l2_normalize
     from mmrs_tpu_torch.ops.preprocess import normalize_images
-    from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
+    from mmrs_tpu_torch.ops.quant import (_topk_quant_cuda,
+                                          cosine_topk_quantized,
+                                          quantize_rows)
     from mmrs_tpu_torch.ops import topk as topk_mod
     from mmrs_tpu_torch.ops.quant4 import (_topk_int4_cuda, cosine_topk_int4,
                                            prep_queries, quantize_rows_int4)
@@ -1482,6 +1605,27 @@ def main(argv) -> int:
             f"{span - 1}, {span}, {span + 1}, {2 * span + 17}, Q=8, k=10, 32: "
             f"K1 within 1e-5 and ids agree where separated, K5 ids and "
             f"values equal to plain")
+        # K4 (the span scan on int8 rows) at the same edges, Q = 1, 8, 64
+        # (its own generator: the later phases draw the same data)
+        g4 = torch.Generator(device=dev).manual_seed(SEED + 10)
+        p8, s8 = packed["int8"]
+        for n in (span - 1, span, span + 1, 2 * span + 17):
+            for nq in (1, 8, 64):
+                rows = torch.randint(0, n, (nq,), device=dev, generator=g4)
+                qv = g[rows].float() + 0.05 * torch.randn(
+                    (nq, DIM), device=dev, generator=g4)
+                qv = qv / qv.norm(dim=1, keepdim=True)
+                for k in (10, 32):
+                    vals, ids = _topk_quant_cuda(*quantize_rows(qv), p8[:n],
+                                                 s8[:n], k, span)
+                    rv, ri = cosine_topk_quantized(qv, p8[:n], s8[:n], k,
+                                                   impl="torch")
+                    check(torch.equal(ids, ri) and torch.equal(vals, rv),
+                          f"K4 span {span} N={n} Q={nq} k={k}: kernel != "
+                          f"plain (ids differ at {int((ids != ri).sum())})")
+        say(f"phase 3 K4 span edges (R={span} forced), N = {span - 1}, "
+            f"{span}, {span + 1}, {2 * span + 17}, Q=1, 8, 64, k=10, 32: ids "
+            f"and values equal to plain")
         tie = torch.randn((1000, DIM), device=dev, generator=gen)
         tie[500] = tie[20]
         tie[900] = tie[20]
@@ -1607,24 +1751,12 @@ def main(argv) -> int:
         # K7 / K8: the IVF bucket probes over a clustered 1M x 512 gallery,
         # indexed at C = 1024 for every rung from one set of centroids
         t0 = time.perf_counter()
-        ivf_gal = clustered_gallery(dev, SEED)
+        ivf_gal, ivfs, ivf_build_s = clustered_ivfs(dev)
 
         def ivf_chunks():
             return (ivf_gal[a:a + IVF_CHUNK]
                     for a in range(0, GALLERY_ROWS, IVF_CHUNK))
 
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        cents = ivf_mod.train_centroids(ivf_gal[::4], IVF_CLUSTERS,
-                                        device=dev)
-        torch.cuda.synchronize()
-        ivf_build_s = {"train": time.perf_counter() - t1}
-        ivfs = {}
-        for mode in IVF_RUNGS:
-            ivfs[mode] = ivf_mod.build_ivf_streaming(
-                ivf_chunks, GALLERY_ROWS, DIM, n_clusters=IVF_CLUSTERS,
-                chunk=IVF_CHUNK, centroids=cents, quantize=mode, device=dev)
-            ivf_build_s[mode] = ivfs[mode].build_seconds
         say(f"phase 3 IVF index {GALLERY_ROWS}x{DIM} C={IVF_CLUSTERS}: cap "
             + ", ".join(f"{IVF_RUNGS[m]} {v.bucket_cap} (spill "
                         f"{int((v.spill_ids >= 0).sum())})"
@@ -1684,27 +1816,63 @@ def main(argv) -> int:
         say(f"phase 3 K7/K8 C={IVF_CLUSTERS} Q=8 nprobe={IVF_NPROBE} k="
             f"{','.join(map(str, LARGE_K))}: K7 ids agree where separated "
             f"(max|dv| {errs['probe_buckets']:.3e}), K8 ids and values equal")
-        # K7 is bucket-major: 8 queries on one probe list (each bucket read
-        # once for all of them) and on 8 disjoint lists (no bucket shared)
+        # K8 (bucket-major on s8 tensor cores) at Q = 1, 8, 9 (a ragged
+        # query tile), 64 and k = 1, 10, 33, 300, nprobe 128: ids and values
+        # equal to plain (its own generator: the later phases draw the same
+        # data as before)
+        g8 = torch.Generator(device=dev).manual_seed(SEED + 11)
+        for nq in (1, 8, 9, 64):
+            rows = torch.randint(0, GALLERY_ROWS, (nq,), device=dev,
+                                 generator=g8)
+            q8 = ivf_gal[rows].float() + 0.02 * torch.randn(
+                (nq, DIM), device=dev, generator=g8)
+            q8 = q8 / q8.norm(dim=1, keepdim=True)
+            fn, args = probe_call(ivfs["int4"], q8, ivf_mod.probe_lists(
+                q8, ivfs["int4"], IVF_NPROBE))
+            rv, ri = fn(*args, 301, impl="torch")
+            for k in (1, 10, 33, 300):
+                vals, ids = fn(*args, k)
+                check(torch.equal(ids, ri[:, :k])
+                      and torch.equal(vals, rv[:, :k]),
+                      f"K8 Q={nq} k={k}: kernel != plain (ids differ at "
+                      f"{int((ids != ri[:, :k]).sum())})")
+        say(f"phase 3 K8 C={IVF_CLUSTERS} nprobe={IVF_NPROBE} Q=1,8,9,64 "
+            f"k=1,10,33,300: ids and values equal to plain")
+        # K7 and K8 are bucket-major: 8 queries on one probe list (each
+        # bucket read once for all of them), on 8 disjoint lists (no bucket
+        # shared), on lists naming one bucket twice, and on lists with
+        # out-of-range cluster ids (scored as empty slots, never read)
         npr = min(IVF_NPROBE, IVF_CLUSTERS // 8)
         perm = torch.randperm(IVF_CLUSTERS, device=dev,
                               generator=torch.Generator(
                                   device=dev).manual_seed(SEED + 8))
+        base = ivf_mod.probe_lists(qv, ivfs[""], npr)
+        bad = torch.zeros_like(base, dtype=torch.bool)
+        bad[:, 1::5] = True
         k7_lists = {
-            "shared": ivf_mod.probe_lists(qv, ivfs[""], npr)[:1].repeat(8, 1),
-            "disjoint": perm[:8 * npr].view(8, npr).int()}
-        for mode in ("", "int8"):
-            for lists in k7_lists.values():
-                fn, args = probe_call(ivfs[mode], qv, lists)
-                rv, ri = fn(*args, 101, impl="torch")
+            "shared": base[:1].repeat(8, 1),
+            "disjoint": perm[:8 * npr].view(8, npr).int(),
+            "repeats": torch.cat([base[:, :5], base[:, 2:3], base[:, 5:]], 1),
+            "out_of_range": torch.where(bad, torch.where(
+                torch.arange(npr, device=dev) % 2 == 0, IVF_CLUSTERS + 5,
+                -3).int(), base)}
+        for mode in IVF_RUNGS:
+            for kind, lists in k7_lists.items():
                 for k in (10, 100):
-                    vals, ids = fn(*args, k)
-                    errs["probe_buckets"] = max(
-                        errs["probe_buckets"],
-                        topk_agree(vals, ids, rv, ri, tol=1e-5))
-        say(f"phase 3 K7 Q=8 nprobe={npr} k=10,100, all queries on one list "
-            f"and on 8 disjoint lists: ids agree where separated (max|dv| "
-            f"{errs['probe_buckets']:.3e})")
+                    (vals, ids), (rv, ri) = probe_pair(ivfs[mode], qv, lists,
+                                                       k)
+                    if mode == "int4":
+                        check(torch.equal(ids, ri[:, :k])
+                              and torch.equal(vals, rv[:, :k]),
+                              f"K8 {kind} lists k={k}: kernel != plain")
+                    else:
+                        errs["probe_buckets"] = max(
+                            errs["probe_buckets"],
+                            topk_agree(vals, ids, rv, ri, tol=1e-5))
+        say(f"phase 3 K7/K8 Q=8 nprobe={npr}(+1) k=10,100, all queries on one "
+            f"list, on 8 disjoint lists, a bucket twice in a list, out-of-"
+            f"range ids: K7 ids agree where separated (max|dv| "
+            f"{errs['probe_buckets']:.3e}), K8 ids and values equal")
         # equal scores: rows IVF_DUPS share row 77's bucket and come back
         # in slot order, after an earlier-probed bucket
         for mode, ivf in ivfs.items():
@@ -2478,12 +2646,16 @@ def main(argv) -> int:
                 lambda: fn(qb.float(), eng.gallery, eng.gallery_scales, 10),
                 lambda: fn(qb.float(), eng.gallery, eng.gallery_scales, 10,
                            impl="torch"))
-        # the flat scans over FLAT_SEED's gallery, this tree's between two
-        # runs of --parent's (each in a process of its own)
-        flat_parent = [parent_flat_times(parent)] if parent else []
+        # the flat scans over FLAT_SEED's gallery and the bucket probes over
+        # the clustered one, this tree's between two runs of --parent's
+        # (each in a process of its own)
+        par = [parent_times(parent)] if parent else []
         flat = flat_scan_times(dev)
+        probe = probe_scan_times(dev, ivf_gal, ivfs, plain=True)
         if parent:
-            flat_parent.append(parent_flat_times(parent))
+            par.append(parent_times(parent))
+        flat_parent = [p["flat"] for p in par]
+        probe_parent = [p["probe"] for p in par]
         mlp = towers8.params.visual.blocks[0].mlp
         x = torch.randn((EMBED_BATCH * 50, 768), device=dev,
                         generator=gen).to(torch.bfloat16)
@@ -2503,35 +2675,14 @@ def main(argv) -> int:
                 lambda: clip.encode_image(
                     tw.params, normalize_images(px, impl="torch"),
                     attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)
-        # the bucket probes alone at Q=8, nprobe=128, k=10; then IVF top-10
-        # end to end (centroid scores, probe, spill, merge) beside flat K1
-        probe_ms, probe_bound, probe_spread, probe_split = {}, {}, {}, {}
-        for mode, ivf in ivfs.items():
-            plist = ivf_mod.probe_lists(qc[:8], ivf, IVF_NPROBE)
-            fn, args = probe_call(ivf, qc[:8], plist)
-            probe_ms[IVF_RUNGS[mode]] = time_pair(
-                lambda: fn(*args, 10), lambda: fn(*args, 10, impl="torch"))
-            probe_spread[IVF_RUNGS[mode]] = spread_ms(lambda: fn(*args, 10))
-            # one call's kernels (the scan, the merge passes, the id map);
-            # the first profile of a process may drop kernels: take the
-            # second
-            for _ in range(2):
-                probe_split[IVF_RUNGS[mode]] = profile_device(
-                    lambda: [fn(*args, 10) for _ in range(10)], top=4)
-            # the live rows of the distinct probed buckets (the owners of
-            # K7's one tile of 8 queries), read once, and their slot ids;
-            # each query scores its own buckets' live rows
-            live = (ivf.bucket_ids >= 0).sum(1)
-            distinct = plist[ivf_mod.bucket_owners(plist)]
-            row_bytes = {"": DIM * 2, "int8": DIM + 4, "int4": DIM // 2 + 4}
-            probe_bound[IVF_RUNGS[mode]] = least_ms(
-                int(live[distinct].sum()) * row_bytes[mode]
-                + distinct.numel() * ivf.bucket_cap * 4 + 8 * DIM * 2
-                + 8 * 10 * 8,
-                2 * DIM * int(live[plist.long()].sum()),
-                "bf16" if mode == "" else "int8")
-        times["probe_buckets"] = probe_ms["bf16"]
-        times["probe_buckets_q4"] = probe_ms["int4"]
+        # the bucket probes K7 / K8 at Q=8, nprobe=128, k=10 (timed above,
+        # with --parent's): on the card alone, beside plain's eager ms; then
+        # IVF top-10 end to end (centroid scores, probe, spill, merge)
+        # beside flat K1
+        times["probe_buckets"] = (probe["bf16"]["graph_ms"][0],
+                                  probe["bf16"]["plain_ms"])
+        times["probe_buckets_q4"] = (probe["int4"]["graph_ms"][0],
+                                     probe["int4"]["plain_ms"])
         # K9 at the dedup bench's shape, both input types; the plain
         # version scores the full square in ~1 GiB row blocks
         k9_ms = {}
@@ -2632,16 +2783,23 @@ def main(argv) -> int:
                     "kernel: " + "; ".join(
                         f"{n} {ms:.4f} ms a launch x{c}"
                         for n, ms, c in p["split"]))
-    for rung, (kms, pms) in probe_ms.items():
+    for rung, r in probe.items():
+        bms, by = r["bound"]
         say(f"  IVF bucket probe {rung} ({'K8' if rung == 'int4' else 'K7'})"
             f" Q=8 nprobe={IVF_NPROBE} k=10, clustered 1M x 512 C="
-            f"{IVF_CLUSTERS}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{probe_bound[rung][0]:.4f} ms ({probe_bound[rung][1]}); single "
-            "calls min / median / max {:.4f} / {:.4f} / {:.4f} ms".format(
-                *probe_spread[rung])
-            + "; per call by kernel (torch.profiler, 10 calls): " + "; ".join(
-                f"{k[:40]} {ms / 10:.4f} ms x{n // 10}"
-                for k, ms, n in probe_split[rung][2]))
+            f"{IVF_CLUSTERS}: on the card alone {r['graph_ms'][0]:.4f} ms "
+            "({:.4f} / {:.4f} / {:.4f}), eager {:.4f} ms, plain {:.4f} ms, "
+            "bound {:.4f} ms ({}) = {:.2f}x".format(
+                *r["graph_ms"][1:], r["eager_ms"], r["plain_ms"], bms, by,
+                r["graph_ms"][0] / bms)
+            + "".join(f"; parent alone {p[rung]['graph_ms'][0]:.4f}, eager "
+                      f"{p[rung]['eager_ms']:.4f}" for p in probe_parent)
+            + "; by kernel (torch.profiler, 10 calls): " + "; ".join(
+                f"{k} {ms:.4f} ms a launch x{n}" for k, ms, n in r["split"]))
+        for i, p in enumerate(probe_parent):
+            say(f"    parent ({'before' if i == 0 else 'after'}) by kernel: "
+                + "; ".join(f"{k} {ms:.4f} ms a launch x{n}"
+                            for k, ms, n in p[rung]["split"]))
     for (rung, nq), (ims, fms) in ivf_ms.items():
         say(f"  IVF top-10 {rung} Q={nq} nprobe={IVF_NPROBE}: {ims:.4f} ms "
             f"(kernel path, end to end); flat K1 bf16 top-10 over the same "
@@ -2763,8 +2921,8 @@ def main(argv) -> int:
         "mlp_int8_fused": least_ms(
             2 * EMBED_BATCH * 50 * 768 * 2 + 2 * w_mlp + (3072 + 768) * 8,
             2 * 2 * EMBED_BATCH * 50 * w_mlp, "int8"),
-        "probe_buckets": probe_bound["bf16"],
-        "probe_buckets_q4": probe_bound["int4"],
+        "probe_buckets": probe["bf16"]["bound"],
+        "probe_buckets_q4": probe["int4"]["bound"],
         # f32 rows as the kernel runs them: six bf16 products of the exact
         # hi/mid/lo split on the tensor cores
         "first_match": least_ms(DEDUP_ROWS * DIM * 4 + DEDUP_ROWS * 4,
@@ -2775,7 +2933,7 @@ def main(argv) -> int:
     k9_fma_bound = least_ms(DEDUP_ROWS * DIM * 4 + DEDUP_ROWS * 4,
                             2 * DIM * pairs, "f32")
     other_rung = {"first_match": ("bf16", k9_bf16_bound),
-                  "probe_buckets": ("int8", probe_bound["int8"])}
+                  "probe_buckets": ("int8", probe["int8"]["bound"])}
     for name, (ms, by) in bounds.items():
         rung, (oms, oby) = other_rung.get(name, ("", (0.0, "")))
         say(f"  bound {name}: {ms:.4f} ms ({by})"
@@ -2841,12 +2999,31 @@ def main(argv) -> int:
         f"{name}_{kind}": v for (name, kind), v in kv_spreads.items()}
     extra["decode_attention"]["eager_ms"] = {
         f"{name}_{kind}": v for (name, kind), v in kv_eager.items()}
-    extra["probe_buckets"] = {
-        "int8_ms": probe_ms["int8"][0], "int8_plain_ms": probe_ms["int8"][1],
-        "int8_bound_ms": probe_bound["int8"][0],
-        "spread_ms": {r: probe_spread[r] for r in ("bf16", "int8")},
-        "split_ms": {r: [(k[:40], ms / 10) for k, ms, _ in probe_split[r][2]]
-                     for r in ("bf16", "int8")}}
+    # K7 / K8: ms = on the card alone (graph_ms), eager and the parent's
+    # (--parent, before / after) beside it; K7's int8 rung under int8_*
+    for name, rungs in (("probe_buckets", ("bf16", "int8")),
+                        ("probe_buckets_q4", ("int4",))):
+        d = extra.setdefault(name, {})
+        for rung in rungs:
+            r = probe[rung]
+            pre = "" if rung in ("bf16", "int4") else "int8_"
+            d.update({f"{pre}eager_ms": r["eager_ms"],
+                      f"{pre}graph_spread_ms": r["graph_ms"][1:],
+                      f"{pre}split_ms": r["split"],
+                      f"{pre}parent_graph_ms": [p[rung]["graph_ms"][0]
+                                                for p in probe_parent],
+                      f"{pre}parent_eager_ms": [p[rung]["eager_ms"]
+                                                for p in probe_parent]})
+            if pre:
+                d.update(int8_ms=r["graph_ms"][0], int8_plain_ms=r["plain_ms"],
+                         int8_bound_ms=r["bound"][0])
+    extra["probe_buckets_q4"]["design"] = (
+        "bucket-major probe_scan_kernel<kRowS4> (csrc/ivf_probe.cu): one "
+        "read of each distinct bucket of a tile of 8 queries, packed rows "
+        "as two s8 nibble planes on mma.sync m16n8k32")
+    extra.setdefault("cosine_topk_quantized", {})["design"] = (
+        "span scan span_scan_kernel<kRowS8> (csrc/span_scan.cuh): int8 rows "
+        "on mma.sync m16n8k32 s8 against 8 queries, a threshold select")
     for name, d in flat_extra.items():
         extra.setdefault(name, {})["flat"] = d
     say(json.dumps({"kernels": [

@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the two-pass attention kernels
-// (mha_short_seq.cu: K2; decode_attention.cu: K10), sm_90a.
+// (mha_short_seq.cu: K2; decode_attention.cu: K10), sm_90a, and the s8
+// product of the int8 / int4 scans and probes (span_scan.cuh, ivf_probe.cu).
 //
 // Both kernels give each warp 16 query rows and walk the keys in tiles of
 // kAttnKeys, staged in shared memory with cp.async (16 bytes a thread,
@@ -35,6 +36,34 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The s8 product of the int8 / int4 gallery scans and probes (span_scan.cuh,
+// ivf_probe.cu): m16n8k32, exact int32 sums. Fragments (g = lane / 4,
+// t = lane % 4; bytes as k): A a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g,
+// 16+4t..), a3 (g+8, 16+4t..), which ldmatrix_x4 of two 16-byte pieces of
+// 16 rows gives; B b0 (k 4t..4t+3, n g), b1 (k 16+4t.., n g).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment of packed int4 bytes (ops/quant4.py: byte j holds dim j
+// offset by 8 in its low nibble, dim D/2 + j in its high one) -> its two
+// s8 planes: `& 0x0F0F0F0F` the low nibbles (dims j, offset by 8), `&
+// 0xF0F0F0F0` the high ones read as signed bytes (dims D/2 + j, times 16).
+// Both are exact s8 operands against the query codes of each half.
+__device__ __forceinline__ void nibble_planes(const uint32_t (&a)[4], uint32_t (&lo)[4],
+                                              uint32_t (&hi)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = a[i] & 0x0F0F0F0Fu;
+    hi[i] = a[i] & 0xF0F0F0F0u;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -100,14 +129,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// S (16 rows x kAttnKeys) = Q K^T for one warp: qa the warp's Q fragments,
-// Ks the key tile [kAttnKeys][LD] (bf16, keys as rows). Groups of 16 keys
-// at or past `live` (warp-uniform) are skipped and score 0: the caller
-// masks them.
-template <int HDP, int LD>
-__device__ __forceinline__ void scores_tile(float (&s)[kAttnKeys / 8][4],
-                                            const uint32_t (&qa)[HDP / 16][4],
-                                            const __nv_bfloat16* Ks, int live, int lane) {
+// S (16 rows x kAttnKeys) = Q K^T for one warp: qfrag(kk, a) gives the
+// warp's Q fragment of k step kk, Ks is the key tile [kAttnKeys][LD]
+// (bf16, keys as rows). Groups of 16 keys at or past `live` (warp-uniform)
+// are skipped and score 0: the caller masks them.
+template <int HDP, int LD, typename QFrag>
+__device__ __forceinline__ void scores_tile_by(float (&s)[kAttnKeys / 8][4], QFrag&& qfrag,
+                                               const __nv_bfloat16* Ks, int live, int lane) {
 #pragma unroll
   for (int nt = 0; nt < kAttnKeys / 8; ++nt)
 #pragma unroll
@@ -116,15 +144,31 @@ __device__ __forceinline__ void scores_tile(float (&s)[kAttnKeys / 8][4],
   const __nv_bfloat16* base = Ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk) {
+    uint32_t qa[4];
+    qfrag(kk, qa);
 #pragma unroll
     for (int np = 0; np < kAttnKeys / 16; ++np) {
       if (np * 16 >= live) break;
       uint32_t b[4];
       ldmatrix_x4(b, base + np * 16 * LD + kk * 16);
-      mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+      mma_bf16(s[2 * np], qa, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
     }
   }
+}
+
+// As scores_tile_by, with the warp's Q fragments held in registers (qa).
+template <int HDP, int LD>
+__device__ __forceinline__ void scores_tile(float (&s)[kAttnKeys / 8][4],
+                                            const uint32_t (&qa)[HDP / 16][4],
+                                            const __nv_bfloat16* Ks, int live, int lane) {
+  scores_tile_by<HDP, LD>(
+      s,
+      [&](int kk, uint32_t (&a)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+      },
+      Ks, live, lane);
 }
 
 // The warp's 16 Q rows of a [rows][LD] tile -> A fragments.

@@ -10,8 +10,8 @@
 // so the floor is one read of the gallery (1 GiB at N=2^20, D=512: ~0.32 ms
 // at 3.35 TB/s). The design reads every gallery row from device memory once
 // per call and never writes the [Q, N] score matrix:
-//   - scan pass (span_scan.cuh, shared with the int4 scan): one block per
-//     (span of rows, tile of 8 queries), the query tiles of one span
+//   - scan pass (span_scan.cuh, shared with the int8 and int4 scans): one
+//     block per (span of rows, tile of 8 queries), the query tiles of one span
 //     neighbours in the launch order; rows stream through a cp.async ring
 //     into mma.sync m16n8k16 against the tile's queries (rows as M,
 //     queries as N, f32 sums); a block keeps each query's best kc of its
@@ -178,7 +178,7 @@ const char* mmrs_error_string(int err) {
 // D <= 2048, 1 <= Q <= 65535, 16-byte aligned rows.
 int mmrs_topk_scan(const void* q, const void* g, int Q, int N, int D, int k, int span,
                    void* part_v, void* part_i, void* stream) {
-  return launch_span_scan<false>(q, nullptr, nullptr, g, nullptr, Q, N, D, k, span, part_v,
+  return launch_span_scan<kRowBf16>(q, nullptr, nullptr, g, nullptr, Q, N, D, k, span, part_v,
                                  part_i, static_cast<cudaStream_t>(stream));
 }
 

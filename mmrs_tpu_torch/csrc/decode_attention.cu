@@ -3,12 +3,17 @@
 //
 // Replaces the Pallas TPU kernels of mmrs_tpu/ops/decode_attention.py:
 // chunk_attention (body `_chunk_attn_kernel`) and decode_attention (body
-// `_decode_attn_kernel`). Both read one layer's [B, KVH, S, HD] view of the
+// `_decode_attn_kernel`). Both read one layer's [B, KVH, S, hd] view of the
 // stacked cache through its strides (the batch and head strides of the
 // layer slice cache[li], with S cut to the caller's kv_limit: nothing is
 // sliced out or copied), in bf16 or int8 with f32 per-position scales
 // [B, KVH, S]. q is bf16; int8 K/V widen exactly to bf16; every product
-// is summed in f32. The arithmetic is the Pallas bodies', in their order:
+// is summed in f32. Head dims: any hd % 8 == 0 up to 256 runs on the
+// smallest compiled instance HDP in {64, 128, 256} that holds it; cache
+// rows stay hd elements with stride hd (read as they are: the staged rows
+// are zero past hd, nothing is read there, and no padded copy of the cache
+// is made), the staged q is zero past hd, and only hd output dims are
+// written. The arithmetic is the Pallas bodies', in their order:
 //   logits = (q . k) [* k_scale] * hd_scale    (a product, not a division)
 //   mask key_pos <= q_pos, f32 softmax: m = max, e = exp(l - m), p = e / sum
 //   p [* v_scale] in f32, rounded to bf16, then p @ V with f32 sums.
@@ -42,7 +47,7 @@
 namespace {
 
 // One layer's view of the cache. Strides are in elements; a key row is
-// HD contiguous elements and the scales' position stride is 1.
+// hd contiguous elements and the scales' position stride is 1.
 struct CacheView {
   const void* k;
   const void* v;
@@ -53,8 +58,33 @@ struct CacheView {
   int s;               // slots the call may read
 };
 
+// Rows [0, COUNT) of a staged tile of DST-byte rows, each padded to ROW
+// bytes, from `src` rows of `src_row` bytes (src_row <= ROW, a multiple of
+// 8; the cache row of the call's hd): 16-byte cp.async pieces, or 8-byte
+// ones where src_row % 16 == 8 (int8 rows of hd % 16 == 8, 8-byte
+// aligned). Bytes at and past src_row, and rows at and past n, are
+// zero-filled and nothing is read there.
+template <int COUNT, int ROW, int DST>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const unsigned char* src,
+                                           int src_row, int n) {
+  if (src_row % 16 == 0) {
+    for (int e = threadIdx.x; e < COUNT * (ROW / 16); e += blockDim.x) {
+      const int r = e / (ROW / 16), off = (e - r * (ROW / 16)) * 16;
+      const bool ok = r < n && off < src_row;
+      mmrs::cp_async<16>(dst + r * DST + off, ok ? src + (size_t)r * src_row + off : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < COUNT * (ROW / 8); e += blockDim.x) {
+      const int r = e / (ROW / 8), off = (e - r * (ROW / 8)) * 8;
+      const bool ok = r < n && off < src_row;
+      mmrs::cp_async<8>(dst + r * DST + off, ok ? src + (size_t)r * src_row + off : src, ok);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// K11: T = 1. q [B, KVH, G, HD] bf16, out [B, KVH, G, HD] f32.
+// K11: T = 1. q [B, KVH, G, hd] bf16, out [B, KVH, G, hd] f32; the
+// instance HDP >= hd (the lanes and tiles below are HDP's).
 //
 // One cluster of `cs` blocks for each (kv head, batch row): grid (cs * KVH,
 // B), cluster (cs, 1, 1), cs from the shapes alone (decode_plan in
@@ -63,18 +93,18 @@ struct CacheView {
 // view, and only those below the row's frontier n = min(S, pos + 1): a
 // block whose span lies past it loads nothing and contributes (max -inf,
 // sum 0, output 0). Its keys stream as 16 KB tiles of rows through a ring
-// of kDecStages stages (16-byte cp.async, int8 tiles raw, scales beside
-// them): the K tiles, then the V tiles, so the V tiles are in flight
-// while the softmax is exchanged. A key row is scored by a segment of
-// HD / 8 lanes, 8 elements a lane (a segmented shuffle sum), so a warp
-// scores 32 / (HD / 8) keys a step.
+// of kDecStages stages (cp.async, int8 tiles raw, scales beside them):
+// the K tiles, then the V tiles, so the V tiles are in flight while the
+// softmax is exchanged. A key row is scored by a segment of HDP / 8 lanes,
+// 8 elements a lane (a segmented shuffle sum; lanes past hd add exact
+// zeros), so a warp scores 32 / (HDP / 8) keys a step.
 //
 // The softmax is the reference's, exchanged through distributed shared
 // memory: (1) each block's max, combined (exact in any order); (2) each
 // block's sum of exp(x - m) under the row's global m, in f64, added in
 // rank order and rounded once to f32 (the plain version's l, in any
 // order); (3) p = e / l in f32, times the V scale, rounded to bf16 once;
-// (4) the blocks' P.V partials [G, HD], added in rank order, each rank
+// (4) the blocks' P.V partials [G, hd], added in rank order, each rank
 // writing a slice of the output. The logits are summed in the order the
 // plain version repeats, so the two round the same probabilities. When a
 // span's [G, span] f32 logits fit the budget (`cached`), pass 1 keeps
@@ -86,24 +116,24 @@ constexpr int kDecStages = 4;    // ring depth: tiles in flight
 constexpr int kDecMaxCluster = 8;
 
 // keys a staged tile: 16 KB of rows, at most 128 keys (64 bf16 rows of
-// HD = 128; 128 rows otherwise)
-template <typename T, int HD>
+// HDP = 128, 32 of 256; 128 rows otherwise)
+template <typename T, int HDP>
 __host__ __device__ constexpr int dec_keys() {
-  return 16384 / (HD * (int)sizeof(T)) < 128 ? 16384 / (HD * (int)sizeof(T)) : 128;
+  return 16384 / (HDP * (int)sizeof(T)) < 128 ? 16384 / (HDP * (int)sizeof(T)) : 128;
 }
 
-template <typename T, int HD>
+template <typename T, int HDP>
 __host__ __device__ constexpr int dec_stage_bytes() {
-  return dec_keys<T, HD>() * (HD * (int)sizeof(T) + 4);
+  return dec_keys<T, HDP>() * (HDP * (int)sizeof(T) + 4);
 }
 
-// Dynamic shared memory of decode_kernel<T, HD, G> (decode_plan computes
+// Dynamic shared memory of decode_kernel<T, HDP, G> (decode_plan computes
 // the same): the ring, the logits (cached: [G][span], else [G][keys]),
 // the block reductions [warps][G] f64, the exchanged sum [G] f64 and max
 // [G] f32.
-template <typename T, int HD, int G>
+template <typename T, int HDP, int G>
 int decode_smem_bytes(int span, bool cached) {
-  return kDecStages * dec_stage_bytes<T, HD>() + 4 * G * (cached ? span : dec_keys<T, HD>()) +
+  return kDecStages * dec_stage_bytes<T, HDP>() + 4 * G * (cached ? span : dec_keys<T, HDP>()) +
          8 * kDecWarps * G + 12 * G;
 }
 
@@ -144,19 +174,20 @@ __device__ __forceinline__ void block_reduce(const F (&x)[G], F* scratch, F* out
   }
 }
 
-template <typename T, int HD, int G>
+template <typename T, int HDP, int G>
 __global__ void __launch_bounds__(kDecThreads, G == 1 ? 3 : 1)
 decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __restrict__ pos,
-              int pos0, float hd_scale, int span, int cached, float* __restrict__ out) {
-  constexpr int LPR = HD / 8;             // lanes a key row
+              int pos0, int hd, float hd_scale, int span, int cached, float* __restrict__ out) {
+  constexpr int LPR = HDP / 8;            // lanes a key row
   constexpr int KPW = 32 / LPR;           // keys a warp step
-  constexpr int TK = dec_keys<T, HD>();  // keys a tile
+  constexpr int TK = dec_keys<T, HDP>();  // keys a tile
   constexpr int ITERS = TK / (kDecWarps * KPW);
-  constexpr int ROW = HD * (int)sizeof(T);
-  constexpr int STAGE = dec_stage_bytes<T, HD>();
+  constexpr int ROW = HDP * (int)sizeof(T);   // a staged row (zero past hd)
+  constexpr int STAGE = dec_stage_bytes<T, HDP>();
   constexpr int NST = kDecStages;
   static_assert(ITERS >= 1 && TK % (kDecWarps * KPW) == 0, "tile shape");
-  static_assert(NST * STAGE >= kDecWarps * G * HD * 4, "the ring holds the warps' partials");
+  static_assert(NST * STAGE >= kDecWarps * G * HDP * 4, "the ring holds the warps' partials");
+  const int grow = hd * (int)sizeof(T);   // a cache row's bytes
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -173,11 +204,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int seg = lane % LPR, kg = lane / LPR;
   const size_t head = (size_t)b * kvh + h;
-  float* o = out + head * G * HD;
+  float* o = out + head * G * hd;
   const int n = min(c.s, (pos ? pos[b] : pos0) + 1);   // keys 0 .. pos
   if (n <= 0) {   // every key masked (the whole cluster): the reference gives NaN
     if (rank == 0)
-      for (int e = threadIdx.x; e < G * HD; e += kDecThreads) o[e] = NAN;
+      for (int e = threadIdx.x; e < G * hd; e += kDecThreads) o[e] = NAN;
     return;
   }
   const int lo = rank * span, hi = min(lo + span, n);
@@ -204,12 +235,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
       step_of(st, tile, isv);
       const int k0 = lo + tile * TK;
       unsigned char* dst = ring + (st % NST) * STAGE;
-      const unsigned char* src = (isv ? V : K) + (size_t)k0 * ROW;
-      for (int e = threadIdx.x; e < TK * (ROW / 16); e += kDecThreads) {
-        const int r = e / (ROW / 16), off = (e - r * (ROW / 16)) * 16;
-        const bool ok = k0 + r < hi;
-        mmrs::cp_async<16>(dst + r * ROW + off, ok ? src + (size_t)r * ROW + off : src, ok);
-      }
+      stage_rows<TK, ROW, ROW>(dst, (isv ? V : K) + (size_t)k0 * grow, grow, hi - k0);
       const float* sc = isv ? vs : ks;
       if (sc != nullptr) {
         float* sdst = reinterpret_cast<float*>(dst + TK * ROW);
@@ -234,11 +260,18 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
     ++st;
   };
 
-  float qr[G][8];
+  float qr[G][8];   // this lane's 8 dims of each head's q, zero past hd
   {
-    const __nv_bfloat16* qb = q + head * G * HD + seg * 8;
+    const __nv_bfloat16* qb = q + head * G * hd + seg * 8;
 #pragma unroll
-    for (int g = 0; g < G; ++g) load8(qb + g * HD, qr[g]);
+    for (int g = 0; g < G; ++g) {
+      if (seg * 8 < hd) {
+        load8(qb + g * hd, qr[g]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) qr[g][e] = 0.f;
+      }
+    }
   }
   // the logits x[g] of key jl of a staged K tile (all lanes of its
   // segment): each lane's 8 products in turn, then the lanes by halves,
@@ -383,7 +416,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
     end_step();
   }
   mmrs::cp_async_wait<0>();
-  __syncthreads();   // the ring is free: the warps' partials [warps][G][HD]
+  __syncthreads();   // the ring is free: the warps' partials [warps][G][HDP]
   float* red = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -392,50 +425,58 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
       float v = acc[g][e];
 #pragma unroll
       for (int off = LPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (kg == 0) red[(warp * G + g) * HD + seg * 8 + e] = v;
+      if (kg == 0) red[(warp * G + g) * HDP + seg * 8 + e] = v;
     }
   __syncthreads();
-  for (int e = threadIdx.x; e < G * HD; e += kDecThreads) {
+  for (int e = threadIdx.x; e < G * HDP; e += kDecThreads) {
     float s = red[e];
-    for (int w = 1; w < kDecWarps; ++w) s += red[w * G * HD + e];
+    for (int w = 1; w < kDecWarps; ++w) s += red[w * G * HDP + e];
     red[e] = s;
   }
   cluster.sync();
-  const int per = (G * HD + cs - 1) / cs;
-  for (int e = rank * per + threadIdx.x; e < min(G * HD, (rank + 1) * per); e += kDecThreads) {
+  // each rank writes a slice of the [G][hd] output (the dims past hd sum
+  // staged zeros and are not written)
+  const int per = (G * hd + cs - 1) / cs;
+  for (int e = rank * per + threadIdx.x; e < min(G * hd, (rank + 1) * per); e += kDecThreads) {
+    const int g = e / hd, x = g * HDP + (e - g * hd);
     float s = 0.f;
-    for (int r = 0; r < cs; ++r) s += cluster.map_shared_rank(red, r)[e];
+    for (int r = 0; r < cs; ++r) s += cluster.map_shared_rank(red, r)[x];
     o[e] = s;
   }
   cluster.sync();   // no block leaves while another reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
-// K10: T = C > 1. q [B, KVH, G, C, HD] bf16 (the G * C rows of a kv head
+// K10: T = C > 1. q [B, KVH, G, C, hd] bf16 (the G * C rows of a kv head
 // are one row axis r = g * C + c, query position pos[b] + c), out f32 of
 // the same shape; grid (ceil(G * C / rows), KVH, B), rows = 16 * warps.
+// The instance HDP >= hd: tiles are HDP wide, zero past hd.
 constexpr int kChunkThreads = 128;
 constexpr int kKeys = mmrs::kAttnKeys;
 
-// Shared memory of chunk_kernel<T, HD> (ops/decode_attention.py:chunk_plan
-// computes the same): the Q tile [64][HD + 8] bf16, the ring of two stages
-// of K and V tiles [64][HD + 8] bf16 (int8: [64][HD] raw, plus the widened
+// Shared memory of chunk_kernel<T, HDP> (ops/decode_attention.py:chunk_plan
+// computes the same): the Q tile [64][HDP + 8] bf16, the ring of two stages
+// of K and V tiles [64][HDP + 8] bf16 (int8: [64][HDP] raw, plus the widened
 // bf16 K and V tiles and two stages of K and V scales [64] f32).
-template <typename T, int HD>
+template <typename T, int HDP>
 constexpr int chunk_smem_bytes() {
-  constexpr int tile = kKeys * (HD + 8) * 2;
-  return sizeof(T) == 2 ? 5 * tile : 3 * tile + 4 * kKeys * HD + 4 * kKeys * 4;
+  constexpr int tile = kKeys * (HDP + 8) * 2;
+  return sizeof(T) == 2 ? 5 * tile : 3 * tile + 4 * kKeys * HDP + 4 * kKeys * 4;
 }
 
-template <typename T, int HD>
+template <typename T, int HDP>
 __global__ void __launch_bounds__(kChunkThreads)
 chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __restrict__ pos,
-             int pos0, int G, int C, float hd_scale, float* __restrict__ out) {
+             int pos0, int G, int C, int hd, float hd_scale, float* __restrict__ out) {
   constexpr bool INT8 = sizeof(T) == 1;
-  constexpr int LD = HD + 8, NT = kKeys / 8, TILE = kKeys * LD;
-  // the raw stage of one step: K then V, each [kKeys][HD] elements of T
+  constexpr int LD = HDP + 8, NT = kKeys / 8, TILE = kKeys * LD;
+  // the Q fragments stay in registers up to HDP = 128; at 256 they are
+  // read from the Q tile at each k step, so that the [16, 256] f32 output
+  // accumulators fit in registers beside the scores
+  constexpr bool QREG = HDP <= 128;
+  // the raw stage of one step: K then V, each [kKeys][HDP] elements of T
   // (bf16: [kKeys][LD], read in place)
-  constexpr int RAW = INT8 ? kKeys * HD : TILE;
+  constexpr int RAW = INT8 ? kKeys * HDP : TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);       // [64][LD]
   __nv_bfloat16* wide = Qs + 64 * LD;                // int8: widened K, V [2][TILE]
@@ -455,9 +496,9 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
   const int rl = r0 + nrows - 1;
   const int cmax = (r0 / C != rl / C) ? C - 1 : rl % C;
   const int nk = min(c.s, p0 + cmax + 1);
-  float* ob = out + head * R * HD;
+  float* ob = out + head * R * hd;
   if (nk <= 0) {   // every key masked: the reference's softmax is NaN
-    for (int e = threadIdx.x; e < nrows * HD; e += blockDim.x) ob[(size_t)r0 * HD + e] = NAN;
+    for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) ob[(size_t)r0 * hd + e] = NAN;
     return;
   }
   // this thread's two rows (g, g + 8 of its warp) and their query positions
@@ -481,17 +522,15 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
   const int ntiles = (nk + kKeys - 1) / kKeys;
   const bool single = ntiles == 1;   // one tile: pass 2 reuses pass 1's scores
   const int steps = single ? 1 : 2 * ntiles;
+  const int grow = hd * (int)sizeof(T);   // a cache row's bytes
 
-  // keys k0 .. k0 + 63 of K or V into a stage (16-byte cp.async, zeros at
-  // and past nk: those keys are never read) and their scales
+  // keys k0 .. k0 + 63 of K or V into a stage (zeros past hd, and at and
+  // past nk: those keys are never read) and their scales
   auto stage = [&](T* dst, float* sdst, const T* src, const float* ssrc, int k0) {
-    constexpr int EPC = 16 / sizeof(T), CPR = HD / EPC;   // elements, chunks a row
-    constexpr int STRIDE = INT8 ? HD : LD;
-    for (int e = threadIdx.x; e < kKeys * CPR; e += blockDim.x) {
-      const int r = e / CPR, d = (e - r * CPR) * EPC;
-      const bool ok = k0 + r < nk;
-      mmrs::cp_async<16>(dst + r * STRIDE + d, ok ? src + (size_t)(k0 + r) * HD + d : src, ok);
-    }
+    constexpr int STRIDE = INT8 ? HDP : LD;
+    stage_rows<kKeys, HDP * (int)sizeof(T), STRIDE * (int)sizeof(T)>(
+        reinterpret_cast<unsigned char*>(dst),
+        reinterpret_cast<const unsigned char*>(src + (size_t)k0 * hd), grow, nk - k0);
     if (ssrc != nullptr) {
       for (int i = threadIdx.x; i < kKeys; i += blockDim.x) {
         const bool ok = k0 + i < nk;
@@ -509,22 +548,19 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
     if (st >= ntiles || single) stage(buf + RAW, sbuf + kKeys, V, vs, k0);
   };
 
-  {  // the Q tile; rows past R are zeros and are never stored
-    const __nv_bfloat16* qb = q + (head * R + r0) * HD;
-    for (int e = threadIdx.x; e < rows * (HD / 8); e += blockDim.x) {
-      const int r = e / (HD / 8), d = (e - r * (HD / 8)) * 8;
-      const bool ok = r < nrows;
-      mmrs::cp_async<16>(Qs + r * LD + d, ok ? qb + (size_t)r * HD + d : qb, ok);
-    }
-  }
+  // the Q tile; zero past hd, and rows past R are zeros and are never
+  // stored
+  stage_rows<64, HDP * 2, LD * 2>(reinterpret_cast<unsigned char*>(Qs),
+                                  reinterpret_cast<const unsigned char*>(q + (head * R + r0) * hd),
+                                  hd * 2, nrows);
   prefetch(0);
   mmrs::cp_async_commit();
 
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[QREG ? HDP / 16 : 1][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
-  float o[HD / 8][4];
+  float o[HDP / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int nt = 0; nt < HDP / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
 
@@ -543,11 +579,11 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
     const __nv_bfloat16* Kt;
     const __nv_bfloat16* Vt;
     if constexpr (INT8) {   // widen the raw tiles, 4 codes a thread at a time
-      const int n = (pass2 ? 2 : 1) * kKeys * HD / 4;
+      const int n = (pass2 ? 2 : 1) * kKeys * HDP / 4;
       for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        const int which = e / (kKeys * HD / 4), x = e - which * (kKeys * HD / 4);
-        const int r = x / (HD / 4), d = (x - r * (HD / 4)) * 4;
-        const int w = *reinterpret_cast<const int*>(buf + which * RAW + r * HD + d);
+        const int which = e / (kKeys * HDP / 4), x = e - which * (kKeys * HDP / 4);
+        const int r = x / (HDP / 4), d = (x - r * (HDP / 4)) * 4;
+        const int w = *reinterpret_cast<const int*>(buf + which * RAW + r * HDP + d);
         uint2 pk;
         pk.x = mmrs::pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)((w >> 8) & 0xff));
         pk.y = mmrs::pack_bf16((float)(int8_t)((w >> 16) & 0xff), (float)(int8_t)(w >> 24));
@@ -564,11 +600,18 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
       __syncthreads();
       continue;
     }
-    if (st == 0) mmrs::q_fragments<HD, LD>(qa, Qs, warp, lane);
     const int k0 = (st >= ntiles ? st - ntiles : st) * kKeys;
     const int live = wlim - k0;   // keys past it are masked for every row
     float s[NT][4];
-    mmrs::scores_tile<HD, LD>(s, qa, Kt, live, lane);
+    if constexpr (QREG) {
+      if (st == 0) mmrs::q_fragments<HDP, LD>(qa, Qs, warp, lane);
+      mmrs::scores_tile<HDP, LD>(s, qa, Kt, live, lane);
+    } else {
+      const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+      mmrs::scores_tile_by<HDP, LD>(
+          s, [&](int kk, uint32_t (&a)[4]) { mmrs::ldmatrix_x4(a, qrow + kk * 16); }, Kt, live,
+          lane);
+    }
     // logits = (q . k) [* k_scale] * hd_scale, then the causal mask
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -601,19 +644,20 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
           if (vs) p *= sk[kKeys + nt * 8 + 2 * t + (e & 1)];
           s[nt][e] = p;
         }
-      mmrs::pv_tile<HD, LD>(o, s, Vt, live, lane);
+      mmrs::pv_tile<HDP, LD>(o, s, Vt, live, lane);
     }
     __syncthreads();
   }
   if (!active) return;
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
+  for (int nt = 0; nt < HDP / 8; ++nt) {
     const int col = nt * 8 + 2 * t;
+    if (col >= hd) break;   // hd % 8 == 0: the pair lies wholly inside or past it
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = warp * 16 + g + 8 * hh;
       if (row < nrows)
-        *reinterpret_cast<float2*>(ob + (size_t)(r0 + row) * HD + col) =
+        *reinterpret_cast<float2*>(ob + (size_t)(r0 + row) * hd + col) =
             make_float2(o[nt][2 * hh], o[nt][2 * hh + 1]);
     }
   }
@@ -621,14 +665,14 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __rest
 
 // the largest dynamic shared memory given to this instantiation, per
 // device: the attribute is set once, not at every decode step
-template <typename T, int HD, int G>
+template <typename T, int HDP, int G>
 int allow_smem(int smem) {
   static int smem_set[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64 || smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(decode_kernel<T, HD, G>,
+    err = cudaFuncSetAttribute(decode_kernel<T, HDP, G>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) smem_set[dev] = smem;
@@ -636,76 +680,83 @@ int allow_smem(int smem) {
   return 0;
 }
 
-// blocks of decode_kernel<T, HD, G> with `smem` bytes the card holds at once
-template <typename T, int HD, int G>
+// blocks of decode_kernel<T, HDP, G> with `smem` bytes the card holds at once
+template <typename T, int HDP, int G>
 int decode_slots(int smem) {
-  if (allow_smem<T, HD, G>(smem) != 0) return -1;
+  if (allow_smem<T, HDP, G>(smem) != 0) return -1;
   int dev = 0, per_sm = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<T, HD, G>,
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<T, HDP, G>,
                                                     kDecThreads, smem) != cudaSuccess)
     return -1;
   return per_sm * sms;
 }
 
-template <typename T, int HD, int G>
-int launch_decode(const void* q, const CacheView& c, const void* pos, int pos0, void* out,
-                  int B, int KVH, float hd_scale, int cs, int span, int cached, int smem,
-                  cudaStream_t stream) {
-  constexpr int K = dec_keys<T, HD>();
-  if (cs < 1 || cs > kDecMaxCluster || span < K || span % K || (long long)cs * span < c.s ||
-      (long long)(cs - 1) * span >= c.s || smem != decode_smem_bytes<T, HD, G>(span, cached != 0))
+struct DecodeArgs {   // one K11 launch's arguments past the cache view
+  const void* q;
+  const void* pos;
+  int pos0;
+  void* out;
+  int B, KVH, hd;
+  float hd_scale;
+  int cs, span, cached, smem;
+};
+
+template <typename T, int HDP, int G>
+int launch_decode(const CacheView& c, const DecodeArgs& a, cudaStream_t stream) {
+  constexpr int K = dec_keys<T, HDP>();
+  if (a.cs < 1 || a.cs > kDecMaxCluster || a.span < K || a.span % K ||
+      (long long)a.cs * a.span < c.s || (long long)(a.cs - 1) * a.span >= c.s ||
+      a.smem != decode_smem_bytes<T, HDP, G>(a.span, a.cached != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = decode_kernel<T, HD, G>;
-  const int set = allow_smem<T, HD, G>(smem);
+  auto kern = decode_kernel<T, HDP, G>;
+  const int set = allow_smem<T, HDP, G>(a.smem);
   if (set != 0) return set;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * KVH, B, 1);
+  cfg.gridDim = dim3(a.cs * a.KVH, a.B, 1);
   cfg.blockDim = dim3(kDecThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = a.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = a.cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, static_cast<const __nv_bfloat16*>(q), c,
-                           static_cast<const int*>(pos), pos0, hd_scale, span, cached,
-                           static_cast<float*>(out));
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const __nv_bfloat16*>(a.q), c, static_cast<const int*>(a.pos),
+      a.pos0, a.hd, a.hd_scale, a.span, a.cached, static_cast<float*>(a.out));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int decode_by_group(int G, const void* q, const CacheView& c, const void* pos, int pos0,
-                    void* out, int B, int KVH, float hd_scale, int cs, int span, int cached,
-                    int smem, cudaStream_t s) {
+template <typename T, int HDP>
+int decode_by_group(int G, const CacheView& c, const DecodeArgs& a, cudaStream_t s) {
   switch (G) {
-    case 1: return launch_decode<T, HD, 1>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
-    case 2: return launch_decode<T, HD, 2>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
-    case 4: return launch_decode<T, HD, 4>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
-    case 8: return launch_decode<T, HD, 8>(q, c, pos, pos0, out, B, KVH, hd_scale, cs, span, cached, smem, s);
+    case 1: return launch_decode<T, HDP, 1>(c, a, s);
+    case 2: return launch_decode<T, HDP, 2>(c, a, s);
+    case 4: return launch_decode<T, HDP, 4>(c, a, s);
+    case 8: return launch_decode<T, HDP, 8>(c, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HDP>
 int launch_chunk(const void* q, const CacheView& c, const void* pos, int pos0, void* out,
-                 int B, int KVH, int G, int C, float hd_scale, int warps, int smem,
+                 int B, int KVH, int G, int C, int hd, float hd_scale, int warps, int smem,
                  cudaStream_t stream) {
-  if (warps < 1 || warps > 4 || smem != chunk_smem_bytes<T, HD>())
+  if (warps < 1 || warps > 4 || smem != chunk_smem_bytes<T, HDP>())
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = chunk_kernel<T, HD>;
+  auto kern = chunk_kernel<T, HDP>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = 16 * warps;
   const dim3 grid((G * C + rows - 1) / rows, KVH, B);
   kern<<<grid, 32 * warps, smem, stream>>>(static_cast<const __nv_bfloat16*>(q), c,
-                                           static_cast<const int*>(pos), pos0, G, C, hd_scale,
-                                           static_cast<float*>(out));
+                                           static_cast<const int*>(pos), pos0, G, C, hd,
+                                           hd_scale, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -715,58 +766,97 @@ CacheView make_view(const void* k, const void* v, const void* ks, const void* vs
                    sb, sh, ssb, ssh, S};
 }
 
+// The instance that runs head dim hd: the smallest of 64, 128, 256 that
+// holds it, for hd % 8 == 0 (cache rows in whole 8-byte pieces); 0 when
+// there is none.
+int padded_head_dim(int hd) {
+  if (hd < 8 || hd % 8) return 0;
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : 0;
+}
+
+// f.run<T, HDP>() for the instance of (quant, hd); `none` when there is
+// no instance.
+template <typename F>
+int by_instance(int quant, int hd, const F& f, int none) {
+  switch (padded_head_dim(hd) * (quant ? -1 : 1)) {
+    case 64: return f.template run<__nv_bfloat16, 64>();
+    case 128: return f.template run<__nv_bfloat16, 128>();
+    case 256: return f.template run<__nv_bfloat16, 256>();
+    case -64: return f.template run<int8_t, 64>();
+    case -128: return f.template run<int8_t, 128>();
+    case -256: return f.template run<int8_t, 256>();
+    default: return none;
+  }
+}
+
+struct DecodeCall {
+  const CacheView& c;
+  const DecodeArgs& a;
+  int G;
+  cudaStream_t s;
+  template <typename T, int HDP> int run() const { return decode_by_group<T, HDP>(G, c, a, s); }
+};
+
+struct SlotsCall {
+  int G, smem;
+  template <typename T, int HDP> int run() const {
+    switch (G) {
+      case 1: return decode_slots<T, HDP, 1>(smem);
+      case 2: return decode_slots<T, HDP, 2>(smem);
+      case 4: return decode_slots<T, HDP, 4>(smem);
+      case 8: return decode_slots<T, HDP, 8>(smem);
+      default: return -1;
+    }
+  }
+};
+
+struct ChunkCall {
+  const void* q;
+  const CacheView& c;
+  const void* pos;
+  int pos0;
+  void* out;
+  int B, KVH, G, C, hd;
+  float hd_scale;
+  int warps, smem;
+  cudaStream_t s;
+  template <typename T, int HDP> int run() const {
+    return launch_chunk<T, HDP>(q, c, pos, pos0, out, B, KVH, G, C, hd, hd_scale, warps, smem,
+                                s);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// quant: 1 = int8 K/V with f32 scales, 0 = bf16 K/V (ks/vs null). HD is 64
-// or 128 and G one of 1, 2, 4, 8. pos holds one int32 position per batch
-// row, or is null and every row is at pos0. The caller
-// (mmrs_tpu_torch/ops/decode_attention.py: _decode_cuda) checks CUDA, the
-// dtypes, the shapes, q/out contiguous and 16-byte aligned, K/V rows
-// contiguous with 16-byte aligned strides, and takes the cluster size, the
-// span, the cached flag and the shared-memory size from `decode_plan`
-// (checked here against the kernel's own arithmetic).
+// quant: 1 = int8 K/V with f32 scales, 0 = bf16 K/V (ks/vs null). HD % 8
+// == 0 and HD <= 256 (run on the instance of padded_head_dim), G one of
+// 1, 2, 4, 8. pos holds one int32 position per batch row, or is null and
+// every row is at pos0. The caller (mmrs_tpu_torch/ops/decode_attention.py:
+// _decode_cuda) checks CUDA, the dtypes, the shapes, q/out contiguous and
+// 16-byte aligned, K/V rows contiguous with 16-byte aligned batch and head
+// strides, and takes the cluster size, the span, the cached flag and the
+// shared-memory size from `decode_plan` (checked here against the
+// kernel's own arithmetic).
 int mmrs_decode_attention(const void* q, const void* k, const void* v, const void* ks,
                           const void* vs, const void* pos, int pos0, void* out, int B,
                           int KVH, int G, int HD, int S, long long sb, long long sh,
                           long long ssb, long long ssh, int quant, float hd_scale, int cs,
                           int span, int cached, int smem, void* stream) {
   const CacheView c = make_view(k, v, ks, vs, sb, sh, ssb, ssh, S);
+  const DecodeArgs a{q, pos, pos0, out, B, KVH, HD, hd_scale, cs, span, cached, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (quant && HD == 128)
-    return decode_by_group<int8_t, 128>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs, span,
-                                        cached, smem, s);
-  if (quant && HD == 64)
-    return decode_by_group<int8_t, 64>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs, span,
-                                       cached, smem, s);
-  if (!quant && HD == 128)
-    return decode_by_group<__nv_bfloat16, 128>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs,
-                                               span, cached, smem, s);
-  if (!quant && HD == 64)
-    return decode_by_group<__nv_bfloat16, 64>(G, q, c, pos, pos0, out, B, KVH, hd_scale, cs,
-                                              span, cached, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_instance(quant, HD, DecodeCall{c, a, G, s},
+                     static_cast<int>(cudaErrorInvalidValue));
 }
 
-// K11 blocks of one launch's kind (quant, HD, G) with `smem` bytes of
-// shared memory that the current card holds at once (-1 on an error):
-// `decode_plan` sizes its clusters so that one launch fills the card.
+// K11 blocks of one launch's kind (quant, the instance of HD, G) with
+// `smem` bytes of shared memory that the current card holds at once (-1
+// on an error): `decode_plan` sizes its clusters so that one launch fills
+// the card.
 int mmrs_decode_slots(int quant, int HD, int G, int smem) {
-#define MMRS_SLOTS(T, H)                                              \
-  switch (G) {                                                        \
-    case 1: return decode_slots<T, H, 1>(smem);                       \
-    case 2: return decode_slots<T, H, 2>(smem);                       \
-    case 4: return decode_slots<T, H, 4>(smem);                       \
-    case 8: return decode_slots<T, H, 8>(smem);                       \
-    default: return -1;                                               \
-  }
-  if (quant && HD == 128) { MMRS_SLOTS(int8_t, 128) }
-  if (quant && HD == 64) { MMRS_SLOTS(int8_t, 64) }
-  if (!quant && HD == 128) { MMRS_SLOTS(__nv_bfloat16, 128) }
-  if (!quant && HD == 64) { MMRS_SLOTS(__nv_bfloat16, 64) }
-#undef MMRS_SLOTS
-  return -1;
+  return by_instance(quant, HD, SlotsCall{G, smem}, -1);
 }
 
 // As above, for q [B, KVH, G, C, HD]; warps (1-4: rows per block / 16) and
@@ -778,19 +868,9 @@ int mmrs_chunk_attention(const void* q, const void* k, const void* v, const void
                          int smem, void* stream) {
   const CacheView c = make_view(k, v, ks, vs, sb, sh, ssb, ssh, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (quant && HD == 128)
-    return launch_chunk<int8_t, 128>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale, warps,
-                                     smem, s);
-  if (quant && HD == 64)
-    return launch_chunk<int8_t, 64>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale, warps,
-                                    smem, s);
-  if (!quant && HD == 128)
-    return launch_chunk<__nv_bfloat16, 128>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale,
-                                            warps, smem, s);
-  if (!quant && HD == 64)
-    return launch_chunk<__nv_bfloat16, 64>(q, c, pos, pos0, out, B, KVH, G, C, hd_scale,
-                                           warps, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_instance(quant, HD,
+                     ChunkCall{q, c, pos, pos0, out, B, KVH, G, C, HD, hd_scale, warps, smem, s},
+                     static_cast<int>(cudaErrorInvalidValue));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // IVF bucket probes for Hopper (sm_90a): K7 over bf16 or int8 bucket rows,
-// K8 over packed int4 bucket rows.
+// K8 over packed int4 bucket rows; one kernel template over the row kind.
 //
 // Replaces the Pallas TPU kernels mmrs_tpu/index/ivf.py:_probe_buckets_pallas
 // (body `_ivf_kernel`) and _probe_buckets_pallas_q4 (body `_ivf_kernel_q4`).
@@ -8,15 +8,16 @@
 // s of its r-th probed cluster is "virtual row" r * cap + s of a virtual
 // gallery of P * cap rows. Empty slots (id -1) score -inf.
 //
-//   K7 (`probe_scan_kernel`): bf16 query . bucket row, f32 sums; an int8
-//      row widens exactly (as the JAX kernel casts it to bf16 before its
+//   K7 (bf16 / int8 rows): bf16 query . bucket row, f32 sums; an int8 row
+//      widens exactly (as the JAX kernel casts it to bf16 before its
 //      bf16 x bf16 -> f32 dot; the query is never quantized), and the sum
 //      is multiplied by the slot's f32 scale.
-//   K8 (`probe_scan_q4_kernel`): int8 query codes against the packed int4
-//      rows of ops/quant4.py (row-major [C, cap, D/2]: low nibble dim j + 8,
-//      high nibble dim D/2 + j), two exact __dp4a dots and `_score_f32`'s
-//      epilogue with __fmul_rn/__fadd_rn in the reference's order, so the
-//      scores are bit-identical to the plain version and the JAX package.
+//   K8 (packed int4 rows): int8 query codes against the packed int4 rows of
+//      ops/quant4.py (row-major [C, cap, D/2]: low nibble dim j + 8, high
+//      nibble dim D/2 + j), exact int32 sums and `_score_f32`'s epilogue
+//      with __fmul_rn/__fadd_rn in the reference's order (topk_common.cuh
+//      `score_q4`), so the scores are bit-identical to the plain version
+//      and the JAX package.
 //
 // The TPU kernel walks (query, probe) steps in order and folds each bucket
 // into a running top-k in VMEM; CUDA blocks run in no order. The probes
@@ -29,24 +30,26 @@
 //
 // What bounds them on the H100: bytes, each probed bucket's live rows read
 // once (at C = 1024, nprobe = 128, Q = 8, D = 512: ~0.7 GB of bf16 rows,
-// ~0.2 ms at 3.35 TB/s), 1 multiply-add per byte pair and query.
-//   K7 is bucket-major: queries come in tiles of 8, and a bucket that
-//      several queries of a tile probe is read once for all of them. One
-//      block per (probe entry of the tile, 256-slot chunk of its bucket)
-//      keeps the chunk only if no earlier entry of the tile names the same
-//      bucket (a scan of the tile's 8 x P probe ints; the others exit),
-//      streams the chunk's live rows through a cp.async ring of row
-//      slices (empty slots are never read; int8 rows staged raw), scores
-//      them on mma.sync m16n8k16 (rows as M, the tile's queries as N,
-//      bf16 -> f32), and keeps each probing query's best min(k, 256) by k
-//      rounds of a warp arg-max (k <= 32, topk_common.cuh `warp_select`) or
-//      a bitonic sort, written once
-//      for every entry naming the bucket: list r * n_cc + c,
-//      positions r * cap + slot, so a bucket listed twice in one query's
-//      list still gives both virtual positions. An out-of-range cluster id
-//      scores as empty slots and is never read.
-//   K8 keeps the query-major grid (chunk of a query's virtual gallery,
-//      query): a warp scores one row with 8-byte coalesced loads.
+// ~0.2 ms at 3.35 TB/s; int4 rows a quarter of that), 1 multiply-add per
+// element and query. Both are bucket-major: queries come in tiles of 8,
+// and a bucket that several queries of a tile probe is read once for all
+// of them. One block per (probe entry of the tile, 256-slot chunk of its
+// bucket) keeps the chunk only if no earlier entry of the tile names the
+// same bucket (a scan of the tile's 8 x P probe ints; the others exit),
+// streams the chunk's live rows through a cp.async ring of row slices
+// (empty slots are never read; int8 and int4 rows staged raw), scores them
+// on tensor cores with rows as M and the tile's queries as N:
+//   K7: mma.sync m16n8k16 bf16 -> f32, int8 rows widened in registers;
+//   K8: the packed bytes are the A fragment of mma.sync m16n8k32 s8 twice,
+//       masked into their two nibble planes (attention_mma.cuh
+//       `nibble_planes`, as the flat int4 scan K5 does) against the tile's
+//       query codes of [0, D/2) and [D/2, D);
+// keeps each probing query's best min(k, 256) by k rounds of a warp
+// arg-max (k <= 32, topk_common.cuh `warp_select`) or a bitonic sort, and
+// writes it once for every entry naming the bucket: list r * n_cc + c,
+// positions r * cap + slot, so a bucket listed twice in one query's list
+// still gives both virtual positions. An out-of-range cluster id scores as
+// empty slots and is never read.
 
 #include "attention_mma.cuh"
 #include "topk_common.cuh"
@@ -56,13 +59,10 @@
 namespace {
 
 using mmrs::kChunk;
+using mmrs::kRowBf16;
+using mmrs::kRowS4;
+using mmrs::kRowS8;
 using mmrs::kThreads;
-
-__device__ __forceinline__ int warp_sum_i(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // Virtual row `pos` of `query` -> flat slot index (bucket * cap + slot), or
 // -1 when pos is past the virtual gallery or the probe entry is out of range.
@@ -76,16 +76,39 @@ __device__ __forceinline__ long long slot_of(const int* __restrict__ probe, int 
 }
 
 // ---------------------------------------------------------------------------
-// K7 geometry: a tile of kProbeQT queries (the mma's N); a bucket chunk's
+// Geometry: a tile of kProbeQT queries (the mma's N); a bucket chunk's
 // kChunk rows stream as slices of every row through a cp.async ring: bf16
 // rows in 128-byte slices (64 elements) through 2 stages, int8 rows in
-// 64-byte slices (64 elements) through 4 stages; three blocks an SM. A row's 16-byte pieces are swizzled so that eight rows'
-// pieces fall in distinct banks.
+// 64-byte slices (64 elements) through 4 stages, packed int4 rows in
+// 128-byte slices (256 dims) through 2 stages; three blocks an SM (two for
+// int4 rows past D = 1024). A row's 16-byte pieces are swizzled so that
+// eight rows' pieces fall in distinct banks.
 constexpr int kProbeQT = 8;
-template <bool INT8> __host__ __device__ constexpr int probe_slice() { return INT8 ? 64 : 128; }
-template <bool INT8> __host__ __device__ constexpr int probe_stages() { return INT8 ? 4 : 2; }
-template <bool INT8> __host__ __device__ constexpr int probe_ring() {
-  return probe_stages<INT8>() * kChunk * probe_slice<INT8>();
+template <int KIND> __host__ __device__ constexpr int probe_slice() {
+  return KIND == kRowS8 ? 64 : 128;
+}
+template <int KIND> __host__ __device__ constexpr int probe_stages() {
+  return KIND == kRowS8 ? 4 : 2;
+}
+template <int KIND> __host__ __device__ constexpr int probe_ring() {
+  return probe_stages<KIND>() * kChunk * probe_slice<KIND>();
+}
+template <int KIND> __host__ __device__ constexpr int probe_row_bytes(int D) {
+  return KIND == kRowS4 ? D / 2 : KIND == kRowS8 ? D : 2 * D;
+}
+// k steps of the s8 mma (32 packed bytes) an int4 row, and the stride in
+// bytes of a staged plane row of query codes (padded so that the 8 rows'
+// B fragment words fall in distinct banks)
+__host__ __device__ constexpr int probe_ksteps_q4(int D) { return (D / 2 + 31) / 32; }
+__host__ __device__ constexpr int probe_qld_q4(int D) { return 32 * probe_ksteps_q4(D) + 16; }
+// bytes of the staged query tile: bf16 [8][DP + 8], DP = D padded to 16;
+// int4 rows: the codes of each half, [2][8][probe_qld_q4]
+template <int KIND> __host__ __device__ constexpr int probe_qbytes(int D) {
+  return KIND == kRowS4 ? 2 * kProbeQT * probe_qld_q4(D) : kProbeQT * (((D + 15) & ~15) + 8) * 2;
+}
+// dynamic shared memory: the ring, the query tile, the chunk's slot ids
+template <int KIND> __host__ __device__ constexpr int probe_smem(int D) {
+  return probe_ring<KIND>() + probe_qbytes<KIND>(D) + kChunk * 4;
 }
 
 // byte offset of 16-byte piece c of row r in a stage of SLICE-byte rows
@@ -94,39 +117,41 @@ __device__ __forceinline__ int piece(int r, int c) {
   return r * SLICE + ((SLICE == 128 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3))) << 4);
 }
 
-// K7, bucket-major. grid (nq * P entries of a query tile, ceil(cap / 256)
-// chunks of a bucket, tiles of kProbeQT queries). The block of entry
-// (qi, r) takes bucket b = probe[q0 + qi, r] only if no earlier entry of
-// its tile (row-major) names b, so each distinct bucket of a tile is read
-// once; it scores its chunk's rows against all kProbeQT queries on
-// mma.sync m16n8k16 (rows as M, queries as N), and writes the chunk's best
-// kc for every entry (qi', r') of the tile that names b, as the partial
-// list r' * n_cc + chunk of query q0 + qi', carrying the virtual positions
-// r' * cap + slot. INT8 = false: bf16 rows [C, cap, D]; true: int8 rows
-// with scales [C, cap], widened exactly to bf16 in registers.
-template <bool INT8>
+// K7 and K8, bucket-major. grid (nq * P entries of a query tile,
+// ceil(cap / 256) chunks of a bucket, tiles of kProbeQT queries). The block
+// of entry (qi, r) takes bucket b = probe[q0 + qi, r] only if no earlier
+// entry of its tile (row-major) names b, so each distinct bucket of a tile
+// is read once; it scores its chunk's rows against all kProbeQT queries,
+// and writes the chunk's best kc for every entry (qi', r') of the tile that
+// names b, as the partial list r' * n_cc + chunk of query q0 + qi',
+// carrying the virtual positions r' * cap + slot.
+//   kRowBf16: q bf16 [Q, D], rows bf16 [C, cap, D]; no scales.
+//   kRowS8:   q bf16 [Q, D], rows int8 [C, cap, D] with scales [C, cap],
+//             widened exactly to bf16 in registers.
+//   kRowS4:   q int8 codes [Q, D] with q_scale and q_rowsum [Q] (the low
+//             half's code sum), rows packed [C, cap, D/2] with scales.
+template <int KIND>
 __global__ void __launch_bounds__(kThreads, 3)
-probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
+probe_scan_kernel(const void* __restrict__ q,          // [Q, D]
+                  const float* __restrict__ q_scale,   // [Q] (int4 rows only)
+                  const float* __restrict__ q_rowsum,  // [Q] (int4 rows only)
                   const int* __restrict__ probe,       // [Q, P]
-                  const void* __restrict__ buckets,    // [C, cap, D]
+                  const void* __restrict__ buckets,    // [C, cap, row bytes]
                   const int* __restrict__ bucket_ids,  // [C, cap]
-                  const float* __restrict__ scales,    // [C, cap] (INT8 only)
+                  const float* __restrict__ scales,    // [C, cap] (int8, int4)
                   int Q, int P, int C, int cap, int D, int kc,
                   float* __restrict__ part_v,          // [Q, P * n_cc, kc]
                   int* __restrict__ part_i) {
-  constexpr int ESZ = INT8 ? 1 : 2;
-  constexpr int SLICE = probe_slice<INT8>(), NST = probe_stages<INT8>();
+  constexpr int SLICE = probe_slice<KIND>(), NST = probe_stages<KIND>();
   constexpr int STAGE = kChunk * SLICE;
-  constexpr int KSTEPS = SLICE / (16 * ESZ);         // k steps of 16 a slice
-  const int DP = (D + 15) & ~15;                     // K padded to 16
-  const int QLD = DP + 8;                            // query row stride
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;                                     // [NST][256][SLICE]
-  uint16_t* qs = reinterpret_cast<uint16_t*>(ring + NST * STAGE);  // [8][QLD]
-  int* ids = reinterpret_cast<int*>(qs + kProbeQT * QLD);         // [256]
-  float* sv = reinterpret_cast<float*>(ring);                     // [8][256], after the scan
+  unsigned char* ring = smem;                                   // [NST][256][SLICE]
+  unsigned char* qs = ring + NST * STAGE;                       // the query tile
+  int* ids = reinterpret_cast<int*>(qs + probe_qbytes<KIND>(D));  // [256]
+  float* sv = reinterpret_cast<float*>(ring);                   // [8][256], after the scan
   int* si = reinterpret_cast<int*>(sv + kProbeQT * kChunk);
   __shared__ int s_mask;
+  __shared__ float qsc[kProbeQT], qrs[kProbeQT];                // int4 rows
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int e = blockIdx.x, chunk = blockIdx.y, n_cc = gridDim.y;
@@ -157,23 +182,49 @@ probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
   const int qmask = s_mask;
 
   ids[tid] = my_id;
-  // the query tile, zeros past nq rows and past D
-  for (int x = tid; x < kProbeQT * (DP / 8); x += kThreads) {
-    const int r = x / (DP / 8), c8 = (x - r * (DP / 8)) * 8;
-    const bool ok = r < nq && c8 < D;
-    mmrs::cp_async<16>(qs + r * QLD + c8, ok ? q + (size_t)(q0 + r) * D + c8 : q, ok);
+  // the query tile, zeros past nq rows and past D (int4 rows: each code
+  // plane past D/2)
+  const int DP = (D + 15) & ~15;                     // bf16 queries: K padded to 16
+  const int QLD = DP + 8;                            // bf16 query row stride
+  const int QLB = probe_qld_q4(D);                   // int4 rows: plane row stride
+  if constexpr (KIND == kRowS4) {
+    const int8_t* qc = static_cast<const int8_t*>(q);
+    const int half = D / 2, words = QLB / 8;
+    for (int x = tid; x < 2 * kProbeQT * words; x += kThreads) {
+      const int pl = x / (kProbeQT * words), rem = x - pl * kProbeQT * words;
+      const int r = rem / words, w = rem - r * words;
+      const bool ok = r < nq && 8 * w < half;
+      mmrs::cp_async<8>(qs + (pl * kProbeQT + r) * QLB + 8 * w,
+                        ok ? qc + (size_t)(q0 + r) * D + pl * half + 8 * w : qc, ok);
+    }
+    if (tid < kProbeQT) {
+      qsc[tid] = tid < nq ? q_scale[q0 + tid] : 0.f;
+      qrs[tid] = tid < nq ? q_rowsum[q0 + tid] : 0.f;
+    }
+  } else {
+    const uint16_t* qb = static_cast<const uint16_t*>(q);
+    uint16_t* qh = reinterpret_cast<uint16_t*>(qs);
+    for (int x = tid; x < kProbeQT * (DP / 8); x += kThreads) {
+      const int r = x / (DP / 8), c8 = (x - r * (DP / 8)) * 8;
+      const bool ok = r < nq && c8 < D;
+      mmrs::cp_async<16>(qh + r * QLD + c8, ok ? qb + (size_t)(q0 + r) * D + c8 : qb, ok);
+    }
   }
   mmrs::cp_async_commit();
   const bool any_live = __syncthreads_or(ids[tid] >= 0);
 
   const int m0 = warp * 32;
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const int g = lane >> 2, t = lane & 3;
+  // C fragments: (mt, 2h + j) = (row m0 + 16 mt + g + 8h, query 2t + j)
+  float acc[2][4] = {};             // K7
+  int dlo[2][4] = {}, dhi[2][4] = {};   // K8
   if (any_live) {
-    const int row_bytes = D * ESZ;
+    const int row_bytes = probe_row_bytes<KIND>(D);
     const int nslice = (row_bytes + SLICE - 1) / SLICE;
     const unsigned char* base =
         static_cast<const unsigned char*>(buckets) + ((size_t)bkt * cap + s0) * row_bytes;
-    // int8 rows with D % 16 == 8 are 8-byte aligned: 8-byte pieces
+    // rows of 8 (mod 16) bytes (int8 rows of D % 16 == 8, int4 rows of
+    // D % 32 == 16) are 8-byte aligned: 8-byte pieces
     const bool wide = row_bytes % 16 == 0;
     auto issue = [&](int sl) {
       if (sl < nslice) {
@@ -199,7 +250,6 @@ probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
       mmrs::cp_async_commit();
     };
     const bool wlive = __any_sync(0xffffffffu, ids[m0 + lane] >= 0);
-    const int g = lane >> 2, t = lane & 3;
     for (int i = 0; i < NST - 1; ++i) issue(i);
     for (int sl = 0; sl < nslice; ++sl) {
       issue(sl + NST - 1);
@@ -207,28 +257,53 @@ probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
       __syncthreads();
       const unsigned char* st = ring + (sl % NST) * STAGE;
       if (wlive) {
+        if constexpr (KIND == kRowS4) {
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          const int k0 = sl * (SLICE / ESZ) + kk * 16;
-          if (k0 >= DP) break;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(qs + g * QLD + k0 + 2 * t);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(qs + g * QLD + k0 + 2 * t + 8);
+          for (int kk = 0; kk < SLICE / 32; ++kk) {
+            const int ks = sl * (SLICE / 32) + kk;
+            if (ks >= probe_ksteps_q4(D)) break;
+            const unsigned char* ql = qs + g * QLB + ks * 32 + 4 * t;
+            const unsigned char* qh = ql + kProbeQT * QLB;
+            const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(ql);
+            const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(ql + 16);
+            const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(qh);
+            const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(qh + 16);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            uint32_t a[4];
-            if constexpr (INT8) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const int r = m0 + mt * 16 + g + (i & 1) * 8;
-                const uint16_t w = *reinterpret_cast<const uint16_t*>(
-                    st + piece<SLICE>(r, kk) + 2 * t + (i >> 1) * 8);
-                a[i] = mmrs::s8x2_to_bf16x2(w);
-              }
-            } else {
-              const int r = m0 + mt * 16 + (lane & 15);
-              mmrs::ldmatrix_x4(a, st + piece<SLICE>(r, kk * 2 + (lane >> 4)));
+            for (int mt = 0; mt < 2; ++mt) {
+              uint32_t a[4], lo[4], hi[4];
+              mmrs::ldmatrix_x4(a, st + piece<SLICE>(m0 + mt * 16 + (lane & 15),
+                                                     kk * 2 + (lane >> 4)));
+              mmrs::nibble_planes(a, lo, hi);
+              mmrs::mma_s8(dlo[mt], lo, bl0, bl1);
+              mmrs::mma_s8(dhi[mt], hi, bh0, bh1);
             }
-            mmrs::mma_bf16(acc[mt], a, b0, b1);
+          }
+        } else {
+          constexpr int ESZ = KIND == kRowS8 ? 1 : 2;
+          const uint16_t* qh = reinterpret_cast<const uint16_t*>(qs);
+#pragma unroll
+          for (int kk = 0; kk < SLICE / (16 * ESZ); ++kk) {
+            const int k0 = sl * (SLICE / ESZ) + kk * 16;
+            if (k0 >= DP) break;
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(qh + g * QLD + k0 + 2 * t);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(qh + g * QLD + k0 + 2 * t + 8);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              uint32_t a[4];
+              if constexpr (KIND == kRowS8) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const int r = m0 + mt * 16 + g + (i & 1) * 8;
+                  const uint16_t w = *reinterpret_cast<const uint16_t*>(
+                      st + piece<SLICE>(r, kk) + 2 * t + (i >> 1) * 8);
+                  a[i] = mmrs::s8x2_to_bf16x2(w);
+                }
+              } else {
+                const int r = m0 + mt * 16 + (lane & 15);
+                mmrs::ldmatrix_x4(a, st + piece<SLICE>(r, kk * 2 + (lane >> 4)));
+              }
+              mmrs::mma_bf16(acc[mt], a, b0, b1);
+            }
           }
         }
       }
@@ -236,19 +311,24 @@ probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
     }
     mmrs::cp_async_wait<0>();
     __syncthreads();   // the ring is free: the scores [8][256]
-    // C fragment: acc[mt][2h + j] = (row m0 + 16 mt + g + 8h, query 2t + j)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + mt * 16 + g + 8 * h;
         const bool live = ids[r] >= 0;
-        const float sc = INT8 && live ? scales[(size_t)bkt * cap + s0 + r] : 1.f;
+        const float sc = KIND != kRowBf16 && live ? scales[(size_t)bkt * cap + s0 + r] : 1.f;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float x = acc[mt][2 * h + j];
-          if (INT8) x = __fmul_rn(x, sc);
-          sv[(2 * t + j) * kChunk + r] = live ? x : -INFINITY;
+          const int qi = 2 * t + j;
+          float x;
+          if constexpr (KIND == kRowS4)
+            x = mmrs::score_q4(dlo[mt][2 * h + j], dhi[mt][2 * h + j], qrs[qi], qsc[qi], sc);
+          else if constexpr (KIND == kRowS8)
+            x = __fmul_rn(acc[mt][2 * h + j], sc);
+          else
+            x = acc[mt][2 * h + j];
+          sv[qi * kChunk + r] = live ? x : -INFINITY;
         }
       }
   } else {
@@ -285,65 +365,28 @@ probe_scan_kernel(const uint16_t* __restrict__ q,      // [Q, D] bf16 bits
   }
 }
 
-// K8: packed int4 rows [C, cap, D/2], scales [C, cap].
-__global__ void __launch_bounds__(kThreads)
-probe_scan_q4_kernel(const int8_t* __restrict__ q,        // [Q, D] codes
-                     const float* __restrict__ q_scale,   // [Q]
-                     const float* __restrict__ q_rowsum,  // [Q] sum of codes [0, D/2)
-                     const int* __restrict__ probe,       // [Q, P]
-                     const uint8_t* __restrict__ buckets, // [C, cap, D/2]
-                     const int* __restrict__ bucket_ids,  // [C, cap]
-                     const float* __restrict__ scales,    // [C, cap]
-                     int P, int C, int cap, int D, int k,
-                     float* __restrict__ part_v, int* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sv = reinterpret_cast<float*>(smem);
-  int* si = reinterpret_cast<int*>(sv + kChunk);
-  int* qs = si + kChunk;                                       // [D/4] code words
-
-  const int query = blockIdx.y, chunk = blockIdx.x, n_chunks = gridDim.x;
-  const int n = P * cap;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dw = D / 4, hw = D / 8;  // query words per row; words per half
-
-  const int* q32 = reinterpret_cast<const int*>(q) + (size_t)query * dw;
-  for (int e = threadIdx.x; e < dw; e += kThreads) qs[e] = q32[e];
-  const float qsc = q_scale[query], qrs = q_rowsum[query];
-  __syncthreads();
-
-  for (int r = warp; r < kChunk; r += kThreads / 32) {
-    const int pos = chunk * kChunk + r;
-    const long long slot = slot_of(probe, query, pos, n, P, C, cap);
-    const bool live = slot >= 0 && bucket_ids[slot] >= 0;  // warp-uniform
-    int dlo = 0, dhi = 0;
-    if (live) {
-      const uint2* row = reinterpret_cast<const uint2*>(buckets + slot * (D / 2));
-      for (int c = lane; c < D / 16; c += 32) {  // 8 packed bytes: dims 8c..8c+7 of each half
-        const uint2 gv = row[c];
-        const int2 ql = reinterpret_cast<const int2*>(qs)[c];
-        const int2 qh = reinterpret_cast<const int2*>(qs + hw)[c];
-        dlo = __dp4a(static_cast<int>(gv.y & 0x0F0F0F0Fu), ql.y,
-                     __dp4a(static_cast<int>(gv.x & 0x0F0F0F0Fu), ql.x, dlo));
-        dhi = __dp4a(static_cast<int>(gv.y & 0xF0F0F0F0u), qh.y,
-                     __dp4a(static_cast<int>(gv.x & 0xF0F0F0F0u), qh.x, dhi));
-      }
-    }
-    dlo = warp_sum_i(dlo);
-    dhi = warp_sum_i(dhi);
-    if (lane == 0) {
-      float s = -INFINITY;
-      if (live) {
-        s = __fadd_rn(__fsub_rn(__int2float_rn(dlo), __fmul_rn(8.f, qrs)),
-                      __fmul_rn(__int2float_rn(dhi), 0.0625f));
-        s = __fmul_rn(__fmul_rn(s, qsc), scales[slot]);
-      }
-      sv[r] = s;
-      si[r] = pos < n ? pos : -1;
-    }
-  }
-  __syncthreads();
-  mmrs::sort_segments(sv, si, kChunk, kChunk);
-  mmrs::write_partials(sv, si, 1, query, query + 1, chunk, n_chunks, k, part_v, part_i);
+// One launch of probe_scan_kernel<KIND>: partials [Q, P * ceil(cap / 256),
+// k]. Checks the kernel's own limits; the callers check the rest.
+template <int KIND>
+int launch_probe(const void* q, const void* q_scale, const void* q_rowsum, const void* probe,
+                 const void* buckets, const void* bucket_ids, const void* scales, int Q, int P,
+                 int C, int cap, int D, int k, void* part_v, void* part_i, void* stream) {
+  static_assert(kThreads == kChunk, "a thread a chunk row");
+  if (D % 8 || (KIND == kRowS4 && D % 16) || D > 2048 || k < 1 || k > kChunk || P < 1 ||
+      cap < 1 || Q < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = probe_smem<KIND>(D);
+  const dim3 grid(min(Q, kProbeQT) * P, (cap + kChunk - 1) / kChunk,
+                  (Q + kProbeQT - 1) / kProbeQT);
+  auto kern = probe_scan_kernel<KIND>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, static_cast<const float*>(q_scale), static_cast<const float*>(q_rowsum),
+      static_cast<const int*>(probe), buckets, static_cast<const int*>(bucket_ids),
+      static_cast<const float*>(scales), Q, P, C, cap, D, k, static_cast<float*>(part_v),
+      static_cast<int*>(part_i));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Final virtual rows -> global ids; -inf (empty slot, short list) -> -1.
@@ -364,8 +407,6 @@ __global__ void probe_ids_kernel(const float* __restrict__ vals,   // [Q, k]
   out[e] = id;
 }
 
-dim3 scan_grid(int Q, int n) { return dim3((n + kChunk - 1) / kChunk, Q); }
-
 }  // namespace
 
 extern "C" {
@@ -380,42 +421,20 @@ int mmrs_probe_scan(const void* q, const void* probe, const void* buckets,
                     const void* bucket_ids, const void* scales, int int8, int Q, int P,
                     int C, int cap, int D, int k, void* part_v, void* part_i,
                     void* stream) {
-  static_assert(kThreads == kChunk, "a thread a chunk row");
-  if (D % 8 || D > 2048 || k < 1 || k > kChunk || P < 1 || cap < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int dp = (D + 15) & ~15;
-  const int smem = (int8 ? probe_ring<true>() : probe_ring<false>()) +
-                   kProbeQT * (dp + 8) * 2 + kChunk * 4;
-  const dim3 grid(min(Q, kProbeQT) * P, (cap + kChunk - 1) / kChunk,
-                  (Q + kProbeQT - 1) / kProbeQT);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint16_t* qb = static_cast<const uint16_t*>(q);
-  const int* pr = static_cast<const int*>(probe);
-  const int* ids = static_cast<const int*>(bucket_ids);
-  const float* sc = static_cast<const float*>(scales);
-  float* pv = static_cast<float*>(part_v);
-  int* pi = static_cast<int*>(part_i);
-  auto kern = int8 ? probe_scan_kernel<true> : probe_scan_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, kThreads, smem, s>>>(qb, pr, buckets, ids, sc, Q, P, C, cap, D, k, pv, pi);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = int8 ? launch_probe<kRowS8> : launch_probe<kRowBf16>;
+  return launch(q, nullptr, nullptr, probe, buckets, bucket_ids, scales, Q, P, C, cap, D, k,
+                part_v, part_i, stream);
 }
 
-// K8 scan pass; the caller checks as above, with D % 16 == 0.
+// K8 scan pass: as above, for int8 query codes with their f32 scales and
+// low-half rowsums over packed int4 rows [C, cap, D/2] with scales; the
+// caller checks as above, with D % 16 == 0.
 int mmrs_probe_scan_q4(const void* q, const void* q_scale, const void* q_rowsum,
                        const void* probe, const void* buckets, const void* bucket_ids,
                        const void* scales, int Q, int P, int C, int cap, int D, int k,
                        void* part_v, void* part_i, void* stream) {
-  const size_t smem = (size_t)kChunk * (sizeof(float) + sizeof(int)) + (size_t)D;
-  probe_scan_q4_kernel<<<scan_grid(Q, P * cap), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(q_scale),
-      static_cast<const float*>(q_rowsum), static_cast<const int*>(probe),
-      static_cast<const uint8_t*>(buckets), static_cast<const int*>(bucket_ids),
-      static_cast<const float*>(scales), P, C, cap, D, k, static_cast<float*>(part_v),
-      static_cast<int*>(part_i));
-  return static_cast<int>(cudaGetLastError());
+  return launch_probe<kRowS4>(q, q_scale, q_rowsum, probe, buckets, bucket_ids, scales, Q, P,
+                              C, cap, D, k, part_v, part_i, stream);
 }
 
 // Merged top-k virtual rows [Q, k] -> global ids [Q, k].

@@ -1,6 +1,6 @@
-// The flat gallery scans K1 (bf16 rows, cosine_topk.cu) and K5 (packed int4
-// rows, quant_topk.cu) on tensor cores, sm_90a: one kernel template,
-// `span_scan_kernel<Q4, stages>`.
+// The flat gallery scans K1 (bf16 rows, cosine_topk.cu), K4 (int8 rows) and
+// K5 (packed int4 rows, both quant_topk.cu) on tensor cores, sm_90a: one
+// kernel template, `span_scan_kernel<KIND, stages>` over the row kind.
 //
 // A block takes a tile of kScanQT = 8 queries (the N side of the mma) and a
 // span of `span` consecutive gallery rows (a multiple of 256), walked in
@@ -9,19 +9,24 @@
 // tiles. Rows stream through a cp.async ring in 128-byte row slices
 // (16-byte pieces swizzled so that eight rows' pieces fall in distinct
 // banks; past a row's end or the last row the pieces are zero-filled and
-// nothing is read; K5's row scales ride with each chunk's first slice): 2
-// stages and two blocks an SM where they fit, so that one block's select
-// overlaps the other's loads, else 5 stages (`scan_stages`). Each warp
-// scores its 32 rows of a stage against the 8 queries:
+// nothing is read; K4's and K5's row scales ride with each chunk's first
+// slice): 2 stages and two blocks an SM where they fit, so that one
+// block's select overlaps the other's loads, else 5 stages
+// (`scan_stages`). Each warp scores its 32 rows of a stage against the 8
+// queries:
 //   K1: mma.sync m16n8k16 bf16 -> f32, a fresh accumulator for each slice
 //       (64 dims) added to the row's sum on the CUDA cores (the tensor
 //       cores' f32 sums truncate; the slices keep that to 4 k steps);
+//   K4: the int8 row bytes are the A fragment of mma.sync m16n8k32 s8
+//       against the query codes, exact int32 sums, and the epilogue
+//       `acc * q_scale * row_scale` of ops/quant.py operation by
+//       operation (`score_q8`), so the scores are bit-identical to plain;
 //   K5: the packed bytes are the A fragment of mma.sync m16n8k32 s8 twice:
 //       `& 0x0F0F0F0F` gives the low nibbles (dims j, offset by 8) and
 //       `& 0xF0F0F0F0` the high ones (dims D/2 + j, times 16), against the
 //       query codes of [0, D/2) and [D/2, D) (ops/quant4.py's layout); the
 //       exact int32 sums go through `_score_f32`'s epilogue operation by
-//       operation, so the scores are bit-identical to the plain version.
+//       operation (`score_q4`), so the scores are bit-identical to plain.
 // The queries are staged once in shared memory, zero past D (and past Q).
 //
 // What a block keeps of its span (the select; kc = the partial list
@@ -60,66 +65,67 @@ constexpr int kScanSmemPair = 112 * 1024;       // two blocks an SM
 constexpr int kScanStage = mmrs::kChunk * kScanSlice;
 constexpr int kScanCap = 384;              // a query's select buffer (12 a lane)
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mmrs::kRowBf16;
+using mmrs::kRowS4;
+using mmrs::kRowS8;
 
 // byte offset of 16-byte piece c of row r in a stage of 128-byte row slices
 __device__ __forceinline__ int scan_piece(int r, int c) {
   return r * kScanSlice + ((c ^ (r & 7)) << 4);
 }
 
-// Bytes of a row; k steps of the mma (16 bf16 or 32 packed bytes) a row;
-// the staged query row stride in bytes (padded so that the 8 rows' B
-// fragment words fall in distinct banks).
-template <bool Q4> __host__ __device__ constexpr int scan_row_bytes(int D) {
-  return Q4 ? D / 2 : 2 * D;
+// Bytes of a row; k steps of the mma (16 bf16 or 32 code bytes) a row;
+// the query planes staged (int4: the codes of each half); the staged query
+// row stride in bytes (padded so that the 8 rows' B fragment words fall in
+// distinct banks).
+template <int KIND> __host__ __device__ constexpr int scan_row_bytes(int D) {
+  return KIND == kRowS4 ? D / 2 : KIND == kRowS8 ? D : 2 * D;
 }
-template <bool Q4> __host__ __device__ constexpr int scan_ksteps(int D) {
-  return Q4 ? (D / 2 + 31) / 32 : (D + 15) / 16;
+template <int KIND> __host__ __device__ constexpr int scan_ksteps(int D) {
+  return KIND == kRowBf16 ? (D + 15) / 16 : (scan_row_bytes<KIND>(D) + 31) / 32;
 }
-template <bool Q4> __host__ __device__ constexpr int scan_qld(int D) {
-  return 32 * scan_ksteps<Q4>(D) + 16;
+template <int KIND> __host__ __device__ constexpr int scan_planes() {
+  return KIND == kRowS4 ? 2 : 1;
+}
+template <int KIND> __host__ __device__ constexpr int scan_qld(int D) {
+  return 32 * scan_ksteps<KIND>(D) + 16;
 }
 
-// dynamic shared memory: the ring of `stages` (int4: and a chunk's row
-// scales a stage), the staged queries (one plane, or two for int4), a
-// chunk's scores [8][256], the select buffers [8][kScanCap] of scores and
-// row ids
-template <bool Q4> __host__ __device__ constexpr int scan_smem(int D, int stages) {
-  return stages * (kScanStage + (Q4 ? mmrs::kChunk * 4 : 0)) +
-         (Q4 ? 2 : 1) * kScanQT * scan_qld<Q4>(D) +
+// dynamic shared memory: the ring of `stages` (int8 / int4: and a chunk's
+// row scales a stage), the staged query planes, a chunk's scores [8][256],
+// the select buffers [8][kScanCap] of scores and row ids
+template <int KIND> __host__ __device__ constexpr int scan_smem(int D, int stages) {
+  return stages * (kScanStage + (KIND != kRowBf16 ? mmrs::kChunk * 4 : 0)) +
+         scan_planes<KIND>() * kScanQT * scan_qld<KIND>(D) +
          kScanQT * (mmrs::kChunk + 2 * kScanCap) * 4;
 }
-// The ring: 2 stages where two blocks then fit an SM (D <= 768 for bf16
-// rows, <= 1024 for int4), so that one block's select and its span's
-// start and end overlap the other's loads; else 5 stages, one block an SM
-// (224 KB at D = 2048).
-template <bool Q4> __host__ __device__ constexpr int scan_stages(int D) {
-  return scan_smem<Q4>(D, 2) <= kScanSmemPair ? 2 : 5;
+// The ring: 2 stages where two blocks then fit an SM (bf16 rows up to
+// D = 1008, int8 up to 1760, int4 up to 1728), so that one block's select
+// and its span's start and end overlap the other's loads; else 5 stages,
+// one block an SM (224 KB at D = 2048).
+template <int KIND> __host__ __device__ constexpr int scan_stages(int D) {
+  return scan_smem<KIND>(D, 2) <= kScanSmemPair ? 2 : 5;
 }
 
-// Q4 = false: q bf16 [Q, D], g bf16 [N, D]; q_scale, q_rowsum, g_scale null.
-// Q4 = true: q int8 codes [Q, D] with f32 scales and low-half rowsums, g
-// packed [N, D/2] with f32 row scales.
-template <bool Q4, int NST>
+// kRowBf16: q bf16 [Q, D], g bf16 [N, D]; q_scale, q_rowsum, g_scale null.
+// kRowS8: q int8 codes [Q, D] with f32 scales, g int8 [N, D] with f32 row
+// scales; q_rowsum null. kRowS4: q int8 codes [Q, D] with f32 scales and
+// low-half rowsums, g packed [N, D/2] with f32 row scales.
+template <int KIND, int NST>
 __global__ void __launch_bounds__(mmrs::kThreads, NST == 2 ? 2 : 1)
 span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
                  const float* __restrict__ q_rowsum, const unsigned char* __restrict__ g,
                  const float* __restrict__ g_scale, int Q, int N, int D, int kc, int span,
                  int n_qtiles, float* __restrict__ part_v, int* __restrict__ part_i) {
   using mmrs::kChunk;
+  constexpr bool SCALED = KIND != kRowBf16;   // row scales (int8, int4)
+  constexpr int PL = scan_planes<KIND>();
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;                                   // [NST][256][128]
-  float* scl = reinterpret_cast<float*>(ring + NST * kScanStage);  // [NST][256] (Q4)
-  unsigned char* qs = reinterpret_cast<unsigned char*>(scl + (Q4 ? NST * kChunk : 0));
-  const int QLD = scan_qld<Q4>(D);                              // qs: [planes][8][QLD]
-  float* sv = reinterpret_cast<float*>(qs + (Q4 ? 2 : 1) * kScanQT * QLD);  // [8][256]
+  float* scl = reinterpret_cast<float*>(ring + NST * kScanStage);  // [NST][256] (SCALED)
+  unsigned char* qs = reinterpret_cast<unsigned char*>(scl + (SCALED ? NST * kChunk : 0));
+  const int QLD = scan_qld<KIND>(D);                            // qs: [PL][8][QLD]
+  float* sv = reinterpret_cast<float*>(qs + PL * kScanQT * QLD);  // [8][256]
   float* cv = sv + kScanQT * kChunk;                            // [8][kScanCap]
   int* ci = reinterpret_cast<int*>(cv + kScanQT * kScanCap);    // [8][kScanCap]
   __shared__ float qsc[kScanQT], qrs[kScanQT];
@@ -130,13 +136,13 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
   const int part = blockIdx.x / n_qtiles, n_parts = gridDim.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * kScanQT, nq = min(kScanQT, Q - q0);
   const int row0 = part * span, row_end = min(N, row0 + span);
-  const int row_bytes = scan_row_bytes<Q4>(D), ksteps = scan_ksteps<Q4>(D);
+  const int row_bytes = scan_row_bytes<KIND>(D), ksteps = scan_ksteps<KIND>(D);
   const int nslice = (row_bytes + kScanSlice - 1) / kScanSlice;
   const int nchunk = (row_end - row0 + kChunk - 1) / kChunk;
   const int total = nchunk * nslice;   // ring items: (chunk, slice)
 
   // the ring: item it = chunk * nslice + slice, stage it % NST; a chunk's
-  // row scales (int4) ride with its first slice
+  // row scales (int8, int4) ride with its first slice
   const bool wide = row_bytes % 16 == 0;   // int4 rows of D % 32 == 16: 8-byte pieces
   auto issue = [&](int it) {
     if (it < total) {
@@ -158,7 +164,7 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
                             ok ? g + (size_t)(rbase + r) * row_bytes + byte : g, ok);
         }
       }
-      if (Q4 && sl == 0) {
+      if (SCALED && sl == 0) {
         static_assert(mmrs::kThreads == kChunk, "a thread a chunk row");
         const bool ok = rbase + tid < row_end;
         mmrs::cp_async<4>(scl + (it % NST) * kChunk + tid, ok ? g_scale + rbase + tid : g_scale,
@@ -169,21 +175,22 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
   };
   for (int i = 0; i < NST - 1; ++i) issue(i);
 
-  // the query tile, zero past nq rows and past D (each plane past D/2)
-  if constexpr (Q4) {
+  // the query tile, zero past nq rows and past D (int4: each plane past
+  // D/2)
+  if constexpr (SCALED) {
     const int8_t* qc = static_cast<const int8_t*>(q);
-    const int half = D / 2, words = QLD / 8;
-    for (int x = tid; x < 2 * kScanQT * words; x += mmrs::kThreads) {
+    const int width = D / PL, words = QLD / 8;
+    for (int x = tid; x < PL * kScanQT * words; x += mmrs::kThreads) {
       const int pl = x / (kScanQT * words), rem = x - pl * kScanQT * words;
       const int r = rem / words, w = rem - r * words;
       uint2 v = make_uint2(0u, 0u);
-      if (r < nq && 8 * w < half)
-        v = *reinterpret_cast<const uint2*>(qc + (size_t)(q0 + r) * D + pl * half + 8 * w);
+      if (r < nq && 8 * w < width)
+        v = *reinterpret_cast<const uint2*>(qc + (size_t)(q0 + r) * D + pl * width + 8 * w);
       *reinterpret_cast<uint2*>(qs + (pl * kScanQT + r) * QLD + 8 * w) = v;
     }
     if (tid < kScanQT) {
       qsc[tid] = tid < nq ? q_scale[q0 + tid] : 0.f;
-      qrs[tid] = tid < nq ? q_rowsum[q0 + tid] : 0.f;
+      if (KIND == kRowS4) qrs[tid] = tid < nq ? q_rowsum[q0 + tid] : 0.f;
     }
   } else {
     const uint16_t* qb = static_cast<const uint16_t*>(q);
@@ -204,15 +211,15 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
   int it = 0;
   for (int c = 0; c < nchunk; ++c) {
     const int rbase = row0 + c * kChunk;
-    float gs[2][2];   // K5: the scales of this thread's rows
+    float gs[2][2];   // K4, K5: the scales of this thread's rows
     float tot[2][4] = {};   // K1
-    int dlo[2][4] = {}, dhi[2][4] = {};   // K5
+    int dlo[2][4] = {}, dhi[2][4] = {};   // K4 (dlo: the sums), K5
     for (int sl = 0; sl < nslice; ++sl, ++it) {
       issue(it + NST - 1);
       mmrs::cp_async_wait<NST - 1>();
       __syncthreads();
       const unsigned char* st = ring + (it % NST) * kScanStage;
-      if constexpr (Q4) {
+      if constexpr (SCALED) {
         if (sl == 0) {
           const float* sc = scl + (it % NST) * kChunk + m0 + g8;
 #pragma unroll
@@ -225,22 +232,26 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
           const int ks = sl * (kScanSlice / 32) + kk;
           if (ks >= ksteps) break;
           const unsigned char* ql = qs + g8 * QLD + ks * 32 + 4 * t4;
-          const unsigned char* qh = ql + kScanQT * QLD;
           const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(ql);
           const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(ql + 16);
-          const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(qh);
-          const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(qh + 16);
+          uint32_t bh0 = 0, bh1 = 0;
+          if constexpr (KIND == kRowS4) {
+            const unsigned char* qh = ql + kScanQT * QLD;
+            bh0 = *reinterpret_cast<const uint32_t*>(qh);
+            bh1 = *reinterpret_cast<const uint32_t*>(qh + 16);
+          }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            uint32_t a[4], lo[4], hi[4];
+            uint32_t a[4];
             mmrs::ldmatrix_x4(a, st + scan_piece(m0 + mt * 16 + (lane & 15), kk * 2 + (lane >> 4)));
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              lo[i] = a[i] & 0x0F0F0F0Fu;
-              hi[i] = a[i] & 0xF0F0F0F0u;
+            if constexpr (KIND == kRowS4) {
+              uint32_t lo[4], hi[4];
+              mmrs::nibble_planes(a, lo, hi);
+              mmrs::mma_s8(dlo[mt], lo, bl0, bl1);
+              mmrs::mma_s8(dhi[mt], hi, bh0, bh1);
+            } else {
+              mmrs::mma_s8(dlo[mt], a, bl0, bl1);
             }
-            mma_s8(dlo[mt], lo, bl0, bl1);
-            mma_s8(dhi[mt], hi, bh0, bh1);
           }
         }
       } else {
@@ -287,13 +298,13 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
         for (int j = 0; j < 2; ++j) {
           const int qi = 2 * t4 + j;
           float s;
-          if constexpr (Q4) {
-            s = __fadd_rn(__fsub_rn(__int2float_rn(dlo[mt][2 * h + j]), __fmul_rn(8.f, qrs[qi])),
-                          __fmul_rn(__int2float_rn(dhi[mt][2 * h + j]), 0.0625f));
-            s = __fmul_rn(__fmul_rn(s, qsc[qi]), gs[mt][h]);
-          } else {
+          if constexpr (KIND == kRowS4)
+            s = mmrs::score_q4(dlo[mt][2 * h + j], dhi[mt][2 * h + j], qrs[qi], qsc[qi],
+                               gs[mt][h]);
+          else if constexpr (KIND == kRowS8)
+            s = mmrs::score_q8(dlo[mt][2 * h + j], qsc[qi], gs[mt][h]);
+          else
             s = tot[mt][2 * h + j];
-          }
           if (to_sv) {
             sv[qi * kChunk + r] = live ? s : -INFINITY;
             if (!select) ci[qi * kChunk + r] = live ? rbase + r : -1;
@@ -352,7 +363,7 @@ span_scan_kernel(const void* __restrict__ q, const float* __restrict__ q_scale,
 }
 
 // Launch over [Q, ceil(N / span), kc] partials; checks the plan's rules.
-template <bool Q4>
+template <int KIND>
 int launch_span_scan(const void* q, const void* q_scale, const void* q_rowsum, const void* g,
                      const void* g_scale, int Q, int N, int D, int kc, int span, void* part_v,
                      void* part_i, cudaStream_t stream) {
@@ -360,9 +371,9 @@ int launch_span_scan(const void* q, const void* q_scale, const void* q_rowsum, c
       (kc > mmrs::kSelectMax && span != mmrs::kChunk) || Q < 1 || N < 1 || D < 1 ||
       D > 2048)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int stages = scan_stages<Q4>(D), smem = scan_smem<Q4>(D, stages);
+  const int stages = scan_stages<KIND>(D), smem = scan_smem<KIND>(D, stages);
   if (smem > kScanSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = stages == 2 ? span_scan_kernel<Q4, 2> : span_scan_kernel<Q4, 5>;
+  auto kern = stages == 2 ? span_scan_kernel<KIND, 2> : span_scan_kernel<KIND, 5>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (Q + kScanQT - 1) / kScanQT;

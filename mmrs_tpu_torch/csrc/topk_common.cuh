@@ -1,11 +1,11 @@
 // What every gallery top-k scan shares (cosine_topk.cu: bf16; quant_topk.cu:
 // int8 and int4; ivf_probe.cu: the bucket probes): the chunk of gallery rows
 // one scan block scores, the merge's largest shared-memory group, the
-// block-wide bitonic sort of a chunk's candidates and the warp's arg-max
-// select of a short list.
+// block-wide bitonic sort of a chunk's candidates, the warp's arg-max
+// select of a short list and the int8 / int4 score epilogues.
 //
 // A scan block writes the best kc = min(k, 256) (score, row id) pairs of its
-// 256-row chunk (K1 and K5 at kc <= kSelectMax: of a longer span, see
+// 256-row chunk (K1, K4 and K5 at kc <= kSelectMax: of a longer span, see
 // span_scan.cuh), sorted, as partials [Q, n_parts, kc]; `mmrs_topk_merge`
 // (cosine_topk.cu) reduces them to one sorted list of k per query. The
 // order is (score desc, row id asc): the tie rule of
@@ -24,9 +24,31 @@ constexpr int kThreads = 256;      // 8 warps per block, scan and merge
 constexpr int kMaxSort = 8192;     // most candidates a merge block holds (64 KB)
 constexpr int kSelectMax = 32;     // lists up to this long: warp arg-max rounds
 
+// the gallery row kinds: bf16 (K1, K7), int8 codes (K4, K7) and packed int4
+// codes (K5, K8)
+enum RowKind : int { kRowBf16, kRowS8, kRowS4 };
+
 // "a ranks before b": higher score first, equal scores by lower row id.
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
+}
+
+// The f32 epilogues of the int8 and int4 scores, operation by operation as
+// the plain versions (no contraction into FMAs), so the scores are
+// bit-identical to them and to the JAX package's:
+//   int8 (ops/quant.py scores_q8): (float)acc * q_scale * row_scale;
+//   int4 (ops/quant4.py `_score_f32`): ((float)dlo - 8 * rs_q + (float)dhi
+//     / 16) * q_scale * row_scale, dlo the low half's dot with codes offset
+//     by 8, rs_q the rowsum of the query's low half, dhi the high half's
+//     dot with 16x codes.
+__device__ __forceinline__ float score_q8(int acc, float q_scale, float row_scale) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), q_scale), row_scale);
+}
+__device__ __forceinline__ float score_q4(int dlo, int dhi, float rs_q, float q_scale,
+                                          float row_scale) {
+  const float s = __fadd_rn(__fsub_rn(__int2float_rn(dlo), __fmul_rn(8.f, rs_q)),
+                            __fmul_rn(__int2float_rn(dhi), 0.0625f));
+  return __fmul_rn(__fmul_rn(s, q_scale), row_scale);
 }
 
 // Sorts independent segments of `len` entries (a power of two) best-first.

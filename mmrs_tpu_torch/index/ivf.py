@@ -486,13 +486,19 @@ def _check_probe(name: str, qn: int, d: int, probe, buckets, bucket_ids,
     topk.check_scan_shapes(name, qn, probe.shape[1] * cap, k)
 
 
-PROBE_TILE = 8   # K7's queries a tile (csrc/ivf_probe.cu kProbeQT)
+PROBE_TILE = 8   # K7's and K8's queries a tile (csrc/ivf_probe.cu kProbeQT)
+
+
+def _chunked_slots(p: int, cap: int) -> int:
+    """The probe scans' n: P buckets of ceil(cap / 256) 256-slot chunks,
+    one partial list each (list r * n_cc + c)."""
+    return p * -(-cap // topk.CHUNK_ROWS) * topk.CHUNK_ROWS
 
 
 def bucket_owners(probe: torch.Tensor) -> torch.Tensor:
-    """K7's ownership rule, in plain PyTorch: [Q, P] bool, True where entry
-    (q, r) is the first entry of its tile of PROBE_TILE queries, in
-    row-major (q, r) order, to name its bucket. The kernel reads each
+    """K7's and K8's ownership rule, in plain PyTorch: [Q, P] bool, True
+    where entry (q, r) is the first entry of its tile of PROBE_TILE
+    queries, in row-major (q, r) order, to name its bucket. The kernel reads each
     owner's bucket once and writes its scores for every entry of the tile
     naming it."""
     qn, p = probe.shape
@@ -512,7 +518,7 @@ def _probe_cuda(name: str, q_rows: torch.Tensor, probe, bucket_ids, k: int,
     query, then map the winning positions to global ids. The partials
     carry the virtual position r * cap + s (slot s of the query's r-th
     probed bucket), so the merge's (score desc, id asc) order is exactly
-    the tie rule. `scan(a, b, qt, kc, part_v, part_i, stream)` launches
+    the tie rule. `scan(a, b, kc, part_v, part_i, stream)` launches
     the scan for queries a..b-1."""
     qn, p = probe.shape
     c, cap = bucket_ids.shape
@@ -554,11 +560,11 @@ def _probe_buckets_cuda(q, probe, buckets, bucket_ids, scales, k):
     p = probe.shape[1]
     out = _probe_cuda(
         name, q, probe, bucket_ids, k,
-        lambda a, b, qt, kc, pv, pi, stream: _cuda.library().mmrs_probe_scan(
+        lambda a, b, kc, pv, pi, stream: _cuda.library().mmrs_probe_scan(
             q[a:b].data_ptr(), probe[a:b].data_ptr(), buckets.data_ptr(),
             bucket_ids.data_ptr(), 0 if scales is None else scales.data_ptr(),
             int(buckets.dtype == torch.int8), b - a, p, c, cap, d, kc, pv, pi,
-            stream), p * -(-cap // topk.CHUNK_ROWS) * topk.CHUNK_ROWS)
+            stream), _chunked_slots(p, cap))
     probe_buckets.launches += 1
     return out
 
@@ -615,11 +621,11 @@ def _probe_buckets_q4_cuda(q_q, q_scale, rs_q, probe, buckets, bucket_ids,
     p = probe.shape[1]
     out = _probe_cuda(
         name, q_q, probe, bucket_ids, k,
-        lambda a, b, qt, kc, pv, pi, stream: _cuda.library().mmrs_probe_scan_q4(
+        lambda a, b, kc, pv, pi, stream: _cuda.library().mmrs_probe_scan_q4(
             q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
             rs_q[a:b].data_ptr(), probe[a:b].data_ptr(), buckets.data_ptr(),
             bucket_ids.data_ptr(), scales.data_ptr(), b - a, p, c, cap, d,
-            kc, pv, pi, stream), p * cap)
+            kc, pv, pi, stream), _chunked_slots(p, cap))
     probe_buckets_q4.launches += 1
     return out
 

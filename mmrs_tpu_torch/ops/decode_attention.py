@@ -40,7 +40,9 @@ DEC_MIN_TILES = 2         # K11 tiles a block's span holds at least
 DEC_LOGIT_BUDGET = 96 * 1024   # K11 bytes of [G, span] f32 logits kept
 DEC_MAX_SLOTS = 1 << 24   # the longest view K11 plans for
 _KEYS = 64                # K10 keys per staged tile (csrc: kAttnKeys)
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)   # the kernels' head-dim instances (csrc:
+                             # padded_head_dim): hd % 8 == 0 runs on the
+                             # smallest that holds it
 _GROUPS = (1, 2, 4, 8)    # K11's instances (csrc: decode_by_group)
 
 Pos = Union[int, torch.Tensor]
@@ -59,13 +61,28 @@ def query_positions(pos: Pos, b: int, t: int, device) -> torch.Tensor:
     return (pos + steps).expand(b, t)
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head dim of the kernel instance that runs hd: the smallest of
+    HEAD_DIMS that holds it (rows are zero past hd). K11's plain version
+    sums in that instance's lane order; past 256 (no instance, so no
+    kernel order) it takes the next power of two."""
+    return next((w for w in HEAD_DIMS if w >= hd), 1 << (hd - 1).bit_length())
+
+
 def _lane_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q [B, KVH, G, T, HD] and k [B, KVH, S, HD], bf16 values held in f32,
-    -> q . k [B, KVH, G, T, S] f32 summed in K11's order: lane l of a key's
-    HD / 8 lanes adds the products of dims 8l .. 8l + 7 in turn, then the
-    lanes add by halves (lane l + lane l ^ off for off = HD / 16 .. 1).
+    """q [B, KVH, G, T, hd] and k [B, KVH, S, hd], bf16 values held in f32,
+    -> q . k [B, KVH, G, T, S] f32 summed in K11's order for the instance
+    HDP = padded_head_dim(hd), the dims past hd zero: lane l of a key's
+    HDP / 8 lanes adds the products of dims 8l .. 8l + 7 in turn, then the
+    lanes add by halves (lane l + lane l ^ off for off = HDP / 16 .. 1).
     A bf16 product is exact in f32, so each step rounds as the kernel's
-    fmaf does and the logits are the kernel's bits."""
+    fmaf does and the logits are the kernel's bits; the zero dims add
+    exact zeros, but they decide which partial sums pair up."""
+    hd = q.shape[-1]
+    pad = padded_head_dim(hd) - hd
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+        k = torch.nn.functional.pad(k, (0, pad))
     lpr = q.shape[-1] // 8
     qv = q.unflatten(-1, (lpr, 8))[:, :, :, :, None]         # [..,T,1,L,8]
     kv = k.unflatten(-1, (lpr, 8))[:, :, None, None]         # [..,1,S,L,8]
@@ -173,19 +190,19 @@ class DecodePlan(NamedTuple):
     smem: int
 
 
-def dec_keys(hd: int, quant: bool) -> int:
-    """K11's keys a staged tile (csrc: dec_keys): 16 KB of rows, at most
-    128 keys."""
-    return min(128, 16384 // (hd * (1 if quant else 2)))
+def dec_keys(hdp: int, quant: bool) -> int:
+    """K11's keys a staged tile (csrc: dec_keys) of the instance HDP: 16 KB
+    of rows, at most 128 keys."""
+    return min(128, 16384 // (hdp * (1 if quant else 2)))
 
 
-def _dec_smem(span: int, g: int, hd: int, quant: bool, cached: bool) -> int:
+def _dec_smem(span: int, g: int, hdp: int, quant: bool, cached: bool) -> int:
     """K11's dynamic shared memory (csrc: decode_smem_bytes): the ring of
     K or V tiles with their scales, the logits ([G, span] when kept, else
     [G, keys] f32), the block reductions [8, G] f64 and the exchanged sum
     [G] f64 and max [G] f32."""
-    keys = dec_keys(hd, quant)
-    stage = keys * (hd * (1 if quant else 2) + 4)
+    keys = dec_keys(hdp, quant)
+    stage = keys * (hdp * (1 if quant else 2) + 4)
     return (_DEC_STAGES * stage + 4 * g * (span if cached else keys)
             + 8 * _DEC_WARPS * g + 12 * g)
 
@@ -200,10 +217,12 @@ def decode_plan(s: int, g: int, hd: int, quant: bool, heads: int,
     DEC_MIN_TILES tiles of `dec_keys`), each block a contiguous span.
     Shapes only, never pos: a captured decode step replays any position.
     The logits are kept while G * span f32 fit DEC_LOGIT_BUDGET. Any 1 <=
-    S <= DEC_MAX_SLOTS runs."""
+    S <= DEC_MAX_SLOTS runs; tiles and shared memory are those of hd's
+    instance (`padded_head_dim`)."""
     if not 1 <= s <= DEC_MAX_SLOTS:
         raise ValueError(f"decode_attention kernel plans 1 <= S <= "
                          f"{DEC_MAX_SLOTS} slots, got S={s}")
+    hd = padded_head_dim(hd)
     keys = dec_keys(hd, quant)
     tiles = -(-s // keys)
     cluster = max(1, min(DEC_MAX_CLUSTER, slots // max(1, heads),
@@ -217,11 +236,12 @@ def decode_plan(s: int, g: int, hd: int, quant: bool, heads: int,
 
 @lru_cache(maxsize=None)
 def _dec_slots(quant: bool, g: int, hd: int, device: int) -> int:
-    """Blocks of K11's kind that the card holds at once (the occupancy of
-    its uncached shared memory, times the SMs)."""
+    """Blocks of K11's kind (hd's instance) that the card holds at once
+    (the occupancy of its uncached shared memory, times the SMs)."""
     with torch.cuda.device(device):
         n = _cuda.library().mmrs_decode_slots(
-            int(quant), hd, g, _dec_smem(0, g, hd, quant, False))
+            int(quant), hd, g,
+            _dec_smem(0, g, padded_head_dim(hd), quant, False))
     if n < 1:
         raise RuntimeError(f"decode_attention kernel: no occupancy for "
                            f"G={g}, HD={hd}, quant={quant} ({n})")
@@ -230,10 +250,12 @@ def _dec_slots(quant: bool, g: int, hd: int, device: int) -> int:
 
 def chunk_plan(rows: int, hd: int, quant: bool) -> Tuple[int, int]:
     """(warps per block, dynamic shared-memory bytes) of K10 for `rows` =
-    G * C query rows a kv head: 16 rows a warp, up to 4 warps; the bf16 Q
-    tile [64, HD + 8], and two stages of K and V tiles [64, HD + 8] bf16,
-    or for an int8 cache two stages of raw [64, HD] int8 tiles and their
-    f32 scales plus the widened bf16 K and V tiles. Nothing grows with S."""
+    G * C query rows a kv head, at hd's instance HDP: 16 rows a warp, up
+    to 4 warps; the bf16 Q tile [64, HDP + 8], and two stages of K and V
+    tiles [64, HDP + 8] bf16, or for an int8 cache two stages of raw [64,
+    HDP] int8 tiles and their f32 scales plus the widened bf16 K and V
+    tiles. Nothing grows with S."""
+    hd = padded_head_dim(hd)
     tile = 2 * _KEYS * (hd + 8)
     smem = 3 * tile + 4 * _KEYS * hd + 16 * _KEYS if quant else 5 * tile
     return min(4, -(-rows // 16)), smem
@@ -245,9 +267,10 @@ def _common_checks(name: str, q: torch.Tensor, g: int, hd: int) -> None:
                          f"{q.device}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel takes a bf16 q, got {q.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head dims {_HEAD_DIMS}, "
-                         f"got {hd}")
+    if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"{name} kernel supports head dims that are "
+                         f"multiples of 8 up to {HEAD_DIMS[-1]} (cache rows "
+                         f"in 8-byte pieces; instances {HEAD_DIMS}), got {hd}")
     b, kvh = q.shape[:2]
     if not (1 <= b <= 65535 and 1 <= kvh <= 65535 and g >= 1):
         raise ValueError(f"{name} kernel needs 1 <= B, KVH <= 65535, got "

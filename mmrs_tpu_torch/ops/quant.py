@@ -7,7 +7,8 @@ halves the gallery's device memory against bf16 (2x rows per card):
     score(q, i) = (q_q . g_q[i]) * q_scale * scale[i]
 
 The dot products are exact int32 sums and the epilogue is the same f32
-operations in the same order in the kernel (`csrc/quant_topk.cu`), the
+operations in the same order in the kernel (`csrc/quant_topk.cu`, an
+instance of the span scan `csrc/span_scan.cuh` on s8 tensor cores), the
 plain version and the JAX package, so scores are bit-identical and ids
 follow the tie rule of ops/topk.py (equal scores: lowest row first). Ties
 are common here: rows with the same codes and scale score alike.
@@ -18,7 +19,7 @@ the plain version for CPU tensors) or "torch" (the plain version anywhere).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,17 +70,21 @@ def _check_kernel_inputs(q_q, q_scale, gallery_q, scales, k: int) -> None:
                          "aligned rows")
 
 
-def _topk_quant_cuda(q_q, q_scale, gallery_q, scales, k: int
+def _topk_quant_cuda(q_q, q_scale, gallery_q, scales, k: int,
+                     rows: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel path; `rows` (tests only) forces the span that
+    `topk.span_rows` would pick."""
     _check_kernel_inputs(q_q, q_scale, gallery_q, scales, k)
     (q, d), n = q_q.shape, gallery_q.shape[0]
+    rows = rows or topk.span_rows(n, k)
     out = topk.by_query_slices(q, lambda a, b: topk.scan_and_merge(
         b - a, n, k, q_q.device,
-        lambda qt, kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q8(
+        lambda kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q8(
             q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
-            gallery_q.data_ptr(), scales.data_ptr(), b - a, n, d, kc, qt, pv,
-            pi, stream),
-        "cosine_topk_quantized"))
+            gallery_q.data_ptr(), scales.data_ptr(), b - a, n, d, kc, rows,
+            pv, pi, stream),
+        "cosine_topk_quantized", rows))
     cosine_topk_quantized.launches += 1
     return out
 

@@ -127,7 +127,7 @@ def _topk_int4_cuda(q_q, q_scale, rs_q, packed, scales, k: int,
     rows = rows or topk.span_rows(n, k)
     out = topk.by_query_slices(q, lambda a, b: topk.scan_and_merge(
         b - a, n, k, q_q.device,
-        lambda qt, kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q4(
+        lambda kc, pv, pi, stream: _cuda.library().mmrs_topk_scan_q4(
             q_q[a:b].data_ptr(), q_scale[a:b].data_ptr(),
             rs_q[a:b].data_ptr(), packed.data_ptr(), scales.data_ptr(),
             b - a, n, d, kc, rows, pv, pi, stream),

@@ -33,8 +33,8 @@ MAX_DIM = 2048        # staged queries must fit the scan block's shared memory
 CHUNK_ROWS = 256      # csrc/topk_common.cuh kChunk; checked at first load
 SORT_MAX = 8192       # csrc/topk_common.cuh kMaxSort; checked at first load
 SELECT_MAX = 32       # csrc/topk_common.cuh kSelectMax; checked at first load
-SPAN_MAX = 2048       # most rows one K1 / K5 partial list covers
-SPANS = 512           # K1 / K5 partial lists wanted for a large gallery
+SPAN_MAX = 2048       # most rows one K1 / K4 / K5 partial list covers
+SPANS = 512           # K1 / K4 / K5 partial lists wanted for a large gallery
 MERGE_WIDTH = 1024    # most candidates a merge block takes while k <= 256
 MAX_QUERIES = 65535   # queries a launch takes (the merge grid's y extent)
 
@@ -77,7 +77,7 @@ class MergePass(NamedTuple):
 
 
 def span_rows(n: int, k: int) -> int:
-    """Rows one partial list of the span scans (K1, K5) covers: a 256-row
+    """Rows one partial list of the span scans (K1, K4, K5) covers: a 256-row
     chunk when k > SELECT_MAX (the chunk's candidates are sorted); else a
     span of whole chunks, up to SPAN_MAX rows, sized from N so that a
     large gallery gives about SPANS lists (2048 rows at N = 2^20): a block
@@ -89,18 +89,18 @@ def span_rows(n: int, k: int) -> int:
     return min(SPAN_MAX, max(1, chunks) * CHUNK_ROWS)
 
 
-def scan_plan(q: int, n: int, k: int, rows: int = CHUNK_ROWS
-              ) -> Tuple[int, int, int, List[MergePass]]:
-    """Launch shapes: (queries per scan block, partial lists a query =
-    ceil(n / rows), the scan's partial list length kc = min(k, 256), the
-    merge passes). `rows`: the gallery rows one partial list covers (256
-    for the chunk scans K4, K7, K8; `span_rows` for K1 and K5). Every pass
-    merges at least two lists, so the list count falls to 1 for any k;
+def scan_plan(n: int, k: int, rows: int = CHUNK_ROWS
+              ) -> Tuple[int, int, List[MergePass]]:
+    """Launch shapes: (partial lists a query = ceil(n / rows), the scan's
+    partial list length kc = min(k, 256), the merge passes). `rows`: the
+    gallery rows one partial list covers (256 for the bucket probes K7,
+    K8, whose n counts 256-slot chunks; `span_rows` for the span scans
+    K1, K4 and K5). Every pass merges at least two lists, so the list
+    count falls to 1 for any k;
     the last pass's lists hold min(k, n_parts * kc) entries (the caller
     pads to k). Up to k = 256 a pass merges at most MERGE_WIDTH candidates
     per block (many blocks at small k); above, up to SORT_MAX, and lists
     too long for two to fit are merged in pairs by merge path."""
-    qt = 1 if q == 1 else 2 if q == 2 else 4 if q <= 4 else 8
     n_parts = -(-n // rows)
     kc = min(k, CHUNK_ROWS)
     cap = MERGE_WIDTH if k <= CHUNK_ROWS else SORT_MAX
@@ -115,7 +115,7 @@ def scan_plan(q: int, n: int, k: int, rows: int = CHUNK_ROWS
         out = min(k, per * length)
         passes.append(MergePass(lists, length, per, width, out))
         lists, length = -(-lists // per), out
-    return qt, n_parts, kc, passes
+    return n_parts, kc, passes
 
 
 @lru_cache(maxsize=None)
@@ -156,21 +156,21 @@ def scan_and_merge(q: int, n: int, k: int, device: torch.device,
                    scan: Callable[[int, int, int, int, int], int], what: str,
                    rows: int = CHUNK_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a gallery scan kernel and the merge passes that reduce its
-    partials to the top k. `scan(qt, kc, part_v, part_i, stream)` launches
+    partials to the top k. `scan(kc, part_v, part_i, stream)` launches
     the scan (pointers as ints) and returns its CUDA error code; it writes
     the best kc of each `rows` gallery rows, sorted, into partials [Q,
     ceil(n / rows), kc] (f32 values, int32 ids), the format
     `mmrs_topk_merge` reads. Every gallery scan (bf16, int8, int4, the
     IVF probes) shares this plumbing. Q <= MAX_QUERIES (`by_query_slices`)."""
     lib = _library()
-    qt, n_parts, kc, passes = scan_plan(q, n, k, rows)
+    n_parts, kc, passes = scan_plan(n, k, rows)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         vals = torch.empty((q, n_parts, kc), dtype=torch.float32,
                            device=device)
         idxs = torch.empty((q, n_parts, kc), dtype=torch.int32,
                            device=device)
-        _cuda.check(scan(qt, kc, vals.data_ptr(), idxs.data_ptr(), stream),
+        _cuda.check(scan(kc, vals.data_ptr(), idxs.data_ptr(), stream),
                     f"{what} scan")
         for p in passes:
             groups = -(-p.lists // p.per)
@@ -224,7 +224,7 @@ def _cosine_topk_cuda(queries: torch.Tensor, gallery: torch.Tensor, k: int,
         qs = queries[a:b]
         return scan_and_merge(
             b - a, n, k, queries.device,
-            lambda qt, kc, pv, pi, stream: _library().mmrs_topk_scan(
+            lambda kc, pv, pi, stream: _library().mmrs_topk_scan(
                 qs.data_ptr(), gallery.data_ptr(), b - a, n, d, kc, rows, pv,
                 pi, stream), "cosine_topk", rows)
 

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where the int4 span scan's time goes, on one NVIDIA GPU.
+"""Where the int8 and int4 span scans' time goes, on one NVIDIA GPU.
 
     python3 probe_span_scan.py     (from the repository root; needs nvcc)
 
 Builds `csrc/quant_topk.cu` four times into mmrs_tpu_torch/_build/probe/,
 each from a copy of `csrc/` with `span_scan.cuh` cut back by text
-replacement, and times the int4 scan pass alone (no query prep, no merge
-passes; CUDA events around 20 launches) over a seeded 1,048,576 x 512
-gallery at Q = 8, k = 10, for spans of 256 to 4096 rows:
+replacement, and times the int8 (K4) and int4 (K5) scan passes alone (no
+query prep, no merge passes; CUDA events around 20 launches) over a
+seeded 1,048,576 x 512 gallery at Q = 8, k = 10, for spans of 256 to
+4096 rows:
   - full: the kernel as it is;
   - noselect: the scores are computed (the epilogue writes the first
     chunk's to shared memory) but no threshold test, append, seed or final
@@ -16,6 +17,7 @@ gallery at Q = 8, k = 10, for spans of 256 to 4096 rows:
     structure's loads and barriers;
   - stages5: the full kernel with the 5-stage ring of one block an SM (its
     own choice at D = 512 is 2 stages, two blocks an SM).
+(noselect and loads cut the code shared by both row kinds.)
 The variants' partials are meaningless; only their times are printed, one
 line each, then the card's name and power limit.
 """
@@ -32,6 +34,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from mmrs_tpu_torch.ops import _cuda  # noqa: E402
+from mmrs_tpu_torch.ops.quant import quantize_rows  # noqa: E402
 from mmrs_tpu_torch.ops.quant4 import prep_queries, quantize_rows_int4  # noqa: E402
 
 N, D, Q, K = 1 << 20, 512, 8, 10
@@ -40,20 +43,20 @@ SPANS = (256, 512, 1024, 2048, 4096)
 SEED_SELECT = "    if (warp < nq) {\n      if (c == 0) {"
 APPEND = "          } else if (live && qi < nq && s > th[j]) {"
 FINAL = "  if (warp < nq) {\n    const int cnt = cnt_s[warp]"
-INT4_KSTEP = ("          if (ks >= ksteps) break;\n"
+CODE_KSTEP = ("          if (ks >= ksteps) break;\n"
               "          const unsigned char* ql")
-STAGES = "  return scan_smem<Q4>(D, 2) <= kScanSmemPair ? 2 : 5;"
+STAGES = "  return scan_smem<KIND>(D, 2) <= kScanSmemPair ? 2 : 5;"
 
 
 def variants(src: str) -> dict:
-    for cut in (SEED_SELECT, APPEND, FINAL, INT4_KSTEP, STAGES):
+    for cut in (SEED_SELECT, APPEND, FINAL, CODE_KSTEP, STAGES):
         if cut not in src:
             raise SystemExit(f"span_scan.cuh changed; update the probe: {cut!r}")
     noselect = (src.replace(SEED_SELECT, SEED_SELECT.replace("warp < nq", "false"))
                 .replace(APPEND, APPEND.replace("live && qi < nq && s > th[j]",
                                                 "false"))
                 .replace(FINAL, FINAL.replace("warp < nq", "false")))
-    loads = noselect.replace(INT4_KSTEP, INT4_KSTEP.replace("ks >= ksteps",
+    loads = noselect.replace(CODE_KSTEP, CODE_KSTEP.replace("ks >= ksteps",
                                                             "ks >= 0"), 1)
     return {"full": src, "noselect": noselect, "loads": loads,
             "stages5": src.replace(STAGES, "  return 5;")}
@@ -103,28 +106,36 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(9)
     g = torch.randn((N, D), device=dev, generator=gen)
     g = g / g.norm(dim=1, keepdim=True)
-    packed, scales = quantize_rows_int4(g)
-    qq, qsc, qrs = prep_queries(g[:Q])
     P, I = ctypes.c_void_p, ctypes.c_int
+    # (entry point, its argtypes, the arguments before Q, N, D, k, span)
+    qq, qsc, qrs = prep_queries(g[:Q])
+    q8, s8 = quantize_rows(g[:Q])
+    kinds = {
+        "int8": ("mmrs_topk_scan_q8", [P] * 4 + [I] * 5 + [P] * 3,
+                 (q8, s8, *quantize_rows(g))),
+        "int4": ("mmrs_topk_scan_q4", [P] * 5 + [I] * 5 + [P] * 3,
+                 (qq, qsc, qrs, *quantize_rows_int4(g)))}
+    del g
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for name, path in libs.items():
-        scan = ctypes.CDLL(path).mmrs_topk_scan_q4
-        scan.argtypes = [P, P, P, P, P, I, I, I, I, I, P, P, P]
-        scan.restype = I
-        for span in SPANS:
-            parts = -(-N // span)
-            pv = torch.empty((Q, parts, K), device=dev)
-            pi = torch.empty((Q, parts, K), dtype=torch.int32, device=dev)
+    for kind, (entry, argtypes, tensors) in kinds.items():
+        for name, path in libs.items():
+            scan = getattr(ctypes.CDLL(path), entry)
+            scan.argtypes = argtypes
+            scan.restype = I
+            for span in SPANS:
+                parts = -(-N // span)
+                pv = torch.empty((Q, parts, K), device=dev)
+                pi = torch.empty((Q, parts, K), dtype=torch.int32, device=dev)
 
-            def call():
-                err = scan(qq.data_ptr(), qsc.data_ptr(), qrs.data_ptr(),
-                           packed.data_ptr(), scales.data_ptr(), Q, N, D, K,
-                           span, pv.data_ptr(), pi.data_ptr(), stream)
-                if err:
-                    raise RuntimeError(f"{name} span {span}: CUDA error {err}")
+                def call():
+                    err = scan(*(t.data_ptr() for t in tensors), Q, N, D, K,
+                               span, pv.data_ptr(), pi.data_ptr(), stream)
+                    if err:
+                        raise RuntimeError(f"{kind} {name} span {span}: CUDA "
+                                           f"error {err}")
 
-            print(f"int4 scan {name} span {span} ({N}x{D}, Q={Q}, k={K}): "
-                  f"{time_ms(call):.4f} ms", flush=True)
+                print(f"{kind} scan {name} span {span} ({N}x{D}, Q={Q}, "
+                      f"k={K}): {time_ms(call):.4f} ms", flush=True)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

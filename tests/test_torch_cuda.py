@@ -40,7 +40,8 @@ from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from mmrs_tpu_torch.ops.preprocess import normalize_images
-from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
+from mmrs_tpu_torch.ops.quant import (_topk_quant_cuda, cosine_topk_quantized,
+                                      quantize_rows)
 from mmrs_tpu_torch.ops.quant4 import (_topk_int4_cuda, cosine_topk_int4,
                                        prep_queries, quantize_rows_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
@@ -423,11 +424,12 @@ def test_ivf_topk_on_the_card_matches_plain_with_a_big_spill(dev, quant):
 
 
 @lru_cache(maxsize=None)
-def _k7_index(quant, d):
-    """An IVF index over 30,000 seeded rows at C = 64 (cap ~600: three
-    chunks a bucket, the last ragged) for the bucket-major probe tests."""
+def _k7_index(quant, d, cap=0):
+    """An IVF index over 30,000 seeded rows at C = 64 (cap ~600, or `cap`:
+    three chunks a bucket, the last ragged) for the bucket-major probe
+    tests."""
     return _probe_index(30_000, d, 64, quant, torch.device("cuda"),
-                        seed=d + 1)
+                        seed=d + 1, cap=cap)
 
 
 def _k7_lists(kind, q, c, dev, seed):
@@ -483,6 +485,40 @@ def test_probe_kernel_bucket_major_matches_plain(dev, quant, d, kind, q, k):
                            scales, k, impl="torch")
     assert vals.shape == (q, k) and ids.dtype == torch.int32
     _assert_probe_matches(vals, ids, rv, ri, exact=False)
+
+
+@pytest.mark.parametrize("d", [16, 48, 512])
+@pytest.mark.parametrize("kind", ["shared", "disjoint", "repeats",
+                                  "out_of_range"])
+@pytest.mark.parametrize("q", [1, 8, 64])
+@pytest.mark.parametrize("k", [1, 10, 33, 300])
+def test_probe_kernel_q4_bucket_major_equals_plain(dev, d, kind, q, k):
+    """K8, bucket-major on s8 tensor cores like K7: shared and disjoint
+    lists, a bucket twice in one list, out-of-range ids, cap 640 (not a
+    multiple of 256), empty slots inside the live prefix, D % 32 == 16
+    (rows of 8 (mod 16) bytes: 8-byte pieces), k past one chunk; ids and
+    values equal to plain in every element."""
+    rows, ivf = _k7_index("int4", d, 640)
+    c, cap = ivf.bucket_ids.shape
+    assert cap == 640
+    qs = rows[:q] + 0.05 * _unit_rows(q, d, dev, seed=q).float()
+    qs = qs / qs.norm(dim=1, keepdim=True)
+    probe = _k7_lists(kind, q, c, dev, seed=q + k)
+    holes = ivf.bucket_ids.clone()
+    holes[:, 5::13] = -1
+    before = probe_buckets_q4.launches
+    vals, ids = _probe(ivf, qs, probe, k, holes)
+    torch.cuda.synchronize()
+    assert probe_buckets_q4.launches == before + 1
+    plain_probe = torch.where((probe < 0) | (probe >= c), c, probe)
+    rv, ri = probe_buckets_q4(
+        *prep_queries(qs), plain_probe, torch.cat([ivf.buckets,
+                                                   ivf.buckets[:1]]),
+        torch.cat([holes, torch.full_like(holes[:1], -1)]),
+        torch.cat([ivf.bucket_scales, ivf.bucket_scales[:1]]), k,
+        impl="torch")
+    assert vals.shape == (q, k) and ids.dtype == torch.int32
+    assert torch.equal(ids, ri) and torch.equal(vals, rv)
 
 
 def test_probe_kernels_reject_what_they_cannot_run(dev):
@@ -769,18 +805,49 @@ def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
         decode_attention(q.float(), k[0], ks[0], v[0], vs[0], 3)
     with pytest.raises(ValueError, match="bf16 cache"):
         decode_attention(q, k[0].float(), None, v[0].float(), None, 3)
-    with pytest.raises(ValueError, match="head dims"):
-        decode_attention(q[..., :32].contiguous(), k[0, ..., :32].contiguous(),
-                         ks[0], v[0, ..., :32].contiguous(), vs[0], 3)
+    with pytest.raises(ValueError, match="head dims"):   # hd % 8 != 0
+        odd = torch.zeros((2, 2, 64, 76), dtype=torch.bfloat16, device=dev)
+        decode_attention(torch.zeros((2, 2, 1, 76), dtype=torch.bfloat16,
+                                     device=dev), odd, None, odd, None, 3)
     cpu = [t.cpu() for t in (q, k[0], ks[0], v[0], vs[0])]
     with pytest.raises(ValueError, match="CUDA"):
         _decode_cuda(*cpu, 3)
     with pytest.raises(ValueError, match="CUDA"):
         _chunk_cuda(cpu[0][:, :, :, None], *cpu[1:], 3)
-    with pytest.raises(ValueError, match="head dims"):
-        odd = torch.zeros((2, 2, 64, 96), dtype=torch.bfloat16, device=dev)
-        chunk_attention(torch.zeros((2, 2, 1, 3, 96), dtype=torch.bfloat16,
-                                    device=dev), odd, None, odd, None, 0)
+    with pytest.raises(ValueError, match="head dims"):   # past 256
+        wide = torch.zeros((2, 2, 64, 512), dtype=torch.bfloat16, device=dev)
+        chunk_attention(torch.zeros((2, 2, 1, 3, 512), dtype=torch.bfloat16,
+                                    device=dev), wide, None, wide, None, 0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("hd", [32, 72, 80, 96, 256])
+@pytest.mark.parametrize("g", [1, 4, 7, 8])
+@pytest.mark.parametrize("s", [704, 8192])
+def test_kv_attention_kernels_any_head_dim_match_plain(dev, quantized, hd, g,
+                                                       s):
+    """Head dims off the 64 / 128 instances run on the smallest instance
+    that holds them (32 on 64; 72, 80, 96 on 128; 256), the cache read as
+    it is (rows of hd, 8-byte pieces for int8 rows of hd % 16 == 8): K11
+    at the last slot, a third of the way and per-row positions; K10 at
+    C = 5 and C = 64 with a window."""
+    k, ks, v, vs = _kv_cache(dev, 2, 2, 2, s, hd, quantized, seed=hd + s + g)
+    gen = torch.Generator(device=dev).manual_seed(hd + g)
+    q = torch.randn((2, 2, g, hd), device=dev, generator=gen).bfloat16()
+    args = (q, k[1], _layer(ks, 1), v[1], _layer(vs, 1))
+    for pos in (s - 1, s // 3):
+        _attn_close(*_decode_pair(args, pos))
+    _attn_close(*_decode_pair(args, torch.tensor([s - 1, 100], device=dev)))
+    for c, pos, lim in ((5, s - 5, None), (64, 576, 640)):
+        qc = torch.randn((2, 2, g, c, hd), device=dev,
+                         generator=gen).bfloat16()
+        cargs = (qc,) + args[1:]
+        before = chunk_attention.launches
+        out = chunk_attention(*cargs, pos, kv_limit=lim)
+        torch.cuda.synchronize()
+        assert chunk_attention.launches == before + 1
+        _attn_close(out, chunk_attention(*cargs, pos, kv_limit=lim,
+                                         impl="torch"))
 
 
 def _decode_pair(args, pos):
@@ -989,7 +1056,7 @@ def test_chunk_attention_kernel_any_group_matches_plain(dev, quantized):
         _attn_close(out, chunk_attention(*args, 600, impl="torch"))
 
 
-# -- K1 and K5: spans of rows on tensor cores, the threshold select ------------
+# -- K1, K4 and K5: spans of rows on tensor cores, the threshold select --------
 
 SPAN_QS = [1, 7, 8, 9, 64]
 SPAN_KS = [1, 10, 32, 33, 256, 257, 1000]
@@ -999,34 +1066,37 @@ SPAN_NS = [topk_mod.SPAN_MAX - 1, topk_mod.SPAN_MAX, topk_mod.SPAN_MAX + 1,
 
 def _span_case(kind, q, n, d, seed):
     """(queries, gallery) with each query near a gallery row; bf16 rows,
-    or int4 packed rows (queries stay f32: the wrapper codes them)."""
+    or int8 / int4 coded rows (queries stay f32: the wrapper codes them)."""
     rows = _unit_rows(n, d, dev=torch.device("cuda"), seed=seed).float()
     src = torch.arange(q, device=rows.device) * 7 % n
     qs = rows[src] + 0.05 * _unit_rows(q, d, rows.device, seed + 1).float()
     qs = qs / qs.norm(dim=1, keepdim=True)
     if kind == "bf16":
         return qs.bfloat16(), rows.bfloat16()
-    return qs, quantize_rows_int4(rows)
+    return qs, (quantize_rows if kind == "int8" else quantize_rows_int4)(rows)
 
 
 def _span_scan(kind, qs, gal, k, rows=None, impl="auto"):
-    """K1 / K5 through the public wrapper, or (rows given) through the
+    """K1 / K4 / K5 through the public wrapper, or (rows given) through the
     kernel path with that span forced."""
     if rows is None:
         if kind == "bf16":
             return cosine_topk(qs, gal, k, impl=impl)
-        return cosine_topk_int4(qs, *gal, k, impl=impl)
+        fn = cosine_topk_quantized if kind == "int8" else cosine_topk_int4
+        return fn(qs, *gal, k, impl=impl)
     if kind == "bf16":
         return topk_mod._cosine_topk_cuda(qs, gal, k, rows)
+    if kind == "int8":
+        return _topk_quant_cuda(*quantize_rows(qs), *gal, k, rows)
     return _topk_int4_cuda(*prep_queries(qs), *gal, k, rows)
 
 
 def _assert_scan_close(kind, vals, ids, rv, ri):
-    """int4: equal to plain. bf16: values within 1e-5 of the f32 plain
-    version; ids equal wherever the plain scores (k + 1 of them) are more
-    than 1e-5 from both neighbours."""
+    """int8 / int4: equal to plain. bf16: values within 1e-5 of the f32
+    plain version; ids equal wherever the plain scores (k + 1 of them) are
+    more than 1e-5 from both neighbours."""
     k = vals.shape[1]
-    if kind == "int4":
+    if kind != "bf16":
         assert torch.equal(ids, ri[:, :k]) and torch.equal(vals, rv[:, :k])
         return
     finite = torch.isfinite(rv[:, :k])
@@ -1042,15 +1112,17 @@ def _assert_scan_close(kind, vals, ids, rv, ri):
 
 
 @pytest.mark.parametrize("kind,d", [(kind, d) for kind, first in
-                                    (("bf16", 24), ("int4", 16))
+                                    (("bf16", 24), ("int8", 16), ("int4", 16))
                                     for d in (first, 48, 512, 768, 2048)])
 @pytest.mark.parametrize("q", SPAN_QS)
 @pytest.mark.parametrize("k", SPAN_KS)
 def test_span_scans_match_plain_across_span_edges(dev, kind, d, q, k):
     """N = R - 1, R, R + 1 and 2R + 17 rows with the span forced to R =
     SPAN_MAX (k <= 32; 256-row chunks above), then the public wrapper
-    (its own span) at the last N: K5 equal to plain, K1 within 1e-5."""
-    fn = cosine_topk if kind == "bf16" else cosine_topk_int4
+    (its own span) at the last N: K4 and K5 equal to plain, K1 within
+    1e-5."""
+    fn = {"bf16": cosine_topk, "int8": cosine_topk_quantized,
+          "int4": cosine_topk_int4}[kind]
     for n in SPAN_NS:
         qs, gal = _span_case(kind, q, n, d, seed=n + d)
         rv, ri = _span_scan(kind, qs, gal, k + 1, impl="torch")
@@ -1065,7 +1137,7 @@ def test_span_scans_match_plain_across_span_edges(dev, kind, d, q, k):
     _assert_scan_close(kind, vals, ids, rv, ri)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("k", [1, 10, 32, 33, 300])
 def test_span_scans_identical_rows_give_the_first_ids(dev, kind, k):
     """Every row the same: every score ties, so the answer is rows
@@ -1074,20 +1146,21 @@ def test_span_scans_identical_rows_give_the_first_ids(dev, kind, k):
     rows = row.expand(5000, 512).contiguous()
     qs = (row + 0.1 * _unit_rows(2, 512, dev, seed=4).float())
     qs = qs / qs.norm(dim=1, keepdim=True)
-    gal = rows.bfloat16() if kind == "bf16" else quantize_rows_int4(rows)
     if kind == "bf16":
-        qs = qs.bfloat16()
+        qs, gal = qs.bfloat16(), rows.bfloat16()
+    else:
+        gal = (quantize_rows if kind == "int8" else quantize_rows_int4)(rows)
     for span in (None, topk_mod.SPAN_MAX if k <= topk_mod.SELECT_MAX
                  else None):
         vals, ids = _span_scan(kind, qs, gal, k, span)
         assert ids.tolist() == [list(range(k))] * 2
         rv, ri = _span_scan(kind, qs, gal, k, impl="torch")
         assert torch.equal(ids, ri)
-        assert torch.equal(vals, rv) if kind == "int4" else \
+        assert torch.equal(vals, rv) if kind != "bf16" else \
             float((vals - rv).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 def test_span_scans_1m_rows_match_plain(dev, kind):
     """The main path's shape: 2^20 x 512, Q = 8, k = 10 (2048-row spans)."""
     qs, gal = _span_case(kind, 8, 1 << 20, 512, seed=21)

@@ -162,6 +162,49 @@ def test_chunk_per_row_positions_stacked(quantized):
     _close(got, want)
 
 
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("hd", [80, 96, 256])
+def test_decode_and_chunk_plain_match_pallas_at_any_head_dim(quantized, hd):
+    """Head dims between and past the 64 / 128 instances (LLaMA-family
+    80, 96 and 256; the kernels run them on the smallest instance that
+    holds them, zero past hd): K11's and K10's plain versions against the
+    Pallas bodies at that hd."""
+    rng = np.random.default_rng(hd + quantized)
+    b, kvh, g, c, s = 2, 2, 2, 5, 64
+    k, ks, v, vs = _cache(rng, (b, kvh, s, hd), quantized)
+    q1 = torch.from_numpy(rng.standard_normal((b, kvh, g, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    for pos in (0, 40):
+        want = j_da.decode_attention(_j(q1), _j(k), _j(ks), _j(v), _j(vs),
+                                     pos, interpret=True)
+        _close(t_da.decode_attention(q1, k, ks, v, vs, pos), want)
+    qc = torch.from_numpy(rng.standard_normal((b, kvh, g, c, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    want = j_da.chunk_attention(_j(qc), _j(k), _j(ks), _j(v), _j(vs), 30,
+                                interpret=True)
+    _close(t_da.chunk_attention(qc, k, ks, v, vs, 30), want)
+
+
+@pytest.mark.parametrize("hd", [8, 32, 72, 80, 96, 136, 200])
+def test_lane_logits_below_an_instance_equal_the_zero_padded_sum(hd):
+    """K11's plain logits at hd < HDP follow the HDP instance's lane tree:
+    bit for bit the sum over q and k zero-padded to HDP, whose HDP / 8
+    lanes pair up as the kernel's shuffles do."""
+    rng = np.random.default_rng(hd)
+    hdp = t_da.padded_head_dim(hd)
+    assert hdp in t_da.HEAD_DIMS and hdp >= hd
+    q = torch.from_numpy(rng.standard_normal((2, 1, 3, 1, hd)).astype(
+        np.float32)).bfloat16().float()
+    k = torch.from_numpy(rng.standard_normal((2, 1, 50, hd)).astype(
+        np.float32)).bfloat16().float()
+    pad = torch.nn.functional.pad
+    got = t_da._lane_logits(q, k)
+    want = t_da._lane_logits(pad(q, (0, hdp - hd)), pad(k, (0, hdp - hd)))
+    assert torch.equal(got, want)
+    assert float((got - q @ k[:, :, None].transpose(-1, -2)).abs().max()
+                 ) < 1e-4
+
+
 def test_chunk_rows_equal_decode_steps():
     """Row c of a chunk at pos is the decode step at pos + c."""
     rng = np.random.default_rng(3)

@@ -425,12 +425,15 @@ def test_bucket_owners_match_a_python_loop(q, p, c, kind):
 
 
 def _bucket_major_model(q, probe, ivf, k):
-    """K7's algorithm in plain PyTorch: the owner of each distinct bucket
-    of a tile scores its 256-slot chunks for every query, keeps each
-    chunk's best min(k, 256) by (score desc, slot asc), and writes them as
-    list r * n_cc + c of every entry (qi, r) naming the bucket, carrying
-    r * cap + slot; the lists are merged by (score desc, position asc)."""
+    """K7's and K8's algorithm in plain PyTorch: the owner of each distinct
+    bucket of a tile scores its 256-slot chunks for every query, keeps
+    each chunk's best min(k, 256) by (score desc, slot asc), and writes
+    them as list r * n_cc + c of every entry (qi, r) naming the bucket,
+    carrying r * cap + slot; the lists are merged by (score desc, position
+    asc). q: bf16 queries (K7), or f32 queries that int4 buckets' rows
+    score by ops/quant4.scores_int4 on their int8 codes (K8)."""
     c_n, cap = ivf.bucket_ids.shape
+    q4 = t_quant4.prep_queries(q) if ivf.quant == "int4" else None
     n_cc, kc = -(-cap // 256), min(k, 256)
     qn, p = probe.shape
     own = T.bucket_owners(probe)
@@ -440,11 +443,16 @@ def _bucket_major_model(q, probe, ivf, k):
         b = int(probe[qi, r])
         ids = (ivf.bucket_ids[b] if 0 <= b < c_n
                else torch.full((cap,), -1, dtype=torch.int32))
-        rows = ivf.buckets[b % c_n].float()
+        rows = ivf.buckets[b % c_n]
         for q2 in range(t0, min(t0 + T.PROBE_TILE, qn)):
-            scores = rows @ q[q2].float()
-            if ivf.bucket_scales is not None:
-                scores = scores * ivf.bucket_scales[b % c_n]
+            if q4 is not None:
+                scores = t_quant4.scores_int4(
+                    *(x[q2:q2 + 1] for x in q4), rows,
+                    ivf.bucket_scales[b % c_n])[0]
+            else:
+                scores = rows.float() @ q[q2].float()
+                if ivf.bucket_scales is not None:
+                    scores = scores * ivf.bucket_scales[b % c_n]
             scores = torch.where(ids >= 0, scores, float("-inf"))
             for r2 in np.nonzero((probe[q2] == b).numpy())[0]:
                 for cc in range(n_cc):
@@ -468,22 +476,33 @@ def _bucket_major_model(q, probe, ivf, k):
     return vals, out
 
 
-@pytest.mark.parametrize("quant", ["", "int8"])
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
 def test_bucket_major_model_equals_the_plain_probe(blobs, quant):
     """The bucket-major partials (positions r * cap + slot, lists r * n_cc
-    + c, repeated and shared buckets) merge to the plain probe's answer."""
+    + c, repeated and shared buckets) merge to the plain probe's answer:
+    K7's within 1e-5 (f32 sums in another order), K8's bit for bit (exact
+    int32 sums, the same f32 epilogue; its plain version is held against
+    JAX above)."""
     g, cents, q = blobs
     ti = T.build_ivf(g, n_clusters=16, centroids=cents, quantize=quant,
                      device=CPU, bucket_cap=300)
+    assert ti.bucket_cap % 256                # a ragged last chunk
     probe = _t(_probe_list(q, ti, 6, seed=3))
     probe[1] = probe[0]                       # a shared list
     probe[2, 4] = probe[2, 1]                 # a bucket twice in one list
-    qb = _t(q).to(torch.bfloat16)
+    qb = _t(q) if quant == "int4" else _t(q).to(torch.bfloat16)
     for k in (1, 10, 300):
         mv, mi = _bucket_major_model(qb, probe, ti, k)
-        tv, tid = T.probe_buckets(qb, probe, ti.buckets, ti.bucket_ids,
-                                  ti.bucket_scales, k)
-        np.testing.assert_allclose(mv.numpy(), tv.numpy(), atol=1e-5, rtol=0)
+        if quant == "int4":
+            tv, tid = T.probe_buckets_q4(*t_quant4.prep_queries(qb), probe,
+                                         ti.buckets, ti.bucket_ids,
+                                         ti.bucket_scales, k)
+            np.testing.assert_array_equal(mv.numpy(), tv.numpy())
+        else:
+            tv, tid = T.probe_buckets(qb, probe, ti.buckets, ti.bucket_ids,
+                                      ti.bucket_scales, k)
+            np.testing.assert_allclose(mv.numpy(), tv.numpy(), atol=1e-5,
+                                       rtol=0)
         np.testing.assert_array_equal(mi.numpy(), tid.numpy())
 
 

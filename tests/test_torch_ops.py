@@ -123,7 +123,7 @@ def _merge_plan_model(scores: torch.Tensor, k: int):
     of `per` lists, or a merge of list pairs) keeps the best `out` of its
     candidates. Lists are ordered (score desc, id asc), the kernels' rule."""
     q, n = scores.shape
-    _, n_chunks, kc, passes = topk.scan_plan(q, n, k)
+    n_chunks, kc, passes = topk.scan_plan(n, k)
     pad = n_chunks * topk.CHUNK_ROWS - n
     v = torch.cat([scores, scores.new_full((q, pad), float("-inf"))], 1)
     i = torch.cat([torch.arange(n).expand(q, n),
@@ -153,8 +153,7 @@ def _merge_plan_model(scores: torch.Tensor, k: int):
                                    (1, 20000, 513), (1, 20000, 1025),
                                    (1, 20000, 5000)])
 def test_topk_scan_plan_ends_in_one_list(q, n, k):
-    qt, n_chunks, kc, passes = topk.scan_plan(q, n, k)
-    assert qt == min(8, 1 << (q - 1).bit_length())   # smallest tile >= q
+    n_chunks, kc, passes = topk.scan_plan(n, k)
     assert n_chunks * topk.CHUNK_ROWS >= n > (n_chunks - 1) * topk.CHUNK_ROWS
     assert kc == min(k, topk.CHUNK_ROWS)
     lists, length = n_chunks, kc

@@ -1,6 +1,8 @@
-"""The launch plans of the span scans (K1, K5) and of K11 at any G, on the CPU.
+"""The launch plans of the span scans (K1, K4, K5), of the bucket probes
+(K7, K8) and of K11 at any G, on the CPU.
 
-K1 (bf16) and K5 (int4) keep each span's best k by a running threshold
+K1 (bf16), K4 (int8) and K5 (int4) keep each span's best k by a running
+threshold
 (`csrc/span_scan.cuh`): a query's 384-entry candidate buffer, seeded with
 the best kc of the span's first chunk, takes each later chunk's scores
 strictly above the threshold and is compacted to its best kc by a warp
@@ -8,8 +10,9 @@ arg-max when it could not take another chunk; the threshold is the kc-th
 best kept. Here that select is modelled in plain PyTorch, chunk by chunk as
 the kernel runs it, and held against the plain top-k with many ties; the
 plan (`ops/topk.span_rows`, `scan_plan` with the rows a partial covers) is
-checked to end in one list for every k and gallery size; K4, K7 and K8 are
-checked to keep planning 256-row partials; and K11's split of G query
+checked to end in one list for every k and gallery size; K7 and K8 are
+checked to plan one 256-row partial a chunk of each probed bucket; and
+K11's split of G query
 heads into launches of its instances (`group_pieces`) to cover every head
 once. The kernels themselves run on the card (tests/test_torch_cuda.py).
 """
@@ -69,7 +72,7 @@ def _span_partials(scores: torch.Tensor, k: int, rows: int):
     """[Q, N] scores -> the scan's partials [Q, ceil(N / rows), kc]: the
     select for kc <= SELECT_MAX, else each chunk's sorted best kc."""
     q, n = scores.shape
-    _, n_parts, kc, _ = topk.scan_plan(q, n, k, rows)
+    n_parts, kc, _ = topk.scan_plan(n, k, rows)
     vals = torch.empty((q, n_parts, kc))
     ids = torch.empty((q, n_parts, kc), dtype=torch.int32)
     for qi in range(q):
@@ -89,7 +92,7 @@ def _merge(vals, ids, k: int, rows: int, n: int):
     """The plan's merge passes over the partials, as the merge kernels run
     them (each pass keeps the best `out` of a group of `per` lists)."""
     q = vals.shape[0]
-    for p in topk.scan_plan(q, n, k, rows)[3]:
+    for p in topk.scan_plan(n, k, rows)[2]:
         groups = -(-p.lists // p.per)
         extra = groups * p.per - p.lists
         vals = torch.cat([vals, vals.new_full((q, extra, p.length),
@@ -157,7 +160,7 @@ def _rows_for(n, k):
 @pytest.mark.parametrize("n", N_EDGES)
 def test_span_plan_ends_in_one_list(n, k):
     for rows in _rows_for(n, k):
-        qt, n_parts, kc, passes = topk.scan_plan(8, n, k, rows)
+        n_parts, kc, passes = topk.scan_plan(n, k, rows)
         assert n_parts == -(-n // rows)
         assert kc == min(k, topk.CHUNK_ROWS)
         lists, length = n_parts, kc
@@ -171,11 +174,12 @@ def test_span_plan_ends_in_one_list(n, k):
 
 def _record_plans(monkeypatch):
     """Run the scan wrappers' Python on CPU tensors with the launches
-    recorded instead of made: [(what, rows)] of each scan_and_merge call."""
+    recorded instead of made: [(what, n, rows)] of each scan_and_merge
+    call."""
     calls = []
 
     def fake_scan_and_merge(q, n, k, device, scan, what, rows=topk.CHUNK_ROWS):
-        calls.append((what, rows))
+        calls.append((what, n, rows))
         return (torch.zeros((q, k)), torch.zeros((q, k), dtype=torch.int32))
 
     class FakeLib:
@@ -190,8 +194,10 @@ def _record_plans(monkeypatch):
 
 
 def test_chunk_scans_keep_256_row_partials(monkeypatch):
-    """K4, K7 and K8 plan 256-row partials; K1 and K5 the span of
-    span_rows (2048 rows at N = 2^20, k = 10)."""
+    """The flat scans K1, K4 and K5 plan the span of span_rows (2048 rows
+    at N = 2^20, k = 10; one 256-row chunk at k = 33); the bucket probes
+    K7 and K8 one 256-row partial a chunk of each probed bucket (n = P *
+    ceil(cap / 256) * 256: bucket-major, lists r * n_cc + c)."""
     calls = _record_plans(monkeypatch)
     n, d, k = 1 << 20, 64, 10
     g = torch.zeros((n, d))
@@ -203,17 +209,23 @@ def test_chunk_scans_keep_256_row_partials(monkeypatch):
     c, cap = 4, 300
     probe = torch.zeros((8, 2), dtype=torch.int32)
     ids = torch.zeros((c, cap), dtype=torch.int32)
-    ivf._probe_cuda("probe_buckets", qs, probe, ids, k,
-                    lambda *a: 0, 2 * 512)
-    assert calls == [("cosine_topk_quantized", topk.CHUNK_ROWS),
-                     ("cosine_topk", 2048), ("cosine_topk_int4", 2048),
-                     ("probe_buckets", topk.CHUNK_ROWS)]
+    ivf._probe_buckets_cuda(qs.bfloat16(), probe, torch.zeros(
+        (c, cap, d), dtype=torch.bfloat16), ids, None, k)
+    ivf._probe_buckets_q4_cuda(*quant4.prep_queries(qs), probe, torch.zeros(
+        (c, cap, d // 2), dtype=torch.uint8), ids, torch.ones((c, cap)), k)
+    assert calls == [("cosine_topk_quantized", n, 2048),
+                     ("cosine_topk", n, 2048), ("cosine_topk_int4", n, 2048),
+                     ("probe_buckets", 2 * 512, topk.CHUNK_ROWS),
+                     ("probe_buckets_q4", 2 * 512, topk.CHUNK_ROWS)]
     calls.clear()
+    quant._topk_quant_cuda(*quant.quantize_rows(qs), *quant.quantize_rows(g),
+                           33)
     topk._cosine_topk_cuda(qs.bfloat16(), g.bfloat16(), 300)
     quant4._topk_int4_cuda(*quant4.prep_queries(qs),
                            *quant4.quantize_rows_int4(g), 33)
-    assert calls == [("cosine_topk", topk.CHUNK_ROWS),
-                     ("cosine_topk_int4", topk.CHUNK_ROWS)]
+    assert calls == [("cosine_topk_quantized", n, topk.CHUNK_ROWS),
+                     ("cosine_topk", n, topk.CHUNK_ROWS),
+                     ("cosine_topk_int4", n, topk.CHUNK_ROWS)]
 
 
 @pytest.mark.parametrize("g", range(1, 33))

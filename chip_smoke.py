@@ -45,7 +45,10 @@ nonzero exit and no result line:
      C=64 with kv_limit windows and at T=2 / T=5, and at head dims 80 and
      96 (2 layers, 8 kv heads, G=4); K1 / K4 / K5 at the edges of their
      spans (N = R - 1, R, R + 1 and 2R + 17 rows, R = 2048 forced; Q = 8,
-     K4 also 1 and 64; k = 10 and 32);
+     K4 also 1 and 64; k = 10 and 32); the shapes the kernels once refused:
+     K2 f32 at [8, 577, 1024] / 16 (1e-5), bf16 at hd 160 and past 65,535
+     images, K1 / K4 / K9 at D = 100, 520 and 2304, K10 / K11 at head dims
+     100 and 288 and at B or KVH past 65,535 (`repair_checks`);
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -87,6 +90,18 @@ nonzero exit and no result line:
         --verifier llava --verifier-int8` in process over the JPEG folder,
         from an int8 checkpoint written by the port's save_npz (verdicts =
         run (2)'s). Launch counts are reset before each run;
+     f. the bilingual (EN + CN) union path at full width, random weights
+        from the seed: HF-layout state dicts written as f16 safetensors
+        (CLIP ViT-L/14, the Taiyi RoBERTa-large classifier: 24 layers,
+        1024 wide, 768 labels) and an OpenAI ViT-B/32 one, converted by
+        `mmrs-torch weights convert`; the CN pair assembled as the JAX
+        pipeline loads it; `index build` (CN L/14) over 48 seeded JPEGs in
+        two classes, `search --text <Chinese> --vocab`, `union` (EN B/32 +
+        CN L/14), launch counts of K1-K3 from this run alone; then the
+        plain route on the same weights: index embeddings at cosine >=
+        0.999, search ids equal where scores are separated, union
+        decisions equal where a score is more than 2e-3 from its
+        threshold (about a minute; ~5 GiB under TMPDIR);
   5. launch counts: every kernel of each path ran during its phase 4 run
      (K2, K10, K11 in every 4e run, K6 in the int8 ones); phase 4's answers
      against the plain versions on the same inputs;
@@ -107,8 +122,13 @@ nonzero exit and no result line:
      end per
      pack (encode,
      prefill, decode ms a step and tokens/s for bf16 and int8 + int8 KV,
-     speculative tokens/s).
-The line before the last is the kernels' JSON summary; the last line is
+     speculative tokens/s); the ViT-L/14 bf16 embed (batch 64) and the
+     Taiyi text encode (32 x 16 tokens) on phase 4f's weights; K2 at
+     [64, 257, 1024] / 16 bf16 and at f32 [8, 577, 1024] / 16 beside SDPA
+     and its bound; K1 over a 1,048,576 x 768 gallery at Q=8, k=10, on the
+     card alone and eager.
+Then the script's total time (the build included). The line before the
+last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1163,6 +1183,354 @@ def llava_phase(dev, root: str, kernels, cli):
     return ctx
 
 
+# ---- phase 4f: the bilingual (EN + CN) union path -----------------------------
+
+def _rand_state(dev, g, shapes):
+    """{key: shape} -> numpy f16 arrays made on the card from `g`: N(0,
+    0.02) weights, N(0, 0.01) embeddings, unit LayerNorm scales, zero
+    biases (the JAX inits' distributions); logit_scale ln(1 / 0.07)."""
+    out = {}
+    for key, shape in shapes.items():
+        if key.endswith("logit_scale"):
+            out[key] = np.asarray(math.log(1 / 0.07), np.float32)
+            continue
+        if "norm" in key.lower() or ".ln_" in key or key.startswith("ln_"):
+            val = 1.0 if key.endswith("weight") else 0.0
+            out[key] = np.full(shape, val, np.float16)
+        elif key.endswith("bias"):
+            out[key] = np.zeros(shape, np.float16)
+        else:
+            std = 0.01 if "embedding" in key else 0.02
+            out[key] = (std * torch.randn(shape, device=dev, generator=g)
+                        ).half().cpu().numpy()
+    return out
+
+
+def _hf_layers(prefix: str, layers: int, w: int):
+    shapes = {}
+    for i in range(layers):
+        p = f"{prefix}.layers.{i}"
+        for n in ("q", "k", "v", "out"):
+            shapes[f"{p}.self_attn.{n}_proj.weight"] = (w, w)
+            shapes[f"{p}.self_attn.{n}_proj.bias"] = (w,)
+        for n in ("layer_norm1", "layer_norm2"):
+            shapes[f"{p}.{n}.weight"] = shapes[f"{p}.{n}.bias"] = (w,)
+        shapes[f"{p}.mlp.fc1.weight"], shapes[f"{p}.mlp.fc1.bias"] = \
+            (4 * w, w), (4 * w,)
+        shapes[f"{p}.mlp.fc2.weight"], shapes[f"{p}.mlp.fc2.bias"] = \
+            (w, 4 * w), (w,)
+    return shapes
+
+
+def hf_clip_shapes(v, t):
+    """Key -> shape of an HF CLIPModel state dict (what `mmrs-torch
+    weights convert --source hf_clip` reads)."""
+    w, tw = v.width, t.width
+    shapes = {
+        "vision_model.embeddings.class_embedding": (w,),
+        "vision_model.embeddings.patch_embedding.weight":
+            (w, 3, v.patch_size, v.patch_size),
+        "vision_model.embeddings.position_embedding.weight": (v.seq_len, w),
+        "vision_model.pre_layrnorm.weight": (w,),
+        "vision_model.pre_layrnorm.bias": (w,),
+        "vision_model.post_layernorm.weight": (w,),
+        "vision_model.post_layernorm.bias": (w,),
+        "visual_projection.weight": (v.embed_dim, w),
+        "text_model.embeddings.token_embedding.weight": (t.vocab_size, tw),
+        "text_model.embeddings.position_embedding.weight":
+            (t.context_length, tw),
+        "text_model.final_layer_norm.weight": (tw,),
+        "text_model.final_layer_norm.bias": (tw,),
+        "text_projection.weight": (t.embed_dim, tw),
+        "logit_scale": ()}
+    shapes.update(_hf_layers("vision_model.encoder", v.layers, w))
+    shapes.update(_hf_layers("text_model.encoder", t.layers, tw))
+    return shapes
+
+
+def hf_bert_shapes(b):
+    """Key -> shape of an HF BertForSequenceClassification state dict
+    (`--source taiyi`)."""
+    h, inter = b.hidden_size, b.intermediate_size
+    shapes = {
+        "bert.embeddings.word_embeddings.weight": (b.vocab_size, h),
+        "bert.embeddings.position_embeddings.weight":
+            (b.max_position_embeddings, h),
+        "bert.embeddings.token_type_embeddings.weight":
+            (b.type_vocab_size, h),
+        "bert.embeddings.LayerNorm.weight": (h,),
+        "bert.embeddings.LayerNorm.bias": (h,),
+        "bert.pooler.dense.weight": (h, h), "bert.pooler.dense.bias": (h,),
+        "classifier.weight": (b.num_labels, h),
+        "classifier.bias": (b.num_labels,)}
+    for i in range(b.layers):
+        p = f"bert.encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            shapes[f"{p}.attention.self.{n}.weight"] = (h, h)
+            shapes[f"{p}.attention.self.{n}.bias"] = (h,)
+        shapes[f"{p}.attention.output.dense.weight"] = (h, h)
+        shapes[f"{p}.attention.output.dense.bias"] = (h,)
+        shapes[f"{p}.intermediate.dense.weight"] = (inter, h)
+        shapes[f"{p}.intermediate.dense.bias"] = (inter,)
+        shapes[f"{p}.output.dense.weight"] = (h, inter)
+        shapes[f"{p}.output.dense.bias"] = (h,)
+        for n in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"{p}.{n}.weight"] = shapes[f"{p}.{n}.bias"] = (h,)
+    return shapes
+
+
+def openai_clip_shapes(v, t):
+    """Key -> shape of an OpenAI `clip` package state dict
+    (`--source openai_clip`)."""
+    w, tw = v.width, t.width
+    shapes = {
+        "visual.conv1.weight": (w, 3, v.patch_size, v.patch_size),
+        "visual.class_embedding": (w,),
+        "visual.positional_embedding": (v.seq_len, w),
+        "visual.ln_pre.weight": (w,), "visual.ln_pre.bias": (w,),
+        "visual.ln_post.weight": (w,), "visual.ln_post.bias": (w,),
+        "visual.proj": (w, v.embed_dim),
+        "token_embedding.weight": (t.vocab_size, tw),
+        "positional_embedding": (t.context_length, tw),
+        "ln_final.weight": (tw,), "ln_final.bias": (tw,),
+        "text_projection": (tw, t.embed_dim), "logit_scale": ()}
+    for prefix, width, n in (("visual.transformer", w, v.layers),
+                             ("transformer", tw, t.layers)):
+        for i in range(n):
+            p = f"{prefix}.resblocks.{i}"
+            shapes.update({
+                f"{p}.attn.in_proj_weight": (3 * width, width),
+                f"{p}.attn.in_proj_bias": (3 * width,),
+                f"{p}.attn.out_proj.weight": (width, width),
+                f"{p}.attn.out_proj.bias": (width,),
+                f"{p}.ln_1.weight": (width,), f"{p}.ln_1.bias": (width,),
+                f"{p}.ln_2.weight": (width,), f"{p}.ln_2.bias": (width,),
+                f"{p}.mlp.c_fc.weight": (4 * width, width),
+                f"{p}.mlp.c_fc.bias": (4 * width,),
+                f"{p}.mlp.c_proj.weight": (width, 4 * width),
+                f"{p}.mlp.c_proj.bias": (width,)})
+    return shapes
+
+
+def union_jpegs(root: str, n: int, seed: int):
+    """n seeded 256 x 256 JPEGs in two class folders: `lychee` (red-heavy
+    colour fields) and `other` (blue-heavy), plus noise."""
+    from PIL import Image
+
+    for i in range(n):
+        cls = "lychee" if i % 2 == 0 else "other"
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        rng = np.random.default_rng([seed, i])
+        cells = rng.uniform(0, 160, (5, 5, 3))
+        cells[..., 0 if cls == "lychee" else 2] += 95
+        img = Image.fromarray(cells.astype(np.uint8)).resize(
+            (256, 256), Image.BICUBIC)
+        arr = np.asarray(img).astype(np.int16) + rng.integers(
+            -12, 13, (256, 256, 3))
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, cls, f"{cls}_{i:03d}.jpg"), quality=92)
+
+
+# CN query and prompt, and the WordPiece vocab the phase writes for them
+CN_QUERY = "一张荔枝的图片"
+CN_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "一", "张", "荔",
+            "枝", "的", "图", "片", "狗", "猫"]
+UNION_IMAGES = 48
+UNION_BATCH = 64        # phase 6's ViT-L/14 embed batch
+UNION_MARGIN = 2e-3     # decisions compared where |sim - threshold| exceeds it
+TAIYI_BATCH = 32        # phase 6's Taiyi text encode batch (16 tokens)
+
+
+def bilingual_phase(dev, root: str, kernels, cli):
+    """Phase 4f: the bilingual path at full width from seeded weights.
+    HF-layout state dicts written as f16 safetensors (CLIP ViT-L/14,
+    Taiyi RoBERTa-large classifier, OpenAI ViT-B/32), converted by
+    `mmrs-torch weights convert`, the CN pair assembled; then `index
+    build` (CN L/14), `search --text ... --vocab` and `union` (EN B/32 +
+    CN L/14) as a user runs them, with the launch counts reset before and
+    read after; then the same weights through the plain route (K1-K3
+    plain). Returns what phases 5 and 6 read."""
+    import shutil
+
+    from mmrs_tpu_torch.config import load as load_config
+    from mmrs_tpu_torch.govern.bilingual import score_dataset
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+    from mmrs_tpu_torch.io.dataset import FolderDataset
+    from mmrs_tpu_torch.io.images import load_image
+    from mmrs_tpu_torch.models import checkpoint, clip, release
+    from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
+                                               TAIYI_ROBERTA_LARGE, VIT_B32,
+                                               VIT_L14)
+    from mmrs_tpu_torch.models.tokenizer import (BertWordPieceTokenizer,
+                                                 CLIPTokenizer)
+    from mmrs_tpu_torch.ops.preprocess import normalize_images
+    from mmrs_tpu_torch.ops.topk import cosine_topk
+    from mmrs_tpu_torch.pipeline import build_towers
+
+    ctx = {"report": [], "s": {}}
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    sources = {"l14": ("hf_clip", hf_clip_shapes(VIT_L14, CLIP_TEXT_L14)),
+               "taiyi": ("taiyi", hf_bert_shapes(TAIYI_ROBERTA_LARGE)),
+               "b32": ("openai_clip", openai_clip_shapes(VIT_B32,
+                                                         CLIP_TEXT_B32))}
+    need = 3 * sum(2 * math.prod(s) for _, sh in sources.values()
+                   for s in sh.values())
+    free = shutil.disk_usage(root).free
+    check(free > need, f"4f: {free / 2 ** 30:.1f} GiB free under {root}, "
+                       f"{need / 2 ** 30:.1f} needed")
+    npz = {}
+    for name, (source, shapes) in sources.items():
+        t1 = time.perf_counter()
+        st = os.path.join(root, f"{name}.safetensors")
+        release.write_safetensors(st, _rand_state(dev, g, shapes))
+        t2 = time.perf_counter()
+        npz[name] = os.path.join(root, f"{name}.npz")
+        arch = "b32" if name == "b32" else "l14"
+        code, lines = cli(["weights", "convert", "--source", source,
+                           "--arch", arch, "--input", st, "--out",
+                           npz[name]])
+        check(code == 0 and lines[-1] == json.dumps(
+            {"out": npz[name], "int8": False}),
+            f"weights convert --source {source}: exit {code}, {lines[-3:]}")
+        ctx["report"].append(
+            f"4f weights: {source} ({len(shapes)} tensors, "
+            f"{sum(math.prod(s) for s in shapes.values()) / 1e6:.1f} M "
+            f"params, f16 safetensors {os.path.getsize(st) / 2 ** 20:.0f} "
+            f"MiB written in {t2 - t1:.1f} s) -> `mmrs-torch weights convert "
+            f"--source {source} --arch {arch}` {time.perf_counter() - t2:.1f}"
+            f" s ({os.path.getsize(npz[name]) / 2 ** 20:.0f} MiB npz)")
+        os.remove(st)
+    # the CN pair as mmrs_tpu/pipeline.py loads it: the L/14 image tower,
+    # the Taiyi text tower, a logit scale
+    l14 = checkpoint.load_npz(npz["l14"])
+    cn = os.path.join(root, "cn.npz")
+    checkpoint.save_npz({"visual": l14["visual"],
+                         "text": checkpoint.load_npz(npz["taiyi"]),
+                         "logit_scale": l14["logit_scale"]}, cn)
+    del l14
+    for name in ("l14", "taiyi"):
+        os.remove(npz[name])
+    folder = os.path.join(root, "folder")
+    union_jpegs(folder, UNION_IMAGES, SEED)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(CN_VOCAB) + "\n")
+    merges = os.path.join(root, "merges.txt")
+    with open(merges, "w") as f:
+        f.write("#version: 0.2\nl y\nly c\nlyc h\nlych e\nlyche e</w>\n")
+    cn_yaml, en_yaml = (os.path.join(root, f"{n}.yaml") for n in ("cn", "en"))
+    with open(cn_yaml, "w") as f:
+        f.write(f"model:\n  image_tower: vit_l14\n  text_tower: "
+                f"taiyi_roberta\n  dtype: bfloat16\n  checkpoint_path: {cn}\n")
+    with open(en_yaml, "w") as f:
+        f.write(f"model:\n  image_tower: vit_b32\n  dtype: bfloat16\n"
+                f"  checkpoint_path: {npz['b32']}\n")
+    ctx["s"]["setup"] = time.perf_counter() - t0
+
+    # the path as a user runs it, launch counts from this run alone
+    for fn in kernels:
+        fn.launches = 0
+    t1 = time.perf_counter()
+    index = os.path.join(root, "cn_index")
+    code, lines = cli(["index", "build", "--root", folder, "--out", index,
+                       "--config", cn_yaml])
+    built = json.loads(lines[-1]) if code == 0 else {}
+    check(code == 0 and built.get("entries") == UNION_IMAGES
+          and built.get("dim") == VIT_L14.embed_dim,
+          f"4f index build: exit {code}, {lines[-3:]}")
+    code, hits = cli(["search", "--index", index, "--text", CN_QUERY,
+                      "--vocab", vocab, "-k", "10", "--config", cn_yaml])
+    rows = [h.split("\t") for h in hits]
+    check(code == 0 and len(rows) == 10 and all(len(r) == 5 for r in rows),
+          f"4f search --vocab: exit {code}, {hits[-3:]}")
+    uout = os.path.join(root, "union")
+    code, lines = cli(["union", "--root", folder, "--positive-class",
+                       "lychee", "--out", uout, "--config", en_yaml,
+                       "--prompt", "a photo of {}", "--merges", merges,
+                       "--cn-prompt", CN_QUERY, "--vocab", vocab,
+                       "--cn-checkpoint", cn, "--cn-image-tower", "vit_l14"])
+    union = json.loads(lines[-1]) if code == 0 else {}
+    check(code == 0 and set(union) == {"class", "en_threshold",
+                                       "cn_threshold", "union_pass", "f1"}
+          and all(math.isfinite(union[k]) for k in ("en_threshold",
+                                                    "cn_threshold", "f1")),
+          f"4f union: exit {code}, {lines[-3:]}")
+    ctx["s"]["cli"] = time.perf_counter() - t1
+    ctx["launches"] = {fn.__name__: fn.launches for fn in kernels}
+    for name in ("cosine_topk", "mha_short_seq", "normalize_images"):
+        check(ctx["launches"][name] > 0, f"{name} never launched in 4f")
+    ctx["report"].append(
+        f"4f CLI (CN ViT-L/14 + Taiyi RoBERTa-large, EN ViT-B/32, bf16): "
+        f"index build {UNION_IMAGES} JPEGs -> {json.dumps(built)}; search "
+        f"--text {CN_QUERY} --vocab: top hit {rows[0][3]} (score x logit "
+        f"scale {rows[0][2]}); "
+        f"union -> {json.dumps(union)}; {ctx['s']['cli']:.1f} s; launches "
+        f"{json.dumps({k: v for k, v in ctx['launches'].items() if v})}")
+
+    # the plain route (K1-K3 plain) on the same converted weights
+    t1 = time.perf_counter()
+    cn_towers = build_towers(load_config(cn_yaml), device=dev,
+                             tokenizer=BertWordPieceTokenizer.from_vocab_file(
+                                 vocab))
+    en_towers = build_towers(load_config(en_yaml), device=dev,
+                             tokenizer=CLIPTokenizer.from_file(merges))
+    bf16 = torch.bfloat16
+
+    def plain_encode(towers):
+        def encode(pixels_u8):
+            x = normalize_images(torch.from_numpy(pixels_u8).to(dev),
+                                 dtype=bf16, impl="torch")
+            return clip.encode_image(towers.params, x, bf16,
+                                     attn_impl="torch").cpu().numpy()
+        return encode
+
+    idx = GalleryIndex.load(index)
+    px = np.stack([load_image(os.path.join(folder, p) if not os.path.isabs(p)
+                              else p).pixels for p in idx.paths])
+    plain_gal = plain_encode(cn_towers)(px)
+    cos = float((np.asarray(idx.embeddings, np.float32) * plain_gal).sum(1)
+                .min())
+    check(cos >= 0.999, f"4f index embeddings vs plain route: cosine {cos}")
+    tq = torch.from_numpy(cn_towers.text_encode([CN_QUERY])).to(dev)
+    rv, ri = cosine_topk(tq.to(bf16), torch.from_numpy(plain_gal).to(dev)
+                         .to(bf16), 11, impl="torch")
+    got = {r[4]: float(r[2]) for r in rows}
+    ref_paths = [idx.paths[int(i)] for i in ri[0, :10]]
+    gaps = (rv[0, :-1] - rv[0, 1:]).double().abs().cpu().numpy()
+    for j in range(10):
+        left = gaps[j - 1] if j else float("inf")
+        if min(left, gaps[j]) > UNION_MARGIN:
+            check(rows[j][4] == ref_paths[j],
+                  f"4f search rank {j}: {rows[j][4]} vs plain {ref_paths[j]}")
+    ctx["report"].append(
+        f"4f plain route: index embeddings cosine to plain >= {cos:.6f}; "
+        f"search top-10 ids = plain where its scores are > {UNION_MARGIN} "
+        f"apart")
+    decided = 0
+    for which, towers, stack, thr, prompt in (
+            ("en", en_towers, "openai", union["en_threshold"],
+             "a photo of lychee"),
+            ("cn", cn_towers, "hf", union["cn_threshold"], CN_QUERY)):
+        temb = towers.text_encode([prompt])[0]
+        ds = FolderDataset.from_root(folder, image_size=224, stack=stack)
+        _, _, k_sims = score_dataset(ds, towers.image_encode, temb, 16)
+        _, _, p_sims = score_dataset(ds, plain_encode(towers), temb, 16)
+        far = np.abs(p_sims - thr) > UNION_MARGIN
+        same = (k_sims >= thr) == (p_sims >= thr)
+        check(bool(same[far].all()),
+              f"4f union {which}: decisions differ from plain at "
+              f"{int((~same & far).sum())} images away from the threshold")
+        decided += int(far.sum())
+    ctx["report"].append(
+        f"4f union decisions (EN B/32, CN L/14) = the plain route's at the "
+        f"CLI's thresholds for the {decided} of {2 * UNION_IMAGES} image "
+        f"scores more than {UNION_MARGIN} from them; "
+        f"{time.perf_counter() - t1:.1f} s")
+    ctx["cn_towers"], ctx["en_towers"] = cn_towers, en_towers
+    return ctx
+
+
 def kv_cache(dev, g, layers, b, kvh, s, hd, quantized):
     """A stacked random [L, B, KVH, S, HD] cache: bf16, or int8 + scales."""
     from mmrs_tpu_torch.models.llama import _quantize_kv
@@ -1294,6 +1662,123 @@ def kv_attention_checks(dev, gen):
     return errs, lines
 
 
+def repair_checks(dev):
+    """Phase 3 for the shapes the kernels once refused (ROADMAP C.3, C.4,
+    the K10 / K11 head dims and grids), each against its plain version on
+    the card, with its own generator (the later phases draw the same
+    data): K2 f32 at the 336-px L/14 shape [8, 577, 1024] / 16 (1e-5),
+    bf16 at hd 160 and past 65,535 images; K1 / K4 / K9 at D = 100, 520
+    and 2304 (K1 within 1e-5 and ids where separated, K4 ids and values
+    equal, K9 every id equal); K10 / K11 at hd 100 and 288 and at B or
+    KVH past 65,535. Returns (max errors by kernel, report lines)."""
+    from mmrs_tpu_torch.ops.allpairs import first_match
+    from mmrs_tpu_torch.ops.attention import mha_short_seq
+    from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                     decode_attention)
+    from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
+    from mmrs_tpu_torch.ops.topk import cosine_topk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    errs = {"mha_short_seq": 0.0, "cosine_topk": 0.0, "first_match": 0.0,
+            "decode_attention": 0.0, "chunk_attention": 0.0}
+    lines = []
+    for b, t, w, h, dtype, tol in (
+            (LLAVA_B, 577, 1024, 16, torch.float32, 1e-5),
+            (2, 577, 320, 2, torch.bfloat16, 2e-2),
+            (65_540, 5, 32, 2, torch.bfloat16, 2e-2),
+            (65_540, 5, 32, 2, torch.float32, 1e-5)):
+        q, k, v = (torch.randn((b, t, w), device=dev, generator=g).to(dtype)
+                   for _ in range(3))
+        q = q * (w // h) ** -0.5
+        d = float((mha_short_seq(q, k, v, h).float()
+                   - mha_short_seq(q, k, v, h, impl="torch").float())
+                  .abs().max())
+        check(d <= tol, f"mha_short_seq {dtype} [{b},{t},{w}]/{h}: max|d| "
+                        f"{d} (limit {tol})")
+        errs["mha_short_seq"] = max(errs["mha_short_seq"], d)
+        lines.append(f"phase 3 K2 mha_short_seq [{b},{t},{w}]/{h} "
+                     f"{str(dtype)[6:]}: max|d| {d:.3e} (limit {tol})")
+    for d in (100, 520, 2304):
+        gal = torch.randn((65_536, d), device=dev, generator=g)
+        gal = gal / gal.norm(dim=1, keepdim=True)
+        rows = torch.randint(0, 65_536, (8,), device=dev, generator=g)
+        qv = gal[rows] + 0.05 * torch.randn((8, d), device=dev, generator=g)
+        qv = qv / qv.norm(dim=1, keepdim=True)
+        gb, qb = gal.to(torch.bfloat16), qv.to(torch.bfloat16)
+        packed = quantize_rows(gb.float())
+        for k in (10, 100):
+            vals, ids = cosine_topk(qb, gb, k)
+            rv, ri = cosine_topk(qb, gb, k + 1, impl="torch")
+            errs["cosine_topk"] = max(errs["cosine_topk"],
+                                      topk_agree(vals, ids, rv, ri, tol=1e-5))
+            vals, ids = cosine_topk_quantized(qv, *packed, k)
+            rv, ri = cosine_topk_quantized(qv, *packed, k, impl="torch")
+            check(torch.equal(ids, ri) and torch.equal(vals, rv),
+                  f"K4 D={d} k={k}: kernel != plain (ids differ at "
+                  f"{int((ids != ri).sum())})")
+        x = gal[:16_384]
+        x[8000:8100] = near_rows(x[:100], 0.995, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = first_match(x.to(dtype), x.to(dtype), DEDUP_TAU, intra=True)
+            want = first_match(x.to(dtype), x.to(dtype), DEDUP_TAU,
+                               intra=True, impl="torch")
+            check(torch.equal(got, want) and int((got >= 0).sum()) >= 100,
+                  f"K9 D={d} {dtype}: ids differ at "
+                  f"{int((got != want).sum())}")
+        lines.append(f"phase 3 C.4 D={d}: K1 (65,536 rows, Q=8, k=10, 100) "
+                     f"within 1e-5 and ids agree where separated, K4 ids and "
+                     f"values equal, K9 (16,384 rows, f32 and bf16) every id "
+                     f"equal to plain")
+        del gal, gb, packed, x
+    for hd in (100, 288):
+        for quantized in (False, True):
+            k, ks, v, vs = kv_cache(dev, g, 1, 2, 4, KV_SLOTS, hd, quantized)
+            cache = (k[0], None if ks is None else ks[0], v[0],
+                     None if vs is None else vs[0])
+            for gq in (1, 8):
+                q = torch.randn((2, 4, gq, hd), device=dev,
+                                generator=g).to(torch.bfloat16)
+                for pos in (KV_SLOTS - 1, torch.tensor([KV_SLOTS - 1, 100],
+                                                        device=dev)):
+                    errs["decode_attention"] = max(
+                        errs["decode_attention"],
+                        attn_err(decode_attention(q, *cache, pos),
+                                 decode_attention(q, *cache, pos,
+                                                  impl="torch"),
+                                 f"K11 hd={hd} G={gq}"))
+                qc = torch.randn((2, 4, gq, 64, hd), device=dev,
+                                 generator=g).to(torch.bfloat16)
+                errs["chunk_attention"] = max(
+                    errs["chunk_attention"],
+                    attn_err(chunk_attention(qc, *cache, 576, kv_limit=640),
+                             chunk_attention(qc, *cache, 576, kv_limit=640,
+                                             impl="torch"),
+                             f"K10 hd={hd} G={gq}"))
+        lines.append(f"phase 3 K10/K11 hd={hd} (bf16 and int8 caches, G=1, "
+                     f"8, {KV_SLOTS} slots): within {KV_ATTN_TOL} of plain, "
+                     f"99% to 1e-4")
+    for b, kvh in ((65_600, 1), (1, 65_600)):
+        k, ks, v, vs = kv_cache(dev, g, 1, b, kvh, 8, 64, False)
+        q = torch.randn((b, kvh, 2, 64), device=dev,
+                        generator=g).to(torch.bfloat16)
+        pos = torch.randint(0, 8, (b,), device=dev, generator=g)
+        errs["decode_attention"] = max(
+            errs["decode_attention"],
+            attn_err(decode_attention(q, k[0], None, v[0], None, pos),
+                     decode_attention(q, k[0], None, v[0], None, pos,
+                                      impl="torch"), f"K11 B={b} KVH={kvh}"))
+        qc = torch.randn((b, kvh, 2, 3, 64), device=dev,
+                         generator=g).to(torch.bfloat16)
+        errs["chunk_attention"] = max(
+            errs["chunk_attention"],
+            attn_err(chunk_attention(qc, k[0], None, v[0], None, 4),
+                     chunk_attention(qc, k[0], None, v[0], None, 4,
+                                     impl="torch"), f"K10 B={b} KVH={kvh}"))
+    lines.append("phase 3 K10/K11 grids B=65,600 x KVH=1 and B=1 x KVH="
+                 f"65,600 (8 slots, G=2): within {KV_ATTN_TOL} of plain")
+    return errs, lines
+
+
 def kv_attention_times(dev, gen, prompt_len: int):
     """Phase 6 for K10 / K11 at the 7B verify pack's shapes (B=8, 32 kv
     heads, HD=128, the cache of this run's prompt): the middle decode step
@@ -1385,6 +1870,7 @@ def kv_attention_times(dev, gen, prompt_len: int):
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
@@ -1746,6 +2232,12 @@ def main(argv) -> int:
         kv_errs, kv_lines = kv_attention_checks(dev, gen)
         errs.update(kv_errs)
         for line in kv_lines:
+            say(line)
+        # the shapes once refused (C.3, C.4, K10 / K11 head dims, grids)
+        fix_errs, fix_lines = repair_checks(dev)
+        for name, e in fix_errs.items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        for line in fix_lines:
             say(line)
 
         # K7 / K8: the IVF bucket probes over a clustered 1M x 512 gallery,
@@ -2550,6 +3042,16 @@ def main(argv) -> int:
     say(f"phase 4e: {time.perf_counter() - t0:.1f} s")
     tmp.cleanup()
 
+    # ---- 4f. end to end: the bilingual (EN + CN) union path ------------------
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    bi_ctx = bilingual_phase(dev, tmp.name, kernels, run_cli)
+    for line in bi_ctx["report"]:
+        say(f"phase {line}")
+    say(f"phase 4f: {time.perf_counter() - t0:.1f} s (setup "
+        f"{bi_ctx['s']['setup']:.1f} s)")
+    tmp.cleanup()
+
     # ---- 5. launch counts --------------------------------------------------
     say(f"phase 5 launches during phase 4a (bf16): "
         f"{json.dumps(launches_bf16)}")
@@ -2581,6 +3083,8 @@ def main(argv) -> int:
     for run, counts in llava_ctx["launches"].items():
         say(f"phase 5 launches during phase 4e ({run}): "
             f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    say(f"phase 5 launches during phase 4f (bilingual): "
+        f"{json.dumps({k: v for k, v in bi_ctx['launches'].items() if v})}")
     # the verifier's main path is run (1), bf16 (phase 4e checked that
     # K2, K10 and K11 launched in every run and K6 in the int8 runs)
     launches["chunk_attention"] = llava_ctx["launches"]["bf16"][
@@ -2721,6 +3225,51 @@ def main(argv) -> int:
             lambda: mlp_int8_fused(*args, impl="torch"), iters=20)
         int_mm_ms["l14"] = int_mm_pair(x.shape[0], mlp_l.w1.q, mlp_l.w2.q, gen)
         k6_split["l14"] = k6_launch_ms(args)
+        # the bilingual path's shapes: the ViT-L/14 embed and the Taiyi
+        # text encode on phase 4f's converted weights; K2 at the 224-px
+        # L/14 tower's [B, 257, 1024] / 16 and at f32 [8, 577, 1024] / 16;
+        # K1 over a 768-d gallery
+        cn_t = bi_ctx["cn_towers"]
+        pxl = torch.randint(0, 256, (UNION_BATCH, 224, 224, 3), device=dev,
+                            dtype=torch.uint8, generator=gen)
+        bi = {"l14_embed": time_pair(
+            lambda: cn_t.encode_fn(pxl),
+            lambda: clip.encode_image(
+                cn_t.params, normalize_images(pxl, impl="torch"),
+                attn_impl="torch"), iters=5, warmup=2)}
+        ids = torch.randint(5, len(CN_VOCAB), (TAIYI_BATCH, 16), device=dev,
+                            generator=gen)
+        bi["taiyi_ms"] = time_ms(lambda: clip.taiyi_encode_text(
+            cn_t.params, ids, torch.ones_like(ids)), iters=10)
+        for key, (b, t, dtype) in (("k2_257", (UNION_BATCH, 257,
+                                               torch.bfloat16)),
+                                   ("k2_f32", (LLAVA_B, 577, torch.float32))):
+            q, k, v = (torch.randn((b, t, 1024), device=dev, generator=gen)
+                       .to(dtype) for _ in range(3))
+            bi[key] = time_pair(lambda: mha_short_seq(q, k, v, 16),
+                                lambda: mha_short_seq(q, k, v, 16,
+                                                      impl="torch"), iters=10)
+            qh, kh, vh = (x.view(b, t, 16, 64).transpose(1, 2).contiguous()
+                          for x in (q, k, v))
+            bi[key + "_sdpa"] = time_ms(lambda: sdpa(qh, kh, vh, scale=1.0),
+                                        iters=10)
+            size = 2 if dtype == torch.bfloat16 else 4
+            bi[key + "_bound"] = least_ms(
+                4 * b * t * 1024 * size, 4 * b * 16 * t * t * 64,
+                "bf16" if size == 2 else "f32")
+        g768 = torch.randn((GALLERY_ROWS, 768), device=dev, generator=gen)
+        g768 = (g768 / g768.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        q768 = g768[torch.arange(8, device=dev) * 997]
+        bi["k1_768"] = {
+            "graph_ms": graph_ms(lambda: cosine_topk(q768, g768, 10)),
+            "eager_ms": time_ms(lambda: cosine_topk(q768, g768, 10)),
+            "plain_ms": time_ms(lambda: cosine_topk(q768, g768, 10,
+                                                    impl="torch"), iters=3),
+            "matmul_topk_ms": time_ms(lambda: torch.topk(
+                q768.float() @ g768.float().T, 10), iters=3),
+            "bound": least_ms(GALLERY_ROWS * 768 * 2 + 8 * 768 * 2 + 8 * 80,
+                              2 * 8 * GALLERY_ROWS * 768, "bf16")}
+        del g768
         kv_times, (kv_spreads, kv_eager), kv_cache_len, \
             (kv_start, kv_c, kv_lim) = kv_attention_times(
                 dev, gen, llava_ctx["prompt_len"])
@@ -2836,6 +3385,29 @@ def main(argv) -> int:
         f"{l14['mha_short_seq'][1]:.4f} ms, SDPA {l14_lib:.4f} ms, bound "
         f"{l14_bounds['mha_short_seq'][0]:.4f} ms "
         f"({l14_bounds['mha_short_seq'][1]})")
+    kms, pms = bi["l14_embed"]
+    say(f"  ViT-L/14 bf16 embed batch {UNION_BATCH} (phase 4f's converted "
+        f"weights): kernels {UNION_BATCH / kms * 1e3:.1f} img/s "
+        f"({kms:.3f} ms), plain {UNION_BATCH / pms * 1e3:.1f} img/s "
+        f"({pms:.3f} ms)")
+    say(f"  Taiyi RoBERTa-large text encode, batch {TAIYI_BATCH} x 16 "
+        f"tokens, bf16 (plain attention, as the JAX package's): "
+        f"{bi['taiyi_ms']:.3f} ms a batch")
+    for key, shape in (("k2_257", f"[{UNION_BATCH},257,1024]/16 bf16 "
+                                  f"(ViT-L/14 224 px)"),
+                       ("k2_f32", f"[{LLAVA_B},577,1024]/16 f32 (C.3)")):
+        (kms, pms), (bms, by) = bi[key], bi[key + "_bound"]
+        say(f"  K2 mha_short_seq {shape}: kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms, SDPA {bi[key + '_sdpa']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}) = {kms / bms:.2f}x bound, "
+            f"{kms / bi[key + '_sdpa']:.2f}x SDPA")
+    r = bi["k1_768"]
+    say(f"  K1 cosine_topk {GALLERY_ROWS}x768 bf16 Q=8 k=10: on the card "
+        "alone {:.4f} ms ({:.4f} / {:.4f} / {:.4f}), eager {:.4f} ms, plain "
+        "{:.4f} ms, matmul + torch.topk {:.4f} ms, bound {:.4f} ms ({}) = "
+        "{:.2f}x".format(*r["graph_ms"], r["eager_ms"], r["plain_ms"],
+                         r["matmul_topk_ms"], *r["bound"],
+                         r["graph_ms"][0] / r["bound"][0]))
     say(f"  K6 mlp_int8_fused [{t14},1024]->4096 (ViT-L/14-336 int8): "
         f"kernel {l14['mlp_int8_fused'][0]:.4f} ms, plain "
         f"{l14['mlp_int8_fused'][1]:.4f} ms, bound "
@@ -3026,6 +3598,21 @@ def main(argv) -> int:
         "on mma.sync m16n8k32 s8 against 8 queries, a threshold select")
     for name, d in flat_extra.items():
         extra.setdefault(name, {})["flat"] = d
+    # the bilingual path (phase 4f) and its phase 6 shapes
+    for name in ("cosine_topk", "mha_short_seq", "normalize_images"):
+        extra.setdefault(name, {})["launches_4f"] = bi_ctx["launches"][name]
+    extra["mha_short_seq"].update({
+        f"{key}_{f}": v for key in ("k2_257", "k2_f32") for f, v in (
+            ("ms", bi[key][0]), ("plain_ms", bi[key][1]),
+            ("library_ms", bi[key + "_sdpa"]),
+            ("bound_ms", bi[key + "_bound"][0]))})
+    r = bi["k1_768"]
+    extra["cosine_topk"]["d768"] = {
+        "graph_ms": r["graph_ms"][0], "graph_spread_ms": r["graph_ms"][1:],
+        "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
+        "matmul_topk_ms": r["matmul_topk_ms"], "bound_ms": r["bound"][0]}
+    say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s (the "
+        f"build included; limit 1200 s)")
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": where,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -31,6 +31,14 @@
                            [--draft-checkpoint FILE] [--draft-tokens 4]
                            [--verify-batch 8] [--chunk-size N]
                            [--journal FILE] [--out CSV]
+  mmrs-torch union         --root DIR --positive-class NAME --out DIR
+                           (--en-embed FILE | --prompt P --merges FILE)
+                           (--cn-embed FILE | --cn-prompt P --vocab FILE)
+                           [--cn-checkpoint NPZ] [--cn-image-tower vit_l14]
+                           [--en-threshold T] [--cn-threshold T]
+  mmrs-torch weights convert --source hf_clip|openai_clip|taiyi|hf_llava
+                           --arch b32|l14|7b|1b --input PATH --out NPZ
+                           [--int8]
 
 The flags and output lines are those of the same `mmrs` subcommands
 (mmrs_tpu/cli/main.py) on one device: the flat gallery, bf16 or
@@ -40,7 +48,12 @@ cached under `<index>/ivf` and prebuilt by `ann build`). Destructive
 governance commands are dry runs unless given --no-dry-run. `cascade`
 gates a folder with the CLIP tower and verifies the survivors with
 LLaVA-v1.5-7B (`--verifier llava`: a converted npz and its
-tokenizer.model; `--tp` other than 1 waits for ROADMAP A.12). The towers,
+tokenizer.model; `--tp` other than 1 waits for ROADMAP A.12). `union` is
+the bilingual report: an EN CLIP pair and the CN Taiyi pair score one
+folder (`--cn-checkpoint`: the npz of {"visual", "text", "logit_scale"}).
+`weights convert` turns a released state dict (.pt / .bin / .safetensors
+or an HF model directory) into the npz both packages load, without JAX;
+it checks its flags before it reads a byte of weights. The towers,
 the gallery, the embedding dedup and the verifier run on the GPU (the
 kernels build there on first use); MMRS_TORCH_DEVICE=cpu puts them on the
 CPU, and without a GPU nothing else does.
@@ -244,12 +257,7 @@ def cmd_search(args) -> int:
     engine = _make_engine(args, cfg, idx)
     if engine == 2:
         return 2
-    tokenizer = None
-    if args.merges:
-        from mmrs_tpu_torch.models.tokenizer import CLIPTokenizer
-
-        tokenizer = CLIPTokenizer.from_file(args.merges)
-    towers = build_towers(cfg, tokenizer=tokenizer)
+    towers = build_towers(cfg, tokenizer=_make_tokenizer(args, cfg))
 
     if args.image:
         loaded = [load_image(p) for p in args.image]
@@ -266,7 +274,7 @@ def cmd_search(args) -> int:
             hits = engine.query_image(vecs, top_k=args.k)
     elif args.text:
         if towers.text_encode is None:
-            print("text search needs a tokenizer (--merges)",
+            print("text search needs a tokenizer (--merges/--vocab)",
                   file=sys.stderr)
             return 2
         hits = engine.query_text(towers.text_encode([args.text]),
@@ -431,6 +439,133 @@ def cmd_dataset_make(args) -> int:
     else:
         recs = vqa.build_v5(by_class, out_path=args.out, seed=args.seed)
     print(json.dumps({"records": len(recs), "out": args.out}))
+    return 0
+
+
+def cmd_union(args) -> int:
+    """Bilingual union governance report (CLIP/union_dataset.py flow)."""
+    import dataclasses
+
+    from mmrs_tpu_torch import config as config_mod
+    from mmrs_tpu_torch.govern.bilingual import bilingual_union
+    from mmrs_tpu_torch.pipeline import build_towers
+
+    cfg = _load_config(args.config)
+
+    en_tok = cn_tok = None
+    if args.merges:
+        from mmrs_tpu_torch.models.tokenizer import CLIPTokenizer
+
+        en_tok = CLIPTokenizer.from_file(args.merges)
+    if args.vocab:
+        from mmrs_tpu_torch.models.tokenizer import BertWordPieceTokenizer
+
+        cn_tok = BertWordPieceTokenizer.from_vocab_file(args.vocab)
+
+    en_towers = build_towers(cfg, tokenizer=en_tok)
+    cn_cfg = dataclasses.replace(cfg, model=config_mod.ModelConfig(
+        image_tower=args.cn_image_tower, text_tower="taiyi_roberta",
+        dtype=cfg.model.dtype,
+        checkpoint_path=args.cn_checkpoint,
+    ))
+    cn_towers = build_towers(cn_cfg, tokenizer=cn_tok)
+
+    def _template(template: str) -> str:
+        return (template.format(args.positive_class)
+                if "{}" in template else template)
+
+    def _class_embed(npy_path, prompt, towers, which):
+        """Class text embedding: --*-embed npy, or computed on the spot
+        from --prompt/--cn-prompt (or config.prompts) through the text
+        tower — the CLIP/union_dataset.py:263-425 ergonomics."""
+        if npy_path:
+            return np.load(npy_path)
+        tpl = prompt or cfg.prompts.get(args.positive_class)
+        if tpl is None or towers.text_encode is None:
+            print(f"{which}: need --{which}-embed, or a prompt "
+                  f"(--prompt/--cn-prompt or config.prompts) plus a "
+                  f"tokenizer (--merges/--vocab)", file=sys.stderr)
+            raise SystemExit(2)
+        return towers.text_encode([_template(tpl)])[0]
+
+    en_embed = _class_embed(args.en_embed, args.prompt, en_towers, "en")
+    cn_embed = _class_embed(args.cn_embed, args.cn_prompt, cn_towers, "cn")
+
+    res = bilingual_union(
+        args.root, args.positive_class,
+        en_encode=en_towers.image_encode, en_text_embed=en_embed,
+        cn_encode=cn_towers.image_encode, cn_text_embed=cn_embed,
+        out_root=args.out,
+        en_threshold=args.en_threshold, cn_threshold=args.cn_threshold,
+    )
+    print(json.dumps({
+        "class": res.cls,
+        "en_threshold": res.en_threshold, "cn_threshold": res.cn_threshold,
+        "union_pass": res.report.union_pass if res.report else None,
+        "f1": res.report.metrics.f1 if res.report else None,
+    }))
+    return 0
+
+
+def _load_torch_state_dict(path: str):
+    """A single .pt/.bin/.safetensors file, or an HF model directory
+    (models/release.py's loaders: index-json shard merges, TorchScript
+    archives, BF16 safetensors)."""
+    import os
+
+    from mmrs_tpu_torch.models import release
+
+    if os.path.isdir(path):
+        return release.load_model_dir_state(path)
+    if path.endswith(".safetensors"):
+        return release.read_safetensors(path)
+    return release.load_torch_state(path)
+
+
+def cmd_weights_convert(args) -> int:
+    from mmrs_tpu_torch.models import checkpoint, convert
+    from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
+                                               TAIYI_ROBERTA_LARGE, VIT_B32,
+                                               VIT_L14, VIT_L14_336)
+    from mmrs_tpu_torch.models import quantize
+
+    # flag validation BEFORE the (potentially multi-GB) state-dict load
+    if args.source == "hf_llava" and args.arch not in ("7b", "1b"):
+        print("--source hf_llava needs --arch 7b or 1b", file=sys.stderr)
+        return 2
+    if args.source != "hf_llava" and args.arch not in ("b32", "l14"):
+        print(f"--source {args.source} needs --arch b32 or l14",
+              file=sys.stderr)
+        return 2
+    if args.int8 and args.source == "taiyi":
+        print("--int8 applies to clip/llava sources only", file=sys.stderr)
+        return 2
+
+    sd = convert.state_dict_to_numpy(_load_torch_state_dict(args.input))
+    if args.source == "hf_llava":
+        from mmrs_tpu_torch.models.llama import LLAMA2_7B, LLAMA_1B
+        from mmrs_tpu_torch.models.llava import LLaVAConfig
+
+        lm = LLAMA2_7B if args.arch == "7b" else LLAMA_1B
+        params = convert.hf_llava(sd, LLaVAConfig(vision=VIT_L14_336, lm=lm))
+        if args.int8:
+            params = quantize.quantize_llava_tree(params)
+    else:
+        vision = VIT_B32 if args.arch == "b32" else VIT_L14
+        text = CLIP_TEXT_B32 if args.arch == "b32" else CLIP_TEXT_L14
+        if args.source == "hf_clip":
+            params = convert.hf_clip(sd, vision, text)
+        elif args.source == "openai_clip":
+            params = convert.openai_clip(sd, vision, text)
+        elif args.source == "taiyi":
+            params = convert.hf_bert_classifier(sd, TAIYI_ROBERTA_LARGE)
+        else:
+            print(f"unknown source {args.source}", file=sys.stderr)
+            return 2
+        if args.int8:
+            params = quantize.quantize_clip_visual_tree(params)
+    checkpoint.save_npz(params, args.out)
+    print(json.dumps({"out": args.out, "int8": bool(args.int8)}))
     return 0
 
 
@@ -643,6 +778,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--prototype")
     s.add_argument("--config")
     s.add_argument("--merges", help="CLIP BPE merges file for --text")
+    s.add_argument("--vocab", help="BERT vocab.txt for --text (Taiyi tower)")
     _add_quant_flags(s)
     _add_ann_flags(s)
     s.set_defaults(fn=cmd_search)
@@ -737,6 +873,45 @@ def build_parser() -> argparse.ArgumentParser:
     ca.add_argument("--out", help="write the per-image audit CSV here")
     ca.add_argument("--config")
     ca.set_defaults(fn=cmd_cascade)
+
+    un = sub.add_parser("union")
+    un.add_argument("--root", required=True)
+    un.add_argument("--positive-class", required=True)
+    un.add_argument("--out", required=True)
+    un.add_argument("--en-embed", help="npy EN class embedding (or --prompt)")
+    un.add_argument("--cn-embed", help="npy CN class embedding (or --cn-prompt)")
+    un.add_argument("--prompt",
+                    help='EN prompt, e.g. "a photo of lychee" or "a photo '
+                         'of {}" ({} = positive class)')
+    un.add_argument("--cn-prompt", help='CN prompt, e.g. "一张荔枝的图片"')
+    un.add_argument("--merges", help="CLIP BPE merges file (EN text tower)")
+    un.add_argument("--vocab", help="WordPiece vocab (CN text tower)")
+    un.add_argument("--en-threshold", type=float)
+    un.add_argument("--cn-threshold", type=float)
+    un.add_argument("--cn-checkpoint")
+    un.add_argument("--cn-image-tower", default="vit_l14",
+                    choices=["vit_b32", "vit_l14", "vit_tiny"])
+    un.add_argument("--config")
+    un.set_defaults(fn=cmd_union)
+
+    wt = sub.add_parser("weights").add_subparsers(dest="subcmd", required=True)
+    wc = wt.add_parser("convert")
+    wc.add_argument("--source", required=True,
+                    choices=["hf_clip", "openai_clip", "taiyi", "hf_llava"])
+    wc.add_argument("--arch", default="b32",
+                    choices=["b32", "l14", "7b", "1b"],
+                    help="clip arch for *_clip sources; decoder size for "
+                         "hf_llava (7b = llava-v1.5-7b, 1b = a "
+                         "TinyLlama-1.1B-class draft VLM)")
+    wc.add_argument("--input", required=True,
+                    help="a .pt/.bin/.safetensors state dict, or a HF "
+                         "model directory of sharded weight files")
+    wc.add_argument("--out", required=True)
+    wc.add_argument("--int8", action="store_true",
+                    help="quantize serving weights at conversion (llava: "
+                         "7 GB npz instead of 13.5, loads straight into "
+                         "--verifier-int8)")
+    wc.set_defaults(fn=cmd_weights_convert)
     return p
 
 

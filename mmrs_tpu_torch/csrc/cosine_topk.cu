@@ -174,8 +174,9 @@ const char* mmrs_error_string(int err) {
 
 // Scan pass: partials [Q, ceil(N / span), k], k the partial list length
 // (min(k, 256) of the call), span the rows a list covers (a multiple of
-// 256; 256 when k > kSelectMax). The caller checks shapes: D % 8 == 0,
-// D <= 2048, 1 <= Q <= 65535, 16-byte aligned rows.
+// 256; 256 when k > kSelectMax). The caller checks shapes: D % 8 == 0
+// (ops/topk.py pads a ragged D with zero columns), a D whose query tile
+// fits (scan_stages), 1 <= Q <= 65535, 16-byte aligned rows.
 int mmrs_topk_scan(const void* q, const void* g, int Q, int N, int D, int k, int span,
                    void* part_v, void* part_i, void* stream) {
   return launch_span_scan<kRowBf16>(q, nullptr, nullptr, g, nullptr, Q, N, D, k, span, part_v,

@@ -8,8 +8,10 @@
 // layer slice cache[li], with S cut to the caller's kv_limit: nothing is
 // sliced out or copied), in bf16 or int8 with f32 per-position scales
 // [B, KVH, S]. q is bf16; int8 K/V widen exactly to bf16; every product
-// is summed in f32. Head dims: any hd % 8 == 0 up to 256 runs on the
-// smallest compiled instance HDP in {64, 128, 256} that holds it; cache
+// is summed in f32. Head dims: any hd % 8 == 0 up to 256 (K11: 512) runs
+// on the smallest compiled instance HDP in {64, 128, 256, 512} that holds
+// it (ops/decode_attention.py pads a ragged hd to a multiple of 8, and
+// runs K10's rows past 256 as K11 calls, one a query row); cache
 // rows stay hd elements with stride hd (read as they are: the staged rows
 // are zero past hd, nothing is read there, and no padded copy of the cache
 // is made), the staged q is zero past hd, and only hd output dims are
@@ -95,9 +97,11 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const unsigned ch
 // sum 0, output 0). Its keys stream as 16 KB tiles of rows through a ring
 // of kDecStages stages (cp.async, int8 tiles raw, scales beside them):
 // the K tiles, then the V tiles, so the V tiles are in flight while the
-// softmax is exchanged. A key row is scored by a segment of HDP / 8 lanes,
-// 8 elements a lane (a segmented shuffle sum; lanes past hd add exact
-// zeros), so a warp scores 32 / (HDP / 8) keys a step.
+// softmax is exchanged. A key row is scored by a segment of LPR = min(32,
+// HDP / 8) lanes, EPL = HDP / LPR elements a lane (8; 16 at HDP = 512), a
+// segmented shuffle sum (lanes past hd add exact zeros), so a warp scores
+// 32 / LPR keys a step. HDP = 512 runs G <= 4 (the warps' [G, HDP]
+// partials must fit the ring).
 //
 // The softmax is the reference's, exchanged through distributed shared
 // memory: (1) each block's max, combined (exact in any order); (2) each
@@ -139,7 +143,7 @@ int decode_smem_bytes(int span, bool cached) {
 
 // eight consecutive elements of a staged row -> floats (exact)
 template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
+__device__ __forceinline__ void load8(const T* p, float* f) {
   if constexpr (sizeof(T) == 2) {
     mmrs::unpack8(*reinterpret_cast<const uint4*>(p), f);
   } else {
@@ -147,6 +151,12 @@ __device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
     mmrs::s8x4_to_float(w.x, f);
     mmrs::s8x4_to_float(w.y, f + 4);
   }
+}
+
+// K11's elements a lane of instance HDP: 8, or HDP / 32 past 256
+template <int HDP>
+__host__ __device__ constexpr int dec_lane_elems() {
+  return HDP > 256 ? HDP / 32 : 8;
 }
 
 // per-g block reduction (max or sum) of one value per thread, in a fixed
@@ -178,7 +188,8 @@ template <typename T, int HDP, int G>
 __global__ void __launch_bounds__(kDecThreads, G == 1 ? 3 : 1)
 decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __restrict__ pos,
               int pos0, int hd, float hd_scale, int span, int cached, float* __restrict__ out) {
-  constexpr int LPR = HDP / 8;            // lanes a key row
+  constexpr int EPL = dec_lane_elems<HDP>();   // elements a lane
+  constexpr int LPR = HDP / EPL;          // lanes a key row
   constexpr int KPW = 32 / LPR;           // keys a warp step
   constexpr int TK = dec_keys<T, HDP>();  // keys a tile
   constexpr int ITERS = TK / (kDecWarps * KPW);
@@ -260,32 +271,36 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
     ++st;
   };
 
-  float qr[G][8];   // this lane's 8 dims of each head's q, zero past hd
+  float qr[G][EPL];   // this lane's EPL dims of each head's q, zero past hd
   {
-    const __nv_bfloat16* qb = q + head * G * hd + seg * 8;
+    const __nv_bfloat16* qb = q + head * G * hd + seg * EPL;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (seg * 8 < hd) {
-        load8(qb + g * hd, qr[g]);
-      } else {
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) qr[g][e] = 0.f;
+      for (int p = 0; p < EPL; p += 8) {
+        if (seg * EPL + p < hd) {
+          load8(qb + g * hd + p, qr[g] + p);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) qr[g][p + e] = 0.f;
+        }
       }
-    }
   }
   // the logits x[g] of key jl of a staged K tile (all lanes of its
   // segment): each lane's 8 products in turn, then the lanes by halves,
   // the order the plain version repeats (ops/decode_attention.py:
   // _lane_logits; a bf16 product is exact in f32, so its bits match)
   auto score = [&](const unsigned char* buf, int jl, int key, float (&x)[G]) {
-    float kf[8];
-    load8(reinterpret_cast<const T*>(buf + jl * ROW) + seg * 8, kf);
+    float kf[EPL];
+#pragma unroll
+    for (int p = 0; p < EPL; p += 8)
+      load8(reinterpret_cast<const T*>(buf + jl * ROW) + seg * EPL + p, kf + p);
     const float sk = ks ? reinterpret_cast<const float*>(buf + TK * ROW)[jl] : 1.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float d = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d = fmaf(qr[g][e], kf[e], d);
+      for (int e = 0; e < EPL; ++e) d = fmaf(qr[g][e], kf[e], d);
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
       if (ks) d *= sk;
@@ -376,11 +391,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
       }
     __syncthreads();
   }
-  float acc[G][8];
+  float acc[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   for (int t = 0; t < nt; ++t) {
     if (!cached) {   // this tile's K: its probabilities into L [G][TK]
       const unsigned char* buf = begin_step();
@@ -402,15 +417,17 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
 #pragma unroll
     for (int it = 0; it < ITERS; ++it) {
       const int jl = (it * kDecWarps + warp) * KPW + kg;
-      float vf[8];
-      load8(reinterpret_cast<const T*>(buf + jl * ROW) + seg * 8, vf);
+      float vf[EPL];
+#pragma unroll
+      for (int p = 0; p < EPL; p += 8)
+        load8(reinterpret_cast<const T*>(buf + jl * ROW) + seg * EPL + p, vf + p);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float p = pt[g * lstride + jl];
         if (vs) p *= sv[jl];
         p = __bfloat162float(__float2bfloat16_rn(p));
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
     end_step();
@@ -421,11 +438,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __res
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < EPL; ++e) {
       float v = acc[g][e];
 #pragma unroll
       for (int off = LPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (kg == 0) red[(warp * G + g) * HDP + seg * 8 + e] = v;
+      if (kg == 0) red[(warp * G + g) * HDP + seg * EPL + e] = v;
     }
   __syncthreads();
   for (int e = threadIdx.x; e < G * HDP; e += kDecThreads) {
@@ -738,7 +755,9 @@ int decode_by_group(int G, const CacheView& c, const DecodeArgs& a, cudaStream_t
     case 1: return launch_decode<T, HDP, 1>(c, a, s);
     case 2: return launch_decode<T, HDP, 2>(c, a, s);
     case 4: return launch_decode<T, HDP, 4>(c, a, s);
-    case 8: return launch_decode<T, HDP, 8>(c, a, s);
+    case 8:
+      if constexpr (HDP <= 256) return launch_decode<T, HDP, 8>(c, a, s);
+      else return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -766,12 +785,13 @@ CacheView make_view(const void* k, const void* v, const void* ks, const void* vs
                    sb, sh, ssb, ssh, S};
 }
 
-// The instance that runs head dim hd: the smallest of 64, 128, 256 that
-// holds it, for hd % 8 == 0 (cache rows in whole 8-byte pieces); 0 when
-// there is none.
+// The instance that runs head dim hd: the smallest of 64, 128, 256, 512
+// that holds it, for hd % 8 == 0 (cache rows in whole 8-byte pieces); 0
+// when there is none. 512 is K11's only (K10's rows past 256 run as K11
+// calls).
 int padded_head_dim(int hd) {
   if (hd < 8 || hd % 8) return 0;
-  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : 0;
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : hd <= 512 ? 512 : 0;
 }
 
 // f.run<T, HDP>() for the instance of (quant, hd); `none` when there is
@@ -782,9 +802,11 @@ int by_instance(int quant, int hd, const F& f, int none) {
     case 64: return f.template run<__nv_bfloat16, 64>();
     case 128: return f.template run<__nv_bfloat16, 128>();
     case 256: return f.template run<__nv_bfloat16, 256>();
+    case 512: return f.template run<__nv_bfloat16, 512>();
     case -64: return f.template run<int8_t, 64>();
     case -128: return f.template run<int8_t, 128>();
     case -256: return f.template run<int8_t, 256>();
+    case -512: return f.template run<int8_t, 512>();
     default: return none;
   }
 }
@@ -804,7 +826,9 @@ struct SlotsCall {
       case 1: return decode_slots<T, HDP, 1>(smem);
       case 2: return decode_slots<T, HDP, 2>(smem);
       case 4: return decode_slots<T, HDP, 4>(smem);
-      case 8: return decode_slots<T, HDP, 8>(smem);
+      case 8:
+        if constexpr (HDP <= 256) return decode_slots<T, HDP, 8>(smem);
+        else return -1;
       default: return -1;
     }
   }
@@ -821,8 +845,10 @@ struct ChunkCall {
   int warps, smem;
   cudaStream_t s;
   template <typename T, int HDP> int run() const {
-    return launch_chunk<T, HDP>(q, c, pos, pos0, out, B, KVH, G, C, hd, hd_scale, warps, smem,
-                                s);
+    if constexpr (HDP > 256) return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch_chunk<T, HDP>(q, c, pos, pos0, out, B, KVH, G, C, hd, hd_scale, warps,
+                                  smem, s);
   }
 };
 
@@ -831,8 +857,9 @@ struct ChunkCall {
 extern "C" {
 
 // quant: 1 = int8 K/V with f32 scales, 0 = bf16 K/V (ks/vs null). HD % 8
-// == 0 and HD <= 256 (run on the instance of padded_head_dim), G one of
-// 1, 2, 4, 8. pos holds one int32 position per batch row, or is null and
+// == 0 and HD <= 512 (run on the instance of padded_head_dim), G one of
+// 1, 2, 4, 8 (1, 2, 4 past HD = 256); B and KVH <= 65535 (the caller
+// slices larger grids into launches). pos holds one int32 position per batch row, or is null and
 // every row is at pos0. The caller (mmrs_tpu_torch/ops/decode_attention.py:
 // _decode_cuda) checks CUDA, the dtypes, the shapes, q/out contiguous and
 // 16-byte aligned, K/V rows contiguous with 16-byte aligned batch and head

@@ -30,9 +30,14 @@
 // head width that is not a multiple of 16 is zero-padded in shared memory.
 // Shared memory does not grow with T (55 KB at hd 64 and 8 warps).
 //
-// f32 inputs (off the main path, held to 1e-5) and bf16 with hd > 128:
-// `mha_kernel`, exact f32 FMAs on CUDA cores (never TF32), the [tq, T]
-// logits tile in shared memory, one block per (image, head, tq rows).
+// f32 inputs (held to 1e-5) and bf16 with hd > 128: `mha_kernel`, exact
+// f32 FMAs on CUDA cores (never TF32), one block per (image, head, 64
+// rows). Keys stream through shared memory in tiles of 64 and heads in
+// chunks of 64 dims, so shared memory is 68 KB whatever T and hd are: the
+// same exact two-pass softmax (pass 1: running max and sum over the key
+// tiles, in registers; pass 2, once per 64-dim chunk of the output: the
+// logits again, p = exp(s - m) / l rounded to the input type once, P.V in
+// f32 registers), each thread 16 logits or outputs of a 64 x 64 tile.
 
 #include "attention_mma.cuh"
 #include "common.cuh"
@@ -43,72 +48,174 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// The CUDA-core route's tiles: 64 query rows x 64 keys, 64 head dims at a
+// time. Thread (rg, kg) = (tid / 16, tid % 16) owns rows rg + 16 i and keys
+// kg + 16 j (i, j < 4) of the logits, and rows rg + 16 i by dims 4 kg ..
+// 4 kg + 3 of the output: every operand is read as float4 along its
+// contiguous axis (two float4 loads per 16 FMAs, no bank conflicts), and
+// the tiles are staged row-major as they lie in device memory. Shared
+// memory: the Q chunk, the K chunk, the V chunk ([row or key][dim]) and
+// the probabilities [row][key], each [64][68] f32: 69,632 bytes whatever T
+// and hd are.
+constexpr int kFmaTile = 64;
+constexpr int kFmaLd = kFmaTile + 4;
+constexpr int kFmaSmem = 4 * kFmaTile * kFmaLd * 4;
+
+// rows [r0, r0 + n) of a [*, W] input at the head's dims [dc, dc + 64) ->
+// dst[row][dim] f32, zero past n rows and past hd
+template <typename T>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const T* src, int r0, int n, int W,
+                                               int dc, int hd) {
+  for (int e = threadIdx.x; e < kFmaTile * kFmaTile; e += kThreads) {
+    const int r = e / kFmaTile, d = e - r * kFmaTile;
+    dst[r * kFmaLd + d] =
+        (r < n && dc + d < hd) ? mmrs::to_float(src[(size_t)(r0 + r) * W + dc + d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ out, int Tn, int W, int hd, int tq) {
+           T* __restrict__ out, int Tn, int W, int hd) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // K rows are padded by one 32-bit word so that threads scoring
-  // consecutive keys hit distinct shared-memory banks.
-  const int kst = hd + 4 / (int)sizeof(T);
-  float* S = reinterpret_cast<float*>(smem);          // [tq][Tn] logits, then probs
-  float* Qs = S + tq * Tn;                            // [tq][hd]
-  T* Ks = reinterpret_cast<T*>(Qs + tq * hd);         // [Tn][kst]
-  T* Vs = Ks + Tn * kst;                              // [Tn][hd]
+  float* Qs = reinterpret_cast<float*>(smem);   // [64 rows][68]
+  float* Ks = Qs + kFmaTile * kFmaLd;           // [64 keys][68]
+  float* Vs = Ks + kFmaTile * kFmaLd;           // [64 keys][68]
+  float* Ps = Vs + kFmaTile * kFmaLd;           // [64 rows][68]: keys
 
-  const int q0 = blockIdx.x * tq;
+  const int q0 = blockIdx.x * kFmaTile;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int rows = min(tq, Tn - q0);
+  const int rows = min(kFmaTile, Tn - q0);
   const size_t img = (size_t)b * Tn * W + (size_t)h * hd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = kThreads / 32;
+  const T* qh = q + img;
+  const T* kh = k + img;
+  const T* vh = v + img;
+  const int rg = threadIdx.x >> 4, kg = threadIdx.x & 15;
+  const int ntiles = (Tn + kFmaTile - 1) / kFmaTile;
+  const int nd = (hd + kFmaTile - 1) / kFmaTile;   // 64-dim chunks of the head
+  if (nd == 1) stage_rows_f32(Qs, qh, q0, rows, W, 0, hd);   // staged once
 
-  for (int e = threadIdx.x; e < Tn * hd; e += kThreads) {
-    const int j = e / hd, d = e - j * hd;
-    Ks[j * kst + d] = k[img + (size_t)j * W + d];
-    Vs[j * hd + d] = v[img + (size_t)j * W + d];
-  }
-  for (int e = threadIdx.x; e < rows * hd; e += kThreads) {
-    const int i = e / hd, d = e - i * hd;
-    Qs[i * hd + d] = mmrs::to_float(q[img + (size_t)(q0 + i) * W + d]);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < rows * Tn; e += kThreads) {
-    const int i = e / Tn, j = e - i * Tn;
-    const float* qi = Qs + i * hd;
-    const T* kj = Ks + j * kst;
-    float s = 0.f;
-    for (int d = 0; d < hd; ++d) s = fmaf(qi[d], mmrs::to_float(kj[d]), s);
-    S[i * Tn + j] = s;
-  }
-  __syncthreads();
-
-  for (int i = warp; i < rows; i += nwarps) {
-    float* srow = S + i * Tn;
-    float m = -INFINITY;
-    for (int j = lane; j < Tn; j += 32) m = fmaxf(m, srow[j]);
+  // s[i][j]: the logit of row rg + 16 i and key k0 + kg + 16 j (-inf past
+  // the tile's nk keys); with_v: the tile's V chunk `oc` is staged too
+  float s[4][4];
+  auto scores = [&](int k0, int nk, bool with_v, int oc) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int j = lane; j < Tn; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nd; ++c) {
+      __syncthreads();   // the previous chunk's (or tile's) tiles are consumed
+      if (nd > 1) stage_rows_f32(Qs, qh, q0, rows, W, c * kFmaTile, hd);
+      stage_rows_f32(Ks, kh, k0, nk, W, c * kFmaTile, hd);
+      if (with_v && c == 0) stage_rows_f32(Vs, vh, k0, nk, W, oc * kFmaTile, hd);
+      __syncthreads();
+      const int dn = min(kFmaTile, hd - c * kFmaTile);
+      for (int d = 0; d < dn; d += 4) {
+        float4 qa[4], ka[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = ld4(Qs + (rg + 16 * i) * kFmaLd + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ka[j] = ld4(Ks + (kg + 16 * j) * kFmaLd + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+            s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+            s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
+            s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
+          }
+      }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < Tn; j += 32)
-      srow[j] = mmrs::to_float(mmrs::from_float<T>(srow[j] / sum));
-  }
-  __syncthreads();
+    for (int j = 0; j < 4; ++j)
+      if (kg + 16 * j >= nk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
+  };
+  // a value of each row reduced over the 16 threads of its row group
+  // (lanes 0-15 or 16-31 of a warp)
+  auto row_max = [](float x) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+    return x;
+  };
+  auto row_sum = [](float x) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+  };
 
-  for (int e = threadIdx.x; e < rows * hd; e += kThreads) {
-    const int i = e / hd, d = e - i * hd;
-    const float* p = S + i * Tn;
-    float acc = 0.f;
-    for (int j = 0; j < Tn; ++j) acc = fmaf(p[j], mmrs::to_float(Vs[j * hd + d]), acc);
-    out[img + (size_t)(q0 + i) * W + d] = mmrs::from_float<T>(acc);
+  // pass 1: each row's max and sum of exp(s - max), running over the key
+  // tiles (every thread of a row group holds the same values)
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kFmaTile;
+    scores(k0, min(kFmaTile, Tn - k0), false, 0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mt = row_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      const float m_new = fmaxf(m[i], mt);
+      float e = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
+      e = row_sum(e);
+      l[i] = (m[i] == -INFINITY ? 0.f : l[i] * expf(m[i] - m_new)) + e;
+      m[i] = m_new;
+    }
+  }
+
+  // pass 2, for each 64-dim chunk of the output: the logits again, p =
+  // exp(s - m) / l rounded to the input type once, then P.V in f32
+  for (int oc = 0; oc < nd; ++oc) {
+    float acc[4][4] = {};
+    for (int t = 0; t < ntiles; ++t) {
+      const int k0 = t * kFmaTile, nk = min(kFmaTile, Tn - k0);
+      scores(k0, nk, true, oc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          Ps[(rg + 16 * i) * kFmaLd + kg + 16 * j] =
+              kg + 16 * j < nk
+                  ? mmrs::to_float(mmrs::from_float<T>(expf(s[i][j] - m[i]) / l[i]))
+                  : 0.f;
+      __syncthreads();
+      for (int j = 0; j < nk; j += 4) {   // keys past nk: p = 0, V zero-filled
+        float4 pa[4], va[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[i] = ld4(Ps + (rg + 16 * i) * kFmaLd + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) va[u] = ld4(Vs + (j + u) * kFmaLd + 4 * kg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p4[4] = {pa[i].x, pa[i].y, pa[i].z, pa[i].w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[i][0] = fmaf(p4[u], va[u].x, acc[i][0]);
+            acc[i][1] = fmaf(p4[u], va[u].y, acc[i][1]);
+            acc[i][2] = fmaf(p4[u], va[u].z, acc[i][2]);
+            acc[i][3] = fmaf(p4[u], va[u].w, acc[i][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rg + 16 * i;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = oc * kFmaTile + 4 * kg + c;
+        if (d < hd) out[img + (size_t)(q0 + row) * W + d] = mmrs::from_float<T>(acc[i][c]);
+      }
+    }
   }
 }
 
@@ -268,15 +375,16 @@ int launch_mma_vec(int vec, const void* q, const void* k, const void* v, void* o
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Tn, int W,
-           int heads, int tq, int smem, cudaStream_t stream) {
+           int heads, int smem, cudaStream_t stream) {
+  if (smem != kFmaSmem) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = W / heads;
   cudaError_t err = cudaFuncSetAttribute(
       mha_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Tn + tq - 1) / tq, heads, B);
+  const dim3 grid((Tn + kFmaTile - 1) / kFmaTile, heads, B);
   mha_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Tn, W, hd, tq);
+      static_cast<T*>(out), Tn, W, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,15 +393,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tn
 extern "C" {
 
 // The CUDA-core route. dtype: 0 = bf16, 1 = f32. The caller
-// (mmrs_tpu_torch/ops/attention.py: _mha_cuda) picks the query tile `tq`
-// and the shared-memory size with `mha_plan`, and checks: CUDA, contiguous, q/k/v of one [B, T, W] shape and
-// one dtype, W % heads == 0, 1 <= B <= 65535, heads <= 65535.
+// (mmrs_tpu_torch/ops/attention.py: _mha_cuda) takes the shared-memory size
+// from `mha_plan` (kFmaSmem, checked here) and checks: CUDA, contiguous,
+// q/k/v of one [B, T, W] shape and one dtype, W % heads == 0, 1 <= B <=
+// 65535 (larger batches are sliced into launches), heads <= 65535.
 int mmrs_mha_short_seq(const void* q, const void* k, const void* v, void* out, int B,
-                       int Tn, int W, int heads, int dtype, int tq, int smem, void* stream) {
+                       int Tn, int W, int heads, int dtype, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Tn, W, heads, tq, smem, s);
-  if (dtype == 1) return launch<float>(q, k, v, out, B, Tn, W, heads, tq, smem, s);
+  if (dtype == 0) return launch<__nv_bfloat16>(q, k, v, out, B, Tn, W, heads, smem, s);
+  if (dtype == 1) return launch<float>(q, k, v, out, B, Tn, W, heads, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -38,7 +38,9 @@ extern "C" {
 // The int8 scan: partials [Q, ceil(N / span), k] for `mmrs_topk_merge`, span
 // as for mmrs_topk_scan (a multiple of 256; 256 when k > kSelectMax). The
 // callers (mmrs_tpu_torch/ops/quant.py, quant4.py) check: CUDA, contiguous,
-// 16-byte aligned, dtypes, D % 16 == 0, D <= 2048, 1 <= k <= 256 (the
+// 16-byte aligned, dtypes, D % 16 == 0 (int8: a ragged D is padded with
+// zero codes), D whose query planes fit (scan_stages; int4: D <= 2048
+// as the IVF probes), 1 <= k <= 256 (the
 // partial list length, min(k, 256) of the call), 1 <= Q <= 65535.
 int mmrs_topk_scan_q8(const void* q, const void* q_scale, const void* g, const void* g_scale,
                       int Q, int N, int D, int k, int span, void* part_v, void* part_i,

@@ -102,9 +102,15 @@ template <int KIND> __host__ __device__ constexpr int scan_smem(int D, int stage
 // The ring: 2 stages where two blocks then fit an SM (bf16 rows up to
 // D = 1008, int8 up to 1760, int4 up to 1728), so that one block's select
 // and its span's start and end overlap the other's loads; else 5 stages,
-// one block an SM (224 KB at D = 2048).
+// one block an SM (224 KB at bf16 D = 2048; bf16 up to D = 2160, int8 up
+// to 3680); else 3, where the staged query planes of a wide row leave room
+// for no more (bf16 up to D = 6256, int8 up to 12128); 0: the query planes
+// do not fit (ops/topk.py: span_stages refuses the same D).
 template <int KIND> __host__ __device__ constexpr int scan_stages(int D) {
-  return scan_smem<KIND>(D, 2) <= kScanSmemPair ? 2 : 5;
+  return scan_smem<KIND>(D, 2) <= kScanSmemPair   ? 2
+         : scan_smem<KIND>(D, 5) <= kScanSmemLimit ? 5
+         : scan_smem<KIND>(D, 3) <= kScanSmemLimit ? 3
+                                                   : 0;
 }
 
 // kRowBf16: q bf16 [Q, D], g bf16 [N, D]; q_scale, q_rowsum, g_scale null.
@@ -368,12 +374,14 @@ int launch_span_scan(const void* q, const void* q_scale, const void* q_rowsum, c
                      const void* g_scale, int Q, int N, int D, int kc, int span, void* part_v,
                      void* part_i, cudaStream_t stream) {
   if (kc < 1 || kc > mmrs::kChunk || span < mmrs::kChunk || span % mmrs::kChunk ||
-      (kc > mmrs::kSelectMax && span != mmrs::kChunk) || Q < 1 || N < 1 || D < 1 ||
-      D > 2048)
+      (kc > mmrs::kSelectMax && span != mmrs::kChunk) || Q < 1 || N < 1 || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int stages = scan_stages<KIND>(D), smem = scan_smem<KIND>(D, stages);
-  if (smem > kScanSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = stages == 2 ? span_scan_kernel<KIND, 2> : span_scan_kernel<KIND, 5>;
+  const int stages = scan_stages<KIND>(D);
+  if (stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = scan_smem<KIND>(D, stages);
+  auto kern = stages == 2   ? span_scan_kernel<KIND, 2>
+              : stages == 5 ? span_scan_kernel<KIND, 5>
+                            : span_scan_kernel<KIND, 3>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (Q + kScanQT - 1) / kScanQT;

@@ -116,7 +116,8 @@ def save_npz(tree: Dict[str, Any], path: str) -> None:
                          allowZip64=True) as zf:
         for key, leaf in _flatten(tree):
             for name, arr in _members(key, leaf):
+                if not arr.flags.c_contiguous:   # 0-d arrays stay 0-d
+                    arr = np.array(arr, order="C")
                 with zf.open(name + ".npy", "w", force_zip64=True) as f:
-                    np.lib.format.write_array(f, np.ascontiguousarray(arr),
-                                              allow_pickle=False)
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
     os.replace(tmp, path)

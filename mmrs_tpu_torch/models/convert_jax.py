@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from mmrs_tpu_torch.models import checkpoint
-from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
+from mmrs_tpu_torch.models.clip import (CLIP, CLIPConfig, TaiyiCLIP,
+                                        TaiyiCLIPConfig)
 from mmrs_tpu_torch.models.layers import QLinear
 from mmrs_tpu_torch.models.llama import Llama, LlamaConfig
 from mmrs_tpu_torch.models.llava import LLaVA, LLaVAConfig
@@ -116,6 +117,52 @@ def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     _visual_sd(tree["visual"], sd)
     _blocks("text", txt["blocks"], sd)
     return sd
+
+
+def _bert_sd(bert: Dict[str, Any], sd: Dict[str, torch.Tensor],
+             prefix: str = "text") -> None:
+    """State-dict entries of the Taiyi text tower from a JAX `bert.init`
+    tree (models/bert.py)."""
+    sd.update({
+        f"{prefix}.word_embeddings": bert["word_embeddings"],
+        f"{prefix}.position_embeddings": bert["position_embeddings"],
+        f"{prefix}.token_type_embeddings": bert["token_type_embeddings"],
+        f"{prefix}.emb_ln.weight": bert["emb_ln_scale"],
+        f"{prefix}.emb_ln.bias": bert["emb_ln_bias"],
+    })
+    _linear(sd, f"{prefix}.pooler", bert["pooler_kernel"],
+            bert["pooler_bias"])
+    _linear(sd, f"{prefix}.classifier", bert["classifier_kernel"],
+            bert["classifier_bias"])
+    blocks = bert["blocks"]
+    attn, mlp = blocks["attn"], blocks["mlp"]
+    for i in range(blocks["attn_ln_scale"].shape[0]):
+        p = f"{prefix}.blocks.{i}"
+        for ln in ("attn_ln", "out_ln"):
+            sd[f"{p}.{ln}.weight"] = blocks[f"{ln}_scale"][i]
+            sd[f"{p}.{ln}.bias"] = blocks[f"{ln}_bias"][i]
+        for name in ("q", "k", "v", "o"):
+            _linear(sd, f"{p}.attn.w{name}", _layer(attn[f"w{name}"], i),
+                    attn[f"b{name}"][i])
+        for j in ("1", "2"):
+            _linear(sd, f"{p}.mlp.w{j}", _layer(mlp[f"w{j}"], i),
+                    mlp[f"b{j}"][i])
+
+
+def from_jax_taiyi(tree: Dict[str, Any], cfg: TaiyiCLIPConfig) -> TaiyiCLIP:
+    """A Taiyi pair (f32 parameters, on the CPU) from a JAX
+    `clip.taiyi_init`-shaped tree {"visual", "text", "logit_scale"}: the
+    tree mmrs_tpu's pipeline loads for `text_tower: taiyi_roberta`; int8
+    vision kernels become `QLinear` layers."""
+    tree = _tensors(tree)
+    sd: Dict[str, torch.Tensor] = {
+        "logit_scale": tree["logit_scale"].reshape(())}
+    _visual_sd(tree["visual"], sd)
+    _bert_sd(tree["text"], sd)
+    model = TaiyiCLIP(cfg)
+    _int8_layers(model, sd)
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def _int8_layers(model: torch.nn.Module, sd: Dict[str, torch.Tensor]
@@ -255,6 +302,10 @@ def llava_tree(model: LLaVA) -> Dict[str, Any]:
             "lm": llama_tree(model.lm)}
 
 
-def load_npz(path: str, cfg: CLIPConfig) -> CLIP:
-    """A CLIP module from an npz written by mmrs_tpu's checkpoint.save_npz."""
-    return from_jax_params(checkpoint.load_npz(path), cfg)
+def load_npz(path: str, cfg) -> torch.nn.Module:
+    """A CLIP module (or, for a `TaiyiCLIPConfig`, a Taiyi pair) from an
+    npz written by either package's checkpoint.save_npz."""
+    tree = checkpoint.load_npz(path)
+    if isinstance(cfg, TaiyiCLIPConfig):
+        return from_jax_taiyi(tree, cfg)
+    return from_jax_params(tree, cfg)

@@ -75,11 +75,18 @@ class QLinear(nn.Module):
         w32 = lin.weight.detach().float()
         with torch.device(w32.device):
             layer = cls(*w32.shape, bias=lin.bias is not None)
-        layer.s = torch.clamp(w32.abs().amax(1), min=1e-12) / 127.0
-        layer.q = torch.round(w32 / layer.s[:, None]).to(torch.int8)
+        layer.q, layer.s = int8_weight(w32, 1)
         if lin.bias is not None:
             layer.bias = lin.bias.detach().float()
         return layer
+
+
+def int8_weight(w32: torch.Tensor, dim: int):
+    """(int8 codes, f32 scales) of f32 weights, one scale per channel over
+    `dim` (the inputs): s = max(max|w|, 1e-12) / 127, q = round(w / s)
+    half to even, as mmrs_tpu layers.quantize_weight."""
+    s = torch.clamp(w32.abs().amax(dim, keepdim=True), min=1e-12) / 127.0
+    return torch.round(w32 / s).to(torch.int8), s.squeeze(dim)
 
 
 def _mm_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -12,15 +12,23 @@ stays unquantized (a lookup). LLaVA quantizes its vision tower and its
 decoder; the projector stays in the serving mix. The int4-weight LLaMA
 (`quantize_llama_int4`) is not ported.
 
-The functions replace layers in place and return the module they were
-given (the JAX package returns a new tree).
+The module functions replace layers in place and return the module they
+were given. The `*_tree` functions quantize a param tree in the JAX layout
+([..., K, N] kernels; `mmrs-torch weights convert --int8`) into a new tree
+of `checkpoint.QWeight` leaves, as the JAX package's tree functions do,
+with its codes and scales bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
+import numpy as np
+import torch
 from torch import nn
 
-from mmrs_tpu_torch.models.layers import QLinear
+from mmrs_tpu_torch.models.checkpoint import QWeight
+from mmrs_tpu_torch.models.layers import QLinear, int8_weight
 
 # layers eligible for int8, by attribute name: the JAX package's key set
 # {wq, wk, wv, wo, w1, w2, patch_kernel}, whose `patch_kernel` is the
@@ -62,3 +70,44 @@ def quantize_llava(model: nn.Module) -> nn.Module:
     quantize_tree(model.visual)
     quantize_llama(model.lm)
     return model
+
+
+# -- param trees in the JAX layout --------------------------------------------
+
+# kernel leaf names eligible for int8 (mmrs_tpu quantize._QUANT_KEYS)
+TREE_KEYS = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "patch_kernel"})
+TREE_LM_KEYS = TREE_KEYS | frozenset({"w_gate", "w_up", "w_down", "lm_head"})
+
+
+def quantize_weight(w: Any) -> QWeight:
+    """Per-output-channel symmetric int8 quantization of a [..., K, N]
+    kernel (mmrs_tpu layers.quantize_weight, run op by op: true
+    divisions), the scale over K."""
+    w32 = w.float() if isinstance(w, torch.Tensor) else torch.as_tensor(
+        np.asarray(w)).float()
+    return QWeight(*int8_weight(w32, -2))
+
+
+def quantize_param_tree(tree: Dict[str, Any], keys=TREE_KEYS
+                        ) -> Dict[str, Any]:
+    """A copy of a param tree with eligible kernels as `QWeight`s."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: quantize_weight(v)
+                    if k in keys and not isinstance(v, (dict, QWeight))
+                    else walk(v) for k, v in node.items()}
+        return node
+
+    return walk(tree)
+
+
+def quantize_clip_visual_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A CLIP tree with the vision tower quantized, text left as it is."""
+    return {**tree, "visual": quantize_param_tree(tree["visual"])}
+
+
+def quantize_llava_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A LLaVA tree with int8 vision and decoder kernels (the lm_head
+    too); the projector and embeddings stay as they are."""
+    return {**tree, "visual": quantize_param_tree(tree["visual"]),
+            "lm": quantize_param_tree(tree["lm"], TREE_LM_KEYS)}

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "mmrs_error_string": ((_I,), ctypes.c_char_p),
     "mmrs_topk_scan": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P), _I),
     "mmrs_topk_merge": ((_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P), _I),
-    "mmrs_mha_short_seq": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mmrs_mha_short_seq": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
                            _I),
     "mmrs_mha_short_seq_mma": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P), _I),

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from mmrs_tpu_torch.ops import _cuda
+from mmrs_tpu_torch.ops.topk import pad_columns
 
 BIG = 2 ** 30
 PLAIN_BLOCK_BYTES = 1 << 30      # f32 similarity rows per plain-version block
@@ -113,7 +114,8 @@ def first_match_plan(n: int, m: int, d: int,
                      dtype: torch.dtype) -> FirstMatchPlan:
     """Launch shape of the kernel for a [n, d] against b [m, d] in `dtype`.
     Refuses, with a message, what it cannot run: D % 8 (16-byte row
-    chunks), N or M past 2^31, an input type other than bf16 or f32."""
+    chunks; `first_match` pads a ragged D with zero columns first), N or
+    M past 2^31, an input type other than bf16 or f32."""
     if dtype not in _PLANES:
         raise ValueError(f"first_match kernel takes f32 or bf16 inputs of "
                          f"one dtype, got {dtype}")
@@ -162,6 +164,10 @@ def _first_match_cuda(a: torch.Tensor, b: torch.Tensor, tau: float,
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"first_match takes a [N, D] and b [M, D], got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[1] % 8:   # zero columns: every dot product exactly as it was
+        shared = a.data_ptr() == b.data_ptr() and a.shape == b.shape
+        a = pad_columns(a, 8)
+        b = a if shared else pad_columns(b, 8)
     (n, d), m = a.shape, b.shape[0]
     plan = first_match_plan(n, m, d, a.dtype)
     if a.data_ptr() % 16 or b.data_ptr() % 16:

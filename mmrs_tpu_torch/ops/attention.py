@@ -7,8 +7,11 @@ unmasked over short sequences (T = 50 for B/32, 257 for L/14, 577 for the
 slice straight from the [B, T, W] projections: bf16 heads up to 128 wide
 run on tensor cores (key tiles streamed through shared memory, an exact
 two-pass softmax in registers); f32, and bf16 heads wider than 128, on
-CUDA cores with the logits tile in shared memory. The plain version splits
-heads with views and runs the same math in f32.
+CUDA cores with key tiles (and 64-dim chunks of the head) streamed the
+same way, the same two-pass softmax, and 16 logits or outputs a thread.
+Neither route's shared memory grows with T, and batches past
+65,535 run as several launches. The plain version splits heads with views
+and runs the same math in f32.
 
 Math (both versions, as the Pallas `_mha_kernel`): q already carries
 1/sqrt(hd); logits and softmax in f32; the probabilities are rounded to
@@ -31,6 +34,9 @@ SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
 MMA_MAX_HD = 128      # widest bf16 head of the tensor-core route
 MMA_KEYS = 64         # csrc/attention_mma.cuh kAttnKeys
 MMA_WARPS = 8         # csrc/mha_short_seq.cu kMmaThreads / 32
+FMA_TILE = 64         # csrc/mha_short_seq.cu kFmaTile: rows, keys, dims a step
+FMA_SMEM = 4 * FMA_TILE * (FMA_TILE + 4) * 4   # kFmaSmem: four [64][68] f32
+MAX_BATCH = 65535     # images a launch takes (the grid's z extent)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -59,10 +65,9 @@ def mha_plan(t: int, hd: int, dtype: torch.dtype) -> MhaPlan:
     query rows per warp, 4 to 8 warps (fewer for T < 64), shared memory
     bounded whatever T is: the Q tile [rows, hdp + 8] and a double-buffered
     ring of K and V tiles [64, hdp + 8], hdp = hd padded to 32, 64 or 128.
-    Otherwise the CUDA-core route: f32 logits [tq, T] and queries [tq,
-    hd], plus K (rows padded by one 32-bit word) and V [T, hd] in the
-    input type, the query tile shrinking until the block fits in Hopper's
-    227 KB."""
+    Otherwise the CUDA-core route: 64 query rows against key tiles of 64,
+    64 head dims at a time, in FMA_SMEM bytes whatever T and hd are (Q and
+    K chunks, the V chunk and the probabilities, [64][68] f32 each)."""
     if dtype == torch.bfloat16 and hd <= MMA_MAX_HD:
         hdp = 32 if hd <= 32 else 64 if hd <= 64 else 128
         # the fewest padded query rows, then the most warps (fewer blocks
@@ -71,18 +76,7 @@ def mha_plan(t: int, hd: int, dtype: torch.dtype) -> MhaPlan:
         rows = 16 * min(range(fewest, MMA_WARPS + 1),
                         key=lambda w: (-(-t // (16 * w)) * w, -w))
         return MhaPlan("mma", rows, 2 * (rows + 4 * MMA_KEYS) * (hdp + 8))
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    tq = min(t, 64) if t <= 64 else 32
-    while True:
-        smem = 4 * tq * (t + hd) + itemsize * t * (2 * hd + 4 // itemsize)
-        if smem <= SMEM_LIMIT:
-            return MhaPlan("fma", tq, smem)
-        if tq <= 8:
-            raise ValueError(
-                f"mha_short_seq kernel: T={t}, hd={hd} in {dtype} needs "
-                f"{smem} bytes of shared memory at the smallest tile (limit "
-                f"{SMEM_LIMIT})")
-        tq //= 2
+    return MhaPlan("fma", FMA_TILE, FMA_SMEM)
 
 
 def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
@@ -98,26 +92,29 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
     b, t, w = q.shape
     if heads < 1 or w % heads:
         raise ValueError(f"width {w} is not a multiple of heads={heads}")
-    if not (1 <= b <= 65535 and heads <= 65535):
-        raise ValueError(f"mha_short_seq kernel needs B <= 65535, got {b}")
+    if not (1 <= b and heads <= 65535):
+        raise ValueError(f"mha_short_seq kernel needs 1 <= B and heads <= "
+                         f"65535, got B={b}, heads={heads}")
     hd = w // heads
     plan = mha_plan(t, hd, q.dtype)
     out = torch.empty_like(q)
     lib = _cuda.library()
+    vec = hd % 8 == 0 and w % 8 == 0 and all(
+        x.data_ptr() % 16 == 0 for x in (q, k, v, out))
+    step = t * w * q.element_size()     # bytes of one image
     with torch.cuda.device(q.device):
-        if plan.route == "mma":
-            vec = hd % 8 == 0 and w % 8 == 0 and all(
-                x.data_ptr() % 16 == 0 for x in (q, k, v, out))
-            err = lib.mmrs_mha_short_seq_mma(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                t, w, heads, int(vec), plan.rows // 16, plan.smem,
-                _cuda.stream_of(q))
-        else:
-            err = lib.mmrs_mha_short_seq(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                t, w, heads, _DTYPE_CODE[q.dtype], plan.rows, plan.smem,
-                _cuda.stream_of(q))
-        _cuda.check(err, "mha_short_seq")
+        for b0 in range(0, b, MAX_BATCH):   # a launch per 65,535 images
+            nb = min(MAX_BATCH, b - b0)
+            ptrs = [x.data_ptr() + b0 * step for x in (q, k, v, out)]
+            if plan.route == "mma":
+                err = lib.mmrs_mha_short_seq_mma(
+                    *ptrs, nb, t, w, heads, int(vec), plan.rows // 16,
+                    plan.smem, _cuda.stream_of(q))
+            else:
+                err = lib.mmrs_mha_short_seq(
+                    *ptrs, nb, t, w, heads, _DTYPE_CODE[q.dtype], plan.smem,
+                    _cuda.stream_of(q))
+            _cuda.check(err, "mha_short_seq")
     mha_short_seq.launches += 1
     return out
 

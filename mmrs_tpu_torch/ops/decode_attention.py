@@ -40,10 +40,13 @@ DEC_MIN_TILES = 2         # K11 tiles a block's span holds at least
 DEC_LOGIT_BUDGET = 96 * 1024   # K11 bytes of [G, span] f32 logits kept
 DEC_MAX_SLOTS = 1 << 24   # the longest view K11 plans for
 _KEYS = 64                # K10 keys per staged tile (csrc: kAttnKeys)
-HEAD_DIMS = (64, 128, 256)   # the kernels' head-dim instances (csrc:
+HEAD_DIMS = (64, 128, 256, 512)   # the kernels' head-dim instances (csrc:
                              # padded_head_dim): hd % 8 == 0 runs on the
-                             # smallest that holds it
-_GROUPS = (1, 2, 4, 8)    # K11's instances (csrc: decode_by_group)
+                             # smallest that holds it; 512 is K11's only
+K10_MAX_HD = 256          # K10's widest instance; past it, K11 a query row
+_GROUPS = (1, 2, 4, 8)    # K11's instances (csrc: decode_by_group; G <= 4
+                          # at 512)
+MAX_GRID = 65535          # batch rows or kv heads a launch takes
 
 Pos = Union[int, torch.Tensor]
 
@@ -64,30 +67,38 @@ def query_positions(pos: Pos, b: int, t: int, device) -> torch.Tensor:
 def padded_head_dim(hd: int) -> int:
     """The head dim of the kernel instance that runs hd: the smallest of
     HEAD_DIMS that holds it (rows are zero past hd). K11's plain version
-    sums in that instance's lane order; past 256 (no instance, so no
+    sums in that instance's lane order; past 512 (no instance, so no
     kernel order) it takes the next power of two."""
     return next((w for w in HEAD_DIMS if w >= hd), 1 << (hd - 1).bit_length())
+
+
+def lane_elems(hdp: int) -> int:
+    """K11's elements a lane at instance HDP (csrc: dec_lane_elems): 8,
+    or HDP / 32 past 256 (a warp of lanes a key row)."""
+    return 8 if hdp <= 256 else hdp // 32
 
 
 def _lane_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q [B, KVH, G, T, hd] and k [B, KVH, S, hd], bf16 values held in f32,
     -> q . k [B, KVH, G, T, S] f32 summed in K11's order for the instance
     HDP = padded_head_dim(hd), the dims past hd zero: lane l of a key's
-    HDP / 8 lanes adds the products of dims 8l .. 8l + 7 in turn, then the
-    lanes add by halves (lane l + lane l ^ off for off = HDP / 16 .. 1).
+    L = HDP / E lanes (E = `lane_elems`) adds the products of dims E l ..
+    E l + E - 1 in turn, then the lanes add by halves (lane l + lane l ^
+    off for off = L / 2 .. 1).
     A bf16 product is exact in f32, so each step rounds as the kernel's
     fmaf does and the logits are the kernel's bits; the zero dims add
     exact zeros, but they decide which partial sums pair up."""
     hd = q.shape[-1]
-    pad = padded_head_dim(hd) - hd
-    if pad:
-        q = torch.nn.functional.pad(q, (0, pad))
-        k = torch.nn.functional.pad(k, (0, pad))
-    lpr = q.shape[-1] // 8
-    qv = q.unflatten(-1, (lpr, 8))[:, :, :, :, None]         # [..,T,1,L,8]
-    kv = k.unflatten(-1, (lpr, 8))[:, :, None, None]         # [..,1,S,L,8]
+    hdp = padded_head_dim(hd)
+    if hdp > hd:
+        q = torch.nn.functional.pad(q, (0, hdp - hd))
+        k = torch.nn.functional.pad(k, (0, hdp - hd))
+    epl = lane_elems(hdp)
+    lpr = hdp // epl
+    qv = q.unflatten(-1, (lpr, epl))[:, :, :, :, None]       # [..,T,1,L,E]
+    kv = k.unflatten(-1, (lpr, epl))[:, :, None, None]       # [..,1,S,L,E]
     acc = qv[..., 0] * kv[..., 0]
-    for e in range(1, 8):
+    for e in range(1, epl):
         acc = acc + qv[..., e] * kv[..., e]
     lanes = torch.arange(lpr, device=q.device)
     off = lpr // 2
@@ -267,33 +278,67 @@ def _common_checks(name: str, q: torch.Tensor, g: int, hd: int) -> None:
                          f"{q.device}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel takes a bf16 q, got {q.dtype}")
-    if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
-        raise ValueError(f"{name} kernel supports head dims that are "
-                         f"multiples of 8 up to {HEAD_DIMS[-1]} (cache rows "
-                         f"in 8-byte pieces; instances {HEAD_DIMS}), got {hd}")
+    if not 1 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"{name} kernel supports head dims up to "
+                         f"{HEAD_DIMS[-1]} (instances {HEAD_DIMS}), got {hd}")
     b, kvh = q.shape[:2]
-    if not (1 <= b <= 65535 and 1 <= kvh <= 65535 and g >= 1):
-        raise ValueError(f"{name} kernel needs 1 <= B, KVH <= 65535, got "
+    if not (b >= 1 and kvh >= 1 and g >= 1):
+        raise ValueError(f"{name} kernel needs 1 <= B, KVH, G, got "
                          f"B={b}, KVH={kvh}, G={g}")
 
 
-def group_pieces(g: int) -> Tuple[Tuple[int, int, int], ...]:
+def group_pieces(g: int, hd: int = 64) -> Tuple[Tuple[int, int, int], ...]:
     """K11 at any G: the (first head, heads, width) of each launch. Each
     launch reads the whole view once, so there are as few as the largest
-    instance allows (ceil(G / 8)): pieces of 8 heads, the last one's
-    heads padded with zero queries up to the smallest instance that holds
-    them (G = 7 -> one launch at 8; 12 -> 8 + 4). Every head's softmax is
-    its own, so a split changes no result; padded heads are dropped."""
-    top = _GROUPS[-1]
+    instance allows (ceil(G / 8); ceil(G / 4) at hd past 256): pieces of
+    that many heads, the last one's heads padded with zero queries up to
+    the smallest instance that holds them (G = 7 -> one launch at 8; 12 ->
+    8 + 4). Every head's softmax is its own, so a split changes no result;
+    padded heads are dropped."""
+    widths = _GROUPS if padded_head_dim(hd) <= K10_MAX_HD else _GROUPS[:-1]
+    top = widths[-1]
     pieces = []
     for start in range(0, g, top):
         heads = min(top, g - start)
-        pieces.append((start, heads, next(w for w in _GROUPS if w >= heads)))
+        pieces.append((start, heads, next(w for w in widths if w >= heads)))
     return tuple(pieces)
 
 
+def _on_the_card(name: str, q: torch.Tensor, k_cache, k_scales, v_cache,
+                 v_scales, pos: Pos, launch) -> torch.Tensor:
+    """The kernels' common route: the checks, a head dim off a multiple of
+    8 zero-padded (q and a padded copy of the caches: zero dims add exact
+    zeros, and the instance, so K11's lane order, is the one hd takes;
+    hd_scale stays hd's), and grids past MAX_GRID batch rows or kv heads
+    sliced into launches over views. `launch(q, k_cache, k_scales,
+    v_cache, v_scales, pos, scale)` runs one launch's worth."""
+    hd = q.shape[-1]
+    _common_checks(name, q, q.shape[2], hd)
+    scale = hd_scale(hd)
+    pad = -hd % 8
+    if pad:
+        q, k_cache, v_cache = (torch.nn.functional.pad(x, (0, pad))
+                               for x in (q, k_cache, v_cache))
+    b, kvh = q.shape[:2]
+    if b <= MAX_GRID and kvh <= MAX_GRID:
+        out = launch(q, k_cache, k_scales, v_cache, v_scales, pos, scale)
+    else:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        for b0 in range(0, b, MAX_GRID):
+            rows = slice(b0, b0 + MAX_GRID)
+            p = pos[rows] if isinstance(pos, torch.Tensor) else pos
+            for h0 in range(0, kvh, MAX_GRID):
+                part = (rows, slice(h0, h0 + MAX_GRID))
+                out[part] = launch(
+                    q[part].contiguous(), k_cache[part],
+                    None if k_scales is None else k_scales[part],
+                    v_cache[part], None if v_scales is None else v_scales[part],
+                    p, scale)
+    return out[..., :hd].contiguous() if pad else out
+
+
 def _decode_launch(q, k_cache, k_scales, v_cache, v_scales, pos_t, pos0,
-                   quant: int, strides) -> torch.Tensor:
+                   quant: int, strides, scale: float) -> torch.Tensor:
     """One K11 launch on q [B, KVH, G, HD] (G an instance of _GROUPS)."""
     b, kvh, g, hd = q.shape
     s = k_cache.shape[2]
@@ -309,7 +354,7 @@ def _decode_launch(q, k_cache, k_scales, v_cache, v_scales, pos_t, pos0,
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None,
             None if pos_t is None else pos_t.data_ptr(), pos0, out.data_ptr(),
-            b, kvh, g, hd, s, *strides, quant, hd_scale(hd), plan.cluster,
+            b, kvh, g, hd, s, *strides, quant, scale, plan.cluster,
             plan.span, int(plan.cached), plan.smem, _cuda.stream_of(q)),
             "decode_attention")
     decode_attention.launches += 1
@@ -318,16 +363,24 @@ def _decode_launch(q, k_cache, k_scales, v_cache, v_scales, pos_t, pos0,
 
 def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
                  ) -> torch.Tensor:
+    return _on_the_card("decode_attention", q, k_cache, k_scales, v_cache,
+                        v_scales, pos, _decode_launches)
+
+
+def _decode_launches(q, k_cache, k_scales, v_cache, v_scales, pos: Pos,
+                     scale: float) -> torch.Tensor:
+    """K11 on q [B, KVH, G, HD] (hd % 8 == 0, B and KVH in one grid): the
+    launches of `group_pieces`."""
     b, kvh, g, hd = q.shape
-    _common_checks("decode_attention", q, g, hd)
     quant, strides = _cache_args("decode_attention", q, k_cache, k_scales,
                                  v_cache, v_scales)
     if any(st * k_cache.element_size() % 16 for st in k_cache.stride()[:2]):
         raise ValueError("decode_attention kernel needs 16-byte aligned cache "
                          "rows")
     pos_t, pos0 = _pos_args(pos, b, q.device)
-    args = (k_cache, k_scales, v_cache, v_scales, pos_t, pos0, quant, strides)
-    pieces = group_pieces(g)
+    args = (k_cache, k_scales, v_cache, v_scales, pos_t, pos0, quant, strides,
+            scale)
+    pieces = group_pieces(g, hd)
     if len(pieces) == 1 and pieces[0][2] == g:
         return _decode_launch(q, *args)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -341,8 +394,23 @@ def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
 
 def _chunk_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
                 ) -> torch.Tensor:
+    return _on_the_card("chunk_attention", q, k_cache, k_scales, v_cache,
+                        v_scales, pos, _chunk_launch)
+
+
+def _chunk_launch(q, k_cache, k_scales, v_cache, v_scales, pos: Pos,
+                  scale: float) -> torch.Tensor:
+    """K10 on q [B, KVH, G, C, HD] (hd % 8 == 0, B and KVH in one grid);
+    past K10_MAX_HD, K11 once a query row c at position pos + c (its mask,
+    key_pos <= pos + c, is the chunk's)."""
     b, kvh, g, c, hd = q.shape
-    _common_checks("chunk_attention", q, g, hd)
+    if padded_head_dim(hd) > K10_MAX_HD:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        for ci in range(c):
+            out[:, :, :, ci] = _decode_launches(
+                q[:, :, :, ci].contiguous(), k_cache, k_scales, v_cache,
+                v_scales, pos + ci, scale)
+        return out
     if not 1 <= g * c < 2 ** 31 // hd:
         raise ValueError(f"chunk_attention kernel: G * C = {g * c} rows")
     quant, strides = _cache_args("chunk_attention", q, k_cache, k_scales,
@@ -361,7 +429,7 @@ def _chunk_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None,
             None if pos_t is None else pos_t.data_ptr(), pos0, out.data_ptr(),
-            b, kvh, g, c, hd, s, *strides, quant, hd_scale(hd), warps, smem,
+            b, kvh, g, c, hd, s, *strides, quant, scale, warps, smem,
             _cuda.stream_of(q)), "chunk_attention")
     chunk_attention.launches += 1
     return out

@@ -26,7 +26,8 @@ import torch
 from mmrs_tpu_torch.ops import _cuda, topk
 from mmrs_tpu_torch.ops.int8 import int_mm, quantize_act
 
-MAX_DIM = 2048   # staged query codes must fit the scan block's shared memory
+MAX_DIM = 2048   # the IVF probes' and K5's staged query codes (K4: any D
+                 # whose codes fit, topk.span_stages)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,9 +62,10 @@ def _check_kernel_inputs(q_q, q_scale, gallery_q, scales, k: int) -> None:
         raise ValueError(f"cosine_topk_quantized: queries [{q}, {d}], "
                          f"gallery [{n}, {dg}], scales {tuple(q_scale.shape)}"
                          f" and {tuple(scales.shape)} do not match")
-    if d % 16 or d > MAX_DIM:
+    if d % topk.ROW_ALIGN["int8"] or not topk.span_stages("int8", d):
         raise ValueError(f"cosine_topk_quantized kernel needs D % 16 == 0 "
-                         f"and D <= {MAX_DIM}, got D={d}")
+                         f"(a ragged D is padded first) and the 8 staged "
+                         f"query rows in shared memory, got D={d}")
     topk.check_scan_shapes("cosine_topk_quantized", q, n, k)
     if q_q.data_ptr() % 16 or gallery_q.data_ptr() % 16:
         raise ValueError("cosine_topk_quantized kernel needs 16-byte "
@@ -74,7 +76,12 @@ def _topk_quant_cuda(q_q, q_scale, gallery_q, scales, k: int,
                      rows: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel path; `rows` (tests only) forces the span that
-    `topk.span_rows` would pick."""
+    `topk.span_rows` would pick. A D off a multiple of 16 is padded with
+    zero codes (a copy of the gallery: the engine pads once when it
+    quantizes); zero codes leave every score and scale as they were."""
+    if q_q.dim() == 2 and gallery_q.dim() == 2:
+        q_q = topk.pad_columns(q_q, topk.ROW_ALIGN["int8"])
+        gallery_q = topk.pad_columns(gallery_q, topk.ROW_ALIGN["int8"])
     _check_kernel_inputs(q_q, q_scale, gallery_q, scales, k)
     (q, d), n = q_q.shape, gallery_q.shape[0]
     rows = rows or topk.span_rows(n, k)

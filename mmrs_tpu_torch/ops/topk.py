@@ -29,7 +29,7 @@ import torch
 from mmrs_tpu_torch.ops import _cuda
 
 NEG_INF = float("-inf")
-MAX_DIM = 2048        # staged queries must fit the scan block's shared memory
+ROW_ALIGN = {"bf16": 8, "int8": 16}   # K1 / K4 row values a 16-byte multiple
 CHUNK_ROWS = 256      # csrc/topk_common.cuh kChunk; checked at first load
 SORT_MAX = 8192       # csrc/topk_common.cuh kMaxSort; checked at first load
 SELECT_MAX = 32       # csrc/topk_common.cuh kSelectMax; checked at first load
@@ -74,6 +74,47 @@ class MergePass(NamedTuple):
     per: int
     width: int
     out: int
+
+
+# csrc/span_scan.cuh's shared memory: a ring stage of 256 128-byte row
+# slices (+ 256 f32 row scales for int8 / int4), the staged query planes of
+# 8 rows, a chunk's scores and the select buffers
+_SCAN_STAGE = CHUNK_ROWS * 128
+_SCAN_ONE = 232448 - 1024      # kScanSmemLimit: one block an SM
+_SCAN_PAIR = 112 * 1024        # kScanSmemPair: two blocks an SM
+_SCAN_FIXED = 8 * (CHUNK_ROWS + 2 * 384) * 4
+
+
+def span_smem(kind: str, d: int, stages: int) -> int:
+    """Dynamic shared memory of a span-scan block (csrc: scan_smem) for
+    row kind "bf16", "int8" or "int4" at dim d."""
+    row_bytes = {"bf16": 2 * d, "int8": d, "int4": d // 2}[kind]
+    ksteps = -(-d // 16) if kind == "bf16" else -(-row_bytes // 32)
+    planes = 2 if kind == "int4" else 1
+    scales = 0 if kind == "bf16" else CHUNK_ROWS * 4
+    return (stages * (_SCAN_STAGE + scales) + planes * 8 * (32 * ksteps + 16)
+            + _SCAN_FIXED)
+
+
+def span_stages(kind: str, d: int) -> int:
+    """The ring depth of a span scan at dim d (csrc: scan_stages): 2 where
+    two blocks fit an SM, else 5, else 3 (the query planes of a wide row
+    take the room: bf16 past D = 2,160, int8 past 3,680); 0 where even 3
+    stages do not fit (bf16 past D = 6,256, int8 past 12,128)."""
+    if span_smem(kind, d, 2) <= _SCAN_PAIR:
+        return 2
+    return next((st for st in (5, 3) if span_smem(kind, d, st) <= _SCAN_ONE),
+                0)
+
+
+def pad_columns(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """x [..., D] with zero columns appended up to a multiple of
+    `multiple` (x itself when D is one). A zero column adds an exact zero
+    to every dot product, so scores, ids and int8 scales are unchanged;
+    the search engine pads its gallery once when it places it on the
+    card, a direct kernel call with a ragged D pads its inputs."""
+    pad = -x.shape[-1] % multiple
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 def span_rows(n: int, k: int) -> int:
@@ -144,9 +185,10 @@ def _check_kernel_inputs(queries: torch.Tensor, gallery: torch.Tensor, k: int
     (q, d), (n, dg) = queries.shape, gallery.shape
     if d != dg:
         raise ValueError(f"query dim {d} != gallery dim {dg}")
-    if d % 8 or d > MAX_DIM:
-        raise ValueError(f"cosine_topk kernel needs D % 8 == 0 and D <= "
-                         f"{MAX_DIM}, got D={d}")
+    if d % ROW_ALIGN["bf16"] or not span_stages("bf16", d):
+        raise ValueError(f"cosine_topk kernel needs D % 8 == 0 (a ragged D "
+                         f"is padded first) and the 8 staged query rows in "
+                         f"shared memory, got D={d}")
     check_scan_shapes("cosine_topk", q, n, k)
     if queries.data_ptr() % 16 or gallery.data_ptr() % 16:
         raise ValueError("cosine_topk kernel needs 16-byte aligned rows")
@@ -215,7 +257,11 @@ def _cosine_topk_cuda(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                       rows: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel path; `rows` (tests only) forces the span that
-    `span_rows` would pick."""
+    `span_rows` would pick. A D off a multiple of 8 is zero-padded (a copy
+    of the gallery: the engine pads once when it places it)."""
+    if queries.dim() == 2 and gallery.dim() == 2:
+        queries = pad_columns(queries, ROW_ALIGN["bf16"])
+        gallery = pad_columns(gallery, ROW_ALIGN["bf16"])
     _check_kernel_inputs(queries, gallery, k)
     (q, d), n = queries.shape, gallery.shape[0]
     rows = rows or span_rows(n, k)

@@ -1,6 +1,9 @@
 """Glue layer: config -> towers -> encode callables.
 
-Counterpart of mmrs_tpu/pipeline.py for the CLIP pair. Encoders are plain
+Counterpart of mmrs_tpu/pipeline.py for the CLIP pair and the Taiyi pair
+(`text_tower: taiyi_roberta`: a ViT with the Chinese RoBERTa text tower,
+whose text encoder takes a WordPiece tokenizer's ids and attention
+mask). Encoders are plain
 callables `pixels_u8 [B,S,S,3] -> np.ndarray [B,D]`, so index build, search
 and calibration compose as in the JAX package. On a CUDA device the image
 path runs the normalize kernel (Triton) and the towers' attention kernel
@@ -20,9 +23,11 @@ from torch import nn
 
 from mmrs_tpu_torch.config import Config
 from mmrs_tpu_torch.models import clip
-from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
+from mmrs_tpu_torch.models.clip import (CLIP, CLIPConfig, TaiyiCLIP,
+                                        TaiyiCLIPConfig)
 from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
-                                           CLIP_TEXT_TINY, IMAGE_TOWERS)
+                                           CLIP_TEXT_TINY, IMAGE_TOWERS,
+                                           TAIYI_ROBERTA_LARGE, TAIYI_TINY)
 from mmrs_tpu_torch.models.quantize import quantize_clip_visual
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 
@@ -66,28 +71,44 @@ def default_device() -> torch.device:
 
 
 def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
-    """Construct the configured CLIP pair on `device` (default:
-    `default_device()`). Weights come from cfg.model.checkpoint_path (an npz
-    written by mmrs_tpu's checkpoint.save_npz); without one the towers are
-    random-initialized from cfg.seed (bring-up mode)."""
+    """Construct the configured tower pair on `device` (default:
+    `default_device()`): CLIP, or with `text_tower: taiyi_roberta` the
+    Taiyi pair. Weights come from cfg.model.checkpoint_path (an npz written
+    by either package's checkpoint.save_npz: the tree of `mmrs-torch
+    weights convert`, or for Taiyi {"visual", "text", "logit_scale"});
+    without one the towers are random-initialized from cfg.seed (bring-up
+    mode)."""
     from mmrs_tpu_torch.models import convert_jax
 
-    if cfg.model.text_tower == "taiyi_roberta":
-        raise NotImplementedError(
-            "the Taiyi RoBERTa text tower is ported with ROADMAP A.5")
     if cfg.model.dtype not in _DTYPES:
         raise ValueError(f"unknown model dtype {cfg.model.dtype!r}")
     compute_dtype = _DTYPES[cfg.model.dtype]
     device = torch.device(device) if device is not None else default_device()
 
     vision = IMAGE_TOWERS[cfg.model.image_tower]
-    text = {"vit_b32": CLIP_TEXT_B32, "vit_l14": CLIP_TEXT_L14,
-            "vit_tiny": CLIP_TEXT_TINY}[cfg.model.image_tower]
-    ccfg = CLIPConfig(vision=vision, text=text)
+    if cfg.model.text_tower == "taiyi_roberta":
+        # the text head's projection must match the image embed dim; the
+        # tiny pair exists for CI/smoke runs
+        taiyi = (TAIYI_TINY if cfg.model.image_tower == "vit_tiny"
+                 else TAIYI_ROBERTA_LARGE)
+        if taiyi.num_labels != vision.embed_dim:
+            raise ValueError(
+                f"text tower 'taiyi_roberta' projects to "
+                f"{taiyi.num_labels}-d but image tower "
+                f"{cfg.model.image_tower!r} embeds {vision.embed_dim}-d; "
+                f"pair Taiyi with vit_l14 (the reference's pairing) or "
+                f"vit_tiny")
+        ccfg = TaiyiCLIPConfig(vision=vision, text=taiyi)
+        make = TaiyiCLIP
+    else:
+        text = {"vit_b32": CLIP_TEXT_B32, "vit_l14": CLIP_TEXT_L14,
+                "vit_tiny": CLIP_TEXT_TINY}[cfg.model.image_tower]
+        ccfg = CLIPConfig(vision=vision, text=text)
+        make = CLIP
     if cfg.model.checkpoint_path:
         model = convert_jax.load_npz(cfg.model.checkpoint_path, ccfg)
     else:
-        model = CLIP(ccfg, generator=torch.Generator().manual_seed(cfg.seed))
+        model = make(ccfg, generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(device).eval().requires_grad_(False)
     if cfg.model.dtype == "int8":     # from the f32 weights, before the cast
         quantize_clip_visual(model)
@@ -113,7 +134,13 @@ def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
         return encode_fn(_upload(pixels_u8), normalize=False).cpu().numpy()
 
     text_encode = None
-    if tokenizer is not None:
+    if tokenizer is not None and isinstance(ccfg, TaiyiCLIPConfig):
+        def text_encode(texts):
+            ids, mask = (torch.from_numpy(np.asarray(x)).to(device)
+                         for x in tokenizer(texts))
+            return clip.taiyi_encode_text(model, ids, mask,
+                                          compute_dtype).cpu().numpy()
+    elif tokenizer is not None:
         def text_encode(texts):
             ids = torch.from_numpy(tokenizer(texts)).to(device)
             return clip.encode_text(model, ids, compute_dtype).cpu().numpy()

@@ -2,8 +2,10 @@
 
 Counterpart of mmrs_tpu/search/calibrate.py (`find_thresholds`,
 code/search_image.py:58-103: a 200-point linspace between the min and max
-observed similarity; the fixed 0..1 raw-cosine grid of CLIP/lab3.py:39-65
-as `grid_thresholds` mode "arange"). The sweep is one broadcast comparison
+observed similarity; `find_thresholds_overlap`, code/main_custom.py:47-50;
+`evaluate_thresholds`, the fixed 0..1 raw-cosine grid of CLIP/lab3.py:39-65,
+also `grid_thresholds` mode "arange"; `plot_f1_curve`, the F1 curve
+image). The sweep is one broadcast comparison
 per chunk: sims [N] x thresholds [T] -> boolean [T, chunk] -> per-threshold
 TP/FP/FN counts. Divide-by-zero is guarded (SURVEY.md §4).
 """
@@ -121,12 +123,74 @@ def find_thresholds(
     """The `find_thresholds` contract (code/search_image.py:58-103):
     positive-set and negative-set similarities in, 200-point linspace over
     the pooled range, best-F1 threshold out."""
+    _, _, sims, positives = _pooled(pos_sims, neg_sims)
+    lo, hi = float(sims.min()), float(sims.max())
+    thresholds = np.linspace(lo, hi, num_points, dtype=np.float32)
+    return sweep(sims, positives, thresholds)
+
+
+def _pooled(pos_sims, neg_sims):
     pos_sims = np.asarray(pos_sims, dtype=np.float32)
     neg_sims = np.asarray(neg_sims, dtype=np.float32)
     sims = np.concatenate([pos_sims, neg_sims])
     positives = np.concatenate(
-        [np.ones(len(pos_sims), bool), np.zeros(len(neg_sims), bool)]
+        [np.ones(len(pos_sims), bool), np.zeros(len(neg_sims), bool)])
+    return pos_sims, neg_sims, sims, positives
+
+
+def find_thresholds_overlap(
+    pos_sims: np.ndarray,
+    neg_sims: np.ndarray,
+    points_per_unit: float = 10.0,
+) -> SweepResult:
+    """The main_custom.py variant (code/main_custom.py:47-50): thresholds
+    span only the OVERLAP region [max(min_pos, min_neg), min(max_pos,
+    max_neg)] with a density-scaled point count of int(range * 10) —
+    meant for logit-scaled (0..100) similarities."""
+    pos_sims, neg_sims, sims, positives = _pooled(pos_sims, neg_sims)
+    lo = max(float(pos_sims.min()), float(neg_sims.min()))
+    hi = min(float(pos_sims.max()), float(neg_sims.max()))
+    num = max(int((hi - lo) * points_per_unit), 2)
+    thresholds = np.linspace(lo, hi, num, dtype=np.float32)
+    return sweep(sims, positives, thresholds)
+
+
+def plot_f1_curve(result: SweepResult, target_class: str,
+                  out_path: str) -> str:
+    """The reference's F1-vs-threshold curve artifact
+    (code/search_image.py:87-100, result_{class}_all.jpg). matplotlib is
+    imported here, on call: nothing else in the package needs it."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=(9, 9))
+    plt.plot(result.thresholds, result.f1)
+    plt.scatter(x=result.best_threshold, y=result.best_f1)
+    plt.annotate(
+        f"threshold:{result.best_threshold:.5f}/f1:{result.best_f1:.5f}",
+        xy=(result.best_threshold, result.best_f1),
     )
-    lo, hi = float(sims.min()), float(sims.max())
-    thresholds = np.linspace(lo, hi, num_points, dtype=np.float32)
+    plt.xlabel("threshold")
+    plt.ylabel("f1_score")
+    plt.title(
+        f"{target_class}_precision:{result.best_precision:.4f}"
+        f"_recall:{result.best_recall:.4f}"
+    )
+    plt.savefig(out_path)
+    plt.close()
+    return out_path
+
+
+def evaluate_thresholds(
+    pos_sims: np.ndarray,
+    neg_sims: np.ndarray,
+    stop: float = 1.001,
+    step: float = 0.001,
+) -> SweepResult:
+    """The `evaluate_thresholds` contract (CLIP/lab3.py:39-65): fixed
+    arange(0, 1.001, 0.001) raw-cosine grid."""
+    _, _, sims, positives = _pooled(pos_sims, neg_sims)
+    thresholds = np.arange(0.0, stop, step, dtype=np.float32)
     return sweep(sims, positives, thresholds)

@@ -28,6 +28,7 @@ from mmrs_tpu_torch.ops.quant import (cosine_topk_quantized, quantize_rows,
                                       scores_q8)
 from mmrs_tpu_torch.ops.quant4 import (cosine_topk_int4, quantize_rows_int4,
                                        similarities_int4)
+from mmrs_tpu_torch.ops import topk
 from mmrs_tpu_torch.ops.topk import cosine_topk
 from mmrs_tpu_torch.pipeline import default_device
 from mmrs_tpu_torch.search.prototypes import build_prototype
@@ -47,38 +48,53 @@ class SearchHit:
     cls: str
 
 
+def _row_align(mode: str, device: torch.device) -> int:
+    """The gallery row width the card's flat scan takes: K1 rows a
+    multiple of 8 values, K4 codes of 16 (ops/topk.ROW_ALIGN); the CPU and
+    K5 (whose packing needs D % 8, as the JAX package's) take D as it is."""
+    if device.type != "cuda" or mode == "int4":
+        return 1
+    return topk.ROW_ALIGN["int8" if mode else "bf16"]
+
+
 def _to_device_chunked(embeddings, dtype: torch.dtype, device: torch.device,
-                       chunk: int = UPLOAD_CHUNK) -> torch.Tensor:
+                       chunk: int = UPLOAD_CHUNK, align: int = 1
+                       ) -> torch.Tensor:
     """Upload a (possibly memmapped) [N, D] host array chunk by chunk, cast
     to `dtype` and L2-normalize each chunk on the device (normalization is
-    per row, so this equals normalizing the whole `dtype` gallery)."""
+    per row, so this equals normalizing the whole `dtype` gallery). Rows
+    are zero-padded to a multiple of `align` values, once, here."""
     n, d = embeddings.shape
-    out = torch.empty((n, d), dtype=dtype, device=device)
+    out = torch.zeros((n, d + -d % align), dtype=dtype, device=device)
     for a in range(0, n, chunk):
         rows = torch.from_numpy(np.array(embeddings[a:a + chunk]))
-        out[a:a + chunk] = l2_normalize(rows.to(device).to(dtype))
+        out[a:a + chunk, :d] = l2_normalize(rows.to(device).to(dtype))
     return out
 
 
 def _quantize_gallery_chunked(embeddings, mode: str, device: torch.device,
-                              chunk: int = UPLOAD_CHUNK):
+                              chunk: int = UPLOAD_CHUNK, align: int = 1):
     """Upload, L2-normalize and quantize chunk by chunk, so the peak device
     memory while the engine is built is the packed gallery plus one chunk
     (the full bf16 gallery is never resident). Each chunk takes the JAX
     package's chain: rows cast to bf16, L2-normalized in bf16, then
-    quantized from f32, so codes and scales are bit-identical to it."""
+    quantized from f32, so codes and scales are bit-identical to it. int8
+    codes are zero-padded to a multiple of `align`, once, here (a zero
+    code changes no score and no scale)."""
     n, d = embeddings.shape
     if mode == "int4":
         gal = torch.empty((n, d // 2), dtype=torch.uint8, device=device)
         quantize = quantize_rows_int4
     else:
-        gal = torch.empty((n, d), dtype=torch.int8, device=device)
+        gal = torch.zeros((n, d + -d % align), dtype=torch.int8,
+                          device=device)
         quantize = quantize_rows
     scales = torch.empty((n,), dtype=torch.float32, device=device)
     for a in range(0, n, chunk):
         rows = torch.from_numpy(np.array(embeddings[a:a + chunk]))
         rows = l2_normalize(rows.to(device).to(torch.bfloat16))
-        gal[a:a + chunk], scales[a:a + chunk] = quantize(rows)
+        codes, scales[a:a + chunk] = quantize(rows)
+        gal[a:a + chunk, :codes.shape[1]] = codes
     return gal, scales
 
 
@@ -121,10 +137,19 @@ class SearchEngine:
             raise ValueError(f"unknown ann mode {self.config.ann!r}")
         elif quantize:
             self.gallery, self.gallery_scales = _quantize_gallery_chunked(
-                index.embeddings, quantize, self.device)
+                index.embeddings, quantize, self.device,
+                align=_row_align(quantize, self.device))
         else:
-            self.gallery = _to_device_chunked(index.embeddings,
-                                              torch.bfloat16, self.device)
+            self.gallery = _to_device_chunked(
+                index.embeddings, torch.bfloat16, self.device,
+                align=_row_align("", self.device))
+
+    def _fit(self, q: torch.Tensor) -> torch.Tensor:
+        """Queries [Q, D] zero-padded to the placed gallery's row width."""
+        pad = self.gallery.shape[1] - q.shape[1]
+        if self.quantized == "int4" or pad <= 0:
+            return q
+        return torch.nn.functional.pad(q, (0, pad))
 
     def _init_ivf(self) -> None:
         """The IVF gallery: the flat gallery is never on the device. The
@@ -229,10 +254,10 @@ class SearchEngine:
                 vals, idxs = cosine_topk_int4(q, self.gallery,
                                               self.gallery_scales, k)
             elif self.quantized:
-                vals, idxs = cosine_topk_quantized(q, self.gallery,
+                vals, idxs = cosine_topk_quantized(self._fit(q), self.gallery,
                                                    self.gallery_scales, k)
             else:
-                vals, idxs = cosine_topk(q.to(self.gallery.dtype),
+                vals, idxs = cosine_topk(self._fit(q).to(self.gallery.dtype),
                                          self.gallery, k)
             vals = vals.cpu().numpy()
             idxs = idxs.cpu().numpy()
@@ -284,7 +309,7 @@ class SearchEngine:
             raise RuntimeError(
                 "device_similarities needs the flat gallery; calibrate "
                 "with ann='none' (calibration is an offline build step)")
-        q = l2_normalize(_as_tensor(vectors, self.device))
+        q = self._fit(l2_normalize(_as_tensor(vectors, self.device)))
         if self.quantized == "int8":
             q_q, q_scale = quantize_rows(q)
         elif not self.quantized:

@@ -111,8 +111,9 @@ def test_cosine_topk_kernel_rejects_what_it_cannot_run(dev):
         cosine_topk(gal[:1], gal, 0)
     with pytest.raises(ValueError, match="bf16"):
         cosine_topk(gal[:1].float(), gal.float(), 5)
-    with pytest.raises(ValueError, match="D % 8"):
-        cosine_topk(gal[:1, :60].contiguous(), gal[:, :60].contiguous(), 5)
+    wide = _unit_rows(20, 6264, dev, seed=1)    # query rows past the block
+    with pytest.raises(ValueError, match="shared memory"):
+        cosine_topk(wide[:1], wide, 5)
 
 
 @pytest.mark.parametrize("b,t,w,heads,dtype,tol", [
@@ -122,6 +123,10 @@ def test_cosine_topk_kernel_rejects_what_it_cannot_run(dev):
     (2, 7, 96, 3, torch.float32, 1e-5),         # odd T and heads
     (2, 65, 128, 2, torch.float32, 1e-5),       # T just over one tile
     (1, 257, 1024, 16, torch.float32, 1e-5),
+    (8, 577, 1024, 16, torch.float32, 1e-5),    # 336-px L/14 at f32
+    (4, 257, 1024, 16, torch.bfloat16, 2e-2),   # the Taiyi pair's L/14
+    (2, 577, 320, 2, torch.bfloat16, 2e-2),     # hd 160 on CUDA cores
+    (1, 4096, 256, 2, torch.float32, 1e-5),     # a long f32 sequence
     (2, 1, 96, 3, torch.bfloat16, 2e-2),        # hd 32 on tensor cores:
     (2, 16, 96, 3, torch.bfloat16, 2e-2),       # one warp's rows,
     (2, 17, 96, 3, torch.bfloat16, 2e-2),       # one row into the next,
@@ -216,8 +221,10 @@ def test_quantized_topk_kernels_reject_what_they_cannot_run(dev):
         with pytest.raises(ValueError, match="1 <= k"):
             fn(gal[:1], *packed, 0)
     odd = _unit_rows(10, 24, dev, seed=1).float()       # D % 16 != 0
-    with pytest.raises(ValueError, match="D % 16"):
-        cosine_topk_quantized(odd[:1], *quantize_rows(odd), 3)
+    got = cosine_topk_quantized(odd[:1], *quantize_rows(odd), 3)   # padded
+    want = cosine_topk_quantized(odd[:1], *quantize_rows(odd), 3,
+                                 impl="torch")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError, match="D % 16"):
         cosine_topk_int4(odd[:1], *quantize_rows_int4(odd), 3)
 
@@ -716,8 +723,8 @@ def test_first_match_kernel_f32_keeps_f32_precision_near_tau(dev, d):
 
 def test_first_match_kernel_rejects_what_it_cannot_run(dev):
     x = torch.randn((10, 12), device=dev)
-    with pytest.raises(ValueError, match="D % 8"):
-        first_match(x, x, 0.5)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        first_match(x.half(), x.half(), 0.5)
     with pytest.raises(ValueError, match="one dtype"):
         first_match(x[:, :8].contiguous(), x[:, :8].bfloat16(), 0.5)
     cpu = torch.randn((10, 16))
@@ -805,18 +812,18 @@ def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
         decode_attention(q.float(), k[0], ks[0], v[0], vs[0], 3)
     with pytest.raises(ValueError, match="bf16 cache"):
         decode_attention(q, k[0].float(), None, v[0].float(), None, 3)
-    with pytest.raises(ValueError, match="head dims"):   # hd % 8 != 0
-        odd = torch.zeros((2, 2, 64, 76), dtype=torch.bfloat16, device=dev)
-        decode_attention(torch.zeros((2, 2, 1, 76), dtype=torch.bfloat16,
+    with pytest.raises(ValueError, match="head dims"):   # past 512
+        odd = torch.zeros((2, 2, 64, 520), dtype=torch.bfloat16, device=dev)
+        decode_attention(torch.zeros((2, 2, 1, 520), dtype=torch.bfloat16,
                                      device=dev), odd, None, odd, None, 3)
     cpu = [t.cpu() for t in (q, k[0], ks[0], v[0], vs[0])]
     with pytest.raises(ValueError, match="CUDA"):
         _decode_cuda(*cpu, 3)
     with pytest.raises(ValueError, match="CUDA"):
         _chunk_cuda(cpu[0][:, :, :, None], *cpu[1:], 3)
-    with pytest.raises(ValueError, match="head dims"):   # past 256
-        wide = torch.zeros((2, 2, 64, 512), dtype=torch.bfloat16, device=dev)
-        chunk_attention(torch.zeros((2, 2, 1, 3, 512), dtype=torch.bfloat16,
+    with pytest.raises(ValueError, match="head dims"):   # past 512
+        wide = torch.zeros((2, 2, 64, 576), dtype=torch.bfloat16, device=dev)
+        chunk_attention(torch.zeros((2, 2, 1, 3, 576), dtype=torch.bfloat16,
                                     device=dev), wide, None, wide, None, 0)
 
 
@@ -1168,3 +1175,174 @@ def test_span_scans_1m_rows_match_plain(dev, kind):
     rv, ri = _span_scan(kind, qs, gal, 11, impl="torch")
     _assert_scan_close(kind, vals, ids, rv, ri)
     assert ids[:, 0].tolist() == [i * 7 for i in range(8)]
+
+
+# -- shapes the kernels once refused (C.3, C.4, K10 / K11 head dims, grids) ----
+
+def test_mha_kernel_runs_batches_past_one_grid(dev):
+    """B past 65,535 runs as several launches (one call counted)."""
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        g = torch.Generator(device=dev).manual_seed(3)
+        q, k, v = (torch.randn((65_540, 5, 32), device=dev,
+                               generator=g).to(dtype) for _ in range(3))
+        before = mha_short_seq.launches
+        out = mha_short_seq(q, k, v, 2)
+        torch.cuda.synchronize()
+        assert mha_short_seq.launches == before + 1
+        ref = mha_short_seq(q, k, v, 2, impl="torch")
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def _clear_ids(vals, ids, rv, ri, tol):
+    """Values within tol; ids equal where plain's neighbours are > tol
+    apart."""
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals), finite)
+    assert float((vals[finite] - rv[finite]).abs().max()) <= tol
+    gap = torch.full_like(rv, float("inf"))
+    diff = (rv[:, :-1] - rv[:, 1:]).abs()
+    gap[:, :-1] = diff
+    gap[:, 1:] = torch.minimum(gap[:, 1:], diff)
+    clear = finite & (gap > tol)
+    assert torch.equal(ids[clear], ri[clear])
+
+
+@pytest.mark.parametrize("d", [100, 520, 2304, 768])
+def test_flat_scans_any_dim_match_plain(dev, d):
+    """K1 (padded to D % 8) and K4 (codes padded to D % 16) at a D they
+    once refused, and past 2048 (a 3- or 5-stage ring): K1 within 1e-5
+    and ids where separated, K4 ids and values equal."""
+    gal = _unit_rows(5000, d, dev, seed=d)
+    qs = _unit_rows(8, d, dev, seed=d + 1)
+    for k in (10, 100):
+        before = cosine_topk.launches
+        vals, ids = cosine_topk(qs, gal, k)
+        torch.cuda.synchronize()
+        assert cosine_topk.launches == before + 1
+        _clear_ids(vals, ids, *cosine_topk(qs, gal, k, impl="torch"), 1e-5)
+        packed = quantize_rows(gal.float())
+        before = cosine_topk_quantized.launches
+        vals, ids = cosine_topk_quantized(qs.float(), *packed, k)
+        assert cosine_topk_quantized.launches == before + 1
+        rv, ri = cosine_topk_quantized(qs.float(), *packed, k, impl="torch")
+        assert torch.equal(ids, ri) and torch.equal(vals, rv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [100, 520, 2304])
+def test_first_match_kernel_any_dim_matches_plain(dev, dtype, d):
+    x, _ = _planted_rows(1500, d, dev, seed=d)
+    got = _k9(x.to(dtype), x.to(dtype), intra=True)
+    assert int((got >= 0).sum()) >= 1500 // 40
+    _k9(x[:700].to(dtype), x[500:].to(dtype))
+
+
+@pytest.mark.parametrize("mode", ["", "int8"])
+@pytest.mark.parametrize("d", [100, 520])
+def test_engine_pads_a_ragged_gallery_once(dev, mode, d):
+    """The engine zero-pads a ragged D once, where it places (or
+    quantizes) the gallery; its hits equal the CPU engine's."""
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+    from mmrs_tpu_torch.search.engine import SearchEngine
+    rng = np.random.default_rng(d)
+    emb = rng.standard_normal((3000, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    idx = GalleryIndex(emb, [f"{i}.jpg" for i in range(3000)],
+                       ["a"] * 3000)
+    card = SearchEngine(idx, quantize=mode, device=dev)
+    cpu = SearchEngine(idx, quantize=mode, device="cpu")
+    assert card.gallery.shape[1] == d + -d % (16 if mode else 8)
+    queries = emb[:8] + 0.1 * rng.standard_normal((8, d)).astype(np.float32)
+    for got, want in zip(card.query_vectors(queries, 10),
+                         cpu.query_vectors(queries, 10)):
+        assert [h.path for h in got][:3] == [h.path for h in want][:3]
+        assert abs(got[0].score - want[0].score) <= 1e-3
+
+
+def _odd_cache(dev, b, kvh, s, hd, quantized, seed):
+    k, ks, v, vs = _kv_cache(dev, 1, b, kvh, s, hd, quantized, seed)
+    return k[0], _layer(ks, 0), v[0], _layer(vs, 0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("hd", [100, 288, 500])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_kv_attention_kernels_ragged_and_wide_heads_match_plain(
+        dev, quantized, hd, g):
+    """hd % 8 != 0 (q and a copy of the cache zero-padded to 8) and hd past
+    256 (K11's 512 instance, G in pieces of 4; K10's rows as K11 calls)."""
+    s = 704
+    cache = _odd_cache(dev, 2, 2, s, hd, quantized, seed=hd + g)
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn((2, 2, g, hd), device=dev, generator=gen).bfloat16()
+    for pos in (s - 1, 100, torch.tensor([s - 1, 37], device=dev)):
+        before = decode_attention.launches
+        out = decode_attention(q, *cache, pos)
+        torch.cuda.synchronize()
+        assert decode_attention.launches > before
+        _attn_close(out, decode_attention(q, *cache, pos, impl="torch"))
+    for c, pos, lim in ((5, s - 5, None), (64, 576, 640)):
+        qc = torch.randn((2, 2, g, c, hd), device=dev,
+                         generator=gen).bfloat16()
+        before = (chunk_attention.launches, decode_attention.launches)
+        out = chunk_attention(qc, *cache, pos, kv_limit=lim)
+        torch.cuda.synchronize()
+        assert (chunk_attention.launches, decode_attention.launches) > before
+        _attn_close(out, chunk_attention(qc, *cache, pos, kv_limit=lim,
+                                         impl="torch"))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("b,kvh", [(65_600, 1), (1, 65_600), (300, 256)])
+def test_kv_attention_kernels_grids_past_65535(dev, quantized, b, kvh):
+    """B or KVH past 65,535 run as launches over views of the cache."""
+    cache = _odd_cache(dev, b, kvh, 8, 64, quantized, seed=7)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((b, kvh, 2, 64), device=dev, generator=gen).bfloat16()
+    pos = torch.randint(0, 8, (b,), device=dev, generator=gen)
+    _attn_close(decode_attention(q, *cache, pos),
+                decode_attention(q, *cache, pos, impl="torch"))
+    qc = torch.randn((b, kvh, 2, 3, 64), device=dev, generator=gen).bfloat16()
+    _attn_close(chunk_attention(qc, *cache, 4),
+                chunk_attention(qc, *cache, 4, impl="torch"))
+
+
+def test_taiyi_pair_on_the_card_matches_its_plain_route(dev):
+    """The bilingual CN pair end to end on the card (`text_tower:
+    taiyi_roberta`, random weights from the seed): image embeddings
+    through K3 and K2 at cosine >= 0.999 to the plain route, the text
+    tower (plain attention, as the JAX package's) within bf16 of the CPU,
+    and K1 over those embeddings = the plain top-k where separated."""
+    from mmrs_tpu_torch.config import Config, ModelConfig
+    from mmrs_tpu_torch.models import clip
+    from mmrs_tpu_torch.pipeline import build_towers
+
+    class Tok:
+        def __call__(self, texts):
+            ids = np.tile(np.arange(2, 14, dtype=np.int64), (len(texts), 1))
+            mask = np.ones_like(ids)
+            mask[0, 6:] = 0
+            return ids, mask
+
+    cfg = Config(model=ModelConfig(image_tower="vit_tiny",
+                                   text_tower="taiyi_roberta"), seed=4)
+    card = build_towers(cfg, tokenizer=Tok(), device=dev)
+    cpu = build_towers(cfg, tokenizer=Tok(), device="cpu")
+    assert isinstance(card.params, clip.TaiyiCLIP)
+    px = torch.randint(0, 256, (16, 224, 224, 3), dtype=torch.uint8,
+                       device=dev, generator=torch.Generator(
+                           device=dev).manual_seed(5))
+    before = (mha_short_seq.launches, normalize_images.launches)
+    emb = card.encode_fn(px)
+    assert mha_short_seq.launches > before[0]
+    assert normalize_images.launches > before[1]
+    ref = clip.encode_image(card.params, normalize_images(px, impl="torch"),
+                            attn_impl="torch")
+    assert float((emb * ref).sum(1).min()) >= 0.999
+    texts = ["一张荔枝的图片", "狗"]
+    np.testing.assert_allclose(card.text_encode(texts), cpu.text_encode(texts),
+                               atol=3e-2)
+    q = torch.from_numpy(card.text_encode(texts)).to(dev)
+    vals, ids = cosine_topk(q.bfloat16(), emb.bfloat16(), 5)
+    _clear_ids(vals, ids, *cosine_topk(q.bfloat16(), emb.bfloat16(), 5,
+                                       impl="torch"), 1e-5)

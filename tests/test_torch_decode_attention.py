@@ -163,12 +163,13 @@ def test_chunk_per_row_positions_stacked(quantized):
 
 
 @pytest.mark.parametrize("quantized", [True, False])
-@pytest.mark.parametrize("hd", [80, 96, 256])
+@pytest.mark.parametrize("hd", [80, 96, 256, 100, 288])
 def test_decode_and_chunk_plain_match_pallas_at_any_head_dim(quantized, hd):
     """Head dims between and past the 64 / 128 instances (LLaMA-family
     80, 96 and 256; the kernels run them on the smallest instance that
-    holds them, zero past hd): K11's and K10's plain versions against the
-    Pallas bodies at that hd."""
+    holds them, zero past hd; 100 and 288 on a copy padded to 8 and on
+    the 512 instance): K11's and K10's plain versions against the Pallas
+    bodies at that hd."""
     rng = np.random.default_rng(hd + quantized)
     b, kvh, g, c, s = 2, 2, 2, 5, 64
     k, ks, v, vs = _cache(rng, (b, kvh, s, hd), quantized)
@@ -185,11 +186,12 @@ def test_decode_and_chunk_plain_match_pallas_at_any_head_dim(quantized, hd):
     _close(t_da.chunk_attention(qc, k, ks, v, vs, 30), want)
 
 
-@pytest.mark.parametrize("hd", [8, 32, 72, 80, 96, 136, 200])
+@pytest.mark.parametrize("hd", [8, 32, 72, 80, 96, 136, 200, 264, 288, 504])
 def test_lane_logits_below_an_instance_equal_the_zero_padded_sum(hd):
     """K11's plain logits at hd < HDP follow the HDP instance's lane tree:
-    bit for bit the sum over q and k zero-padded to HDP, whose HDP / 8
-    lanes pair up as the kernel's shuffles do."""
+    bit for bit the sum over q and k zero-padded to HDP, whose lanes
+    (HDP / 8 of 8 elements; 32 of 16 at 512) pair up as the kernel's
+    shuffles do."""
     rng = np.random.default_rng(hd)
     hdp = t_da.padded_head_dim(hd)
     assert hdp in t_da.HEAD_DIMS and hdp >= hd

@@ -38,11 +38,12 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
         "    importlib.import_module(n)\n"
         "print(len(names))\n"
         "print(sorted(m for m in ('jax', 'jaxlib', 'mmrs_tpu', 'yaml',\n"
-        "    'regex', 'PIL', 'ml_dtypes', 'triton') if m in sys.modules))\n"
+        "    'regex', 'PIL', 'ml_dtypes', 'triton', 'matplotlib',\n"
+        "    'transformers') if m in sys.modules))\n"
         "print(' '.join(names))\n")
     assert r.returncode == 0, r.stderr[-2000:]
     count, loaded, names = r.stdout.strip().splitlines()
-    assert int(count) >= 46
+    assert int(count) >= 54
     assert loaded == "[]"
     for mod in ("index.ivf", "index.stream", "ops.kmeans",
                 "search.prototypes", "ops.allpairs", "govern.dedup",
@@ -50,8 +51,26 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
                 "govern.manifest", "govern.vqa", "ops.decode_attention",
                 "models.llama", "models.llava", "models.speculative",
                 "models.sentencepiece", "search.metrics", "cascade",
-                "cascade.verifier", "cascade.pipeline"):
+                "cascade.verifier", "cascade.pipeline") + NEW_MODULES:
         assert f"mmrs_tpu_torch.{mod}" in names.split()
+
+
+# the weight conversion, the rest of search / eval and the bilingual path
+NEW_MODULES = ("models.release", "models.convert", "models.bert", "eval",
+               "eval.zeroshot", "eval.sweep", "govern.bilingual",
+               "govern.union_report")
+
+
+@pytest.mark.parametrize("mod", NEW_MODULES)
+def test_each_new_module_imports_no_jax(mod):
+    """Each module alone, in a fresh interpreter: no jax, mmrs_tpu or
+    ml_dtypes (BF16 weights are read as their bits), no matplotlib (the F1
+    plot imports it on call)."""
+    r = _python(f"import sys, mmrs_tpu_torch.{mod}\n"
+                "print(sorted(m for m in ('jax', 'mmrs_tpu', 'ml_dtypes',\n"
+                "    'matplotlib') if m in sys.modules))\n")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
 
 
 def test_chip_smoke_imports_no_jax_and_refuses_without_a_gpu(tmp_path):

@@ -206,8 +206,8 @@ def test_mha_matches_jax_pallas(jax_impl, b, t, w, heads):
 
 @pytest.mark.parametrize("t,hd,dtype,route,rows", [
     (50, 64, torch.bfloat16, "mma", 64), (257, 64, torch.bfloat16, "mma", 96),
-    (577, 64, torch.bfloat16, "mma", 128), (257, 64, torch.float32, "fma", 32),
-    (7, 32, torch.float32, "fma", 7), (1, 32, torch.bfloat16, "mma", 16),
+    (577, 64, torch.bfloat16, "mma", 128), (257, 64, torch.float32, "fma", 64),
+    (7, 32, torch.float32, "fma", 64), (1, 32, torch.bfloat16, "mma", 16),
     (64, 256, torch.bfloat16, "fma", 64)])
 def test_mha_plan_fits_hopper_shared_memory(t, hd, dtype, route, rows):
     plan = attention.mha_plan(t, hd, dtype)
@@ -221,9 +221,56 @@ def test_mha_plan_fits_hopper_shared_memory(t, hd, dtype, route, rows):
         assert attention.mha_plan(100_000, hd, dtype).smem <= most
 
 
-def test_mha_plan_refuses_what_cannot_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        attention.mha_plan(4096, 128, torch.float32)
+@pytest.mark.parametrize("t", [1, 64, 420, 421, 577, 4096, 100_000])
+@pytest.mark.parametrize("hd,dtype", [
+    (64, torch.float32), (128, torch.float32), (256, torch.float32),
+    (160, torch.bfloat16), (512, torch.bfloat16), (1024, torch.float32)])
+def test_mha_plan_stays_under_shared_memory_for_any_t(t, hd, dtype):
+    """The CUDA-core route streams key tiles and 64-dim chunks of the head,
+    so no T and no hd is refused: f32 at T = 577 (the 336-px L/14 at f32)
+    and bf16 heads past 128 fit, in the same 64 x 64 tiles."""
+    plan = attention.mha_plan(t, hd, dtype)
+    assert plan.route == "fma" and plan.smem <= attention.SMEM_LIMIT
+    assert (plan.rows, plan.smem) == (64, 4 * 64 * 68 * 4)
+
+
+def _fma_tiles_model(q, k, v, heads, keys):
+    """The CUDA-core route's arithmetic in plain PyTorch: a running max and
+    sum over key tiles of `keys`, then p = exp(s - m) / l rounded to v's
+    type once and P.V summed tile by tile in f32."""
+    b, t, w = q.shape
+    hd = w // heads
+    split = [x.reshape(b, t, heads, hd).transpose(1, 2).float()
+             for x in (q, k, v)]
+    qf, kf, vf = split
+    m = torch.full((b, heads, t, 1), float("-inf"))
+    ls = torch.zeros((b, heads, t, 1))
+    for k0 in range(0, t, keys):
+        s = qf @ kf[:, :, k0:k0 + keys].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        scale = torch.where(torch.isinf(m), torch.zeros_like(m),
+                            torch.exp(m - m_new))
+        ls = ls * scale + torch.exp(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+    o = torch.zeros_like(qf)
+    for k0 in range(0, t, keys):
+        s = qf @ kf[:, :, k0:k0 + keys].transpose(-1, -2)
+        p = (torch.exp(s - m) / ls).to(v.dtype).float()
+        o = o + p @ vf[:, :, k0:k0 + keys]
+    return o.transpose(1, 2).reshape(b, t, w).to(q.dtype)
+
+
+@pytest.mark.parametrize("t,keys", [(7, 7), (130, 64), (577, 64), (65, 8)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_mha_key_tile_softmax_matches_plain(t, keys, dtype, tol):
+    g = torch.Generator().manual_seed(t)
+    q, k, v = (torch.randn((2, t, 64), generator=g).to(dtype)
+               for _ in range(3))
+    q = q * 32 ** -0.5
+    got = _fma_tiles_model(q, k, v, 2, keys)
+    ref = attention.mha_short_seq(q, k, v, 2, impl="torch")
+    assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
 # -- dispatch -------------------------------------------------------------------

@@ -39,6 +39,18 @@
   mmrs-torch weights convert --source hf_clip|openai_clip|taiyi|hf_llava
                            --arch b32|l14|7b|1b --input PATH --out NPZ
                            [--int8]
+  mmrs-torch serve         --index DIR [--host H] [--port 8080]
+                           [--merges FILE | --vocab FILE]
+                           [--batch-window S] [--max-batch N]
+                           [--concurrent-fetch] [--watch-index SEC]
+                           [--gallery-quant ...] [--ann-* ...]
+                           [--verifier none|stub|llava ...]
+  mmrs-torch search        --server URL (--image PATH... | --text "query")
+                           [-k 10]
+  mmrs-torch adapter train (--root DIR | --features NPZ) [--shots 4]
+                           [--augment-epochs 5] [--epochs 20] [--lr 1e-3]
+                           [--alpha 1] [--beta 1] [--search-hp]
+                           [--merges FILE] [--checkpoint NPZ] [--out NPZ]
 
 The flags and output lines are those of the same `mmrs` subcommands
 (mmrs_tpu/cli/main.py) on one device: the flat gallery, bf16 or
@@ -53,7 +65,11 @@ the bilingual report: an EN CLIP pair and the CN Taiyi pair score one
 folder (`--cn-checkpoint`: the npz of {"visual", "text", "logit_scale"}).
 `weights convert` turns a released state dict (.pt / .bin / .safetensors
 or an HF model directory) into the npz both packages load, without JAX;
-it checks its flags before it reads a byte of weights. The towers,
+it checks its flags before it reads a byte of weights. `serve` puts the
+engine and the towers (and a verifier) behind the JSON API of
+mmrs_tpu_torch/serve.py; `search --server` is its thin HTTP client.
+`adapter train` is the Tip-Adapter(-F) few-shot workflow, from an image
+folder through the towers or from a features npz. The towers,
 the gallery, the embedding dedup and the verifier run on the GPU (the
 kernels build there on first use); MMRS_TORCH_DEVICE=cpu puts them on the
 CPU, and without a GPU nothing else does.
@@ -247,7 +263,50 @@ def cmd_ann_build(args) -> int:
     return 0
 
 
+def _search_via_server(args) -> int:
+    """Thin HTTP client for a running `mmrs-torch serve` (or `mmrs serve`):
+    no towers and no gallery upload per invocation; the queries take the
+    server's micro-batched path like any other client."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    url = args.server.rstrip("/") + "/v1/search"
+    if args.image:
+        blobs = []
+        for p in args.image:
+            with open(p, "rb") as f:
+                blobs.append(base64.b64encode(f.read()).decode())
+        body = {"images_b64": blobs, "k": args.k}
+    elif args.text:
+        body = {"text": args.text, "k": args.k}
+    else:
+        print("need --image or --text", file=sys.stderr)
+        return 2
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = json.loads(resp.read())
+    except urllib.error.URLError as e:
+        print(f"server {args.server} unreachable: {e}", file=sys.stderr)
+        return 2
+    results = out.get("hits", out)
+    for qi, qhits in enumerate(results):
+        for h in qhits:
+            print(f"{qi}\t{h['rank']}\t{h['score']:.4f}\t{h['cls']}\t"
+                  f"{h['path']}")
+    return 0
+
+
 def cmd_search(args) -> int:
+    if args.server:
+        return _search_via_server(args)
+    if not args.index:
+        print("need --index (local engine) or --server URL",
+              file=sys.stderr)
+        return 2
     from mmrs_tpu_torch.index.gallery import GalleryIndex
     from mmrs_tpu_torch.io.images import load_image
     from mmrs_tpu_torch.pipeline import build_towers
@@ -670,6 +729,24 @@ def _add_verifier_flags(parser) -> None:
                         help="verifier mesh; only 1 (one device) is ported")
 
 
+def _one_device(args) -> bool:
+    """False (after the message) when the flags ask for more than one
+    device: --gallery-shards > 1 or a --tp mesh wait for ROADMAP A.12."""
+    shards = getattr(args, "gallery_shards", 1)
+    if shards != 1:
+        print(f"--gallery-shards {shards}: the sharded gallery is ported "
+              f"with ROADMAP A.12; this port serves from one device",
+              file=sys.stderr)
+        return False
+    spec = str(getattr(args, "tp", "1")).lower()
+    if spec not in ("1", "1x1"):
+        print(f"--tp {spec}: tensor-parallel verifier hosting is ported "
+              f"with ROADMAP A.12; this port runs the verifier on one device",
+              file=sys.stderr)
+        return False
+    return True
+
+
 def _make_verifier(args):
     """The cascade verifier from CLI flags: None, a verifier, or the int 2
     (the exit code) on a usage error."""
@@ -684,11 +761,7 @@ def _make_verifier(args):
         print("--verifier llava needs --llava-checkpoint and "
               "--tokenizer-model", file=sys.stderr)
         return 2
-    spec = str(getattr(args, "tp", "1")).lower()
-    if spec not in ("1", "1x1"):
-        print(f"--tp {spec}: tensor-parallel verifier hosting is ported "
-              f"with ROADMAP A.12; this port runs the verifier on one device",
-              file=sys.stderr)
+    if not _one_device(args):
         return 2
     import torch
 
@@ -724,6 +797,116 @@ def _make_verifier(args):
         prefill_chunk=64 if fast else None,
         draft_params=dparams, draft_cfg=dcfg,
         draft_tokens=args.draft_tokens, device=dev)
+
+
+def cmd_serve(args) -> int:
+    """Serve the query engine over HTTP (mmrs_tpu_torch/serve.py)."""
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+    from mmrs_tpu_torch.pipeline import build_towers
+    from mmrs_tpu_torch.serve import SearchService, make_server
+
+    if not _one_device(args):
+        return 2
+    cfg = _load_config(args.config)
+    idx = GalleryIndex.load(args.index)
+    engine = _make_engine(args, cfg, idx)
+    if engine == 2:
+        return 2
+    towers = build_towers(cfg, tokenizer=_make_tokenizer(args, cfg))
+    verifier = _make_verifier(args)
+    if verifier == 2:
+        return 2
+    engine_factory = None
+    if args.watch_index > 0:
+        def engine_factory():
+            e = _make_engine(args, cfg, GalleryIndex.load(args.index))
+            if e == 2:
+                raise RuntimeError("engine rebuild failed")
+            return e
+
+    service = SearchService(engine, towers, verifier=verifier,
+                            verify_batch=args.verify_batch,
+                            logit_scale=cfg.search.logit_scale,
+                            max_batch=args.max_batch,
+                            batch_window=args.batch_window,
+                            serialize_fetch=not args.concurrent_fetch,
+                            engine_factory=engine_factory,
+                            watch_interval=args.watch_index)
+    server = make_server(service, host=args.host, port=args.port)
+    print(f"serving {len(idx)} rows on http://{args.host}:{args.port} "
+          f"(POST /v1/search, POST /v1/verify, GET /healthz)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        service.close()
+    return 0
+
+
+def cmd_adapter_train(args) -> int:
+    """Tip-Adapter-F few-shot training: from an image folder (`--root`:
+    the augment-epoch cache build through the towers, then training) or
+    from precomputed features (`--features`). Prints the JSON line of
+    `mmrs adapter train`."""
+    from mmrs_tpu_torch.adapt import tip_adapter as tip
+
+    if args.root:
+        # end-to-end from an image folder: augment_epoch tower passes build
+        # the cache (code/utils.py:99-132), then Tip-Adapter-F training
+        from mmrs_tpu_torch.adapt.driver import run_few_shot
+        from mmrs_tpu_torch.pipeline import build_towers
+
+        cfg = _load_config(args.config)
+        if args.checkpoint:
+            cfg.model.checkpoint_path = args.checkpoint
+        towers = build_towers(cfg, tokenizer=_make_tokenizer(args, cfg))
+        run = run_few_shot(
+            towers, args.root, shots=args.shots,
+            augment_epoch=args.augment_epochs, lr=args.lr,
+            epochs=args.epochs, alpha=args.alpha, beta=args.beta,
+            run_search_hp=args.search_hp, seed=args.seed)
+        if args.out:
+            np.savez(args.out, adapter_keys=run.result.adapter_keys,
+                     values=run.values, classes=np.asarray(run.classes))
+        print(json.dumps({
+            "classes": run.classes,
+            "zero_shot_f1": run.zero_shot_f1,
+            "tip_f1": run.tip_f1,
+            "best_f1": run.result.best_f1,
+            "best_epoch": run.result.best_epoch,
+            "hp": None if run.result.hp is None else
+            {"beta": run.result.hp.beta, "alpha": run.result.hp.alpha,
+             "f1": run.result.hp.f1},
+        }))
+        return 0
+
+    if not args.features:
+        print("need --features or --root", file=sys.stderr)
+        return 2
+    from mmrs_tpu_torch.pipeline import default_device
+
+    dev = default_device()
+    data = np.load(args.features)
+    keys, values = tip.build_cache(
+        np.asarray(data["aug_features"]), np.asarray(data["train_labels"]),
+        int(data["num_classes"]))
+    res = tip.train_tip_adapter_f(
+        data["train_features"], data["train_labels"],
+        data["test_features"], data["test_labels"],
+        keys, values, data["clip_weights"],
+        num_classes=int(data["num_classes"]),
+        lr=args.lr, epochs=args.epochs, alpha=args.alpha, beta=args.beta,
+        run_search_hp=args.search_hp, device=dev)
+    if args.out:
+        np.savez(args.out, adapter_keys=res.adapter_keys)
+    print(json.dumps({
+        "best_f1": res.best_f1, "best_epoch": res.best_epoch,
+        "hp": None if res.hp is None else
+        {"beta": res.hp.beta, "alpha": res.hp.alpha, "f1": res.hp.f1},
+    }))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -771,7 +954,10 @@ def build_parser() -> argparse.ArgumentParser:
     cp.set_defaults(fn=cmd_index_compact)
 
     s = sub.add_parser("search")
-    s.add_argument("--index", required=True)
+    s.add_argument("--index", help="index dir (omit with --server)")
+    s.add_argument("--server",
+                   help="query a RUNNING `mmrs-torch serve` over HTTP "
+                        "instead of building a local engine")
     s.add_argument("--image", nargs="*")
     s.add_argument("--text")
     s.add_argument("-k", type=int, default=10)
@@ -893,6 +1079,57 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["vit_b32", "vit_l14", "vit_tiny"])
     un.add_argument("--config")
     un.set_defaults(fn=cmd_union)
+
+    sv = sub.add_parser("serve")
+    sv.add_argument("--index", required=True)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8080)
+    sv.add_argument("--merges", help="CLIP BPE merges file (enables text)")
+    sv.add_argument("--vocab", help="WordPiece vocab (Taiyi)")
+    sv.add_argument("--config")
+    sv.add_argument("--batch-window", type=float, default=0.002,
+                    help="micro-batcher linger seconds (coalesces "
+                         "concurrent requests into one device dispatch)")
+    sv.add_argument("--max-batch", type=int, default=64,
+                    help="max items per coalesced device dispatch")
+    sv.add_argument("--concurrent-fetch", action="store_true",
+                    help="allow a search's result fetch while a verify "
+                         "pack is being collected (no host fetch lock)")
+    sv.add_argument("--watch-index", type=float, default=0.0, metavar="SEC",
+                    help="hot-reload: poll the index manifest at most "
+                         "every SEC seconds and swap in a rebuilt engine "
+                         "when `index update`/`compact` changed it (0 = "
+                         "off; the old gallery stays resident during the "
+                         "swap)")
+    sv.add_argument("--gallery-shards", type=int, default=1,
+                    help="shard gallery rows over N devices (N > 1 is "
+                         "ported with ROADMAP A.12)")
+    _add_quant_flags(sv)
+    _add_ann_flags(sv)
+    _add_verifier_flags(sv)
+    sv.set_defaults(fn=cmd_serve)
+
+    ad = sub.add_parser("adapter").add_subparsers(dest="subcmd", required=True)
+    at = ad.add_parser("train")
+    at.add_argument("--features",
+                    help="npz with aug_features/train_*/test_*/clip_weights")
+    at.add_argument("--root",
+                    help="image folder: run the full augment-epoch cache "
+                         "build + training end-to-end")
+    at.add_argument("--shots", type=int, default=4)
+    at.add_argument("--augment-epochs", type=int, default=5)
+    at.add_argument("--seed", type=int, default=0)
+    at.add_argument("--checkpoint", help="converted npz towers checkpoint")
+    at.add_argument("--merges", help="CLIP BPE merges file")
+    at.add_argument("--vocab", help="WordPiece vocab (Taiyi)")
+    at.add_argument("--config")
+    at.add_argument("--out")
+    at.add_argument("--lr", type=float, default=1e-3)
+    at.add_argument("--epochs", type=int, default=20)
+    at.add_argument("--alpha", type=float, default=1.0)
+    at.add_argument("--beta", type=float, default=1.0)
+    at.add_argument("--search-hp", action="store_true")
+    at.set_defaults(fn=cmd_adapter_train)
 
     wt = sub.add_parser("weights").add_subparsers(dest="subcmd", required=True)
     wc = wt.add_parser("convert")

@@ -5,20 +5,75 @@ on-disk (memmapped) gallery are uploaded in their source dtype, cast to
 bf16 on the device and scanned by the fused top-k (ops/topk.py: K1 on a
 GPU); only [Q, k] candidates per chunk are kept, and they are merged on
 the host at the end with a stable sort (equal scores: earlier chunk, then
-lower row first — the flat scan's rule). Device memory is bounded by one
-chunk whatever the gallery size. The exact oracle of `ivf.tune_nprobe`.
-The multi-device branch is ported with ROADMAP A.12.
+lower row first — the flat scan's rule). The exact oracle of
+`ivf.tune_nprobe`.
+
+With `prefetch` > 0 the upload is double-buffered, as the JAX package
+overlaps chunk i + 1's upload with chunk i's scan: a ring of prefetch + 1
+slots, each a pinned host buffer and a device buffer of one chunk. The
+host fills a slot from the memmap, a side stream copies it to the device
+and records an event, and the scan waits for that event on the compute
+stream; an event recorded after the scan marks the slot free, and the host
+waits for it before it refills that slot's buffers. So while the card
+scans chunk i the host reads chunk i + 1 from disk and the side stream
+uploads it. Device memory is bounded by prefetch + 1 chunks (plus one bf16
+cast of the chunk in flight) whatever the gallery size; prefetch 0 is a
+ring of one slot: the host refills it only once the last scan is done, so
+nothing overlaps. On the CPU the slots are plain host
+buffers and every step runs in order. The multi-device branch (`mesh=`)
+is ported with ROADMAP A.12.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mmrs_tpu_torch.ops.topk import NEG_INF, cosine_topk
 from mmrs_tpu_torch.pipeline import default_device
+
+
+class _UploadRing:
+    """`slots` chunk buffers reused in turn; see the module docstring."""
+
+    def __init__(self, slots: int, rows: int, dim: int, dtype: torch.dtype,
+                 device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.host = [torch.empty((rows, dim), dtype=dtype,
+                                 pin_memory=self.cuda) for _ in range(slots)]
+        self.dev = ([torch.empty((rows, dim), dtype=dtype, device=device)
+                     for _ in range(slots)] if self.cuda else self.host)
+        self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
+        self.free: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.turn = 0
+
+    def upload(self, embeddings, a: int, b: int) -> torch.Tensor:
+        """Rows [a, b) of `embeddings` in the next slot's device buffer,
+        ready on the current stream; the slot stays taken until `done`."""
+        s = self.turn % len(self.host)
+        if self.free[s] is not None:    # the last scan reading slot s
+            self.free[s].synchronize()
+        rows = b - a
+        np.copyto(self.host[s].numpy()[:rows], embeddings[a:b])
+        if not self.cuda:
+            return self.host[s][:rows]
+        with torch.cuda.stream(self.copy_stream):
+            self.dev[s][:rows].copy_(self.host[s][:rows], non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self.copy_stream)
+        torch.cuda.current_stream(self.device).wait_event(copied)
+        return self.dev[s][:rows]
+
+    def done(self) -> None:
+        """Everything that reads the current slot has been enqueued."""
+        s = self.turn % len(self.host)
+        if self.cuda:
+            self.free[s] = torch.cuda.Event()
+            self.free[s].record(torch.cuda.current_stream(self.device))
+        self.turn += 1
 
 
 def streaming_topk(
@@ -29,18 +84,26 @@ def streaming_topk(
     device=None,
     dtype: torch.dtype = torch.bfloat16,
     impl: str = "auto",
+    prefetch: int = 2,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (values [Q, k] f32, global row ids [Q, k] int64). When the
-    gallery holds fewer than k rows the surplus places are (-inf, -1)."""
+    gallery holds fewer than k rows the surplus places are (-inf, -1).
+    The answer is the same at every `prefetch`."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "streaming over a mesh is ported with ROADMAP A.12")
     device = torch.device(device) if device is not None else default_device()
-    n = embeddings.shape[0]
+    n, dim = embeddings.shape
     q = torch.from_numpy(np.asarray(queries, np.float32)).to(device).to(dtype)
+    src = torch.from_numpy(np.zeros(0, np.dtype(embeddings.dtype))).dtype
+    ring = _UploadRing(prefetch + 1, min(chunk_rows, n), dim, src, device)
     vals, idxs = [], []
     for a in range(0, n, chunk_rows):
         b = min(a + chunk_rows, n)
-        chunk = torch.from_numpy(np.array(embeddings[a:b]))
-        v, i = cosine_topk(q, chunk.to(device).to(dtype), k=min(k, b - a),
-                           impl=impl)
+        chunk = ring.upload(embeddings, a, b)
+        v, i = cosine_topk(q, chunk.to(dtype), k=min(k, b - a), impl=impl)
+        ring.done()
         vals.append(v)
         idxs.append(i.long() + a)
     merged_v = torch.cat(vals, dim=1).cpu().numpy()

@@ -89,11 +89,19 @@ def int8_weight(w32: torch.Tensor, dim: int):
     return torch.round(w32 / s).to(torch.int8), s.squeeze(dim)
 
 
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on these tensors (a training step)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _mm_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x2d @ w.T as f32 sums of the compute-dtype operands' products (exact
     in f32). cuBLAS returns them directly for bf16 operands (`out_dtype`,
-    CUDA only); elsewhere the operands are widened to f32 first."""
-    if x2d.is_cuda and x2d.dtype != torch.float32:
+    CUDA only, no autograd formula); elsewhere, and in a training step,
+    the operands are widened to f32 first."""
+    if x2d.is_cuda and x2d.dtype != torch.float32 and not _records_grad(
+            x2d, w):
         return torch.mm(x2d, w.T, out_dtype=torch.float32)
     return x2d.float() @ w.float().T
 
@@ -112,6 +120,8 @@ def dense(x: torch.Tensor, layer, compute_dtype: torch.dtype
     y = y.reshape(*x.shape[:-1], -1)
     if layer.bias is None:
         return y.to(compute_dtype)
+    if _records_grad(y, layer.bias):   # `out=` has no autograd formula
+        return (y + layer.bias.float()).to(compute_dtype)
     # one pass: the f32 sum, rounded as it is stored
     return torch.add(y, layer.bias.float(),
                      out=torch.empty_like(y, dtype=compute_dtype))

@@ -185,6 +185,24 @@ def triton_module(name: str):
     return mod
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel's output has no autograd history: its launch writes a fresh
+    tensor through raw pointers. So a kernel refuses (RuntimeError) to run
+    under grad mode on a floating input that requires grad, where it would
+    silently cut the graph and leave those inputs' gradients at zero.
+    Training takes the plain route (`impl="torch"`, `attn_impl="torch"`).
+    None entries (absent scales) are skipped."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                and t.requires_grad):
+            raise RuntimeError(
+                f"{name}: the kernel does not record autograd history, and "
+                f"an input requires grad; run the plain route "
+                f"(impl='torch') to train, or call under torch.no_grad()")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Kernel inputs must all lie on one CUDA device and be contiguous."""
     dev = tensors[0].device

@@ -81,6 +81,7 @@ def mha_plan(t: int, hd: int, dtype: torch.dtype) -> MhaPlan:
 
 def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
               ) -> torch.Tensor:
+    _cuda.refuse_grad("mha_short_seq", q, k, v)
     _cuda.require_cuda("mha_short_seq", q, k, v)
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"mha_short_seq takes q, k, v of one [B, T, W] "

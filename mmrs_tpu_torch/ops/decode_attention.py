@@ -312,6 +312,7 @@ def _on_the_card(name: str, q: torch.Tensor, k_cache, k_scales, v_cache,
     hd_scale stays hd's), and grids past MAX_GRID batch rows or kv heads
     sliced into launches over views. `launch(q, k_cache, k_scales,
     v_cache, v_scales, pos, scale)` runs one launch's worth."""
+    _cuda.refuse_grad(name, q, k_cache, k_scales, v_cache, v_scales)
     hd = q.shape[-1]
     _common_checks(name, q, q.shape[2], hd)
     scale = hd_scale(hd)

@@ -96,6 +96,7 @@ def _library():
 
 
 def _mlp_int8_cuda(x, w1_q, s1, b1, w2_q, s2, b2, act: str) -> torch.Tensor:
+    _cuda.refuse_grad("mlp_int8", x, s1, b1, s2, b2)
     _cuda.require_cuda("mlp_int8", x, w1_q, s1, b1, w2_q, s2, b2)
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"mlp_int8 kernel takes bf16 or f32 x, got {x.dtype}")

@@ -144,6 +144,7 @@ def _entry_point(name, setup, index):
     from mmrs_tpu_torch.index.stream import streaming_topk
     from mmrs_tpu_torch.pipeline import build_towers
     from mmrs_tpu_torch.search.engine import SearchEngine
+    from mmrs_tpu_torch.adapt.tip_adapter import train_tip_adapter_f
 
     root, cfg, _, _ = setup
     rows = np.eye(4, 8, dtype=np.float32)
@@ -159,12 +160,22 @@ def _entry_point(name, setup, index):
         "mmrs-torch search": lambda: t_main([
             "search", "--index", index, "--image",
             os.path.join(root, "red", "red1.jpg"), "--config", cfg]),
+        "train_tip_adapter_f": lambda: train_tip_adapter_f(
+            rows[:2], [0, 1], rows[2:], [0, 1], rows[:2], np.eye(2),
+            rows[:2].T, 2, epochs=1),
+        "mmrs-torch adapter train": lambda: t_main([
+            "adapter", "train", "--root", root, "--config", cfg]),
+        "mmrs-torch serve": lambda: t_main([
+            "serve", "--index", index, "--config", cfg]),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["build_towers", "SearchEngine",
                                   "streaming_topk", "build_ivf",
-                                  "embedding_dedup", "mmrs-torch search"])
+                                  "embedding_dedup", "mmrs-torch search",
+                                  "train_tip_adapter_f",
+                                  "mmrs-torch adapter train",
+                                  "mmrs-torch serve"])
 def test_entry_points_refuse_the_cpu_unless_asked(setup, torch_index,
                                                   monkeypatch, name):
     call = _entry_point(name, setup, torch_index)
@@ -312,3 +323,115 @@ def test_dedup_gallery_shards_waits_for_the_ring(gov_tree, capsys):
         t_main(["dedup", "--mode", "embedding", "--index",
                 str(gov_tree / "emb_index"), "--gallery-shards", "2"])
     assert e.value.code == 2 and "A.12" in capsys.readouterr().err
+
+
+# -- adapter train, serve: the JAX CLI's lines; A.12 refusals -----------------
+
+def test_adapter_train_root_prints_the_jax_json(setup, capsys, tmp_path):
+    root, cfg, merges, _ = setup
+    argv = ["adapter", "train", "--root", root, "--config", cfg,
+            "--merges", merges, "--shots", "2", "--augment-epochs", "2",
+            "--epochs", "3", "--alpha", "30", "--beta", "5", "--search-hp"]
+    want = json.loads(_run(j_main, argv + ["--out", str(tmp_path / "j.npz")],
+                           capsys)[-1])
+    got = json.loads(_run(t_main, argv + ["--out", str(tmp_path / "t.npz")],
+                          capsys)[-1])
+    assert list(got) == list(want)
+    assert got["classes"] == want["classes"] == ["blue", "red"]
+    for key in ("zero_shot_f1", "tip_f1", "best_f1", "best_epoch"):
+        assert got[key] == want[key], key
+    assert got["hp"]["f1"] == want["hp"]["f1"]
+    assert (got["hp"]["beta"], got["hp"]["alpha"]) == \
+        (want["hp"]["beta"], want["hp"]["alpha"])
+    jz, tz = np.load(tmp_path / "j.npz"), np.load(tmp_path / "t.npz")
+    assert sorted(tz.files) == sorted(jz.files)
+    np.testing.assert_allclose(tz["adapter_keys"], jz["adapter_keys"],
+                               atol=1e-5)
+    np.testing.assert_array_equal(tz["classes"], jz["classes"])
+
+
+def test_adapter_train_features_prints_the_jax_json(capsys, tmp_path):
+    rng = np.random.default_rng(3)
+
+    def unit(*shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    feats = tmp_path / "f.npz"
+    np.savez(feats, aug_features=unit(2, 12, 16),
+             train_features=unit(12, 16),
+             train_labels=np.arange(12) % 3, test_features=unit(30, 16),
+             test_labels=np.arange(30) % 3, clip_weights=unit(3, 16).T,
+             num_classes=3)
+    argv = ["adapter", "train", "--features", str(feats), "--epochs", "4",
+            "--search-hp"]
+    want = json.loads(_run(j_main, argv, capsys)[-1])
+    got = json.loads(_run(t_main, argv, capsys)[-1])
+    assert list(got) == list(want) == ["best_f1", "best_epoch", "hp"]
+    assert (got["best_f1"], got["best_epoch"]) == (want["best_f1"],
+                                                   want["best_epoch"])
+    assert got["hp"]["f1"] == pytest.approx(want["hp"]["f1"], abs=1e-6)
+
+
+def test_adapter_train_needs_an_input(capsys):
+    for main in (j_main, t_main):
+        with pytest.raises(SystemExit) as e:
+            main(["adapter", "train"])
+        assert e.value.code == 2
+    assert "need --features or --root" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--tp", "2x4"],
+                                   ["--gallery-shards", "2"]])
+def test_serve_multi_device_waits_for_a12(setup, torch_index, capsys, flags):
+    _, cfg, _, _ = setup
+    with pytest.raises(SystemExit) as e:
+        t_main(["serve", "--index", torch_index, "--config", cfg, *flags])
+    assert e.value.code == 2 and "A.12" in capsys.readouterr().err
+
+
+def test_serve_command_answers_over_http(setup, torch_index):
+    """`mmrs-torch serve` in its own process (MMRS_TORCH_DEVICE=cpu): it
+    answers /healthz and a text search, then stops on SIGTERM."""
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    root, cfg, merges, _ = setup
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mmrs_tpu_torch.cli.main", "serve",
+         "--index", torch_index, "--config", cfg, "--merges", merges,
+         "--port", str(port)], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=repo, MMRS_TORCH_DEVICE="cpu"))
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                assert proc.poll() is None, proc.communicate()[1][-2000:]
+                assert time.time() < deadline, "server never came up"
+                time.sleep(0.2)
+        assert health["rows"] == 6 and health["gallery_quant"] == "bf16"
+        req = urllib.request.Request(
+            base + "/v1/search",
+            data=json.dumps({"text": "red", "k": 3}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            hits = json.loads(r.read())["hits"]
+        assert len(hits) == 1 and len(hits[0]) == 3
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    assert out.startswith(f"serving 6 rows on {base}")

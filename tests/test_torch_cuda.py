@@ -1346,3 +1346,123 @@ def test_taiyi_pair_on_the_card_matches_its_plain_route(dev):
     vals, ids = cosine_topk(q.bfloat16(), emb.bfloat16(), 5)
     _clear_ids(vals, ids, *cosine_topk(q.bfloat16(), emb.bfloat16(), 5,
                                        impl="torch"), 1e-5)
+
+
+# ---- adaptation and serving on the card --------------------------------------
+
+def test_kernels_refuse_inputs_that_require_grad(dev):
+    """K2 (and K6, K10, K11 through the same guard) would return a tensor
+    cut from the graph: under grad they raise; under no_grad they run."""
+    q = torch.randn((2, 50, 768), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        mha_short_seq(q, q, q, 12)
+    with torch.no_grad():
+        out = mha_short_seq(q, q, q, 12)
+    assert out.grad_fn is None and torch.isfinite(out.float()).all()
+    x = torch.randn((4, 64), device=dev, requires_grad=True)
+    w = torch.zeros((256, 64), dtype=torch.int8, device=dev)
+    s = torch.ones(256, device=dev)
+    with pytest.raises(RuntimeError, match="autograd"):
+        mlp_int8_fused(x, w, s, s, w.T.contiguous(), s[:64], s[:64])
+
+
+def test_tip_adapter_f_on_the_card_equals_the_cpu(dev):
+    from mmrs_tpu_torch.adapt import tip_adapter as tip
+
+    rng = np.random.default_rng(0)
+
+    def unit(*shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    protos = unit(8, 512)
+    labels = np.repeat(np.arange(8), 4)
+    aug = unit(5, 32, 512) + protos[labels][None]
+    aug /= np.linalg.norm(aug, axis=-1, keepdims=True)
+    test_y = np.repeat(np.arange(8), 8)
+    test = protos[test_y] + 0.8 * unit(64, 512)
+    test /= np.linalg.norm(test, axis=-1, keepdims=True)
+    cw = unit(8, 512).T
+    keys, values = tip.build_cache(aug, labels, 8)
+    kw = dict(num_classes=8, epochs=20, batch_size=64, alpha=3.0, beta=5.0,
+              search_step=(50, 10))
+    card = tip.train_tip_adapter_f(aug, labels, test, test_y, keys, values,
+                                   cw, device=dev, **kw)
+    cpu = tip.train_tip_adapter_f(aug, labels, test, test_y, keys, values,
+                                  cw, device="cpu", **kw)
+    np.testing.assert_allclose(card.adapter_keys, cpu.adapter_keys,
+                               atol=1e-4)
+    assert card.history == cpu.history
+    np.testing.assert_allclose(card.hp.grid, cpu.hp.grid, atol=1e-6)
+
+
+def test_streaming_prefetch_equals_the_flat_scan(dev, tmp_path):
+    """The upload ring (pinned buffers, a copy stream, events) over
+    several chunks and a ragged tail gives K1's answer over the whole
+    gallery at every prefetch."""
+    from mmrs_tpu_torch.index.stream import streaming_topk
+
+    g = torch.Generator().manual_seed(3)
+    rows = torch.randn((70_000, 512), generator=g)
+    rows = (rows / rows.norm(dim=1, keepdim=True)).half()
+    path = tmp_path / "g.npy"
+    np.save(path, rows.numpy())
+    mm = np.load(path, mmap_mode="r")
+    q = rows[[5, 40_000, 69_999]].float().numpy()
+    fv, fi = cosine_topk(torch.from_numpy(q).to(dev).bfloat16(),
+                         rows.to(dev).bfloat16(), 10)
+    launches = cosine_topk.launches
+    for prefetch in (0, 1, 2):
+        v, i = streaming_topk(mm, q, k=10, chunk_rows=16_384, device=dev,
+                              prefetch=prefetch)
+        assert (i[:, 0] == [5, 40_000, 69_999]).all()
+        _clear_ids(torch.from_numpy(v), torch.from_numpy(i), fv.cpu(),
+                   fi.cpu().long(), 1e-5)
+    assert cosine_topk.launches - launches >= 3 * 5   # 5 chunks each
+
+
+def test_server_answers_over_a_bf16_engine(dev, tmp_path):
+    import base64
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from mmrs_tpu_torch.config import Config, ModelConfig
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+    from mmrs_tpu_torch.pipeline import build_towers
+    from mmrs_tpu_torch.search.engine import SearchEngine
+    from mmrs_tpu_torch.serve import SearchService, make_server
+
+    cfg = Config(model=ModelConfig(image_tower="vit_tiny"), seed=2)
+    towers = build_towers(cfg, device=dev)
+    rng = np.random.default_rng(1)
+    px = rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    emb = towers.image_encode(px)
+    idx = GalleryIndex(emb, [f"p{i}" for i in range(64)], ["c"] * 64)
+    engine = SearchEngine(idx, device=dev)
+    svc = SearchService(engine, towers, batch_window=0.02)
+    srv = make_server(svc, port=0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        buf = io.BytesIO()
+        Image.fromarray(px[7]).save(buf, format="PNG")
+        body = json.dumps({"image_b64": base64.b64encode(
+            buf.getvalue()).decode(), "k": 5}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/v1/search", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            hits = json.loads(r.read())["hits"][0]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+    # the request was a batch of one: the direct query of the same pixels
+    want = engine.query_image(towers.image_encode(px[7:8]), top_k=5)[0]
+    assert [(h["path"], h["score"]) for h in hits] == \
+        [(h.path, h.score) for h in want]

@@ -51,7 +51,8 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
                 "govern.manifest", "govern.vqa", "ops.decode_attention",
                 "models.llama", "models.llava", "models.speculative",
                 "models.sentencepiece", "search.metrics", "cascade",
-                "cascade.verifier", "cascade.pipeline") + NEW_MODULES:
+                "cascade.verifier", "cascade.pipeline") + NEW_MODULES \
+            + ADAPT_SERVE_MODULES:
         assert f"mmrs_tpu_torch.{mod}" in names.split()
 
 
@@ -59,9 +60,13 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
 NEW_MODULES = ("models.release", "models.convert", "models.bert", "eval",
                "eval.zeroshot", "eval.sweep", "govern.bilingual",
                "govern.union_report")
+# adaptation and the serving layer
+ADAPT_SERVE_MODULES = ("adapt", "adapt.tip_adapter", "adapt.driver",
+                       "adapt.contrastive", "serve", "microbatch",
+                       "io.augment", "utils.trials", "utils.profiling")
 
 
-@pytest.mark.parametrize("mod", NEW_MODULES)
+@pytest.mark.parametrize("mod", NEW_MODULES + ADAPT_SERVE_MODULES)
 def test_each_new_module_imports_no_jax(mod):
     """Each module alone, in a fresh interpreter: no jax, mmrs_tpu or
     ml_dtypes (BF16 weights are read as their bits), no matplotlib (the F1

@@ -125,6 +125,28 @@ nonzero exit and no result line:
         shutdown); streaming_topk over a memmapped 1,048,576 x 512 f16
         file in 2^18-row chunks at prefetch 0 and 2 (ids = flat K1's),
         beside a ring's set-up and the host's copy alone;
+     h. the operations layer at ViT-B/32 width and the int4-weight LLaMA
+        at LLaMA-2-7B width (random weights from the seed; budget 90 s):
+        `mmrs-torch lifecycle` in process (the port's seeded B/32 npz,
+        bf16) over a tree of 442 seeded images (4 classes x 96 JPEGs, a
+        PNG, a planted copy, 32 easy and 24 hard negatives) and a held-out tree
+        with 2 leaked copies: every artifact family, both cross-checks,
+        the planted copy and leaks reported, a journal row an image, K2,
+        K3 and K9 launched; the same tree through the plain route
+        (impl="torch": embeddings at cosine >= 0.999, the same sweep grid,
+        gate and union decisions equal where a score is more than 2e-3
+        from the thresholds, dedup / leakage reports and VQA files
+        equal); `parity --rank-gate` over 1,048,576 x 512 at Q=64 (0
+        violations, planted queries exact, K1); `parity --int8-tower
+        vit_b32` (K6 and K2; min cosine within 1e-3 of the plain route's,
+        top-1 agreement equal); `parity --release` over a written OpenAI
+        ViT-B/32 archive with --image (probabilities sum to 1; `ok` false
+        on random weights); `plan` residency held to the 1M engines' (2%)
+        and IVF indexes' (10%) tensors, the plan at 1M, 10M and 100M;
+        quantize_llama_int4 (group 128) on the card, 2 decoder layers +
+        lm_head, greedy 32 tokens at B=8 from a 614-token prompt equal to
+        the dequantized bf16 oracle's (K10, K11), int8 bytes half of
+        quantize_llama's;
   5. launch counts: every kernel of each path ran during its phase 4 run
      (K2, K10, K11 in every 4e run, K6 in the int8 ones); phase 4's answers
      against the plain versions on the same inputs;
@@ -152,7 +174,12 @@ nonzero exit and no result line:
      card alone and eager; phase 4g's adapter command split into cache
      build, test encode, classifier, Tip-F and the HP search, ms per
      contrastive step, serve QPS and p50 / p99 latency at 16 clients per
-     engine, and streaming GB/s at prefetch 0 and 2.
+     engine, and streaming GB/s at prefetch 0 and 2; the planner's four
+     constants fitted from the eager flat and IVF Q=1 top-10 (and K7 alone
+     at Q=1), each rung's predicted Q=1 beside its measurement, the plan
+     at 1M / 10M / 100M rows; phase 4h's seven lifecycle stages (host
+     clock); the int4 LLaMA's decode ms a step beside bf16 and int8 at the
+     same depth, and the int4 unpack's share of device time.
 Then the script's total time (the build included). The line before the
 last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -2142,6 +2169,538 @@ def adapt_serve_phase(dev, root: str, kernels, cli, index):
     return ctx
 
 
+# ---- phase 4h: the operations layer and the int4-weight LLaMA -----------------
+
+OPS_CLASSES = ("lychee", "guitar", "baozi", "shirt")
+OPS_PER_CLASS = 96
+OPS_EZ = 32                   # ez_negative: the VQA easy negatives
+OPS_HARD = 24                 # lychee_negative: lychee's hard negatives
+# random-weight B/32 towers put distinct images at cosines up to ~0.998;
+# the dedup tau sits above them, the planted copy (cosine 1) passes it
+OPS_DEDUP_TAU = 0.9999
+RANK_GATE_QUERIES = 64
+INT4_LAYERS = 2               # LLaMA-2-7B width, 2 decoder layers + lm_head
+INT4_GROUP = 128
+INT4_PROMPT = 614             # the verifier's prompt length (phase 4e)
+INT4_NEW = 32
+INT4_STEPS = 16               # decode steps timed a model
+PLAN_ROWS = (1_000_000, 10_000_000, 100_000_000)
+
+
+def ops_tree(root: str, test_root: str, seed: int) -> dict:
+    """The lifecycle's labeled tree: OPS_CLASSES x OPS_PER_CLASS seeded
+    224-px JPEGs (a class's coarse colour pattern, the image's own and
+    noise), a PNG (for the normalize report), one byte copy of a lychee
+    image (the planted duplicate), the ez_negative and lychee_negative
+    pools; and a held-out tree with byte copies of two training images
+    (the leaks) and one new image. Returns what was planted."""
+    import shutil
+
+    from PIL import Image
+
+    def coarse(*key):
+        cells = np.random.default_rng([seed, *key]).uniform(0, 255,
+                                                            (6, 6, 3))
+        return np.asarray(Image.fromarray(cells.astype(np.uint8)).resize(
+            (224, 224), Image.BICUBIC), np.float32)
+
+    def image(folder: int, i: int):
+        noise = np.random.default_rng([seed, 2, folder, i]).uniform(
+            -16, 16, (224, 224, 3))
+        img = 0.35 * coarse(0, folder) + 0.65 * coarse(1, folder, i) + noise
+        return Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+
+    folders = [(c, OPS_PER_CLASS, k) for k, c in enumerate(OPS_CLASSES)]
+    folders += [("ez_negative", OPS_EZ, 10), ("lychee_negative", OPS_HARD, 0)]
+    for name, n, key in folders:
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        for i in range(n):
+            # the hard negatives share lychee's pattern, not its images
+            image(key, i + (1000 if name == "lychee_negative" else 0)).save(
+                os.path.join(root, name, f"{name}_{i:03d}.jpg"), quality=92)
+    image(1, 2000).save(os.path.join(root, "guitar", "guitar_png.png"))
+    dup = (os.path.join(root, "lychee", "lychee_000.jpg"),
+           os.path.join(root, "lychee", "lychee_dup.jpg"))
+    shutil.copyfile(*dup)
+    os.makedirs(os.path.join(test_root, "lychee"), exist_ok=True)
+    leaks = []
+    for j, src in enumerate(("lychee/lychee_001.jpg", "guitar/guitar_005.jpg")):
+        dst = os.path.join(test_root, "lychee", f"held{j}.jpg")
+        shutil.copyfile(os.path.join(root, src), dst)
+        leaks.append((os.path.join(root, src), dst))
+    image(0, 3000).save(os.path.join(test_root, "lychee", "held2.jpg"),
+                        quality=92)
+    return {"dup": dup, "leaks": leaks}
+
+
+def ivf_geometry(ivf):
+    """(rows, clusters, slots fraction, spill fraction) of an IVF index:
+    the planner's knobs as this index realized them."""
+    n = ivf.n_total
+    spill = int((ivf.spill_ids >= 0).sum())
+    return n, ivf.n_clusters, ivf.n_clusters * ivf.bucket_cap / n, spill / n
+
+
+def planner_fit(flat_q1: dict, ivf_q1: dict, probe_q1_ms: float,
+                ivfs) -> dict:
+    """The planner's four constants as this run measures them (plan.py's
+    docstring gives each one's definition) from the eager flat Q=1 top-10
+    ms of each rung (`flat_q1`), the eager IVF Q=1 top-10 ms at nprobe =
+    IVF_NPROBE (`ivf_q1`) and the bf16 probe alone at Q=1 on the card
+    (`probe_q1_ms`); and every rung's Q=1 prediction from the constants
+    plan.py holds, beside its measurement."""
+    from mmrs_tpu_torch import plan as plan_mod
+
+    scan = GALLERY_ROWS * DIM * 2 / 1e9 / (flat_q1["bf16"] / 1e3)   # GB/s
+    n, c, slots, spill = ivf_geometry(ivfs[""])
+    rb = plan_mod.row_bytes(DIM, "bf16")
+    probed = min(IVF_NPROBE, c) / c * (slots * n + c * 64.0) * rb / 1e9
+    rest = (spill * n * rb + c * DIM * 4.0) / 1e9 / (scan / 1e3)
+    fit = {"EFFECTIVE_SCAN_GBPS": scan,
+           "IVF_GATHER_EFF": probed / (probe_q1_ms / 1e3) / scan,
+           "IVF_OVERHEAD_MS": ivf_q1["bf16"] - probe_q1_ms - rest,
+           "HBM_GB_DEFAULT": torch.cuda.get_device_properties(
+               0).total_memory / 1e9}
+    rungs = {f"flat {q}": (plan_mod.predict_flat_q1_ms(GALLERY_ROWS, DIM, q),
+                           flat_q1[q]) for q in plan_mod.QUANTS}
+    for mode, ivf in ivfs.items():
+        q = IVF_RUNGS[mode]
+        n, c, slots, spill = ivf_geometry(ivf)
+        rungs[f"IVF {q}"] = (plan_mod.predict_ivf_q1_ms(
+            n, DIM, q, c, IVF_NPROBE, slots, spill), ivf_q1[q])
+    return {"fit": fit, "rungs": rungs,
+            "held": {name: getattr(plan_mod, name) for name in fit}}
+
+
+def audit_rows(path: str, key: str) -> dict:
+    """An audit CSV's rows by their `key` column."""
+    with open(path, newline="", encoding="utf-8") as f:
+        return {r[key]: r for r in csv.DictReader(f)}
+
+
+def lifecycle_vs_plain(km: dict, pm: dict, scale: float) -> str:
+    """Phase 4h's comparison of the kernel route's lifecycle (manifest km)
+    with the plain route's (pm) on the same tree; a line for the report."""
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+
+    ki, pi = (GalleryIndex.load(m["index"]["dir"]) for m in (km, pm))
+    check(ki.paths == pi.paths, "4h lifecycle: index rows differ in order")
+    cos = float((np.asarray(ki.embeddings, np.float32)
+                 * np.asarray(pi.embeddings, np.float32)).sum(1).min())
+    check(cos >= 0.999, f"4h lifecycle index embeddings vs plain: {cos}")
+    grids = []
+    for m in (km, pm):
+        with open(m["calibrate"]["sweep_csv"], newline="") as f:
+            grids.append(np.asarray([float(r["threshold"])
+                                     for r in csv.DictReader(f)]))
+    grid_d = float(np.abs(grids[0] - grids[1]).max()) \
+        if len(grids[0]) == len(grids[1]) else float("inf")
+    check(grid_d <= UNION_MARGIN * scale,
+          f"4h lifecycle sweep grids: {len(grids[0])} / {len(grids[1])} "
+          f"thresholds, max|d| {grid_d}")
+    taus = [m["calibrate"]["best_threshold"] for m in (km, pm)]
+    margin = UNION_MARGIN * scale
+
+    def far(*pairs):   # every (score, tau) pair more than margin apart
+        return all(abs(s - t) > margin for s, t in pairs)
+
+    kc, pc = (audit_rows(m["cascade"]["audit_csv"], "path")
+              for m in (km, pm))
+    check(set(kc) == set(pc), "4h lifecycle cascade audits list other files")
+    decided = 0
+    for p, kr in kc.items():
+        ks, ps = float(kr["en_score"]), float(pc[p]["en_score"])
+        if far((ks, taus[0]), (ps, taus[1])):
+            decided += 1
+            check(kr["gate"] == pc[p]["gate"],
+                  f"4h lifecycle gate of {p}: {kr['gate']} vs plain "
+                  f"{pc[p]['gate']} (scores {ks}, {ps}; taus {taus})")
+    ku, pu = (audit_rows(m["union"]["audit_csv"], "basename")
+              for m in (km, pm))
+    for b in set(ku) | set(pu):
+        kr, pr = ku.get(b), pu.get(b)
+        for col, sim in (("en_pass", "en_sim"), ("cn_pass", "cn_sim")):
+            kf = kr is not None and kr[col] == "1"
+            pf = pr is not None and pr[col] == "1"
+            if kf != pf:
+                sims = [float(r[sim]) * scale for r in (kr, pr) if r]
+                check(not far(*[(s, t) for s in sims for t in taus]),
+                      f"4h lifecycle union {col} of {b}: {kf} vs plain {pf} "
+                      f"at scaled sims {sims} (taus {taus})")
+    for what in ("dedup", "leakage"):
+        with open(km[what]["report"]) as a, open(pm[what]["report"]) as b:
+            ka, pa = json.load(a), json.load(b)
+        check(ka == pa, f"4h lifecycle {what} reports differ from plain")
+    import filecmp
+
+    for f in sorted(os.listdir(km["vqa"]["dir"])):
+        check(filecmp.cmp(os.path.join(km["vqa"]["dir"], f),
+                          os.path.join(pm["vqa"]["dir"], f), shallow=False),
+              f"4h lifecycle VQA file {f} differs from plain")
+    return (f"vs the plain route (impl=\"torch\") on the same tree: index "
+            f"embeddings cosine >= {cos:.6f}; sweep grids {len(grids[0])} "
+            f"thresholds, max|d| {grid_d:.4f}; best thresholds {taus[0]:.4f}"
+            f" / {taus[1]:.4f}; gate decisions equal for the {decided} of "
+            f"{len(kc)} images more than {UNION_MARGIN} x {scale:g} from "
+            f"both thresholds, union decisions likewise; dedup and leakage "
+            f"reports and the VQA files equal")
+
+
+def ops_phase(dev, root: str, kernels, cli, big_engine, big_quant, ivfs):
+    """Phase 4h: the operations layer (`mmrs-torch lifecycle`, `parity`,
+    `plan`) and the int4-weight LLaMA at full width from seeded weights,
+    each run with the launch counts reset before it and read after, each
+    against its plain route or oracle. `big_engine` / `big_quant` (4a /
+    4b's 1M flat engines) and `ivfs` (the 1M IVF indexes) are what the
+    planner's residency is held to. Returns what phases 5 and 6 read."""
+    import copy
+    import logging
+
+    from PIL import Image
+
+    from mmrs_tpu_torch import plan as plan_mod
+    from mmrs_tpu_torch.config import load as load_config
+    from mmrs_tpu_torch.eval import parity
+    from mmrs_tpu_torch.lifecycle import run_lifecycle
+    from mmrs_tpu_torch.models import checkpoint, convert_jax, llama
+    from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
+    from mmrs_tpu_torch.models.configs import CLIP_TEXT_B32, VIT_B32
+    from mmrs_tpu_torch.models.layers import QLinear4
+    from mmrs_tpu_torch.models.quantize import (quantize_llama,
+                                                quantize_llama_int4)
+
+    ctx = {"report": [], "launches": {}, "s": {}, "times": {}}
+
+    def reset():
+        for fn in kernels:
+            fn.launches = 0
+
+    def read(run, names):
+        """Keep `run`'s launch counts; each of `names` must have launched."""
+        counts = ctx["launches"][run] = {fn.__name__: fn.launches
+                                         for fn in kernels}
+        for name in names:
+            check(counts[name] > 0, f"4h {run} never launched {name}")
+
+    # -- 1. `mmrs-torch lifecycle` in process, then the plain route ----------
+    t0 = time.perf_counter()
+    tree, held = os.path.join(root, "tree"), os.path.join(root, "held")
+    planted = ops_tree(tree, held, SEED)
+    ccfg = CLIPConfig(vision=VIT_B32, text=CLIP_TEXT_B32)
+    npz = os.path.join(root, "b32.npz")
+    checkpoint.save_npz(convert_jax.clip_tree(
+        CLIP(ccfg, generator=torch.Generator().manual_seed(SEED))), npz)
+    yaml = os.path.join(root, "b32.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"model:\n  image_tower: vit_b32\n  dtype: bfloat16\n"
+                f"  checkpoint_path: {npz}\n")
+    ctx["s"]["setup"] = time.perf_counter() - t0
+    stamps = []
+
+    class Stages(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("lifecycle "):
+                stamps.append(time.perf_counter())
+
+    lc_log = logging.getLogger("mmrs_tpu_torch.lifecycle")
+    handler = Stages()
+    lc_log.addHandler(handler)
+    out = os.path.join(root, "lifecycle")
+    reset()
+    t0 = time.perf_counter()
+    try:
+        code, lines = cli(["lifecycle", "--root", tree, "--out", out,
+                           "--positive-class", "lychee", "--test-root", held,
+                           "--dedup-tau", str(OPS_DEDUP_TAU), "--config",
+                           yaml])
+    finally:
+        lc_log.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    read("lifecycle", ("normalize_images", "mha_short_seq", "first_match"))
+    line = json.loads(lines[-1]) if code == 0 and lines else {}
+    check(code == 0 and line.get("union_en_pass_eq_cascade_gate") is True
+          and line.get("calibration_rows_eq_index_rows") is True,
+          f"4h lifecycle: exit {code}, {lines[-3:]}")
+    check(len(stamps) == 7, f"4h lifecycle logged {len(stamps)} stages")
+    ctx["times"]["lifecycle_s"] = dict(zip(
+        ("normalize", "index", "calibrate", "union", "cascade", "dedup",
+         "vqa"), np.diff([t0] + stamps).tolist()))
+    ctx["times"]["lifecycle_s"]["wall"] = wall
+    with open(os.path.join(out, "lifecycle.json")) as f:
+        km = json.load(f)
+    check(km["cross_checks"] == {"union_en_pass_eq_cascade_gate": True,
+                                 "calibration_rows_eq_index_rows": True},
+          f"4h lifecycle cross-checks {km['cross_checks']}")
+    # every artifact family (tests/test_lifecycle.py's list)
+    paths = [km["normalize"]["report"],
+             os.path.join(km["index"]["dir"], "manifest.json"),
+             km["calibrate"]["sweep_csv"],
+             os.path.join(out, "calibrate", "calibration.json"),
+             km["union"]["audit_csv"], km["cascade"]["journal"],
+             km["cascade"]["audit_csv"], km["dedup"]["report"],
+             km["leakage"]["report"]]
+    paths += [os.path.join(km["vqa"]["dir"], f) for f in (
+        "dataset_pos.json", "dataset_pos_cross.json",
+        "dataset_pos_cross_simple.json",
+        "dataset_pos_cross_simple_hard.json")]
+    missing = [p for p in paths if not p or not os.path.exists(p)]
+    check(not missing, f"4h lifecycle artifacts missing: {missing}")
+    n_images = sum(len(fs) for _, _, fs in os.walk(tree))
+    check(km["index"]["rows"] == n_images and km["cascade"]["images"]
+          == n_images and km["normalize"]["would_convert"] == 1,
+          f"4h lifecycle: {km['index']['rows']} rows, "
+          f"{km['cascade']['images']} cascade images of {n_images}, "
+          f"{km['normalize']['would_convert']} conversions")
+    with open(km["cascade"]["journal"], newline="") as f:
+        journal = sum(1 for _ in csv.DictReader(f))
+    check(journal == n_images, f"4h lifecycle journal {journal} rows")
+    with open(km["dedup"]["report"]) as f:
+        dups = [tuple(p) for p in json.load(f)["duplicates"]]
+    check((planted["dup"][1], planted["dup"][0]) in dups,
+          f"4h lifecycle dedup missed the planted copy: {dups[:4]}")
+    with open(km["leakage"]["report"]) as f:
+        leaked = [tuple(p) for p in json.load(f)["leaked"]]
+    check(all(p in leaked for p in planted["leaks"]),
+          f"4h lifecycle leakage missed a planted leak: {leaked}")
+    with open(km["vqa"]["dir"] + "/dataset_pos_cross_simple_hard.json") as f:
+        recs = json.load(f)
+    check(any("ez_negative" in r["image"] for r in recs)
+          and any("lychee_negative" in r["image"] for r in recs),
+          "4h lifecycle VQA v4 did not draw from the negative pools")
+    t1 = time.perf_counter()
+    pm = run_lifecycle(tree, os.path.join(root, "plain"), "lychee",
+                       cfg=load_config(yaml), test_root=held,
+                       dedup_tau=OPS_DEDUP_TAU, device=dev, impl="torch")
+    ctx["s"]["lifecycle_plain"] = time.perf_counter() - t1
+    vs = lifecycle_vs_plain(km, pm, load_config(yaml).search.logit_scale)
+    ctx["report"].append(
+        f"4h `mmrs-torch lifecycle` (ViT-B/32 bf16, the port's seeded npz) "
+        f"over {n_images} images ({len(OPS_CLASSES)} classes x "
+        f"{OPS_PER_CLASS}, a PNG, a planted copy, {OPS_EZ} ez / {OPS_HARD} "
+        f"hard negatives; a held-out tree of 3 with 2 leaks): "
+        f"{json.dumps(line)}; duplicates {dups}; leaked {len(leaked)}; "
+        f"journal {journal} rows; every artifact family; {wall:.1f} s "
+        f"(plain route {ctx['s']['lifecycle_plain']:.1f} s); launches "
+        + json.dumps({k: v for k, v in ctx["launches"]["lifecycle"].items()
+                      if v}) + f"; {vs}")
+
+    # -- 2. `mmrs-torch parity`: the rank gate, the int8 tower, a release --
+    reset()
+    t0 = time.perf_counter()
+    code, lines = cli(["parity", "--rank-gate", "--rows", str(GALLERY_ROWS),
+                       "--queries", str(RANK_GATE_QUERIES)])
+    ctx["s"]["rank_gate"] = time.perf_counter() - t0
+    read("rank_gate", ("cosine_topk",))
+    rg = json.loads(lines[-1])["rank_gate"] if lines else {}
+    check(code == 0 and rg.get("violations") == 0
+          and rg.get("planted_exact") is True,
+          f"4h parity --rank-gate: exit {code}, {lines[-2:]}")
+    ctx["report"].append(
+        f"4h `mmrs-torch parity --rank-gate --rows {GALLERY_ROWS} --queries "
+        f"{RANK_GATE_QUERIES}`: {json.dumps(rg)}, "
+        f"{ctx['s']['rank_gate']:.1f} s; launches "
+        + json.dumps({k: v for k, v in ctx["launches"]["rank_gate"].items()
+                      if v}))
+
+    reset()
+    t0 = time.perf_counter()
+    code, lines = cli(["parity", "--int8-tower", "vit_b32"])
+    ctx["s"]["int8_tower"] = time.perf_counter() - t0
+    read("int8_tower", ("mha_short_seq", "mlp_int8_fused"))
+    gate = json.loads(lines[-1])["int8_tower"] if lines else {}
+    check(code in (0, 1) and set(gate) == {"tower", "min_cosine_vs_f32",
+                                           "top1_agreement", "ok"},
+          f"4h parity --int8-tower: exit {code}, {lines[-2:]}")
+    model = CLIP(ccfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    plain = parity.int8_geometry_gate(model.requires_grad_(False), ccfg,
+                                      impl="torch")
+    del model
+    check(abs(gate["min_cosine_vs_f32"] - plain["min_cosine_vs_f32"]) <= 1e-3
+          and gate["top1_agreement"] == plain["top1_agreement"],
+          f"4h int8 tower gate {gate} vs plain {plain}")
+    ctx["report"].append(
+        f"4h `mmrs-torch parity --int8-tower vit_b32` (random weights from "
+        f"seed 0; `ok` is the weights' property, not asserted): "
+        f"{json.dumps(gate)}; plain route min cosine "
+        f"{plain['min_cosine_vs_f32']:.6f}, top-1 "
+        f"{plain['top1_agreement']:.4f}; {ctx['s']['int8_tower']:.1f} s; "
+        f"launches " + json.dumps({k: v for k, v in ctx["launches"][
+            "int8_tower"].items() if v}))
+
+    t0 = time.perf_counter()
+    pack = os.path.join(root, "pack")
+    os.makedirs(pack)
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in _rand_state(
+        dev, g, openai_clip_shapes(VIT_B32, CLIP_TEXT_B32)).items()},
+        os.path.join(pack, "ViT-B-32.pt"))
+    with open(os.path.join(pack, "bpe_simple_vocab_16e6.txt"), "w") as f:
+        f.write("#version: 0.2\nd o\nc a\na t\nd i\ndi a\ng r\ngr a\n")
+    image = os.path.join(root, "CLIP.png")
+    Image.fromarray(np.random.default_rng(SEED).integers(
+        0, 256, (224, 300, 3), dtype=np.uint8)).save(image)
+    ctx["s"]["pack"] = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    code, lines = cli(["parity", "--release", pack, "--image", image])
+    ctx["s"]["release"] = time.perf_counter() - t0
+    read("release", ("normalize_images", "mha_short_seq", "mlp_int8_fused"))
+    rel = json.loads(lines[-1])["release"] if lines else {}
+    smoke = rel.get("smoke", {})
+    check(code == 1 and set(rel.get("found_models", {})) == {"openai_clip"}
+          and "clip_bpe" in rel.get("found_tokenizers", {})
+          and len(smoke.get("probs", [])) == 3
+          and abs(sum(smoke["probs"]) - 1.0) < 1e-4
+          and "min_cosine_vs_f32" in rel.get("int8_tower", {}),
+          f"4h parity --release: exit {code}, {lines[-2:]}")
+    import importlib.metadata as md
+
+    try:
+        oracle = f"transformers {md.version('transformers')}"
+    except md.PackageNotFoundError:
+        oracle = "no transformers"
+    bpe = dict(rel.get("clip_bpe_differential") or {})
+    mism = bpe.pop("mismatches", [])
+    ctx["report"].append(
+        f"4h `mmrs-torch parity --release` over a written OpenAI ViT-B/32 "
+        f"archive (seeded f16 state dict) + merges file, --image a seeded "
+        f"PNG: exit {code}; ok {rel['ok']} (random weights against the "
+        f"real goldens: expected false); smoke probs {smoke['probs']} (sum "
+        f"{sum(smoke['probs']):.6f}); int8 tower "
+        f"{json.dumps(rel['int8_tower'])}; bpe differential ({oracle}) "
+        f"{json.dumps(bpe)}, {len(mism)} mismatches"
+        + (f", the first {json.dumps(mism[0])}" if mism else "") + "; pack "
+        f"{ctx['s']['pack']:.1f} s, gate {ctx['s']['release']:.1f} s; "
+        f"launches " + json.dumps({k: v for k, v in ctx["launches"][
+            "release"].items() if v}))
+
+    # -- 3. `mmrs-torch plan`: residency held to the engines' tensors -------
+    t0 = time.perf_counter()
+    flat = {"bf16": big_engine.gallery.nbytes}
+    for mode in ("int8", "int4"):
+        eng = big_quant[mode]
+        flat[mode] = eng.gallery.nbytes + eng.gallery_scales.nbytes
+    res = []
+    for quant, nbytes in flat.items():
+        pred = plan_mod.flat_resident_gb(GALLERY_ROWS, DIM, quant) * 1e9
+        check(abs(pred / nbytes - 1) <= 0.02,
+              f"4h plan flat {quant}: predicted {pred} B, engine {nbytes} B")
+        res.append(f"flat {quant} {pred / 2 ** 20:.1f} / {nbytes / 2 ** 20:.1f}"
+                   f" MiB")
+    for mode, ivf in ivfs.items():
+        quant = IVF_RUNGS[mode]
+        n, c, slots, spill = ivf_geometry(ivf)
+        pred = plan_mod.ivf_resident_gb(n, DIM, quant, c, slots, spill) * 1e9
+        got = ivf.hbm_bytes()
+        check(abs(pred / got - 1) <= 0.10,
+              f"4h plan IVF {quant}: predicted {pred} B, index {got} B")
+        res.append(f"IVF {quant} {pred / 2 ** 20:.1f} / {got / 2 ** 20:.1f} "
+                   f"MiB (C {c}, slots {slots:.3f}, spill {spill:.4f})")
+    plans = {}
+    for rows in PLAN_ROWS:
+        code, lines = cli(["plan", "--rows", str(rows), "--dim", str(DIM)])
+        check(code == 0 and lines and lines[-1].startswith("recommended:"),
+              f"4h plan --rows {rows}: exit {code}, {lines[-1:]}")
+        plans[rows] = lines
+    ctx["plans"] = plans
+    ctx["report"].append(
+        f"4h `mmrs-torch plan` residency (predicted / the 1M engines' and "
+        f"IVF indexes' tensors): " + "; ".join(res) + "; recommended at "
+        + ", ".join(f"{r:,} x {DIM}: {ls[-1].split(': ', 1)[1]}"
+                    for r, ls in plans.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+    # -- 4. the int4-weight LLaMA at LLaMA-2-7B width -----------------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LLAMA2_7B, layers=INT4_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    base = llama.Llama(cfg, generator=g, device=dev).requires_grad_(False)
+    lm4 = quantize_llama_int4(copy.deepcopy(base), group=INT4_GROUP)
+    lm8 = quantize_llama(copy.deepcopy(base))
+
+    def int8_bytes(m):
+        return sum(b.nbytes for b in m.buffers() if b.dtype == torch.int8)
+
+    b4, b8 = int8_bytes(lm4), int8_bytes(lm8)
+    check(b4 * 2 == b8, f"4h int4 int8-bytes {b4} x 2 != int8's {b8}")
+    q4 = [m for m in lm4.modules() if isinstance(m, QLinear4)]
+    check(len(q4) == 7 * INT4_LAYERS + 1, f"4h int4: {len(q4)} QLinear4")
+
+    def as_bf16(m):
+        for mod in list(m.modules()):
+            for name, child in list(mod.named_children()):
+                if isinstance(child, QLinear4):   # JAX's dequantized oracle
+                    lin = torch.nn.Linear(1, 1, bias=False, device=dev)
+                    lin.weight = torch.nn.Parameter(
+                        child.dequantize(torch.bfloat16), requires_grad=False)
+                    setattr(mod, name, lin)
+                elif isinstance(child, torch.nn.Linear):
+                    child.weight.data = child.weight.data.to(torch.bfloat16)
+        return m
+
+    oracle = as_bf16(copy.deepcopy(lm4))
+    lmbf = as_bf16(base)
+    tokens = torch.randint(3, cfg.vocab_size, (LLAVA_B, INT4_PROMPT),
+                           device=dev, generator=g)
+    emb = llama.embed_tokens(lm4, tokens)
+    ctx["s"]["int4_setup"] = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    out4 = llama.greedy_generate(lm4, emb, INT4_NEW, eos_token=-1,
+                                 prefill_chunk=64)
+    torch.cuda.synchronize()
+    ctx["s"]["int4_generate"] = time.perf_counter() - t0
+    read("int4", ("chunk_attention", "decode_attention"))
+    outr = llama.greedy_generate(oracle, emb, INT4_NEW, eos_token=-1,
+                                 prefill_chunk=64)
+    check(torch.equal(out4, outr), "4h int4 tokens != the dequantized "
+          f"oracle's at {int((out4 != outr).sum())} of {out4.numel()}")
+    cache_len = -(-(INT4_PROMPT + INT4_NEW) // 64) * 64
+    l4, _ = llama.prefill(lm4, emb, cache_len, prefill_chunk=64)
+    lr, _ = llama.prefill(oracle, emb, cache_len, prefill_chunk=64)
+    check(torch.equal(l4, lr), f"4h int4 prefill logits != oracle's "
+          f"(max|d| {float((l4 - lr).abs().max())})")
+    del oracle, l4, lr
+
+    def decode_ms(lm, kv_dtype=None):
+        """ms a decode step (B=8, the cache at the prompt's end), CUDA
+        events over INT4_STEPS steps after one warm-up step."""
+        logits, cache = llama.prefill(lm, emb, cache_len, torch.bfloat16,
+                                      kv_dtype, 64)
+        e = llama.embed_tokens(lm, logits[:, -1].argmax(-1)[:, None])
+        llama.forward(lm, e, cache, INT4_PROMPT)
+        return time_ms(lambda: llama.forward(lm, e, cache, INT4_PROMPT + 1),
+                       iters=INT4_STEPS, warmup=1), cache
+
+    step = {}
+    for name, lm in (("bf16", lmbf), ("int8", lm8), ("int4", lm4)):
+        step[name], cache = decode_ms(lm)
+    e1 = llama.embed_tokens(lm4, out4[:, :1])
+    whole = profile_device(lambda: [llama.forward(lm4, e1, cache,
+                                                  INT4_PROMPT + 1)
+                                    for _ in range(4)])
+    unpack = profile_device(lambda: [[m.dequantize(torch.bfloat16)
+                                      for m in q4] for _ in range(4)])
+    ctx["times"]["int4"] = {"step_ms": step, "unpack_device_ms": unpack[1] / 4,
+                            "step_device_ms": whole[1] / 4,
+                            "unpack_share": unpack[1] / whole[1],
+                            "step_top": [[k[:60], round(ms / 4, 4), n]
+                                         for k, ms, n in whole[2]]}
+    del lm4, lm8, lmbf, base, cache
+    torch.cuda.empty_cache()
+    ctx["report"].append(
+        f"4h int4 LLaMA (LLaMA-2-7B width, {INT4_LAYERS} layers + lm_head, "
+        f"random weights from the seed; quantize_llama_int4 group "
+        f"{INT4_GROUP} on the card): greedy {INT4_NEW} tokens at B={LLAVA_B} "
+        f"from a {INT4_PROMPT}-token prompt = the dequantized bf16 oracle's "
+        f"(tokens and prefill logits bit-equal); int8 bytes {b4:,} = half "
+        f"of quantize_llama's {b8:,}; generate "
+        f"{ctx['s']['int4_generate']:.2f} s; launches "
+        + json.dumps({k: v for k, v in ctx["launches"]["int4"].items()
+                      if v}))
+    return ctx
+
+
 def kv_cache(dev, g, layers, b, kvh, s, hd, quantized):
     """A stacked random [L, B, KVH, S, HD] cache: bf16, or int8 + scales."""
     from mmrs_tpu_torch.models.llama import _quantize_kv
@@ -3677,6 +4236,20 @@ def main(argv) -> int:
     say(f"phase 4g: {time.perf_counter() - t0:.1f} s")
     tmp.cleanup()
 
+    # ---- 4h. end to end: the operations layer, the int4-weight LLaMA ---------
+    tmp = tempfile.TemporaryDirectory()
+    free = shutil.disk_usage(tmp.name).free
+    check(free > 3 * 2 ** 30, f"4h: {free / 2 ** 30:.1f} GiB free under "
+          f"{tmp.name}, the phase writes ~1 GiB of weights")
+    t0 = time.perf_counter()
+    ops_ctx = ops_phase(dev, tmp.name, kernels, run_cli, big_engine,
+                        big_quant, ivfs)
+    for line in ops_ctx["report"]:
+        say(f"phase {line}")
+    say(f"phase 4h: {time.perf_counter() - t0:.1f} s (setup "
+        f"{ops_ctx['s']['setup'] + ops_ctx['s']['pack']:.1f} s; budget 90 s)")
+    tmp.cleanup()
+
     # ---- 5. launch counts --------------------------------------------------
     say(f"phase 5 launches during phase 4a (bf16): "
         f"{json.dumps(launches_bf16)}")
@@ -3712,6 +4285,9 @@ def main(argv) -> int:
         f"{json.dumps({k: v for k, v in bi_ctx['launches'].items() if v})}")
     for run, counts in ag_ctx["launches"].items():
         say(f"phase 5 launches during phase 4g ({run}): "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for run, counts in ops_ctx["launches"].items():
+        say(f"phase 5 launches during phase 4h ({run}): "
             f"{json.dumps({k: v for k, v in counts.items() if v})}")
     # the verifier's main path is run (1), bf16 (phase 4e checked that
     # K2, K10 and K11 launched in every run and K6 in the int8 runs)
@@ -3912,6 +4488,15 @@ def main(argv) -> int:
                                              nprobe=IVF_NPROBE),
                     lambda: cosine_topk(qc[:nq].to(torch.bfloat16), flat16,
                                         10))
+        # the planner's constants (plan.py): the bf16 bucket probe K7 alone
+        # at Q=1, nprobe = IVF_NPROBE, on the card alone
+        fn1, args1 = probe_call(ivfs[""], qc[:1], ivf_mod.probe_lists(
+            qc[:1], ivfs[""], IVF_NPROBE))
+        probe_q1 = graph_ms(lambda: fn1(*args1, 10))
+        planner = planner_fit(
+            {q: flat[f"{q} Q=1 k=10"]["eager_ms"] for q in IVF_RUNGS.values()},
+            {q: ivf_ms[(q, 1)][0] for q in IVF_RUNGS.values()},
+            probe_q1[0], ivfs)
     say(f"phase 6 times on {card}:")
     for name, (kms, pms) in times.items():
         say(f"  {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
@@ -3987,6 +4572,37 @@ def main(argv) -> int:
                     f"s, fill {ivf_build_s[m]['fill']:.3f} s"
                     for m in IVF_RUNGS)
         + f"; sidecar load (bf16, device chunks) {ivf_load_s:.3f} s")
+    fit = planner["fit"]
+    say(f"phase 6 planner constants fitted ({card}): EFFECTIVE_SCAN_GBPS "
+        f"{fit['EFFECTIVE_SCAN_GBPS']:.1f} (1M x 512 bf16 bytes / the eager "
+        f"flat Q=1 top-10), IVF_GATHER_EFF {fit['IVF_GATHER_EFF']:.4f} (the "
+        f"probed buckets' bytes / K7 alone at Q=1, nprobe {IVF_NPROBE}: "
+        f"{probe_q1[0]:.4f} ms, spread {probe_q1[1]:.4f}-{probe_q1[3]:.4f}; "
+        f"over the scan rate), IVF_OVERHEAD_MS {fit['IVF_OVERHEAD_MS']:.4f} "
+        f"(the eager IVF Q=1 less the probe and the transfer terms), "
+        f"HBM_GB_DEFAULT {fit['HBM_GB_DEFAULT']:.3f} (total_memory / 1e9); "
+        f"plan.py holds " + ", ".join(f"{k} {v:g}" for k, v in
+                                      planner["held"].items()))
+    say(f"phase 6 plan Q=1 top-10 predicted (plan.py's constants) / "
+        f"measured eager ({card}): " + "; ".join(
+            f"{k} {p:.4f} / {m:.4f} ms ({p / m - 1:+.1%}"
+            + (", outside +-35%)" if abs(p / m - 1) > 0.35 else ")")
+            for k, (p, m) in planner["rungs"].items()))
+    for rows, lines in ops_ctx["plans"].items():
+        say(f"phase 6 `mmrs-torch plan --rows {rows} --dim {DIM}`: "
+            + " | ".join(ln.strip() for ln in lines))
+    lt = ops_ctx["times"]["lifecycle_s"]
+    say(f"phase 6 lifecycle (4h) stages, host clock ({card}): wall "
+        f"{lt['wall']:.3f} s = " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in lt.items() if k != "wall"))
+    it = ops_ctx["times"]["int4"]
+    say(f"phase 6 LLaMA-2-7B width, {INT4_LAYERS} layers + lm_head, B="
+        f"{LLAVA_B}, a decode step at {INT4_PROMPT} ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in it["step_ms"].items())
+        + f"; int4 unpack {it['unpack_device_ms']:.3f} of "
+        f"{it['step_device_ms']:.3f} ms device time a step "
+        f"({100 * it['unpack_share']:.1f}%, torch.profiler); step's top "
+        f"kernels {json.dumps(it['step_top'])}")
     say("  IVF residency: " + "; ".join(
         f"{IVF_RUNGS[m]} {v.hbm_bytes() / 2 ** 20:.1f} MiB (buckets "
         f"{v.buckets.nbytes / 2 ** 20:.1f} MiB, cap {v.bucket_cap}, spill "
@@ -4275,6 +4891,14 @@ def main(argv) -> int:
         f" host copy alone {st['host_copy_gbs']:.3f} GB/s")
     extra["cosine_topk"]["stream_gbs"] = {
         str(p): v for p, v in at["stream_gbs"].items()}
+    # phase 4h's runs (the operations layer and the int4 LLaMA)
+    for name in ("cosine_topk", "mha_short_seq", "normalize_images",
+                 "mlp_int8_fused", "first_match", "chunk_attention",
+                 "decode_attention"):
+        extra.setdefault(name, {})["launches_4h"] = {
+            run: c[name] for run, c in ops_ctx["launches"].items()
+            if c[name]}
+    extra["probe_buckets"]["q1_graph_ms"] = probe_q1[0]
     say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s (the "
         f"build included; limit 1200 s)")
     say(json.dumps({"kernels": [

@@ -51,6 +51,18 @@
                            [--augment-epochs 5] [--epochs 20] [--lr 1e-3]
                            [--alpha 1] [--beta 1] [--search-hp]
                            [--merges FILE] [--checkpoint NPZ] [--out NPZ]
+  mmrs-torch lifecycle     --root DIR --out DIR --positive-class NAME
+                           [--shots 5] [--test-root DIR] [--dedup-tau T]
+                           [--seed 0] [--config cfg.yaml]
+  mmrs-torch parity        [--rank-gate [--rows N --queries Q --k K]]
+                           [--int8-tower vit_b32|vit_l14|vit_tiny]
+                           [--release DIR [--image PNG] [--llava-smoke]]
+                           [--checkpoint NPZ (--merges F | --vocab F)
+                            [--image PNG] [--pos-dir D --neg-dir D
+                            --prompt P [--golden en|cn]]]
+  mmrs-torch plan          --rows N --dim D [--chips 1] [--hbm-gb G]
+                           [--nprobe 32] [--clusters C] [--slots-frac F]
+                           [--spill-frac F] [--target-ms T]
 
 The flags and output lines are those of the same `mmrs` subcommands
 (mmrs_tpu/cli/main.py) on one device: the flat gallery, bf16 or
@@ -69,7 +81,12 @@ it checks its flags before it reads a byte of weights. `serve` puts the
 engine and the towers (and a verifier) behind the JSON API of
 mmrs_tpu_torch/serve.py; `search --server` is its thin HTTP client.
 `adapter train` is the Tip-Adapter(-F) few-shot workflow, from an image
-folder through the towers or from a features npz. The towers,
+folder through the towers or from a features npz. `lifecycle` runs the
+whole reference workflow over a labeled tree (mmrs_tpu_torch/
+lifecycle.py); `parity` is the real-weight and rank-parity gate
+(eval/parity.py); `plan` predicts every residency rung's device memory
+and Q=1 latency before a gallery is built (plan.py, constants fitted on
+an H100). The towers,
 the gallery, the embedding dedup and the verifier run on the GPU (the
 kernels build there on first use); MMRS_TORCH_DEVICE=cpu puts them on the
 CPU, and without a GPU nothing else does.
@@ -845,6 +862,156 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_plan(args) -> int:
+    """Residency/latency planner over the quant x flat/IVF ladder:
+    capacity math before a gallery is built, in place of the reference's
+    discover-OOM-at-load workflow (code/search_image.py:142-165)."""
+    from mmrs_tpu_torch.plan import plan
+
+    report = plan(args.rows, args.dim, chips=args.chips, hbm_gb=args.hbm_gb,
+                  nprobe=args.nprobe, clusters=args.clusters,
+                  slots_frac=args.slots_frac, spill_frac=args.spill_frac,
+                  target_ms=args.target_ms)
+    print(report.render())
+    return 0 if report.recommended is not None else 1
+
+
+def cmd_lifecycle(args) -> int:
+    """The whole reference workflow in one run (mmrs_tpu_torch/
+    lifecycle.py): normalize-report -> index -> calibrate -> union ->
+    cascade(journal) -> dedup/leakage -> VQA v4. Destructive stages stay
+    dry-run."""
+    from mmrs_tpu_torch.lifecycle import run_lifecycle
+
+    cfg = _load_config(args.config)
+    manifest = run_lifecycle(
+        args.root, args.out, args.positive_class, cfg=cfg,
+        shots=args.shots, test_root=args.test_root,
+        dedup_tau=args.dedup_tau, seed=args.seed)
+    print(json.dumps(manifest["cross_checks"] | {
+        "out": args.out,
+        "index_rows": manifest["index"]["rows"],
+        "best_threshold": manifest["calibrate"]["best_threshold"],
+        "union_pass": manifest["union"]["union_pass"],
+        "gate_passed": manifest["cascade"]["gate_passed"],
+        "duplicates": manifest["dedup"]["duplicates"],
+        "vqa_positives": manifest["vqa"]["positives"],
+    }))
+    return 0
+
+
+def cmd_parity(args) -> int:
+    """Real-weight parity gate.
+
+    Independent checks; run whichever the available inputs allow:
+      --release DIR [--image]     the drop-in gate over downloaded releases
+      --rank-gate                 bf16-vs-f32 top-k rank parity on a
+                                  synthetic gallery (no weights needed)
+      --int8-tower TOWER          int8-vs-f32 tower geometry gate
+      --checkpoint + --image      reproduce code/test_clip.py:18 smoke probs
+      --checkpoint + --pos-dir/--neg-dir + --prompt [--golden en|cn]
+                                  reproduce the notebook lychee thresholds
+    """
+    from mmrs_tpu_torch.eval import parity
+
+    report = {}
+    ok = True
+
+    if args.release:
+        rep = parity.release_gate(
+            args.release, image=args.image, pos_dir=args.pos_dir,
+            neg_dir=args.neg_dir, prompt=args.prompt, golden=args.golden,
+            logit_scale=_load_config(args.config).search.logit_scale,
+            llava_smoke=args.llava_smoke)
+        report["release"] = rep
+        ok &= rep["ok"]
+
+    if args.rank_gate:
+        r = parity.rank_parity_report(n=args.rows, queries=args.queries,
+                                      k=args.k)
+        report["rank_gate"] = {
+            "n": r.n, "k": r.k, "exact_queries": r.exact_queries,
+            "tie_flips": r.tie_flips, "violations": r.violations,
+            "planted_exact": r.planted_exact, "ok": r.ok,
+        }
+        ok &= r.ok
+
+    if args.int8_tower:
+        # int8 serving-tower geometry gate: embedding cosine vs the f32
+        # tower and top-1 retrieval agreement, on the device (K6 and K2)
+        import torch
+
+        from mmrs_tpu_torch.models import convert_jax
+        from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
+        from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32,
+                                                   CLIP_TEXT_L14,
+                                                   CLIP_TEXT_TINY,
+                                                   IMAGE_TOWERS)
+        from mmrs_tpu_torch.pipeline import default_device
+
+        tower = args.int8_tower
+        ccfg = CLIPConfig(
+            vision=IMAGE_TOWERS[tower],
+            text={"vit_b32": CLIP_TEXT_B32, "vit_l14": CLIP_TEXT_L14,
+                  "vit_tiny": CLIP_TEXT_TINY}[tower])
+        ckpt = args.checkpoint or _load_config(
+            args.config).model.checkpoint_path
+        model = (convert_jax.load_npz(ckpt, ccfg) if ckpt else
+                 CLIP(ccfg, generator=torch.Generator().manual_seed(0)))
+        model = model.to(default_device()).requires_grad_(False)
+        g = parity.int8_geometry_gate(model, ccfg)
+        del model
+        report["int8_tower"] = {"tower": tower, **g}
+        ok &= g["ok"]
+
+    # tokenizer-dependent checkpoint gates (smoke/threshold). When the
+    # checkpoint was only feeding --int8-tower, a missing tokenizer must
+    # not discard the gate report already computed above.
+    if args.checkpoint and (args.image or args.pos_dir or args.neg_dir
+                            or not report):
+        cfg = _load_config(args.config)
+        cfg.model.checkpoint_path = args.checkpoint
+        from mmrs_tpu_torch.pipeline import build_towers
+
+        towers = build_towers(cfg, tokenizer=_make_tokenizer(args, cfg))
+        if towers.text_encode is None:
+            print("parity needs a tokenizer (--merges/--vocab)",
+                  file=sys.stderr)
+            return 2
+        size = towers.clip_config.vision.image_size
+        if args.image:
+            probs = parity.smoke_probs(towers, args.image, image_size=size)
+            s = parity.check_smoke(probs)
+            report["smoke"] = {
+                "probs": [float(p) for p in s.probs],
+                "golden": list(s.golden),
+                "max_abs_diff": s.max_abs_diff, "ok": s.ok,
+            }
+            ok &= s.ok
+        if args.pos_dir and args.neg_dir and args.prompt:
+            from mmrs_tpu_torch.search.calibrate import find_thresholds
+
+            txt = towers.text_encode([args.prompt])[0]
+            txt /= np.linalg.norm(txt)
+            pos = parity._embed_folder(towers, args.pos_dir, size)
+            neg = parity._embed_folder(towers, args.neg_dir, size)
+            scale = cfg.search.logit_scale
+            res = find_thresholds(pos @ txt * scale, neg @ txt * scale)
+            golden = (parity.GOLDEN_CN_LYCHEE if args.golden == "cn"
+                      else parity.GOLDEN_EN_LYCHEE)
+            t = parity.threshold_parity(res, golden)
+            report["threshold"] = t
+            ok &= t["threshold_ok"] and t["f1_ok"]
+
+    if not report:
+        print("nothing to check: pass --release, --rank-gate, --int8-tower, "
+              "and/or --checkpoint", file=sys.stderr)
+        return 2
+    report["ok"] = ok
+    print(json.dumps(report))
+    return 0 if ok else 1
+
+
 def cmd_adapter_train(args) -> int:
     """Tip-Adapter-F few-shot training: from an image folder (`--root`:
     the augment-epoch cache build through the towers, then training) or
@@ -1149,6 +1316,71 @@ def build_parser() -> argparse.ArgumentParser:
                          "7 GB npz instead of 13.5, loads straight into "
                          "--verifier-int8)")
     wc.set_defaults(fn=cmd_weights_convert)
+
+    lc = sub.add_parser("lifecycle")
+    lc.add_argument("--root", required=True,
+                    help="labeled image tree (class folders; optional "
+                         "ez_negative / <cls>_negative folders feed VQA v4)")
+    lc.add_argument("--out", required=True, help="artifact output root")
+    lc.add_argument("--positive-class", required=True)
+    lc.add_argument("--config")
+    lc.add_argument("--shots", type=int, default=5)
+    lc.add_argument("--test-root",
+                    help="optional held-out tree for the leakage report")
+    lc.add_argument("--dedup-tau", type=float, default=0.995)
+    lc.add_argument("--seed", type=int, default=0)
+    lc.set_defaults(fn=cmd_lifecycle)
+
+    pa = sub.add_parser("parity")
+    pa.add_argument("--release", metavar="DIR",
+                    help="drop-in gate over a directory of DOWNLOADED "
+                         "release artifacts (OpenAI ViT-B-32.pt, HF model "
+                         "dirs, llava, tokenizer files) — detects layouts, "
+                         "derives configs, runs every check the pack "
+                         "allows (see models/release.py)")
+    pa.add_argument("--llava-smoke", action="store_true",
+                    help="with --release + --image: run a real llava "
+                         "greedy decode smoke")
+    pa.add_argument("--rank-gate", action="store_true",
+                    help="bf16-vs-f32 top-k rank parity (no weights needed)")
+    pa.add_argument("--int8-tower", metavar="TOWER",
+                    help="int8-vs-f32 tower geometry gate (vit_b32/vit_l14/"
+                         "vit_tiny; uses --checkpoint when given)")
+    pa.add_argument("--rows", type=int, default=100_000)
+    pa.add_argument("--queries", type=int, default=16)
+    pa.add_argument("--k", type=int, default=10)
+    pa.add_argument("--checkpoint", help="converted npz checkpoint")
+    pa.add_argument("--image", help="smoke image (the reference's CLIP.png)")
+    pa.add_argument("--merges", help="CLIP BPE merges file")
+    pa.add_argument("--vocab", help="WordPiece vocab (Taiyi)")
+    pa.add_argument("--pos-dir")
+    pa.add_argument("--neg-dir")
+    pa.add_argument("--prompt", help='e.g. "a photo of lychee"')
+    pa.add_argument("--golden", default="en", choices=["en", "cn"])
+    pa.add_argument("--config")
+    pa.set_defaults(fn=cmd_parity)
+
+    from mmrs_tpu_torch.plan import HBM_GB_DEFAULT
+
+    pl = sub.add_parser(
+        "plan",
+        help="capacity planner: predict residency + Q1 latency for every "
+             "quant x flat/IVF rung before building (constants fitted on "
+             "an H100; see mmrs_tpu_torch/plan.py)")
+    pl.add_argument("--rows", type=int, required=True)
+    pl.add_argument("--dim", type=int, required=True)
+    pl.add_argument("--chips", type=int, default=1)
+    pl.add_argument("--hbm-gb", type=float, default=HBM_GB_DEFAULT)
+    pl.add_argument("--nprobe", type=int, default=32)
+    pl.add_argument("--clusters", type=int, default=0,
+                    help="IVF clusters (0 = sqrt-rows power of two)")
+    pl.add_argument("--slots-frac", type=float, default=1.3)
+    pl.add_argument("--spill-frac", type=float, default=0.05,
+                    help="expected spill fraction (corpus skew dependent)")
+    pl.add_argument("--target-ms", type=float, default=0.0,
+                    help="latency target: recommend the highest-quality "
+                         "rung predicted to meet it")
+    pl.set_defaults(fn=cmd_plan)
     return p
 
 

@@ -6,10 +6,12 @@ The only place that knows both layouts:
   - mmrs_tpu keeps matmul kernels as [in, out]; the port's `nn.Linear`
     weights are [out, in], so kernels are transposed here;
   - an int8 kernel (`QTensor(q [K, N], s [N])` in a tree, a `QWeight`
-    from checkpoint.load_npz) becomes a `QLinear` with q transposed.
+    from checkpoint.load_npz) becomes a `QLinear` with q transposed;
+  - an int4 kernel (`QTensor4(packed [K / 2, N], s [K / G, N])`, the
+    int4-weight LLaMA's) becomes a `QLinear4` with packed transposed.
 
-Leaves may be numpy arrays (f32, or ml_dtypes bf16), torch tensors, or
-int8 pairs with fields (q, s). The LLaMA / LLaVA modules are built on the
+Leaves may be numpy arrays (f32, or ml_dtypes bf16), torch tensors, int8
+pairs with fields (q, s) or int4 pairs with fields (packed, s). The LLaMA / LLaVA modules are built on the
 meta device and take the tree's tensors as they are (dtype kept, moved to
 `device`), so a 7B checkpoint is never materialized twice.
 `llava_tree` / `llama_tree` go the other way, for checkpoint.save_npz.
@@ -17,7 +19,7 @@ meta device and take the tree's tensors as they are (dtype kept, moved to
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -25,9 +27,16 @@ import torch
 from mmrs_tpu_torch.models import checkpoint
 from mmrs_tpu_torch.models.clip import (CLIP, CLIPConfig, TaiyiCLIP,
                                         TaiyiCLIPConfig)
-from mmrs_tpu_torch.models.layers import QLinear
+from mmrs_tpu_torch.models.layers import QLinear, QLinear4
 from mmrs_tpu_torch.models.llama import Llama, LlamaConfig
 from mmrs_tpu_torch.models.llava import LLaVA, LLaVAConfig
+
+
+class QWeight4(NamedTuple):
+    """An int4 kernel in the JAX layout: packed int8 [..., K / 2, N] and f32
+    scales [..., K / G, N] (mmrs_tpu layers.QTensor4's fields)."""
+    packed: torch.Tensor
+    s: torch.Tensor
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -48,6 +57,8 @@ def _tensors(tree: Any) -> Any:
         return {k: _tensors(v) for k, v in tree.items()}
     if _is_int8(tree):      # mmrs_tpu's QTensor, or a QWeight
         return checkpoint.QWeight(_tensor(tree.q), _tensor(tree.s))
+    if getattr(tree, "_fields", None) == ("packed", "s"):   # QTensor4
+        return QWeight4(_tensor(tree.packed), _tensor(tree.s))
     return _tensor(tree)
 
 
@@ -56,6 +67,9 @@ def _linear(sd: Dict[str, torch.Tensor], name: str, kernel: Any,
     """State-dict entries of one layer from a JAX [K, N] kernel."""
     if isinstance(kernel, checkpoint.QWeight):
         sd[f"{name}.q"] = kernel.q.T
+        sd[f"{name}.s"] = kernel.s
+    elif isinstance(kernel, QWeight4):
+        sd[f"{name}.packed"] = kernel.packed.T
         sd[f"{name}.s"] = kernel.s
     else:
         sd[f"{name}.weight"] = kernel.T
@@ -66,6 +80,8 @@ def _linear(sd: Dict[str, torch.Tensor], name: str, kernel: Any,
 def _layer(leaf: Any, i: int) -> Any:
     if isinstance(leaf, checkpoint.QWeight):
         return checkpoint.QWeight(leaf.q[i], leaf.s[i])
+    if isinstance(leaf, QWeight4):
+        return QWeight4(leaf.packed[i], leaf.s[i])
     return leaf[i]
 
 
@@ -167,12 +183,17 @@ def from_jax_taiyi(tree: Dict[str, Any], cfg: TaiyiCLIPConfig) -> TaiyiCLIP:
 
 def _int8_layers(model: torch.nn.Module, sd: Dict[str, torch.Tensor]
                  ) -> None:
-    """Swap in a `QLinear` wherever the state dict holds int8 codes."""
-    for key in [k for k in sd if k.endswith(".q")]:
-        path = key[:-2]
+    """Swap in a `QLinear` wherever the state dict holds int8 codes, a
+    `QLinear4` wherever it holds packed int4 codes."""
+    for key in [k for k in sd if k.endswith((".q", ".packed"))]:
+        path = key.rpartition(".")[0]
         parent, _, attr = path.rpartition(".")
-        setattr(model.get_submodule(parent), attr,
-                QLinear(*sd[key].shape, bias=f"{path}.bias" in sd))
+        if key.endswith(".q"):
+            layer = QLinear(*sd[key].shape, bias=f"{path}.bias" in sd)
+        else:
+            out, half = sd[key].shape
+            layer = QLinear4(out, 2 * half, sd[f"{path}.s"].shape[0])
+        setattr(model.get_submodule(parent), attr, layer)
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: CLIPConfig) -> CLIP:
@@ -241,9 +262,12 @@ def from_jax_llava(tree: Dict[str, Any], cfg: LLaVAConfig,
 # -- the port's modules -> the JAX layout (for checkpoint.save_npz) ----------
 
 def _kernel(layer) -> Any:
-    """A linear layer's JAX [K, N] kernel: a tensor, or a QWeight."""
+    """A linear layer's JAX [K, N] kernel: a tensor, a QWeight or a
+    QWeight4."""
     if isinstance(layer, QLinear):
         return checkpoint.QWeight(layer.q.T, layer.s)
+    if isinstance(layer, QLinear4):
+        return QWeight4(layer.packed.T, layer.s)
     return layer.weight.T
 
 
@@ -251,6 +275,9 @@ def _stack(leaves) -> Any:
     if isinstance(leaves[0], checkpoint.QWeight):
         return checkpoint.QWeight(torch.stack([x.q for x in leaves]),
                                   torch.stack([x.s for x in leaves]))
+    if isinstance(leaves[0], QWeight4):
+        return QWeight4(torch.stack([x.packed for x in leaves]),
+                        torch.stack([x.s for x in leaves]))
     return torch.stack(leaves)
 
 
@@ -265,8 +292,9 @@ def llama_tree(model: Llama) -> Dict[str, Any]:
             "lm_head": _kernel(model.lm_head)}
 
 
-def _vit_tree(vit) -> Dict[str, Any]:
-    blocks = list(vit.blocks)
+def _blocks_tree(blocks) -> Dict[str, Any]:
+    """The JAX stacked `blocks` tree of a list of CLIP-style blocks."""
+    blocks = list(blocks)
 
     def per(fn):
         return _stack([fn(b) for b in blocks])
@@ -283,15 +311,33 @@ def _vit_tree(vit) -> Dict[str, Any]:
     for ln in ("ln1", "ln2"):
         stacked[f"{ln}_scale"] = per(lambda b: getattr(b, ln).weight)
         stacked[f"{ln}_bias"] = per(lambda b: getattr(b, ln).bias)
+    return stacked
+
+
+def _vit_tree(vit) -> Dict[str, Any]:
     return {
         "patch_kernel": _kernel(vit.patch_embed),
         "class_embedding": vit.class_embedding,
         "positional_embedding": vit.positional_embedding,
         "ln_pre_scale": vit.ln_pre.weight, "ln_pre_bias": vit.ln_pre.bias,
-        "blocks": stacked,
+        "blocks": _blocks_tree(vit.blocks),
         "ln_post_scale": vit.ln_post.weight, "ln_post_bias": vit.ln_post.bias,
         "proj": vit.proj.weight.T,
     }
+
+
+def clip_tree(model: CLIP) -> Dict[str, Any]:
+    """The JAX `clip.init` tree of a CLIP module (for checkpoint.save_npz:
+    the npz both packages' build_towers load)."""
+    txt = model.text
+    return {"visual": _vit_tree(model.visual),
+            "text": {"token_embedding": txt.token_embedding.weight,
+                     "positional_embedding": txt.positional_embedding,
+                     "blocks": _blocks_tree(txt.blocks),
+                     "ln_final_scale": txt.ln_final.weight,
+                     "ln_final_bias": txt.ln_final.bias,
+                     "text_projection": txt.text_projection.weight.T},
+            "logit_scale": model.logit_scale}
 
 
 def llava_tree(model: LLaVA) -> Dict[str, Any]:

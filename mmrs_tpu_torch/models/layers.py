@@ -15,12 +15,14 @@ package:
   - masked (text) attention is plain PyTorch with the softmax in the
     compute dtype, as the JAX package's XLA form;
   - the int8 MLP is the fused int8 MLP (ops/mlp_int8.py: the CUDA kernel
-    on a GPU), with f32 hidden activations.
+    on a GPU), with f32 hidden activations;
+  - int4 layers (`QLinear4`, the int4-weight LLaMA) are unpacked to the
+    compute dtype and multiplied as float weights (f32 sums).
 
 Weights live in `nn.Linear` modules ([out, in] layout; matmul weights in
-the compute dtype, biases f32) or `QLinear` modules; the layer stack is a
-plain list of per-layer modules (the JAX package stacks layers for
-`lax.scan`; models/convert_jax.py splits that stack).
+the compute dtype, biases f32), `QLinear` or `QLinear4` modules; the
+layer stack is a plain list of per-layer modules (the JAX package stacks
+layers for `lax.scan`; models/convert_jax.py splits that stack).
 """
 
 from __future__ import annotations
@@ -81,11 +83,93 @@ class QLinear(nn.Module):
         return layer
 
 
+class QLinear4(nn.Module):
+    """int4 linear layer (mmrs_tpu layers.QTensor4): symmetric int4 codes
+    (-7..7) with one f32 scale per (group of K inputs, output channel),
+    w ~= code * s[group]. Buffers: packed int8 [out, in / 2], inputs 2i
+    and 2i + 1 of a row in the low and high nibble of byte i (the JAX
+    [K / 2, N] bytes, transposed); s f32 [in / group, out], the JAX
+    layout. Bias-free (the LLaMA stack's projections)."""
+
+    def __init__(self, out_features: int, in_features: int,
+                 groups: int = 1):
+        super().__init__()
+        self.register_buffer("packed", torch.zeros(
+            (out_features, in_features // 2), dtype=torch.int8))
+        self.register_buffer("s", torch.ones((groups, out_features)))
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear, group: int = 128) -> "QLinear4":
+        """Quantize a float layer as mmrs_tpu quantize_weight_int4 does."""
+        packed, s = quantize_weight_int4(lin.weight.detach().T, group)
+        with torch.device(packed.device):
+            layer = cls(s.shape[1], packed.shape[0] * 2, s.shape[0])
+        layer.packed, layer.s = packed.T.contiguous(), s
+        return layer
+
+    def dequantize(self, dtype: torch.dtype) -> torch.Tensor:
+        """The [out, in] weight in `dtype`, row-major as an `nn.Linear`'s:
+        unpack_int4's values (code and scale each cast to `dtype`, one
+        rounding of their product), unpacked along the rows' bytes."""
+        w = _int4_codes(self.packed, 1)
+        out, k = w.shape
+        groups = self.s.shape[0]
+        w = w.reshape(out, groups, k // groups).to(dtype) \
+            * self.s.T[:, :, None].to(dtype)
+        return w.reshape(out, k)
+
+
+def _int4_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """The int8 codes of packed nibbles, byte i's low nibble at 2i and its
+    high nibble at 2i + 1 along `dim`. The low nibble sign-extends as
+    ((b & 0xF) ^ 8) - 8, the high one by an arithmetic shift."""
+    return torch.stack([((packed & 0xF) ^ 8) - 8, packed >> 4],
+                       dim=dim + 1).flatten(dim, dim + 1)
+
+
+def quantize_weight_int4(w: torch.Tensor, group: int = 128):
+    """(packed int8 [K / 2, N], f32 scales [K / G, N]) of a [K, N] kernel,
+    as mmrs_tpu layers.quantize_weight_int4 (run op by op: true
+    divisions): s = max(max |w| over a group, 1e-12) / 7, codes
+    clip(round(w / s), -7, 7) half to even, rows 2i / 2i + 1 in the low /
+    high nibble of byte row i."""
+    w32 = w.float()
+    k, n = w32.shape
+    if k % (2 * group) and k != group:
+        raise ValueError(f"K={k} must be a multiple of 2*group={2 * group}")
+    g = w32.reshape(k // group, group, n)
+    s = _true_div(torch.clamp(g.abs().amax(1, keepdim=True), min=1e-12), 7.0)
+    q = torch.clamp(torch.round(g / s), -7, 7).to(torch.int32).reshape(k, n)
+    byte = ((q[1::2] & 0xF) << 4) | (q[0::2] & 0xF)
+    return byte.to(torch.uint8).view(torch.int8), s.squeeze(1)
+
+
+def unpack_int4(packed: torch.Tensor, s: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The dequantized [K, N] kernel in `dtype` from JAX-layout packed int8
+    [K / 2, N] bytes and [K / G, N] scales: codes and scales each cast to
+    `dtype` and multiplied there (one rounding), as mmrs_tpu unpack_int4."""
+    w = _int4_codes(packed, 0)
+    k, n = w.shape
+    groups = s.shape[0]
+    w = w.reshape(groups, k // groups, n).to(dtype) * s[:, None].to(dtype)
+    return w.reshape(k, n)
+
+
+def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as a true division on every device, as the JAX
+    package's eager quantizers divide: CUDA divides a tensor by a Python
+    scalar as a product with the scalar's reciprocal, which can differ in
+    the last bit."""
+    return x / torch.full_like(x, c)
+
+
 def int8_weight(w32: torch.Tensor, dim: int):
     """(int8 codes, f32 scales) of f32 weights, one scale per channel over
     `dim` (the inputs): s = max(max|w|, 1e-12) / 127, q = round(w / s)
     half to even, as mmrs_tpu layers.quantize_weight."""
-    s = torch.clamp(w32.abs().amax(dim, keepdim=True), min=1e-12) / 127.0
+    s = _true_div(torch.clamp(w32.abs().amax(dim, keepdim=True), min=1e-12),
+                  127.0)
     return torch.round(w32 / s).to(torch.int8), s.squeeze(dim)
 
 
@@ -132,13 +216,20 @@ def matmul(x: torch.Tensor, layer, compute_dtype: torch.dtype,
     """Bias-free x @ W^T returned in `out_dtype` (default: the compute
     dtype), as mmrs_tpu layers.matmul for the LLaMA stack: float weights
     give f32 sums of compute-dtype products; a `QLinear` quantizes x per
-    row and rescales its exact int32 sums as acc * sx * s."""
+    row and rescales its exact int32 sums as acc * sx * s; a `QLinear4`
+    is unpacked to the compute dtype and multiplied as a float weight."""
     out_dtype = out_dtype or compute_dtype
     if isinstance(layer, QLinear):
         xq, sx = quantize_act(x)
         return int8_linear(xq, sx, layer.q, layer.s, None, out_dtype)
+    if isinstance(layer, QLinear4):
+        # the JAX package's form: the kernel unpacked to the compute dtype
+        # in device memory, then the float product (no fused kernel)
+        w = layer.dequantize(compute_dtype)
+    else:
+        w = layer.weight.to(compute_dtype)
     x = x.to(compute_dtype)
-    y = _mm_f32(x.reshape(-1, x.shape[-1]), layer.weight.to(compute_dtype))
+    y = _mm_f32(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], -1).to(out_dtype)
 
 

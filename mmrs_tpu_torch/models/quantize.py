@@ -10,7 +10,9 @@ embeddings and the final projection stay in the bf16/f32 serving mix.
 LLaMA adds its gated MLP and the (dim x vocab) lm_head; its embedding table
 stays unquantized (a lookup). LLaVA quantizes its vision tower and its
 decoder; the projector stays in the serving mix. The int4-weight LLaMA
-(`quantize_llama_int4`) is not ported.
+(`quantize_llama_int4`) holds the same layers as `QLinear4` (grouped int4
+codes and scales bit-identical to the JAX package's
+`quantize_weight_int4`).
 
 The module functions replace layers in place and return the module they
 were given. The `*_tree` functions quantize a param tree in the JAX layout
@@ -28,7 +30,7 @@ import torch
 from torch import nn
 
 from mmrs_tpu_torch.models.checkpoint import QWeight
-from mmrs_tpu_torch.models.layers import QLinear, int8_weight
+from mmrs_tpu_torch.models.layers import QLinear, QLinear4, int8_weight
 
 # layers eligible for int8, by attribute name: the JAX package's key set
 # {wq, wk, wv, wo, w1, w2, patch_kernel}, whose `patch_kernel` is the
@@ -62,6 +64,21 @@ LM_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 def quantize_llama(model: nn.Module) -> nn.Module:
     """LLaMA decoder with int8 serving weights (the lm_head too)."""
     return quantize_tree(model, LM_KEYS)
+
+
+def quantize_llama_int4(model: nn.Module, group: int = 128,
+                        keys=LM_KEYS) -> nn.Module:
+    """LLaMA decoder with int4 grouped-quant serving weights (`QLinear4`):
+    half the int8 weight bytes, scales per `group` inputs along K (default
+    128, the AWQ/GPTQ convention). Layers already quantized (int8 or int4)
+    are left as they are. Flows through `layers.matmul`, which unpacks a
+    layer to the compute dtype on every call (no fused kernel)."""
+    for name, child in list(model.named_children()):
+        if name in keys and isinstance(child, nn.Linear):
+            setattr(model, name, QLinear4.from_linear(child, group))
+        else:
+            quantize_llama_int4(child, group, keys)
+    return model
 
 
 def quantize_llava(model: nn.Module) -> nn.Module:

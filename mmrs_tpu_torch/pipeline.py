@@ -70,14 +70,16 @@ def default_device() -> torch.device:
         f"pass device='cpu'")
 
 
-def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
+def build_towers(cfg: Config, tokenizer=None, device=None,
+                 impl: str = "auto") -> Towers:
     """Construct the configured tower pair on `device` (default:
     `default_device()`): CLIP, or with `text_tower: taiyi_roberta` the
     Taiyi pair. Weights come from cfg.model.checkpoint_path (an npz written
     by either package's checkpoint.save_npz: the tree of `mmrs-torch
     weights convert`, or for Taiyi {"visual", "text", "logit_scale"});
     without one the towers are random-initialized from cfg.seed (bring-up
-    mode)."""
+    mode). `impl` is the image path's kernel route: "auto" (the kernels
+    on the card), or "torch" (their plain versions)."""
     from mmrs_tpu_torch.models import convert_jax
 
     if cfg.model.dtype not in _DTYPES:
@@ -121,8 +123,9 @@ def build_towers(cfg: Config, tokenizer=None, device=None) -> Towers:
 
     def encode_fn(images_u8: torch.Tensor, normalize: bool = True
                   ) -> torch.Tensor:
-        x = normalize_images(images_u8, dtype=compute_dtype)
-        return clip.encode_image(model, x, compute_dtype, normalize=normalize)
+        x = normalize_images(images_u8, dtype=compute_dtype, impl=impl)
+        return clip.encode_image(model, x, compute_dtype, normalize=normalize,
+                                 attn_impl=impl, mlp_impl=impl)
 
     def _upload(pixels_u8: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(device)

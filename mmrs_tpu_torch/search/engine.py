@@ -114,7 +114,30 @@ class SearchEngine:
         mesh=None,
         quantize=False,
         device=None,
+        device_dtype: torch.dtype = torch.bfloat16,
     ):
+        """`quantize` selects the gallery residency ladder ("", "int8",
+        "int4"); `device_dtype` is the flat unquantized gallery's dtype
+        (bf16, the serving default; f32 for calibration at full
+        precision, as the JAX lifecycle's). An out-of-memory error while
+        the gallery is placed is raised again as a RuntimeError that
+        points at `mmrs-torch plan` (plan.py), which predicts every rung's
+        residency before building."""
+        try:
+            self._init(index, config, mesh, quantize, device, device_dtype)
+        except Exception as e:
+            msg = str(e)
+            if (isinstance(e, torch.OutOfMemoryError)
+                    or "out of memory" in msg.lower()):
+                from mmrs_tpu_torch.plan import oom_hint
+
+                dim = index.embeddings.shape[1] if len(index) else 0
+                raise RuntimeError(
+                    f"{oom_hint(len(index), dim)} (device error: "
+                    f"{msg[:300]})") from e
+            raise
+
+    def _init(self, index, config, mesh, quantize, device, device_dtype):
         self.index = index
         self.config = config or SearchConfig()
         self.stats = StageStats()
@@ -141,7 +164,7 @@ class SearchEngine:
                 align=_row_align(quantize, self.device))
         else:
             self.gallery = _to_device_chunked(
-                index.embeddings, torch.bfloat16, self.device,
+                index.embeddings, device_dtype, self.device,
                 align=_row_align("", self.device))
 
     def _fit(self, q: torch.Tensor) -> torch.Tensor:

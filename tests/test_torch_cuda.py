@@ -1466,3 +1466,145 @@ def test_server_answers_over_a_bf16_engine(dev, tmp_path):
     want = engine.query_image(towers.image_encode(px[7:8]), top_k=5)[0]
     assert [(h["path"], h["score"]) for h in hits] == \
         [(h.path, h.score) for h in want]
+
+
+# -- the operations layer and the int4-weight LLaMA -----------------------------
+
+def test_int4_pack_and_dispatch_on_the_card(dev):
+    """quantize_weight_int4 / unpack_int4 on the card give the CPU's bytes
+    and values (the scales true divisions, as the JAX package's: CUDA's
+    tensor / scalar is a product with the reciprocal), and so does the
+    int8 quantizer; the matmul dispatch equals the dequantized bf16
+    layer's product exactly (the same weights, the same cuBLAS call)."""
+    g = torch.Generator().manual_seed(4)
+    w = torch.randn((1024, 768), generator=g) * 0.05
+    p_cpu, s_cpu = layers.quantize_weight_int4(w, 128)
+    p, s = layers.quantize_weight_int4(w.to(dev), 128)
+    assert torch.equal(p.cpu(), p_cpu) and torch.equal(s.cpu(), s_cpu)
+    q8, s8 = layers.int8_weight(w.to(dev), 0)
+    q8_cpu, s8_cpu = layers.int8_weight(w, 0)
+    assert torch.equal(q8.cpu(), q8_cpu) and torch.equal(s8.cpu(), s8_cpu)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(layers.unpack_int4(p, s, dtype).cpu(),
+                           layers.unpack_int4(p_cpu, s_cpu, dtype))
+    lin = torch.nn.Linear(1024, 768, bias=False, device=dev)
+    lin.weight.data = w.T.contiguous().to(dev)
+    q4 = layers.QLinear4.from_linear(lin, 128)
+    deq = torch.nn.Linear(1024, 768, bias=False, device=dev,
+                          dtype=torch.bfloat16).requires_grad_(False)
+    deq.weight.data = q4.dequantize(torch.bfloat16)
+    x = torch.randn((8, 1024), device=dev)
+    got = layers.matmul(x, q4, torch.bfloat16)
+    assert torch.equal(got, layers.matmul(x, deq, torch.bfloat16))
+
+
+def test_int4_llama_equals_its_dequantized_oracle_on_the_card(dev):
+    """A 2-layer int4 LLaMA (head dim 128) decodes through K10 / K11 to
+    the tokens of the same model with each QLinear4 as a bf16 layer."""
+    import copy
+
+    from mmrs_tpu_torch.models import llama
+    from mmrs_tpu_torch.models.quantize import quantize_llama_int4
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, layers=2, heads=4,
+                            kv_heads=4, mlp_dim=1024, max_seq=256)
+    base = llama.Llama(cfg, torch.Generator(device=dev).manual_seed(1),
+                       device=dev).requires_grad_(False)
+    lm4 = quantize_llama_int4(base, 128)
+    ref = copy.deepcopy(lm4)
+    for mod in list(ref.modules()):
+        for name, child in list(mod.named_children()):
+            if isinstance(child, layers.QLinear4):
+                lin = torch.nn.Linear(1, 1, bias=False, device=dev)
+                lin.weight = torch.nn.Parameter(
+                    child.dequantize(torch.bfloat16), requires_grad=False)
+                setattr(mod, name, lin)
+    tokens = torch.randint(3, 512, (4, 70), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    emb = llama.embed_tokens(lm4, tokens)
+    c0, d0 = chunk_attention.launches, decode_attention.launches
+    got = llama.greedy_generate(lm4, emb, 12, eos_token=-1, prefill_chunk=64)
+    assert chunk_attention.launches > c0 and decode_attention.launches > d0
+    want = llama.greedy_generate(ref, emb, 12, eos_token=-1,
+                                 prefill_chunk=64)
+    assert torch.equal(got, want)
+
+
+def test_rank_gate_on_the_card(dev):
+    """K1 over a bf16 gallery against the f32 oracle: no violation, the
+    planted queries exact."""
+    from mmrs_tpu_torch.eval import parity
+
+    launches = cosine_topk.launches
+    r = parity.rank_parity_report(n=50_000, queries=32, device=dev)
+    assert cosine_topk.launches > launches
+    assert r.violations == 0 and r.planted_exact and r.ok
+
+
+def test_int8_tower_gate_on_the_card_matches_the_plain_route(dev):
+    from mmrs_tpu_torch.eval import parity
+    from mmrs_tpu_torch.models import configs
+    from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
+
+    ccfg = CLIPConfig(vision=configs.VIT_TINY, text=configs.CLIP_TEXT_TINY)
+    model = CLIP(ccfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    model.requires_grad_(False)
+    launches = mlp_int8_fused.launches
+    got = parity.int8_geometry_gate(model, ccfg)
+    assert mlp_int8_fused.launches > launches
+    plain = parity.int8_geometry_gate(model, ccfg, impl="torch")
+    assert abs(got["min_cosine_vs_f32"] - plain["min_cosine_vs_f32"]) <= 1e-3
+    assert got["top1_agreement"] == plain["top1_agreement"]
+
+
+def test_lifecycle_on_the_card(dev, tmp_path):
+    """The seven stages on a small tree at vit_tiny bf16: both
+    cross-checks hold, the planted copy is reported as a duplicate at tau
+    0.9999 (a random 2-layer tower maps these flat colour fields to
+    nearly one direction, so other pairs pass too), and K2, K3 and K9
+    launched."""
+    import json
+    import os
+    import shutil
+
+    from PIL import Image
+
+    from mmrs_tpu_torch.config import Config, ModelConfig
+    from mmrs_tpu_torch.lifecycle import run_lifecycle
+
+    rng = np.random.default_rng(0)
+    root = tmp_path / "tree"
+    for c, color in (("lychee", (220, 40, 60)), ("guitar", (150, 100, 40))):
+        (root / c).mkdir(parents=True)
+        for i in range(12):
+            arr = np.clip(np.full((64, 64, 3), color, int)
+                          + rng.integers(-60, 60, (64, 64, 3)), 0, 255)
+            Image.fromarray(arr.astype(np.uint8)).save(
+                root / c / f"{c}{i:02d}.jpg")
+    shutil.copyfile(root / "lychee" / "lychee00.jpg",
+                    root / "lychee" / "lychee_dup.jpg")
+    before = {fn: fn.launches for fn in (mha_short_seq, normalize_images,
+                                         first_match)}
+    cfg = Config(model=ModelConfig(image_tower="vit_tiny"), seed=3)
+    m = run_lifecycle(str(root), str(tmp_path / "out"), "lychee", cfg=cfg,
+                      shots=4, dedup_tau=0.9999, device=dev)
+    assert all(fn.launches > n for fn, n in before.items())
+    assert all(m["cross_checks"].values()), m["cross_checks"]
+    dups = json.load(open(m["dedup"]["report"]))["duplicates"]
+    assert "lychee_dup.jpg" in [os.path.basename(d) for d, _ in dups]
+
+
+def test_engine_out_of_memory_names_the_planner(dev, monkeypatch):
+    """A real device out-of-memory error while the gallery is placed is
+    raised again pointing at `mmrs-torch plan`."""
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+    from mmrs_tpu_torch.search import engine as eng
+
+    def too_big(embeddings, dtype, device, chunk=0, align=1):
+        return torch.empty((1 << 45,), dtype=dtype, device=device)
+
+    monkeypatch.setattr(eng, "_to_device_chunked", too_big)
+    emb = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
+    idx = GalleryIndex(emb, [f"p{i}" for i in range(8)], ["c"] * 8)
+    with pytest.raises(RuntimeError, match="mmrs-torch plan --rows 8"):
+        eng.SearchEngine(idx, device=dev)

@@ -43,7 +43,7 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
         "print(' '.join(names))\n")
     assert r.returncode == 0, r.stderr[-2000:]
     count, loaded, names = r.stdout.strip().splitlines()
-    assert int(count) >= 54
+    assert int(count) >= 57
     assert loaded == "[]"
     for mod in ("index.ivf", "index.stream", "ops.kmeans",
                 "search.prototypes", "ops.allpairs", "govern.dedup",
@@ -52,7 +52,7 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
                 "models.llama", "models.llava", "models.speculative",
                 "models.sentencepiece", "search.metrics", "cascade",
                 "cascade.verifier", "cascade.pipeline") + NEW_MODULES \
-            + ADAPT_SERVE_MODULES:
+            + ADAPT_SERVE_MODULES + OPERATIONS_MODULES:
         assert f"mmrs_tpu_torch.{mod}" in names.split()
 
 
@@ -66,14 +66,22 @@ ADAPT_SERVE_MODULES = ("adapt", "adapt.tip_adapter", "adapt.driver",
                        "io.augment", "utils.trials", "utils.profiling")
 
 
-@pytest.mark.parametrize("mod", NEW_MODULES + ADAPT_SERVE_MODULES)
+# the operations layer and the int4-weight LLaMA's modules
+OPERATIONS_MODULES = ("plan", "eval.parity", "lifecycle", "models.layers",
+                      "models.quantize", "models.convert_jax")
+
+
+@pytest.mark.parametrize("mod", NEW_MODULES + ADAPT_SERVE_MODULES
+                         + OPERATIONS_MODULES)
 def test_each_new_module_imports_no_jax(mod):
     """Each module alone, in a fresh interpreter: no jax, mmrs_tpu or
     ml_dtypes (BF16 weights are read as their bits), no matplotlib (the F1
-    plot imports it on call)."""
+    plot imports it on call), no transformers or tokenizers (the parity
+    gate's tokenizer differentials import them on call)."""
     r = _python(f"import sys, mmrs_tpu_torch.{mod}\n"
                 "print(sorted(m for m in ('jax', 'mmrs_tpu', 'ml_dtypes',\n"
-                "    'matplotlib') if m in sys.modules))\n")
+                "    'matplotlib', 'transformers', 'tokenizers')\n"
+                "    if m in sys.modules))\n")
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "[]"
 

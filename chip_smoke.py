@@ -11,6 +11,8 @@ once on one NVIDIA GPU.
     python3 chip_smoke.py --flat-times ROOT
         (only phase 6's flat-scan and bucket-probe timing, of the package
         under ROOT, as one JSON line: what --parent runs)
+    python3 chip_smoke.py --mesh-worker COORD NPROC PID OUT CENTS
+        (one of phase 4i's processes on the card; the phase starts them)
 
 Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
@@ -147,8 +149,30 @@ nonzero exit and no result line:
         lm_head, greedy 32 tokens at B=8 from a 614-token prompt equal to
         the dequantized bf16 oracle's (K10, K11), int8 bytes half of
         quantize_llama's;
+     i. the data axis of the mesh (parallel/), on 4 distinct cards where
+        the machine has them, else cuda:0 four times (said which), each
+        part with the counts reset and every kernel held to S launches a
+        call (S a ring step): (1) make_sharded_encoder at ViT-B/32 width,
+        bf16 and int8 towers, batch 224 (56 a shard) over 4a's 4096
+        images, cosine >= 0.9999 per row to the one-device encode and the
+        largest bf16 ulp gap (K2, K3, K6); (2) bf16 / int8 / int4 engines
+        on the mesh over 4a's 1M gallery and a 1,048,573-row copy at Q=8
+        (bf16 ids where separated by 1e-4, int8 / int4 hits equal to one
+        device's), each rung's sharded scan timed at S = 1, 2, 4 on one
+        card (eager and card alone) beside the direct kernel; (3) 4c's
+        clustered 1M indexes slot-sharded, nprobe 128 and C (values and
+        ids against one-device ivf_topk: K7 / K8), build_ivf(mesh=)
+        bucket strips = place_ivf(build_ivf())'s; (4) the dedup ring over
+        4d's planted rows, f32 and bf16, every id = one-device K9's, ms
+        beside it; (5) SearchEngine(mesh=) over 4a's index (top-10 and
+        sweep_class = 4a's), streaming_topk(mesh=) over a 1 GiB memmap,
+        search_hp(mesh=); (6) two processes on the card (gloo, the
+        hybrid mesh with 2 shards each, this script's --mesh-worker),
+        each placing only its rows: top-10, IVF at nprobe = C and the
+        ring identical in both and equal to this process's answers;
   5. launch counts: every kernel of each path ran during its phase 4 run
-     (K2, K10, K11 in every 4e run, K6 in the int8 ones); phase 4's answers
+     (K2, K10, K11 in every 4e run, K6 in the int8 ones, K1-K9 in 4i);
+     phase 4's answers
      against the plain versions on the same inputs;
   6. times (CUDA events, after warm-up), kernel and plain version in turns,
      K9 in Gpairs/s as bench.py counts them; each kernel's bound (the
@@ -2701,6 +2725,513 @@ def ops_phase(dev, root: str, kernels, cli, big_engine, big_quant, ivfs):
     return ctx
 
 
+# ---- phase 4i: the data axis of the mesh -------------------------------------
+
+MESH_SHARDS = 4
+MESH_RAGGED = GALLERY_ROWS - 3           # 1,048,573: the last shard padded
+MESH_WORKERS = 2                         # processes on the card, 2 shards each
+MESH_WORKER_IVF_ROWS = 1 << 18           # the workers' IVF: the first rows
+MESH_WORKER_CLUSTERS = 256               # of FLAT_SEED's gallery, nprobe = C
+HP_ROWS, HP_KEYS, HP_CLASSES = 4096, 64, 8   # search_hp's synthetic problem
+
+
+def mesh_devices():
+    """([4 devices], how): four distinct cards where the machine has them,
+    else the first card four times (shards run one after another)."""
+    n = torch.cuda.device_count()
+    if n >= MESH_SHARDS:
+        return ([torch.device("cuda", i) for i in range(MESH_SHARDS)],
+                f"{MESH_SHARDS} distinct cards")
+    return ([torch.device("cuda", 0)] * MESH_SHARDS,
+            f"cuda:0 repeated {MESH_SHARDS} times ({n} card(s) here)")
+
+
+def separated_equal(vals, ids, ref_vals, ref_ids, gap: float) -> int:
+    """Ids equal wherever the reference's neighbours are more than `gap`
+    apart; returns how many places were compared."""
+    rv = ref_vals.double().cpu()
+    d = (rv[:, :-1] - rv[:, 1:]).abs()
+    g = torch.full_like(rv, float("inf"))
+    g[:, :-1] = d
+    g[:, 1:] = torch.minimum(g[:, 1:], d)
+    clear = torch.isfinite(rv) & (g > gap)
+    bad = clear & (ids.cpu().long() != ref_ids.cpu().long())
+    check(not bool(bad.any()), f"ids differ at {int(bad.sum())} separated "
+          f"places")
+    return int(clear.sum())
+
+
+def hits_separated(got, want, gap: float) -> None:
+    """Engine hits: scores within `gap`, paths equal where separated."""
+    for a, b in zip(got, want):
+        check(len(a) == len(b) > 0, "hit counts differ")
+        ws = np.asarray([h.score for h in b])
+        d = float(np.abs(np.asarray([h.score for h in a]) - ws).max())
+        check(d <= gap, f"hit scores differ by {d}")
+        g = np.full(ws.shape, np.inf)
+        dd = np.abs(np.diff(ws))
+        g[1:], g[:-1] = np.minimum(g[1:], dd), np.minimum(g[:-1], dd)
+        check(all(gg <= gap or x.path == y.path
+                  for x, y, gg in zip(a, b, g)), "hit paths differ")
+
+
+def mesh_worker(argv, dev=None) -> int:
+    """`chip_smoke.py --mesh-worker COORD NPROC PID OUT CENTS`: one of the
+    processes of phase 4i's part 6. Joins the gloo group, builds the
+    process-major hybrid mesh over 2 entries of this card, places only
+    its `process_local_rows` of FLAT_SEED's gallery, and answers the
+    sharded top-10, the slot-sharded IVF at nprobe = C (centroids CENTS,
+    written by the parent) and the dedup ring over phase 4d's planted rows;
+    writes them to OUT (npz)."""
+    coord, nproc, pid, out, cents_path = argv
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.index.ivf import build_ivf_streaming, probe_buckets
+    from mmrs_tpu_torch.ops.allpairs import first_match
+    from mmrs_tpu_torch.ops.topk import cosine_topk
+    from mmrs_tpu_torch.parallel.dedup import sharded_first_match
+    from mmrs_tpu_torch.parallel.ivf import place_ivf, sharded_ivf_topk
+    from mmrs_tpu_torch.parallel.multihost import (distributed_init,
+                                                   make_hybrid_mesh,
+                                                   place_global_rows,
+                                                   process_local_rows)
+    from mmrs_tpu_torch.parallel.topk import sharded_cosine_topk
+
+    dev = dev or torch.device("cuda", 0)
+    check(distributed_init(coord, int(nproc), int(pid)), "one process")
+    mesh = make_hybrid_mesh(MeshConfig(), [dev] * 2)
+    g = flat_gallery(dev)
+    lo, hi = process_local_rows(GALLERY_ROWS, mesh)
+    blocks = place_global_rows(g[lo:hi].float().cpu().numpy(), GALLERY_ROWS,
+                               mesh)
+    blocks = [None if b is None else b.to(torch.bfloat16) for b in blocks]
+    q = g[torch.arange(8, device=dev) * 997].float()
+    for fn in (cosine_topk, probe_buckets, first_match):
+        fn.launches = 0
+    v, i = sharded_cosine_topk(q.to(torch.bfloat16), blocks, 10, mesh,
+                               n_valid=GALLERY_ROWS)
+    sub = g[:MESH_WORKER_IVF_ROWS]
+    cents = torch.from_numpy(np.load(cents_path))
+    ivf = place_ivf(build_ivf_streaming(
+        lambda: (sub[a:a + IVF_CHUNK]
+                 for a in range(0, MESH_WORKER_IVF_ROWS, IVF_CHUNK)),
+        MESH_WORKER_IVF_ROWS, DIM, n_clusters=MESH_WORKER_CLUSTERS,
+        chunk=IVF_CHUNK, centroids=cents, device=dev), mesh)
+    iv, ii = sharded_ivf_topk(q, ivf, k=10, nprobe=MESH_WORKER_CLUSTERS,
+                              mesh=mesh)
+    x, _ = planted_dedup_rows(dev, SEED)
+    fm = sharded_first_match(x, DEDUP_TAU, mesh)
+    counts = {fn.__name__: fn.launches
+              for fn in (cosine_topk, probe_buckets, first_match)}
+    np.savez(out, vals=v.cpu().numpy(), ids=i.cpu().numpy(),
+             ivf_vals=iv.cpu().numpy(), ivf_ids=ii.cpu().numpy(),
+             first=fm.numpy(), rows=np.asarray([lo, hi]),
+             placed=np.asarray([b is not None for b in blocks]),
+             counts=json.dumps(counts))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(dev, root: str, kernels, m: dict, worker_cmd=None):
+    """Phase 4i: the data axis of the mesh on `mesh_devices()`, each part
+    with the launch counts reset before it and each kernel's launches
+    held to S a call (S a ring step): (1) the sharded embed at ViT-B/32
+    width, bf16 and int8 towers, batch 224 over 4a's images; (2) flat
+    top-10 engines (bf16 / int8 / int4) over 4a's 1M gallery and a ragged
+    copy, and each rung's sharded scan timed at S = 1, 2, 4 on one card;
+    (3) the slot-sharded IVF over 4c's clustered 1M indexes, and
+    build_ivf(mesh=) straight into strips; (4) the dedup ring over 4d's
+    planted rows, f32 and bf16; (5) SearchEngine(mesh=) over 4a's index
+    (search, sweep_class), streaming_topk(mesh=) over a 1 GiB memmap and
+    search_hp(mesh=); (6) MESH_WORKERS processes on the card (gloo), each
+    placing its own rows. `m` holds the earlier phases' objects. Returns
+    what phases 5 and 6 read."""
+    from mmrs_tpu_torch.adapt import tip_adapter as tip
+    from mmrs_tpu_torch.config import MeshConfig, SearchConfig
+    from mmrs_tpu_torch.index import ivf as ivf_mod
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+    from mmrs_tpu_torch.index.ivf import probe_buckets, probe_buckets_q4
+    from mmrs_tpu_torch.index.stream import streaming_topk
+    from mmrs_tpu_torch.ops.allpairs import first_match
+    from mmrs_tpu_torch.ops.attention import mha_short_seq
+    from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+    from mmrs_tpu_torch.ops.normalize import l2_normalize
+    from mmrs_tpu_torch.ops.preprocess import normalize_images
+    from mmrs_tpu_torch.ops.quant import cosine_topk_quantized, quantize_rows
+    from mmrs_tpu_torch.ops.quant4 import cosine_topk_int4, quantize_rows_int4
+    from mmrs_tpu_torch.ops.topk import cosine_topk
+    from mmrs_tpu_torch.parallel.dedup import sharded_first_match
+    from mmrs_tpu_torch.parallel.embed import make_sharded_encoder
+    from mmrs_tpu_torch.parallel.ivf import (ShardedIVF, place_ivf,
+                                             sharded_ivf_topk)
+    from mmrs_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from mmrs_tpu_torch.parallel.quant4 import sharded_cosine_topk_int4
+    from mmrs_tpu_torch.parallel.topk import (sharded_cosine_topk,
+                                              sharded_cosine_topk_quantized)
+    from mmrs_tpu_torch.search.engine import SearchEngine
+
+    ctx = {"report": [], "launches": {}, "s": {}, "times": {}}
+    devices, how = mesh_devices()
+    s = len(devices)
+    mesh = make_mesh(MeshConfig(data_size=s), devices)
+    ctx["report"].append(f"4i mesh: {s} shards on {how}")
+    sync = (lambda: [torch.cuda.synchronize(d) for d in set(devices)])
+
+    def reset():
+        for fn in kernels:
+            fn.launches = 0
+
+    def keep(part, per_call: dict):
+        """Keep `part`'s counts; fn must have launched `n` times."""
+        counts = ctx["launches"][part] = {fn.__name__: fn.launches
+                                          for fn in kernels}
+        for fn, n in per_call.items():
+            check(fn.launches == n, f"4i {part}: {fn.__name__} launched "
+                  f"{fn.launches} times, not {n}")
+
+    # -- 1. the sharded embed, bf16 and int8 towers ----------------------
+    t0 = time.perf_counter()
+    ds, samples = m["ds"], m["samples"]
+    layers = len(m["towers"].params.visual.blocks)
+    for name, tw in (("bf16", m["towers"]), ("int8", m["towers8"])):
+        enc = make_sharded_encoder(tw.params_encode_fn, tw.params, mesh,
+                                   EMBED_BATCH)
+        batches = [np.stack([ds.image(*x) for x in
+                             samples[a:a + EMBED_BATCH]])
+                   for a in range(0, len(samples), EMBED_BATCH)]
+        reset()
+        sync()
+        t1 = time.perf_counter()
+        got = [enc(px) for px in batches]
+        sync()
+        sharded_s = time.perf_counter() - t1
+        per = {normalize_images: s * len(batches),
+               mha_short_seq: s * len(batches) * layers}
+        if name == "int8":
+            per[mlp_int8_fused] = s * len(batches) * layers
+        keep(f"embed_{name}", per)
+        t1 = time.perf_counter()
+        ref = [tw.image_encode(px) for px in batches]
+        one_s = time.perf_counter() - t1
+        got = torch.from_numpy(np.concatenate(got))
+        ref = torch.from_numpy(np.concatenate(ref))
+        cos = float(torch.nn.functional.cosine_similarity(got, ref).min())
+        ulps = bf16_ulps(got, ref)
+        check(cos >= 0.9999, f"4i sharded {name} embed: min cosine {cos}")
+        ctx["times"][f"embed_{name}"] = {"sharded_s": sharded_s,
+                                         "one_s": one_s, "ulps": ulps,
+                                         "cos": cos}
+        ctx["report"].append(
+            f"4i (1) sharded embed ViT-B/32 {name}, batch {EMBED_BATCH} "
+            f"({EMBED_BATCH // s} a shard), {len(samples)} images: min "
+            f"cosine {cos:.7f} to the one-device encode, largest gap "
+            f"{ulps:.1f} bf16 ulp; host clock {sharded_s:.3f} s sharded, "
+            f"{one_s:.3f} s one device")
+    ctx["s"]["embed"] = time.perf_counter() - t0
+
+    # -- 2. flat top-10 engines on the mesh; the shard loop's cost ---------
+    t0 = time.perf_counter()
+    big, qbig = m["big"], m["qbig"]
+    ragged = GalleryIndex(big.embeddings[:MESH_RAGGED],
+                          big.paths[:MESH_RAGGED], big.classes[:MESH_RAGGED])
+    scans = {"": cosine_topk, "int8": cosine_topk_quantized,
+             "int4": cosine_topk_int4}
+    ones = {"": m["big_engine"], **m["big_quant"]}
+    for gname, gidx in (("1M", big), ("ragged", ragged)):
+        for mode, fn in scans.items():
+            eng = SearchEngine(gidx, SearchConfig(), mesh=mesh,
+                               quantize=mode)
+            one = (ones[mode] if gname == "1M" else
+                   SearchEngine(gidx, SearchConfig(), quantize=mode,
+                                device=dev))
+            reset()
+            hits = eng.query_vectors(qbig, top_k=10)
+            keep(f"flat_{gname}_{mode or 'bf16'}", {fn: s})
+            want = one.query_vectors(qbig, top_k=10)
+            if mode:
+                check([[(h.path, h.score) for h in r] for r in hits]
+                      == [[(h.path, h.score) for h in r] for r in want],
+                      f"4i {gname} {mode}: mesh hits != one-device hits")
+            else:
+                hits_separated(hits, want, 1e-2)     # 1e-4 in cosine
+            del eng, one
+    torch.cuda.empty_cache()
+    ctx["report"].append(
+        f"4i (2) flat top-10 engines on the mesh, {GALLERY_ROWS} and "
+        f"{MESH_RAGGED} rows x {DIM}, Q=8: bf16 hits = one device's "
+        f"(scores within 1e-4 cosine, paths where separated), int8 / int4 "
+        f"hits and scores equal; each scan launched {s} times a query")
+    g = flat_gallery(dev)
+    qf = g[torch.arange(8, device=dev) * 997].float()
+    p8, s8 = quantize_rows(g.float())
+    p4, s4 = quantize_rows_int4(g.float())
+    rungs = {"bf16": (sharded_cosine_topk, (g,), qf.to(torch.bfloat16),
+                      lambda: cosine_topk(qf.to(torch.bfloat16), g, 10)),
+             "int8": (sharded_cosine_topk_quantized, (p8, s8), qf,
+                      lambda: cosine_topk_quantized(qf, p8, s8, 10)),
+             "int4": (sharded_cosine_topk_int4, (p4, s4), qf,
+                      lambda: cosine_topk_int4(qf, p4, s4, 10))}
+    flat_ms = {}
+    with torch.inference_mode():
+        for rung, (fn, gal, qq, direct) in rungs.items():
+            r = {"direct_ms": time_ms(direct, iters=20),
+                 "direct_graph_ms": graph_ms(direct)[0]}
+            for n_sh in (1, 2, 4):
+                msh = make_mesh(MeshConfig(data_size=n_sh),
+                                [devices[0]] * n_sh)
+                blocks = [shard_rows(t, msh) for t in gal]
+                call = (lambda fn=fn, qq=qq, blocks=blocks, msh=msh:
+                        fn(qq, *blocks, 10, msh))
+                r[f"s{n_sh}_ms"] = time_ms(call, iters=20)
+                r[f"s{n_sh}_graph_ms"] = graph_ms(call)[0]
+            flat_ms[rung] = r
+    ctx["times"]["flat"] = flat_ms
+    for rung, r in flat_ms.items():
+        ctx["report"].append(
+            f"4i (2) {rung} top-10 Q=8 over {GALLERY_ROWS} x {DIM} on one "
+            f"card, ms eager / card alone: direct {r['direct_ms']:.4f} / "
+            f"{r['direct_graph_ms']:.4f}; "
+            + "; ".join(f"S={n} {r[f's{n}_ms']:.4f} / {r[f's{n}_graph_ms']:.4f}"
+                        for n in (1, 2, 4)))
+    del p8, s8, p4, s4
+    ctx["s"]["flat"] = time.perf_counter() - t0
+
+    # -- 3. the slot-sharded IVF; build_ivf(mesh=) into strips -------------
+    t0 = time.perf_counter()
+    ivf_gal, ivfs = m["ivf_gal"], m["ivfs"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rows = torch.randint(0, GALLERY_ROWS, (64,), device=dev, generator=gen)
+    qc = ivf_gal[rows].float() + 0.02 * torch.randn((64, DIM), device=dev,
+                                                    generator=gen)
+    qc = qc / qc.norm(dim=1, keepdim=True)
+    for mode, one in ivfs.items():
+        sivf = place_ivf(one, mesh)
+        fn = probe_buckets_q4 if mode == "int4" else probe_buckets
+        for nprobe in (IVF_NPROBE, IVF_CLUSTERS):
+            reset()
+            v, i = sharded_ivf_topk(qc, sivf, k=10, nprobe=nprobe, mesh=mesh)
+            keep(f"ivf_{IVF_RUNGS[mode]}_{nprobe}", {fn: s})
+            rv, ri = ivf_mod.ivf_topk(qc, one, k=10, nprobe=nprobe)
+            if mode == "int4":
+                check(torch.equal(v.cpu(), rv.cpu())
+                      and torch.equal(i.cpu(), ri.cpu()),
+                      f"4i IVF int4 nprobe={nprobe}: mesh != one device")
+            else:
+                d = float((v.cpu() - rv.cpu()).abs().max())
+                check(d <= 1e-5, f"4i IVF {mode or 'bf16'} nprobe={nprobe}:"
+                      f" values differ by {d}")
+                separated_equal(v, i, rv, ri, 1e-5)
+        del sivf
+    cents = ivf_mod.train_centroids(ivf_gal[::4], IVF_CLUSTERS, device=dev)
+    cap = -(-ivfs[""].bucket_cap // (8 * s)) * 8 * s
+
+    def chunks():
+        return (ivf_gal[a:a + IVF_CHUNK]
+                for a in range(0, GALLERY_ROWS, IVF_CHUNK))
+
+    kw = dict(n_clusters=IVF_CLUSTERS, chunk=IVF_CHUNK, centroids=cents,
+              bucket_cap=cap, device=dev)
+    a = place_ivf(ivf_mod.build_ivf_streaming(chunks, GALLERY_ROWS, DIM,
+                                              **kw), mesh)
+    b = ivf_mod.build_ivf_streaming(chunks, GALLERY_ROWS, DIM, mesh=mesh,
+                                    **kw)
+    check(isinstance(b, ShardedIVF), "build_ivf(mesh=) gave no strips")
+    for sa, sb in zip(a.shards, b.shards):
+        for name in ("buckets", "bucket_ids"):
+            check(torch.equal(getattr(sa, name), getattr(sb, name)),
+                  f"4i build_ivf(mesh=) {name} != place_ivf(build_ivf())")
+    # the spill pads to 8 S rows (not S), so its strips differ in length;
+    # the live rows must be the same, in the same order
+    live_a, live_b = a.spill_ids, b.spill_ids
+    check(torch.equal(live_a[live_a >= 0], live_b[live_b >= 0]),
+          "4i build_ivf(mesh=) spill rows != place_ivf(build_ivf())'s")
+    v1, i1 = sharded_ivf_topk(qc, a, k=10, nprobe=IVF_NPROBE, mesh=mesh)
+    v2, i2 = sharded_ivf_topk(qc, b, k=10, nprobe=IVF_NPROBE, mesh=mesh)
+    check(torch.equal(v1, v2) and torch.equal(i1, i2),
+          "4i build_ivf(mesh=) answers != place_ivf(build_ivf())'s")
+    ctx["times"]["ivf_build_s"] = b.build_seconds
+    del a, b, cents
+    torch.cuda.empty_cache()
+    ctx["report"].append(
+        f"4i (3) slot-sharded IVF over the clustered {GALLERY_ROWS} x {DIM}, "
+        f"C={IVF_CLUSTERS}, Q=64, nprobe {IVF_NPROBE} and C: bf16 / int8 "
+        f"values within 1e-5 of one-device ivf_topk and ids where "
+        f"separated, int4 ids and values equal; K7 / K8 launched {s} times "
+        f"a query; build_ivf(mesh=) at cap {cap} = place_ivf(build_ivf()) "
+        f"(bucket strips equal, the same spill rows, the same answers; "
+        f"build s {json.dumps(ctx['times']['ivf_build_s'])})")
+    ctx["s"]["ivf"] = time.perf_counter() - t0
+
+    # -- 4. the dedup ring ----------------------------------------------------
+    t0 = time.perf_counter()
+    ring = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = m["dedup_x"].to(dt)
+        reset()
+        got = sharded_first_match(x, DEDUP_TAU, mesh)
+        keep(f"ring_{name}", {first_match: s * s})
+        one = first_match(x, x, DEDUP_TAU, intra=True).cpu().long()
+        check(torch.equal(got, one), f"4i ring {name}: ids differ at "
+              f"{int((got != one).sum())} rows")
+        if name == "f32":
+            ctx["ring_first"] = one.numpy()
+        ring[name] = (time_ms(lambda: sharded_first_match(x, DEDUP_TAU,
+                                                          mesh),
+                              iters=3, warmup=1),
+                      time_ms(lambda: first_match(x, x, DEDUP_TAU,
+                                                  intra=True),
+                              iters=3, warmup=1))
+    ctx["times"]["ring_ms"] = ring
+    ctx["report"].append(
+        f"4i (4) dedup ring over {DEDUP_ROWS} x {DIM} planted rows, "
+        f"{s} x {s} blocks: every id = one-device K9's; ms ring / one "
+        f"device: " + ", ".join(f"{n} {r:.3f} / {o:.3f}"
+                                for n, (r, o) in ring.items()))
+    ctx["s"]["ring"] = time.perf_counter() - t0
+
+    # -- 5. the engine, the stream and search_hp on the mesh --------------
+    t0 = time.perf_counter()
+    idx, engine = m["idx"], m["engine"]
+    eng = SearchEngine(idx, SearchConfig(), mesh=mesh)
+    reset()
+    hits = eng.query_image(m["qvec"], top_k=10)
+    keep("engine_search", {cosine_topk: s})
+    hits_separated(hits, engine.query_image(m["qvec"], top_k=10), 1e-2)
+    labels = np.asarray([c == "c0" for c in idx.classes])
+    proto = torch.from_numpy(np.asarray(
+        idx.embeddings[np.flatnonzero(labels)[:10]])).mean(0)
+    got, want = eng.sweep_class(proto, labels), engine.sweep_class(proto,
+                                                                   labels)
+    check(abs(got.best_threshold - want.best_threshold) <= 1e-3
+          and abs(got.best_f1 - want.best_f1) <= 1e-9,
+          f"4i sweep_class {got.best_threshold}/{got.best_f1} vs "
+          f"{want.best_threshold}/{want.best_f1}")
+    del eng
+    path = os.path.join(root, "stream.npy")
+    np.save(path, np.asarray(big.embeddings, np.float16))
+    mm = np.load(path, mmap_mode="r")
+    reset()
+    t1 = time.perf_counter()
+    sv, si = streaming_topk(mm, qbig, k=10, chunk_rows=STREAM_CHUNK,
+                            mesh=mesh)
+    stream_s = time.perf_counter() - t1
+    chunks_n = -(-GALLERY_ROWS // STREAM_CHUNK)
+    keep("stream", {cosine_topk: s * chunks_n})
+    ov, oi = streaming_topk(mm, qbig, k=10, chunk_rows=STREAM_CHUNK,
+                            device=dev)
+    check(float(np.abs(sv - ov).max()) <= 1e-5, "4i stream values")
+    separated_equal(torch.from_numpy(sv), torch.from_numpy(si),
+                    torch.from_numpy(ov), torch.from_numpy(oi), 1e-5)
+    del mm
+    os.remove(path)
+    rng = np.random.default_rng(SEED + 41)
+    feats = rng.normal(size=(HP_ROWS, DIM)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    keys = rng.normal(size=(HP_KEYS, DIM)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    values = np.eye(HP_CLASSES, dtype=np.float32)[
+        rng.integers(0, HP_CLASSES, HP_KEYS)]
+    cw = rng.normal(size=(DIM, HP_CLASSES)).astype(np.float32)
+    cw /= np.linalg.norm(cw, axis=0, keepdims=True)
+    labels_hp = rng.integers(0, HP_CLASSES, HP_ROWS)
+    f_dev = torch.from_numpy(feats).to(dev)
+    t1 = time.perf_counter()
+    hp = tip.search_hp(f_dev, keys, values, cw, labels_hp, HP_CLASSES,
+                       mesh=mesh)
+    hp_s = time.perf_counter() - t1
+    hp1 = tip.search_hp(f_dev, keys, values, cw, labels_hp, HP_CLASSES)
+    d = float(np.abs(hp.grid - hp1.grid).max())
+    check(d <= 1e-6 and (hp.beta, hp.alpha) == (hp1.beta, hp1.alpha),
+          f"4i search_hp: grids differ by {d}, ({hp.beta}, {hp.alpha}) vs "
+          f"({hp1.beta}, {hp1.alpha})")
+    ctx["report"].append(
+        f"4i (5) SearchEngine(mesh=) over 4a's index: image top-10 = 4a's, "
+        f"sweep_class = 4a's ({got.best_threshold:.4f}, f1 "
+        f"{got.best_f1:.4f}); streaming_topk(mesh=) over a 1 GiB f16 "
+        f"memmap in {STREAM_CHUNK}-row chunks = one-device stream "
+        f"({stream_s:.2f} s, K1 {s} a chunk); search_hp(mesh=) "
+        f"{hp.grid.shape} grid within 1e-6 of one device, same (beta, "
+        f"alpha) ({hp_s:.2f} s)")
+    ctx["s"]["engine_stream_hp"] = time.perf_counter() - t0
+
+    # -- 6. processes on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    sub = g[:MESH_WORKER_IVF_ROWS]
+    cents_path = os.path.join(root, "worker_cents.npy")
+    np.save(cents_path, ivf_mod.train_centroids(
+        sub[::4].float().cpu(), MESH_WORKER_CLUSTERS, device="cpu").numpy())
+    outs = [os.path.join(root, f"worker{i}.npz")
+            for i in range(MESH_WORKERS)]
+    cmd = worker_cmd or [sys.executable, os.path.abspath(__file__),
+                         "--mesh-worker"]
+    procs = [subprocess.Popen(
+        cmd + [f"127.0.0.1:{port}", str(MESH_WORKERS), str(i), outs[i],
+               cents_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(MESH_WORKERS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"4i worker exited {p.returncode}: "
+              f"{log[-3000:]}")
+    res = [dict(np.load(o)) for o in outs]
+    q = g[torch.arange(8, device=dev) * 997].float()
+    fv, fi = cosine_topk(q.to(torch.bfloat16), g, 10)
+    # the IVF fill normalizes its f32 rows again before the bf16 cast
+    iv, ii = cosine_topk(q.to(torch.bfloat16), l2_normalize(
+        sub.float()).to(torch.bfloat16), 10)
+    per = MESH_WORKERS * 2
+    for r, w in zip(res, range(MESH_WORKERS)):
+        lo = w * GALLERY_ROWS // MESH_WORKERS
+        check(r["rows"].tolist() == [lo, lo + GALLERY_ROWS // MESH_WORKERS],
+              f"4i worker {w} placed rows {r['rows'].tolist()}")
+        check(r["placed"].tolist() == [w * 2 <= p < w * 2 + 2
+                                       for p in range(per)],
+              f"4i worker {w} placed blocks {r['placed'].tolist()}")
+        counts = json.loads(str(r["counts"]))
+        check(counts == {"cosine_topk": 2, "probe_buckets": 2,
+                         "first_match": 2 * per},
+              f"4i worker {w} launches {counts}")
+        for key in ("vals", "ids", "ivf_vals", "ivf_ids", "first"):
+            check(np.array_equal(r[key], res[0][key]),
+                  f"4i workers disagree on {key}")
+    r = res[0]
+    check(float(np.abs(r["vals"] - fv.cpu().numpy()).max()) <= 1e-6,
+          "4i workers' top-10 values")
+    separated_equal(torch.from_numpy(r["vals"]), torch.from_numpy(r["ids"]),
+                    fv, fi, 1e-5)
+    check(float(np.abs(r["ivf_vals"] - iv.cpu().numpy()).max()) <= 1e-5,
+          "4i workers' IVF values")
+    separated_equal(torch.from_numpy(r["ivf_vals"]),
+                    torch.from_numpy(r["ivf_ids"]), iv, ii, 1e-5)
+    check(np.array_equal(r["first"], ctx.pop("ring_first")),
+          "4i workers' ring != one-device K9")
+    ctx["s"]["processes"] = time.perf_counter() - t0
+    ctx["report"].append(
+        f"4i (6) {MESH_WORKERS} processes on the card (gloo over "
+        f"127.0.0.1, 2 shards each, the data axis process-major): each "
+        f"placed only its {GALLERY_ROWS // MESH_WORKERS} rows; top-10, IVF "
+        f"at nprobe = C ({MESH_WORKER_IVF_ROWS} rows, C="
+        f"{MESH_WORKER_CLUSTERS}) and the ring identical in both and equal "
+        f"to this process's one-device answers "
+        f"({ctx['s']['processes']:.1f} s)")
+    del g
+    torch.cuda.empty_cache()
+    return ctx
+
+
 def kv_cache(dev, g, layers, b, kvh, s, hd, quantized):
     """A stacked random [L, B, KVH, S, HD] cache: bf16, or int8 + scales."""
     from mmrs_tpu_torch.models.llama import _quantize_kv
@@ -3045,6 +3576,8 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if argv[:1] == ["--mesh-worker"] and len(argv) == 6:
+        return mesh_worker(argv[1:])
     if argv[:1] == ["--flat-times"] and len(argv) == 2:
         sys.path.insert(0, os.path.abspath(argv[1]))
         dev = torch.device("cuda", 0)
@@ -4250,6 +4783,23 @@ def main(argv) -> int:
         f"{ops_ctx['s']['setup'] + ops_ctx['s']['pack']:.1f} s; budget 90 s)")
     tmp.cleanup()
 
+    # ---- 4i. end to end: the data axis of the mesh ---------------------------
+    tmp = tempfile.TemporaryDirectory()
+    free = shutil.disk_usage(tmp.name).free
+    check(free > 3 * 2 ** 30, f"4i: {free / 2 ** 30:.1f} GiB free under "
+          f"{tmp.name}, the streaming scan writes 1 GiB")
+    t0 = time.perf_counter()
+    mesh_ctx = mesh_phase(dev, tmp.name, kernels, dict(
+        towers=towers, towers8=towers8, ds=ds, samples=samples, idx=idx,
+        engine=engine, qvec=qvec, big=big, qbig=qbig, big_engine=big_engine,
+        big_quant=big_quant, ivf_gal=ivf_gal, ivfs=ivfs, dedup_x=dedup_x))
+    for line in mesh_ctx["report"]:
+        say(f"phase {line}")
+    say(f"phase 4i: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in mesh_ctx["s"].items())
+        + "; predicted 45-100 s)")
+    tmp.cleanup()
+
     # ---- 5. launch counts --------------------------------------------------
     say(f"phase 5 launches during phase 4a (bf16): "
         f"{json.dumps(launches_bf16)}")
@@ -4289,6 +4839,12 @@ def main(argv) -> int:
     for run, counts in ops_ctx["launches"].items():
         say(f"phase 5 launches during phase 4h ({run}): "
             f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for run, counts in mesh_ctx["launches"].items():
+        say(f"phase 5 launches during phase 4i ({run}): "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for fn in kernels[:9]:
+        check(any(c[fn.__name__] for c in mesh_ctx["launches"].values()),
+              f"{fn.__name__} never launched in phase 4i")
     # the verifier's main path is run (1), bf16 (phase 4e checked that
     # K2, K10 and K11 launched in every run and K6 in the int8 runs)
     launches["chunk_attention"] = llava_ctx["launches"]["bf16"][
@@ -4899,6 +5455,30 @@ def main(argv) -> int:
             run: c[name] for run, c in ops_ctx["launches"].items()
             if c[name]}
     extra["probe_buckets"]["q1_graph_ms"] = probe_q1[0]
+    for fn in kernels[:9]:
+        extra.setdefault(fn.__name__, {})["launches_4i"] = {
+            run: c[fn.__name__] for run, c in mesh_ctx["launches"].items()
+            if c[fn.__name__]}
+    mt = mesh_ctx["times"]
+    for rung, r in mt["flat"].items():
+        say(f"phase 6 sharded {rung} top-10 (4i), Q=8, {GALLERY_ROWS} x "
+            f"{DIM} on one card, {card}: ms eager / card alone: direct "
+            f"{r['direct_ms']:.4f} / {r['direct_graph_ms']:.4f}, "
+            + ", ".join(f"S={n} {r[f's{n}_ms']:.4f} / "
+                        f"{r[f's{n}_graph_ms']:.4f}" for n in (1, 2, 4)))
+    name = {"bf16": "cosine_topk", "int8": "cosine_topk_quantized",
+            "int4": "cosine_topk_int4"}
+    for rung, r in mt["flat"].items():
+        extra[name[rung]]["sharded_4i_ms"] = r
+    say(f"phase 6 dedup ring (4i), {DEDUP_ROWS} x {DIM}, {MESH_SHARDS} x "
+        f"{MESH_SHARDS} blocks, {card}: ms ring / one-device K9 "
+        + ", ".join(f"{n} {a:.3f} / {b:.3f}"
+                    for n, (a, b) in mt["ring_ms"].items()))
+    extra["first_match"]["ring_4i_ms"] = mt["ring_ms"]
+    say(f"phase 6 sharded embed (4i) ViT-B/32, {card}: host s sharded / "
+        f"one device " + ", ".join(
+            f"{k[6:]} {v['sharded_s']:.3f} / {v['one_s']:.3f}"
+            for k, v in mt.items() if k.startswith("embed_")))
     say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s (the "
         f"build included; limit 1200 s)")
     say(json.dumps({"kernels": [

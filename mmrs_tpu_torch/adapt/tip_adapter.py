@@ -171,23 +171,42 @@ def search_hp(
     The grid's betas and alphas are f32 from the JAX package's Python
     expressions, and its arg-max is the first maximum in row-major order,
     so the chosen (beta, alpha) is the JAX package's where the best is
-    separated. Runs on the features' device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "search_hp over a mesh is ported with ROADMAP A.12")
+    separated. Runs on the features' device; with `mesh`, the beta axis
+    of the grid is split over the mesh's data axis (a count that does not
+    divide is padded with the last beta), each device evaluates its betas
+    on its own copy of the features and cache, and the F1 rows are
+    gathered on the host."""
     feats = _tensor(feats, dtype=torch.float32)
-    dev = feats.device
+    n_beta = search_step[0]
     betas = torch.tensor(
         [(i + 1) * search_scale[0] / search_step[0]
-         for i in range(search_step[0])], dtype=torch.float32, device=dev)
+         for i in range(n_beta)], dtype=torch.float32)
     alphas = torch.tensor(
         [(i + 1) * search_scale[1] / search_step[1]
-         for i in range(search_step[1])], dtype=torch.float32, device=dev)
-    grid = _grid_f1(feats, _tensor(keys, dev, torch.float32),
-                    _tensor(values, dev, torch.float32),
-                    _tensor(clip_weights, dev, torch.float32),
-                    _tensor(labels, dev), betas, alphas,
-                    num_classes).cpu().numpy()
+         for i in range(search_step[1])], dtype=torch.float32)
+
+    def grid_on(dev, b):
+        return _grid_f1(feats.to(dev), _tensor(keys, dev, torch.float32),
+                        _tensor(values, dev, torch.float32),
+                        _tensor(clip_weights, dev, torch.float32),
+                        _tensor(labels, dev), b.to(dev), alphas.to(dev),
+                        num_classes)
+
+    if mesh is None:
+        grid = grid_on(feats.device, betas).cpu().numpy()
+    else:
+        from mmrs_tpu_torch.parallel.mesh import data_devices, local_positions
+        from mmrs_tpu_torch.parallel.multihost import all_gather_processes
+
+        shards = mesh.shape["data"]
+        pad = (-n_beta) % shards
+        betas = torch.cat([betas, betas[-1:].expand(pad)])
+        per = betas.shape[0] // shards
+        devs = data_devices(mesh)
+        rows = torch.stack([grid_on(devs[p], betas[p * per:(p + 1) * per])
+                            .cpu() for p in local_positions(mesh)])
+        grid = all_gather_processes(rows).reshape(-1, alphas.shape[0])
+        grid = grid.numpy()[:n_beta]
     bi, ai = np.unravel_index(np.argmax(grid), grid.shape)
     return HPResult(beta=float(betas[bi]), alpha=float(alphas[ai]),
                     f1=float(grid[bi, ai]), grid=grid)

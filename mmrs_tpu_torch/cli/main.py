@@ -1,22 +1,24 @@
 """`mmrs-torch` CLI — the search path of `mmrs`, on the PyTorch port.
 
   mmrs-torch index build   --root DIR --out DIR [--config cfg.yaml]
+                           [--sharded]
   mmrs-torch index update  --root DIR --index DIR [--config cfg.yaml]
   mmrs-torch index compact --index DIR [--drop-class C...] [--keep-missing]
   mmrs-torch search        --index DIR (--image PATH... | --text "query"
                            --merges FILE) [-k 10] [--prototype mean]
-                           [--gallery-quant int8|int4]
+                           [--gallery-shards N] [--gallery-quant int8|int4]
                            [--ann-nprobe N | --ann-target-recall R]
                            [--ann-clusters C] [--ann-cover F]
                            [--ann-slots-frac F]
   mmrs-torch calibrate     --index DIR --positive-class NAME [--shots 10]
-                           [--gallery-quant int8|int4]
+                           [--gallery-shards N] [--gallery-quant int8|int4]
   mmrs-torch ann build     --index DIR [--clusters C] [--bucket-cap N]
                            [--cover F] [--slots-frac F]
                            [--target-recall R] [--gallery-quant int8|int4]
   mmrs-torch dedup         --mode exact|perceptual|embedding
                            [--reference DIR] [--target DIR] [--index DIR]
                            [--hamming 5] [--tau 0.96] [--workers 0]
+                           [--gallery-shards N]
   mmrs-torch leakage       --train DIR --test DIR [--tolerance 0]
   mmrs-torch convert       --root DIR [--quality 95]   (format -> JPEG)
   mmrs-torch clean         --root DIR          (delete non-jpeg images)
@@ -43,7 +45,8 @@
                            [--merges FILE | --vocab FILE]
                            [--batch-window S] [--max-batch N]
                            [--concurrent-fetch] [--watch-index SEC]
-                           [--gallery-quant ...] [--ann-* ...]
+                           [--gallery-shards N] [--gallery-quant ...]
+                           [--ann-* ...]
                            [--verifier none|stub|llava ...]
   mmrs-torch search        --server URL (--image PATH... | --text "query")
                            [-k 10]
@@ -65,10 +68,13 @@
                            [--spill-frac F] [--target-ms T]
 
 The flags and output lines are those of the same `mmrs` subcommands
-(mmrs_tpu/cli/main.py) on one device: the flat gallery, bf16 or
-quantized (`--gallery-quant`; `--gallery-int8` is the older spelling of
+(mmrs_tpu/cli/main.py): the flat gallery, bf16 or quantized
+(`--gallery-quant`; `--gallery-int8` is the older spelling of
 `--gallery-quant int8`), or the IVF index (`--ann-*`, whose sidecar is
-cached under `<index>/ivf` and prebuilt by `ann build`). Destructive
+cached under `<index>/ivf` and prebuilt by `ann build`), on one device or
+split over the first N local devices (`--gallery-shards N`: gallery rows
+or IVF slot strips; for `dedup --mode embedding` the ring; `index build
+--sharded` embeds over the config's mesh). Destructive
 governance commands are dry runs unless given --no-dry-run. `cascade`
 gates a folder with the CLIP tower and verifies the survivors with
 LLaVA-v1.5-7B (`--verifier llava`: a converted npz and its
@@ -162,13 +168,46 @@ def _add_ann_flags(parser) -> None:
                              "sqrt(rows)); implies IVF when set")
 
 
+def _add_shards_flag(parser, what: str = "gallery rows") -> None:
+    parser.add_argument("--gallery-shards", type=int, default=1,
+                        help=f"shard {what} over the first N local "
+                             "devices (on the CPU: N CPU entries)")
+
+
+def _gallery_mesh(args):
+    """The data mesh of --gallery-shards N over the first N local devices
+    (parallel/mesh.py): None for N = 1, 2 (the exit code) on a usage
+    error."""
+    shards = getattr(args, "gallery_shards", 1)
+    if shards < 1:
+        print(f"--gallery-shards must be >= 1, got {shards}",
+              file=sys.stderr)
+        return 2
+    if shards == 1:
+        return None
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+    devices = local_devices(shards)
+    if len(devices) < shards:
+        print(f"--gallery-shards {shards} needs {shards} local "
+              f"devices; {len(devices)} available", file=sys.stderr)
+        return 2
+    return make_mesh(MeshConfig(data_size=shards, model_size=1),
+                     devices[:shards])
+
+
 def _make_engine(args, cfg, idx):
-    """SearchEngine from the --gallery-quant and --ann-* flags; 2 (the
-    exit code) on a usage error."""
+    """SearchEngine from the --gallery-shards, --gallery-quant and --ann-*
+    flags: rows (or IVF slot strips) over a data mesh of the first N
+    local devices; 2 (the exit code) on a usage error."""
     import dataclasses
 
     from mmrs_tpu_torch.search.engine import SearchEngine
 
+    mesh = _gallery_mesh(args)
+    if mesh == 2:
+        return 2
     nprobe = getattr(args, "ann_nprobe", 0)
     clusters = getattr(args, "ann_clusters", 0)
     target = getattr(args, "ann_target_recall", 0.0)
@@ -185,7 +224,8 @@ def _make_engine(args, cfg, idx):
             ann_target_recall=max(target, 0.0),
             ann_cover=getattr(args, "ann_cover", 0.98),
             ann_slots_frac=getattr(args, "ann_slots_frac", 1.3))
-    return SearchEngine(idx, search_cfg, quantize=_quant_mode(args))
+    return SearchEngine(idx, search_cfg, mesh=mesh,
+                        quantize=_quant_mode(args))
 
 
 def cmd_index_build(args) -> int:
@@ -195,8 +235,25 @@ def cmd_index_build(args) -> int:
 
     cfg = _load_config(args.config)
     towers = build_towers(cfg)
+    encode = towers.image_encode
+    if args.sharded:
+        from mmrs_tpu_torch.parallel import make_mesh
+        from mmrs_tpu_torch.parallel.embed import make_sharded_encoder
+        from mmrs_tpu_torch.parallel.mesh import local_devices
+
+        model = max(1, cfg.mesh.model_size)
+        devices = local_devices(cfg.mesh.data_size * model
+                                if cfg.mesh.data_size > 0 else None)
+        if len(devices) > 1:
+            mesh = make_mesh(cfg.mesh, devices)
+            encode = make_sharded_encoder(towers.params_encode_fn,
+                                          towers.params, mesh,
+                                          cfg.gallery.batch_size)
+        else:
+            print("--sharded requested but only one device; using it",
+                  file=sys.stderr)
     ds = FolderDataset.from_root(args.root, num_workers=args.workers)
-    idx = build_index(ds, towers.image_encode, args.out,
+    idx = build_index(ds, encode, args.out,
                       batch_size=cfg.gallery.batch_size,
                       shard_rows=cfg.gallery.shard_rows,
                       resume=not args.no_resume)
@@ -425,13 +482,15 @@ def cmd_dedup(args) -> int:
     else:
         from mmrs_tpu_torch.index.gallery import GalleryIndex
 
-        if args.gallery_shards > 1:
-            print(f"--gallery-shards {args.gallery_shards}: the sharded "
-                  "dedup ring is ported with ROADMAP A.12", file=sys.stderr)
-            return 2
         idx = GalleryIndex.load(args.index)
+        # --gallery-shards > 1: the O(N^2) scan rides the ring (parallel/
+        # dedup.py), one [N/S, D] visiting block resident a device
+        mesh = _gallery_mesh(args) if args.gallery_shards > 1 else None
+        if mesh == 2:
+            return 2
         rep = dd.embedding_dedup(np.asarray(idx.embeddings, np.float32),
-                                 idx.paths, tau=args.tau, dry_run=dry)
+                                 idx.paths, tau=args.tau, dry_run=dry,
+                                 mesh=mesh)
     print(rep.summary())
     for dup, keeper in rep.duplicates:
         print(f"DUP\t{dup}\t-> keeper {keeper}")
@@ -747,14 +806,8 @@ def _add_verifier_flags(parser) -> None:
 
 
 def _one_device(args) -> bool:
-    """False (after the message) when the flags ask for more than one
-    device: --gallery-shards > 1 or a --tp mesh wait for ROADMAP A.12."""
-    shards = getattr(args, "gallery_shards", 1)
-    if shards != 1:
-        print(f"--gallery-shards {shards}: the sharded gallery is ported "
-              f"with ROADMAP A.12; this port serves from one device",
-              file=sys.stderr)
-        return False
+    """False (after the message) when the flags ask for a verifier mesh:
+    --tp other than 1 waits for ROADMAP A.12."""
     spec = str(getattr(args, "tp", "1")).lower()
     if spec not in ("1", "1x1"):
         print(f"--tp {spec}: tensor-parallel verifier hosting is ported "
@@ -1103,6 +1156,9 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--config")
     b.add_argument("--workers", type=int, default=8)
     b.add_argument("--no-resume", action="store_true")
+    b.add_argument("--sharded", action="store_true",
+                   help="embed batches split over the config's mesh "
+                        "(mesh.data_size devices; all cards by default)")
     b.set_defaults(fn=cmd_index_build)
 
     u = index.add_parser("update")
@@ -1132,6 +1188,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--config")
     s.add_argument("--merges", help="CLIP BPE merges file for --text")
     s.add_argument("--vocab", help="BERT vocab.txt for --text (Taiyi tower)")
+    _add_shards_flag(s)
     _add_quant_flags(s)
     _add_ann_flags(s)
     s.set_defaults(fn=cmd_search)
@@ -1142,6 +1199,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--shots", type=int, default=10)
     c.add_argument("--prototype", default="mean")
     c.add_argument("--config")
+    _add_shards_flag(c)
     _add_quant_flags(c)
     _add_ann_flags(c)
     c.set_defaults(fn=cmd_calibrate)
@@ -1160,9 +1218,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--tau", type=float, default=0.96)
     d.add_argument("--workers", type=int, default=0,
                    help="hash thread pool size (0 = one per core)")
-    d.add_argument("--gallery-shards", type=int, default=1,
-                   help="embedding mode: the sharded dedup ring (N > 1 is "
-                        "not ported yet)")
+    _add_shards_flag(d, "the embedding mode's ring")
     add_dry(d)
     d.set_defaults(fn=cmd_dedup)
 
@@ -1268,9 +1324,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "when `index update`/`compact` changed it (0 = "
                          "off; the old gallery stays resident during the "
                          "swap)")
-    sv.add_argument("--gallery-shards", type=int, default=1,
-                    help="shard gallery rows over N devices (N > 1 is "
-                         "ported with ROADMAP A.12)")
+    _add_shards_flag(sv)
     _add_quant_flags(sv)
     _add_ann_flags(sv)
     _add_verifier_flags(sv)

@@ -246,24 +246,31 @@ def embedding_dedup(
     impl: str = "auto",
     device=None,
 ) -> DedupReport:
-    """Semantic dedup on encoder embeddings via the tiled first_match kernel.
-    Keep-first: order the rows by preference (e.g. file size desc) before
-    calling. The rows go to `device` (default: `default_device()`) as f32;
-    the ring-sharded form (mesh=) is ported with ROADMAP A.12."""
+    """Semantic dedup on encoder embeddings via the tiled first_match kernel
+    (one device) or its ring over the mesh's data axis (mesh=, parallel/
+    dedup.py: one row block and one visiting block a device). Keep-first:
+    order the rows by preference (e.g. file size desc) before calling. The
+    rows go to `device` (default: `default_device()`; the mesh's devices
+    with a mesh) as f32."""
     import torch
 
     from mmrs_tpu_torch.ops.allpairs import first_match
     from mmrs_tpu_torch.pipeline import default_device
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the ring-sharded embedding dedup (mesh=) is ported with "
-            "ROADMAP A.12")
     report = DedupReport()
-    device = torch.device(device) if device is not None else default_device()
     # a copy: index rows are often a read-only memmap
-    x = torch.tensor(np.asarray(embeddings, np.float32), device=device)
-    fm = first_match(x, x, tau, intra=True, impl=impl).cpu().numpy()
+    x = torch.tensor(np.asarray(embeddings, np.float32))
+    if mesh is not None:
+        from mmrs_tpu_torch.parallel.dedup import sharded_first_match
+
+        # ragged N is padded + masked inside; the output is cut to N
+        fm = sharded_first_match(x, tau, mesh, intra=True,
+                                 impl=impl).numpy()
+    else:
+        device = (torch.device(device) if device is not None
+                  else default_device())
+        x = x.to(device)
+        fm = first_match(x, x, tau, intra=True, impl=impl).cpu().numpy()
     for i, j in enumerate(fm):
         if j >= 0:
             # resolve chains to the ultimate keeper

@@ -292,10 +292,13 @@ def build_ivf(
     cover: float = 0.98,              # auto-cap slot budget (spill = 1-cover)
     slots_frac: float = 1.3,          # total-slots ceiling (x n rows)
     device=None,
+    mesh=None,                        # slot-shard the buckets over it
 ) -> IVFIndex:
     """Train (or reuse) centroids, assign every row, and stream the rows
     into the buckets. Host memory stays about one chunk; device memory is
-    the buckets plus the spill."""
+    the buckets plus the spill. With `mesh`, the buckets and the spill are
+    allocated already slot-sharded (parallel/ivf.py) and each device only
+    ever holds its strips: a ShardedIVF."""
     n, d = embeddings.shape
     if n == 0:
         raise ValueError("empty gallery")
@@ -320,7 +323,7 @@ def build_ivf(
         chunks, n, d, n_clusters=n_clusters, bucket_cap=bucket_cap,
         iters=iters, seed=seed, dtype=dtype, chunk=chunk, sample=sample,
         centroids=centroids, assignments=assignments, quantize=quantize,
-        cover=cover, slots_frac=slots_frac, device=device)
+        cover=cover, slots_frac=slots_frac, device=device, mesh=mesh)
 
 
 def build_ivf_streaming(
@@ -341,13 +344,18 @@ def build_ivf_streaming(
     cover: float = 0.98,
     slots_frac: float = 1.3,
     device=None,
+    mesh=None,
 ) -> IVFIndex:
     """Build from a re-iterable chunk source (device tensors welcome: the
     1M-row check generates its chunks on the card). Chunks must be exactly
     `chunk` rows (zero-pad the tail). Passes: [sample], assign, fill. With
     no `sample`, the training rows are strided out of the stream itself
     (one extra pass). The index keeps each pass's seconds in
-    `build_seconds`."""
+    `build_seconds`. With `mesh` the capacity rounds to a multiple of 8 S
+    (int4: 128 S) and the spill pad likewise, as the JAX package's sharded
+    build, so both place the same rows in the same slots; training and
+    assignment run on `device`, the fill streams into each shard's strips
+    (parallel/ivf.fill_strips)."""
     import time
 
     if n <= 0:
@@ -405,14 +413,20 @@ def build_ivf_streaming(
         bucket_cap = _auto_cap(assignments, n_clusters, n, cover=cover,
                                max_slots_frac=slots_frac)
     bucket_cap = min(bucket_cap, _round_up(n, 8))
+    shards = 1
+    if mesh is not None:
+        from mmrs_tpu_torch.parallel.mesh import DATA_AXIS
+
+        shards = mesh.shape[DATA_AXIS]
+        bucket_cap = _round_up(bucket_cap, 8 * shards)
     if quant == "int4":
         # the JAX package's lane rounding, kept so slot maps are equal
-        bucket_cap = _round_up(bucket_cap, 128)
+        bucket_cap = _round_up(bucket_cap, 128 * shards)
     bpos, spos, bucket_ids, spill_ids = _placement(assignments, n_clusters,
                                                    bucket_cap)
     n_spill = spill_ids.shape[0]
-    s_pad = (max(128, _round_up(n_spill, 128)) if quant == "int4"
-             else max(8, _round_up(n_spill, 8)))
+    s_pad = (max(128, _round_up(n_spill, 128 * shards)) if quant == "int4"
+             else max(8, _round_up(n_spill, 8 * shards)))
     item = {"": torch.finfo(dtype).bits / 8, "int8": 1, "int4": 0.5}[quant]
     log.info(
         "ivf: C=%d cap=%d -> %.2f GB buckets + %.2f GB spill (%d rows, "
@@ -420,6 +434,19 @@ def build_ivf_streaming(
         n_clusters * bucket_cap * d * item / 1e9, s_pad * d * item / 1e9,
         n_spill, 100.0 * n_spill / n)
 
+    if mesh is not None:
+        from mmrs_tpu_torch.parallel.ivf import fill_strips
+
+        sids = np.full(s_pad, -1, np.int32)
+        sids[:n_spill] = spill_ids
+        out = fill_strips(
+            ((ci * chunk, torch.as_tensor(rows))
+             for ci, rows in enumerate(make_chunks())), n, d,
+            cents.to(dtype), bucket_ids.reshape(n_clusters, bucket_cap),
+            sids, quant, dtype, mesh)
+        seconds["fill"] = sync() - t0
+        out.build_seconds = seconds
+        return out
     arrays = _alloc(n_clusters, bucket_cap, s_pad, d, quant, dtype, device)
     for ci, rows in enumerate(make_chunks()):
         a = ci * chunk
@@ -530,10 +557,13 @@ def _probe_cuda(name: str, q_rows: torch.Tensor, probe, bucket_ids, k: int,
             lambda *args: scan(a, b, *args), name)
         ids = torch.empty((b - a, k), dtype=torch.int32,
                           device=q_rows.device)
-        _cuda.check(lib.mmrs_probe_ids(
-            vals.data_ptr(), pos.data_ptr(), probe[a:b].data_ptr(),
-            bucket_ids.data_ptr(), b - a, p, c, cap, k, ids.data_ptr(),
-            _cuda.stream_of(q_rows)), f"{name} ids")
+        # under the tensors' device, as every launch: on another card
+        # than the current one the stream would meet the wrong context
+        with torch.cuda.device(q_rows.device):
+            _cuda.check(lib.mmrs_probe_ids(
+                vals.data_ptr(), pos.data_ptr(), probe[a:b].data_ptr(),
+                bucket_ids.data_ptr(), b - a, p, c, cap, k, ids.data_ptr(),
+                _cuda.stream_of(q_rows)), f"{name} ids")
         return vals, ids
 
     return topk.by_query_slices(qn, run)
@@ -728,12 +758,14 @@ def probe_lists(queries: torch.Tensor, ivf: IVFIndex, nprobe: int
 
 
 def tune_nprobe(ivf: IVFIndex, embeddings, target_recall: float = 0.95,
-                k: int = 10, n_queries: int = 64, impl: str = "auto") -> dict:
+                k: int = 10, n_queries: int = 64, impl: str = "auto",
+                mesh=None) -> dict:
     """Smallest power-of-two nprobe whose measured recall@k against the
     exact scan reaches `target_recall`, on a strided row sample as queries.
     Probe sets nest as nprobe grows, so recall is monotone and a doubling
     walk suffices. The exact oracle streams the gallery chunk by chunk
     (index/stream.py), so the flat gallery never sits next to the buckets.
+    With `mesh` (a ShardedIVF), the oracle and the probes run on it.
 
     Returns {"nprobe", "recall", "target", "k", "curve": {nprobe: r}}."""
     from mmrs_tpu_torch.index.stream import streaming_topk
@@ -741,14 +773,20 @@ def tune_nprobe(ivf: IVFIndex, embeddings, target_recall: float = 0.95,
     n = embeddings.shape[0]
     sel = np.unique(np.linspace(0, n - 1, n_queries).astype(np.int64))
     q_host = np.asarray(embeddings[sel], np.float32)
-    device = ivf.buckets.device
+    device = ivf.buckets.device if mesh is None else ivf.device
     q = l2_normalize(torch.from_numpy(q_host).to(device))
     k = min(k, n)
     _, exact = streaming_topk(embeddings, q_host, k=k, device=device,
-                              impl=impl)
+                              impl=impl, mesh=mesh)
 
     def recall_at(nprobe: int) -> float:
-        _, got = ivf_topk(q, ivf, k=k, nprobe=nprobe, impl=impl)
+        if mesh is not None:
+            from mmrs_tpu_torch.parallel.ivf import sharded_ivf_topk
+
+            _, got = sharded_ivf_topk(q, ivf, k=k, nprobe=nprobe, mesh=mesh,
+                                      impl=impl)
+        else:
+            _, got = ivf_topk(q, ivf, k=k, nprobe=nprobe, impl=impl)
         got = got.cpu().numpy()
         return sum(len(set(exact[i]) & set(got[i]))
                    for i in range(got.shape[0])) / float(got.size)
@@ -1001,14 +1039,16 @@ def shrink_sidecar(directory: str, kept_mask, embeddings,
 
 def load_ivf(directory: str, embeddings=None,
              dtype: torch.dtype = torch.bfloat16, chunk: int = _STREAM_CHUNK,
-             make_chunks=None, n: int = 0, d: int = 0, device=None
-             ) -> IVFIndex:
+             make_chunks=None, n: int = 0, d: int = 0, device=None,
+             mesh=None) -> IVFIndex:
     """Rebuild the device structure from a sidecar and the gallery rows
     (one streamed fill pass; no training, no assignment). Rows come from
     `embeddings` (host array-like, fingerprint-verified) or from a
     `make_chunks` chunk source with explicit n and d (the caller vouches
     that the stream matches the sidecar). A sidecar written by either
-    package loads here."""
+    package loads here. With `mesh`, the slot maps are padded with dead
+    slots to multiples of the shard count and the rows stream straight
+    into each shard's strips: a ShardedIVF (parallel/ivf.py)."""
     meta = sidecar_meta(directory)
     if meta is None:
         raise FileNotFoundError(f"no ivf sidecar in {directory}")
@@ -1031,16 +1071,16 @@ def load_ivf(directory: str, embeddings=None,
     bucket_ids = np.asarray(z["bucket_ids"], np.int32)
     spill_ids = np.asarray(z["spill_ids"], np.int32)
     quant = meta.get("quant", "int8" if meta.get("quantized") else "")
-    c, cap = bucket_ids.shape
-    bpos = np.full(n, -1, np.int32)
-    flat = bucket_ids.reshape(-1)
-    live = flat >= 0
-    bpos[flat[live]] = np.arange(c * cap, dtype=np.int32)[live]
-    spos = np.full(n, -1, np.int32)
-    slive = spill_ids >= 0
-    spos[spill_ids[slive]] = np.arange(spill_ids.shape[0],
-                                       dtype=np.int32)[slive]
+    if mesh is not None:
+        from mmrs_tpu_torch.parallel.ivf import fill_strips
+        from mmrs_tpu_torch.parallel.mesh import DATA_AXIS
 
+        shards = mesh.shape[DATA_AXIS]
+        cap = bucket_ids.shape[1]
+        bucket_ids = np.pad(bucket_ids, ((0, 0), (0, -cap % shards)),
+                            constant_values=-1)
+        spill_ids = np.pad(spill_ids, (0, -spill_ids.shape[0] % shards),
+                           constant_values=-1)
     def row_chunks():
         if make_chunks is not None:
             for ci, rows in enumerate(make_chunks()):
@@ -1050,13 +1090,25 @@ def load_ivf(directory: str, embeddings=None,
             yield a, torch.from_numpy(np.array(embeddings[a:a + chunk],
                                                np.float32))
 
+    cents = torch.from_numpy(np.ascontiguousarray(z["centroids"][:, :d],
+                                                  np.float32))
+    if mesh is not None:
+        return fill_strips(row_chunks(), n, d, cents.to(dtype), bucket_ids,
+                           spill_ids, quant, dtype, mesh)
+    c, cap = bucket_ids.shape
+    bpos = np.full(n, -1, np.int32)
+    flat = bucket_ids.reshape(-1)
+    live = flat >= 0
+    bpos[flat[live]] = np.arange(c * cap, dtype=np.int32)[live]
+    spos = np.full(n, -1, np.int32)
+    slive = spill_ids >= 0
+    spos[spill_ids[slive]] = np.arange(spill_ids.shape[0],
+                                       dtype=np.int32)[slive]
     arrays = _alloc(c, cap, spill_ids.shape[0], d, quant, dtype, device)
     for a, rows in row_chunks():
         b = min(a + chunk, n)
         _fill_chunk(arrays, rows[:b - a], bpos[a:b], spos[a:b], quant)
     buckets, bscales, spill, sscales = arrays
-    cents = torch.from_numpy(np.ascontiguousarray(z["centroids"][:, :d],
-                                                  np.float32))
     return IVFIndex(
         centroids=cents.to(device).to(dtype),
         buckets=buckets,

@@ -20,8 +20,12 @@ uploads it. Device memory is bounded by prefetch + 1 chunks (plus one bf16
 cast of the chunk in flight) whatever the gallery size; prefetch 0 is a
 ring of one slot: the host refills it only once the last scan is done, so
 nothing overlaps. On the CPU the slots are plain host
-buffers and every step runs in order. The multi-device branch (`mesh=`)
-is ported with ROADMAP A.12.
+buffers and every step runs in order.
+
+With `mesh`, each chunk is split by rows over the mesh's data axis (a ring
+a shard, on its device) and scanned by `parallel.sharded_cosine_topk`:
+upload and scan both spread over the devices, and the per-chunk [Q, k]
+merge is the only exchange.
 """
 
 from __future__ import annotations
@@ -89,14 +93,15 @@ def streaming_topk(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (values [Q, k] f32, global row ids [Q, k] int64). When the
     gallery holds fewer than k rows the surplus places are (-inf, -1).
-    The answer is the same at every `prefetch`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "streaming over a mesh is ported with ROADMAP A.12")
-    device = torch.device(device) if device is not None else default_device()
+    The answer is the same at every `prefetch`, and with or without a
+    mesh."""
     n, dim = embeddings.shape
-    q = torch.from_numpy(np.asarray(queries, np.float32)).to(device).to(dtype)
     src = torch.from_numpy(np.zeros(0, np.dtype(embeddings.dtype))).dtype
+    if mesh is not None:
+        return _merge(*_sharded_chunks(embeddings, queries, k, chunk_rows,
+                                       dtype, impl, prefetch, mesh, src), k)
+    device = torch.device(device) if device is not None else default_device()
+    q = torch.from_numpy(np.asarray(queries, np.float32)).to(device).to(dtype)
     ring = _UploadRing(prefetch + 1, min(chunk_rows, n), dim, src, device)
     vals, idxs = [], []
     for a in range(0, n, chunk_rows):
@@ -106,6 +111,53 @@ def streaming_topk(
         ring.done()
         vals.append(v)
         idxs.append(i.long() + a)
+    return _merge(vals, idxs, k)
+
+
+def _sharded_chunks(embeddings, queries, k: int, chunk_rows: int,
+                    dtype: torch.dtype, impl: str, prefetch: int, mesh,
+                    src: torch.dtype):
+    """Each chunk's rows in one block a shard (the last shard's tail and
+    any shard past the chunk's end zero-filled), uploaded through a ring
+    of each device's own, then one sharded scan a chunk, masked past the
+    chunk's rows. Returns the per-chunk candidate lists."""
+    from mmrs_tpu_torch.parallel.mesh import data_devices, local_positions
+    from mmrs_tpu_torch.parallel.topk import sharded_cosine_topk
+
+    n, dim = embeddings.shape
+    s = mesh.shape["data"]
+    devs = data_devices(mesh)
+    mine = local_positions(mesh)
+    per = -(-min(chunk_rows, n) // s)
+    rings = {p: _UploadRing(prefetch + 1, per, dim, src, devs[p])
+             for p in mine}
+    q = torch.from_numpy(np.asarray(queries, np.float32)).to(dtype)
+    vals, idxs = [], []
+    for a in range(0, n, chunk_rows):
+        b = min(a + chunk_rows, n)
+        rows = -(-(b - a) // s)
+        blocks, used = [None] * s, []
+        for p in mine:
+            lo, hi = min(b, a + p * rows), min(b, a + (p + 1) * rows)
+            part = torch.empty((0, dim), dtype=src, device=devs[p])
+            if hi > lo:
+                part = rings[p].upload(embeddings, lo, hi)
+                used.append(rings[p])
+            blocks[p] = torch.nn.functional.pad(
+                part.to(dtype), (0, 0, 0, rows - (hi - lo)))
+        v, i = sharded_cosine_topk(q, blocks, min(k, b - a), mesh,
+                                   impl=impl, n_valid=b - a)
+        for ring in used:
+            ring.done()
+        vals.append(v)
+        idxs.append(torch.where(i < 0, -1, i.long() + a))
+    return vals, idxs
+
+
+def _merge(vals: List[torch.Tensor], idxs: List[torch.Tensor], k: int
+           ) -> Tuple[np.ndarray, np.ndarray]:
+    """The chunks' candidates merged on the host: stable sort, so equal
+    scores keep the earlier chunk, then the earlier place."""
     merged_v = torch.cat(vals, dim=1).cpu().numpy()
     merged_i = torch.cat(idxs, dim=1).cpu().numpy()
     if merged_v.shape[1] < k:     # tiny gallery: pad with sentinels

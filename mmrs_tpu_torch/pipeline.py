@@ -50,6 +50,10 @@ class Towers:
     encode_fn: Optional[Callable] = None
     # UNnormalized features — the Tip-Adapter cache contract
     image_encode_raw: Optional[Callable] = None
+    # (model, uint8 [B, S, S, 3] device tensor) -> f32 [B, D]: encode_fn
+    # of a given copy of `params` (the JAX package's (params, images)
+    # encode_fn; feeds parallel.embed.make_sharded_encoder)
+    params_encode_fn: Optional[Callable] = None
 
 
 DEVICE_ENV = "MMRS_TORCH_DEVICE"
@@ -121,11 +125,15 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
         if isinstance(m, nn.Linear):
             m.weight.data = m.weight.data.to(compute_dtype)
 
+    def params_encode_fn(m: nn.Module, images_u8: torch.Tensor,
+                         normalize: bool = True) -> torch.Tensor:
+        x = normalize_images(images_u8, dtype=compute_dtype, impl=impl)
+        return clip.encode_image(m, x, compute_dtype, normalize=normalize,
+                                 attn_impl=impl, mlp_impl=impl)
+
     def encode_fn(images_u8: torch.Tensor, normalize: bool = True
                   ) -> torch.Tensor:
-        x = normalize_images(images_u8, dtype=compute_dtype, impl=impl)
-        return clip.encode_image(model, x, compute_dtype, normalize=normalize,
-                                 attn_impl=impl, mlp_impl=impl)
+        return params_encode_fn(model, images_u8, normalize)
 
     def _upload(pixels_u8: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(device)
@@ -150,4 +158,5 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
 
     return Towers(image_encode=image_encode, text_encode=text_encode,
                   params=model, clip_config=ccfg, tokenizer=tokenizer,
-                  encode_fn=encode_fn, image_encode_raw=image_encode_raw)
+                  encode_fn=encode_fn, image_encode_raw=image_encode_raw,
+                  params_encode_fn=params_encode_fn)

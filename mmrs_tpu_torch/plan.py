@@ -22,8 +22,10 @@ Latency predictions are a roofline model (+-35% is the JAX package's
 allowance at its pinned points; `chip_smoke.py` phase 4h prints each
 rung's prediction beside its measurement); residency predictions are
 arithmetic (phase 4h holds them to 2% flat, 10% IVF, of the engines'
-tensors). Multi-device rows assume the slot-sharded layouts of ROADMAP
-A.12 (bytes per device / S, centroids replicated) and are model-only.
+tensors). Multi-device rows are the sharded layouts of parallel/ (rows
+or IVF slot strips split S ways, centroids replicated: bytes per device /
+S); their latency is the same roofline per device, not fitted across
+cards.
 """
 
 from __future__ import annotations
@@ -166,8 +168,7 @@ class PlanReport:
             if r.index == "ivf":
                 flags += " --ann-nprobe 32"
             if r.shards > 1:
-                # the sharded gallery is not ported yet (ROADMAP A.12)
-                flags += f" (across {r.shards} devices: ROADMAP A.12)"
+                flags += f" --gallery-shards {r.shards}"
             lines.append(f"recommended: {r.quant}/{r.index}"
                          f" — mmrs-torch search{flags or ' (defaults)'}")
         else:
@@ -235,6 +236,6 @@ def plan(
 def oom_hint(rows: int, dim: int) -> str:
     """Message fragment attached to the engine's out-of-memory errors."""
     return (f"gallery does not fit on this device; run `mmrs-torch plan "
-            f"--rows {rows} --dim {dim}` to pick a quant/IVF config "
-            "(residency ladder: --gallery-quant int8|int4, --ann-nprobe; "
-            "the sharded gallery waits for ROADMAP A.12)")
+            f"--rows {rows} --dim {dim}` to pick a quant/IVF/shards config "
+            "(residency ladder: --gallery-quant int8|int4, --ann-nprobe, "
+            "--gallery-shards)")

@@ -10,7 +10,11 @@ ops/quant4.py: CUDA kernels on a GPU). Scores follow the reference's
 configured logit scale. With `config.ann == "ivf"` the gallery is an IVF
 index instead (index/ivf.py: the bucket probe kernels K7 / K8 on a GPU),
 for every rung of the ladder, with its sidecar cached under
-`<index>/ivf`. The sharded gallery (A.12) is not ported yet and raises.
+`<index>/ivf`. With a `mesh` (parallel/mesh.py) every rung and the IVF
+index are split over its data axis: gallery rows (parallel/topk.py,
+parallel/quant4.py) or IVF slot strips (parallel/ivf.py), each shard
+scanned on its device and the candidates merged; a ragged row count is
+padded to the shard multiple and masked at query time.
 """
 
 from __future__ import annotations
@@ -98,6 +102,41 @@ def _quantize_gallery_chunked(embeddings, mode: str, device: torch.device,
     return gal, scales
 
 
+def _place_on_mesh(embeddings, mode: str, dtype: torch.dtype, mesh):
+    """The gallery split over the mesh's data axis: each local position's
+    ceil(N / S) rows uploaded straight to its device by the single-device
+    chunked functions (the same per-row numerics), the last shards' tails
+    padded: zero rows (bf16), zero codes and scales (int8), or the codes of
+    zero FLOAT rows (int4: a zero byte would decode to -8), all of which
+    score exactly 0.0. Returns (row blocks, scale blocks or None), None
+    where another process owns the position."""
+    from mmrs_tpu_torch.parallel.mesh import data_devices, local_positions
+
+    n, d = embeddings.shape
+    s = mesh.shape["data"]
+    per = -(-n // s)
+    devs = data_devices(mesh)
+    rows, scales = [None] * s, [None] * s
+    for p in local_positions(mesh):
+        dev = devs[p]
+        lo, hi = min(n, p * per), min(n, (p + 1) * per)
+        pad = per - (hi - lo)
+        align = _row_align(mode, dev)
+        if not mode:
+            g = _to_device_chunked(embeddings[lo:hi], dtype, dev,
+                                   align=align)
+            rows[p] = torch.cat([g, g.new_zeros((pad, g.shape[1]))])
+            continue
+        g, sc = _quantize_gallery_chunked(embeddings[lo:hi], mode, dev,
+                                          align=align)
+        if mode == "int4":
+            pg, ps = quantize_rows_int4(torch.zeros((pad, d), device=dev))
+        else:
+            pg, ps = g.new_zeros((pad, g.shape[1])), sc.new_zeros((pad,))
+        rows[p], scales[p] = torch.cat([g, pg]), torch.cat([sc, ps])
+    return rows, (scales if mode else None)
+
+
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
@@ -141,9 +180,7 @@ class SearchEngine:
         self.index = index
         self.config = config or SearchConfig()
         self.stats = StageStats()
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded gallery (mesh=) is ported with ROADMAP A.12")
+        self.mesh = mesh
         if quantize is True:
             quantize = "int8"
         elif quantize in (False, None):
@@ -151,13 +188,21 @@ class SearchEngine:
         if quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantized = quantize
-        self.device = (torch.device(device) if device is not None
-                       else default_device())
+        if mesh is not None:   # queries start and answers end there
+            from mmrs_tpu_torch.parallel.mesh import first_device
+
+            self.device = first_device(mesh)
+        else:
+            self.device = (torch.device(device) if device is not None
+                           else default_device())
         self.gallery = self.gallery_scales = self.ivf = None
         if self.config.ann == "ivf":
             self._init_ivf()
         elif self.config.ann not in ("none", "", None):
             raise ValueError(f"unknown ann mode {self.config.ann!r}")
+        elif mesh is not None:
+            self.gallery, self.gallery_scales = _place_on_mesh(
+                index.embeddings, quantize, device_dtype, mesh)
         elif quantize:
             self.gallery, self.gallery_scales = _quantize_gallery_chunked(
                 index.embeddings, quantize, self.device,
@@ -167,9 +212,21 @@ class SearchEngine:
                 index.embeddings, device_dtype, self.device,
                 align=_row_align("", self.device))
 
+    def _blocks(self):
+        """(row blocks, scale blocks) of the local shards, one pair without
+        a mesh."""
+        if self.mesh is None:
+            return [self.gallery], [self.gallery_scales]
+        from mmrs_tpu_torch.parallel.mesh import local_positions
+
+        pos = local_positions(self.mesh)
+        return ([self.gallery[p] for p in pos],
+                [None if self.gallery_scales is None
+                 else self.gallery_scales[p] for p in pos])
+
     def _fit(self, q: torch.Tensor) -> torch.Tensor:
         """Queries [Q, D] zero-padded to the placed gallery's row width."""
-        pad = self.gallery.shape[1] - q.shape[1]
+        pad = self._blocks()[0][0].shape[1] - q.shape[1]
         if self.quantized == "int4" or pad <= 0:
             return q
         return torch.nn.functional.pad(q, (0, pad))
@@ -218,7 +275,8 @@ class SearchEngine:
             if compatible:
                 try:
                     self.ivf = ivf_mod.load_ivf(sidecar, index.embeddings,
-                                                device=self.device)
+                                                device=self.device,
+                                                mesh=self.mesh)
                     loaded = True
                 except ValueError as e:
                     log.warning("ivf sidecar rejected (%s); rebuilding", e)
@@ -227,7 +285,8 @@ class SearchEngine:
                 index.embeddings, n_clusters=cfg.ann_clusters,
                 bucket_cap=cfg.ann_bucket_cap, iters=cfg.ann_train_iters,
                 quantize=self.quantized, cover=cfg.ann_cover,
-                slots_frac=cfg.ann_slots_frac, device=self.device)
+                slots_frac=cfg.ann_slots_frac, device=self.device,
+                mesh=self.mesh)
             if sidecar is not None:
                 try:
                     ivf_mod.save_ivf(sidecar, self.ivf,
@@ -248,7 +307,8 @@ class SearchEngine:
                     and tuned.get("k") == cfg.top_k):
                 tuned = ivf_mod.tune_nprobe(
                     self.ivf, index.embeddings,
-                    target_recall=cfg.ann_target_recall, k=cfg.top_k)
+                    target_recall=cfg.ann_target_recall, k=cfg.top_k,
+                    mesh=self.mesh)
                 if sidecar is not None:
                     try:
                         ivf_mod.update_sidecar_meta(sidecar, tuned=tuned)
@@ -268,11 +328,19 @@ class SearchEngine:
         k = min(top_k or self.config.top_k, len(self.index))
         q = l2_normalize(_as_tensor(vectors, self.device))
         with self.stats.timed("topk", count=q.shape[0]):
-            if self.ivf is not None:
+            if self.ivf is not None and self.mesh is not None:
+                from mmrs_tpu_torch.parallel.ivf import sharded_ivf_topk
+
+                vals, idxs = sharded_ivf_topk(
+                    q, self.ivf, k=k, nprobe=self.config.ann_nprobe,
+                    mesh=self.mesh)
+            elif self.ivf is not None:
                 from mmrs_tpu_torch.index.ivf import ivf_topk
 
                 vals, idxs = ivf_topk(q, self.ivf, k=k,
                                       nprobe=self.config.ann_nprobe)
+            elif self.mesh is not None:
+                vals, idxs = self._sharded_topk(q, k)
             elif self.quantized == "int4":
                 vals, idxs = cosine_topk_int4(q, self.gallery,
                                               self.gallery_scales, k)
@@ -300,6 +368,26 @@ class SearchEngine:
                 ))
             out.append(hits)
         return out
+
+    def _sharded_topk(self, q: torch.Tensor, k: int):
+        """The flat rungs over the mesh's row blocks (K1 / K4 / K5 a
+        shard), masked past the index's rows."""
+        from mmrs_tpu_torch.parallel.quant4 import sharded_cosine_topk_int4
+        from mmrs_tpu_torch.parallel.topk import (
+            sharded_cosine_topk, sharded_cosine_topk_quantized)
+
+        n = len(self.index)
+        if self.quantized == "int4":
+            return sharded_cosine_topk_int4(q, self.gallery,
+                                            self.gallery_scales, k,
+                                            self.mesh, n_valid=n)
+        if self.quantized:
+            return sharded_cosine_topk_quantized(
+                self._fit(q), self.gallery, self.gallery_scales, k,
+                self.mesh, n_valid=n)
+        dtype = self._blocks()[0][0].dtype
+        return sharded_cosine_topk(self._fit(q).to(dtype), self.gallery, k,
+                                   self.mesh, n_valid=n)
 
     # -- query flavors (the reference's entry points) -------------------------
 
@@ -333,21 +421,35 @@ class SearchEngine:
                 "device_similarities needs the flat gallery; calibrate "
                 "with ann='none' (calibration is an offline build step)")
         q = self._fit(l2_normalize(_as_tensor(vectors, self.device)))
+        blocks, scales = self._blocks()
+        if not self.quantized:
+            q = q.to(blocks[0].dtype).float()
+        strips = [self._similarity_strip(q, g, s)
+                  for g, s in zip(blocks, scales)]
+        if self.mesh is None:
+            return strips[0]
+        from mmrs_tpu_torch.parallel.topk import gather_columns
+
+        return gather_columns(strips, self.mesh)[:, :len(self.index)]
+
+    def _similarity_strip(self, q: torch.Tensor, gallery: torch.Tensor,
+                          scales) -> torch.Tensor:
+        """[Q, rows] f32 scores of one row block on its device, chunk by
+        chunk."""
+        q = q.to(gallery.device)
         if self.quantized == "int8":
             q_q, q_scale = quantize_rows(q)
-        elif not self.quantized:
-            q = q.to(self.gallery.dtype).float()
-        n = self.gallery.shape[0]
+        n = gallery.shape[0]
         sims = torch.empty((q.shape[0], n), dtype=torch.float32,
-                           device=self.device)
+                           device=gallery.device)
         for a in range(0, n, UPLOAD_CHUNK):
-            rows = self.gallery[a:a + UPLOAD_CHUNK]
+            rows = gallery[a:a + UPLOAD_CHUNK]
             if self.quantized == "int4":
-                part = similarities_int4(
-                    q, rows, self.gallery_scales[a:a + UPLOAD_CHUNK])
+                part = similarities_int4(q, rows,
+                                         scales[a:a + UPLOAD_CHUNK])
             elif self.quantized:
                 part = scores_q8(q_q, q_scale, rows,
-                                 self.gallery_scales[a:a + UPLOAD_CHUNK])
+                                 scales[a:a + UPLOAD_CHUNK])
             else:
                 part = q @ rows.float().T
             sims[:, a:a + UPLOAD_CHUNK] = part

@@ -1,14 +1,14 @@
 """HTTP serving layer: the query engine behind a JSON API.
 
-Counterpart of mmrs_tpu/serve.py on one device (stdlib HTTP, no server
+Counterpart of mmrs_tpu/serve.py (stdlib HTTP, no server
 dependency):
 
   GET  /healthz          -> {"ok": true, "rows": N, "dim": D,
-                            "gallery_shards": 1, "gallery_int8": bool,
+                            "gallery_shards": S, "gallery_int8": bool,
                             "gallery_quant": "bf16"|"int8"|"int4",
                             "ann": {...}?, "verifier": {kind, draft?}}:
                             liveness plus the deployment shape in one call
-                            (one device: no "tp" and one gallery shard
+                            (the verifier runs on one device: no "tp"
                             until ROADMAP A.12)
   GET  /v1/stats         -> per-stage serving counters (StageStats: total
                             seconds, item counts, calls, items/call —
@@ -196,21 +196,26 @@ class SearchService:
         return True
 
     def healthz(self) -> dict:
-        """Liveness + deployment shape: gallery size/dtype and the
-        verifier's hosting (draft) in one ops-facing call. One device: one
-        gallery shard and no tensor-parallel width until ROADMAP A.12."""
+        """Liveness + deployment shape: gallery size/sharding/dtype and
+        the verifier's hosting (draft) in one ops-facing call. The
+        verifier has no tensor-parallel width until ROADMAP A.12."""
         body = {"ok": True}
         if self.engine_factory is not None:
             body["index_reloads"] = self.reloads
             body["watch_interval"] = self.watch_interval
         if self.engine is not None:
+            mesh = getattr(self.engine, "mesh", None)
+            # rows shard over the DATA axis only: a 2-D engine mesh must
+            # not report its model axis as shards
+            shards = 1 if mesh is None else int(mesh.shape.get(
+                "data", mesh.devices.size))
             quant = getattr(self.engine, "quantized", "") or ""
             if quant is True:   # pre-mode engines used a bool
                 quant = "int8"
             body.update({
                 "rows": len(self.engine.index),
                 "dim": self.engine.index.dim,
-                "gallery_shards": 1,
+                "gallery_shards": shards,
                 "gallery_int8": quant == "int8",
                 "gallery_quant": quant or "bf16",
             })

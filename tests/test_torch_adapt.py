@@ -147,10 +147,41 @@ def test_grid_chunks_keep_the_grid(monkeypatch):
     np.testing.assert_array_equal(chunked.grid, whole.grid)
 
 
-def test_search_hp_mesh_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tip.search_hp(np.zeros((2, 4), np.float32), np.zeros((2, 4)),
-                      np.eye(2), np.zeros((4, 2)), [0, 1], 2, mesh=object())
+@pytest.mark.parametrize("shards", [8, 3])
+def test_search_hp_on_mesh_equals_jax(shards):
+    """mesh=: the beta axis split over S CPU entries (50 betas: padded
+    past a multiple of S) against JAX's sweep over S of its 8 CPU devices
+    and the one-device sweep (tests/test_multihost.py:257: grid within
+    rtol 1e-5, atol 1e-6; the same (beta, alpha))."""
+    from mmrs_tpu.config import MeshConfig as JMeshConfig
+    from mmrs_tpu_torch.config import MeshConfig as TMeshConfig
+    from mmrs_tpu_torch.parallel.mesh import make_mesh as t_make_mesh
+
+    rng = np.random.default_rng(3)
+    n, d, c, nk = 64, 16, 4, 20
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    keys = rng.normal(size=(nk, d)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    values = np.eye(c, dtype=np.float32)[rng.integers(0, c, nk)]
+    cw = rng.normal(size=(d, c)).astype(np.float32)
+    cw /= np.linalg.norm(cw, axis=0, keepdims=True)
+    labels = rng.integers(0, c, n)
+    jm = make_mesh(JMeshConfig(data_size=shards), jax.devices()[:shards])
+    tm = t_make_mesh(TMeshConfig(data_size=shards),
+                     [torch.device("cpu")] * shards)
+    want = j_tip.search_hp(jnp.asarray(feats), jnp.asarray(keys),
+                           jnp.asarray(values), jnp.asarray(cw), labels, c,
+                           search_step=(50, 10), mesh=jm)
+    got = tip.search_hp(feats, keys, values, cw, labels, c,
+                        search_step=(50, 10), mesh=tm)
+    one = tip.search_hp(feats, keys, values, cw, labels, c,
+                        search_step=(50, 10))
+    assert got.grid.shape == (50, 10)
+    np.testing.assert_allclose(got.grid, want.grid, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.grid, one.grid)
+    assert (got.beta, got.alpha) == (want.beta, want.alpha) == \
+        (one.beta, one.alpha)
 
 
 def test_cosine_decay_equals_optax():

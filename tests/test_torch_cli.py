@@ -318,14 +318,108 @@ def test_governance_usage_errors_exit_2(capsys, argv):
     capsys.readouterr()
 
 
-def test_dedup_gallery_shards_waits_for_the_ring(gov_tree, capsys):
+@pytest.mark.parametrize("shards", ["2", "3", "8"])
+def test_dedup_gallery_shards_prints_the_jax_lines(gov_tree, capsys, shards):
+    """`dedup --mode embedding --gallery-shards N`: the ring over N CPU
+    entries prints `mmrs`'s lines (its ring over N of the 8 CPU devices),
+    which are the one-device run's."""
+    argv = ["dedup", "--mode", "embedding", "--index",
+            str(gov_tree / "emb_index"), "--tau", "0.999"]
+    want = _run(j_main, argv + ["--gallery-shards", shards], capsys)
+    got = _run(t_main, argv + ["--gallery-shards", shards], capsys)
+    assert got == want == _run(t_main, argv, capsys)
+    assert sum(line.startswith("DUP\t") for line in got) == 3
+
+
+def test_gallery_shards_below_one_exits_2(setup, torch_index, capsys):
+    _, cfg, _, _ = setup
+    for main in (j_main, t_main):
+        with pytest.raises(SystemExit) as e:
+            main(["search", "--index", torch_index, "--config", cfg,
+                  "--text", "red", "--gallery-shards", "0"])
+        assert e.value.code == 2
+    assert "--gallery-shards must be >= 1, got 0" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [[], ["--gallery-quant", "int8"],
+                                   ["--gallery-quant", "int4"],
+                                   ["--ann-nprobe", "2", "--ann-clusters",
+                                    "2"]])
+def test_search_calibrate_gallery_shards_match_jax_cli(setup, capsys,
+                                                       tmp_path, flags):
+    """`search|calibrate --gallery-shards 2` on both CLIs, each over its
+    own index of the same tree: the same lines as the one-device runs
+    (calibration takes the flat rungs only)."""
+    root, cfg, merges, base = setup
+    query = os.path.join(root, "red", "red1.jpg")
+    outs = {}
+    for name, main in (("jax", j_main), ("torch", t_main)):
+        index = str(tmp_path / f"idx_{name}")
+        _run(main, ["index", "build", "--root", root, "--out", index,
+                    "--config", cfg, "--workers", "2"], capsys)
+        runs = []
+        for shards in (["--gallery-shards", "2"], []):
+            image = _run(main, ["search", "--index", index, "--image",
+                                query, "-k", "4", "--config", cfg,
+                                *shards, *flags], capsys)
+            text = _run(main, ["search", "--index", index, "--text", "red",
+                               "--merges", merges, "-k", "3", "--config",
+                               cfg, *shards, *flags], capsys)
+            calib = None
+            if "--ann-nprobe" not in flags:
+                calib = json.loads(_run(main, [
+                    "calibrate", "--index", index, "--positive-class",
+                    "red", "--shots", "3", "--config", cfg, *shards,
+                    *flags], capsys)[-1])
+            runs.append((image, text, calib))
+        outs[name] = runs
+    (t2, t1), (j2, _) = outs["torch"], outs["jax"]
+    for t_lines, o_lines, j_lines in zip(t2[:2], t1[:2], j2[:2]):
+        assert len(t_lines) == len(j_lines) == len(o_lines) > 0
+        for t, o, j in zip(_rows(t_lines), _rows(o_lines), _rows(j_lines)):
+            assert t[:2] == j[:2] and t[3:] == j[3:] and t == o
+            assert abs(float(t[2]) - float(j[2])) <= 2e-2
+    if t2[2] is not None:
+        assert t2[2] == t1[2]
+        assert abs(t2[2]["best_threshold"] - j2[2]["best_threshold"]) <= 1e-3
+        assert abs(t2[2]["best_f1"] - j2[2]["best_f1"]) <= 1e-9
+
+
+def test_index_build_sharded_matches_jax(setup, capsys, tmp_path):
+    """`index build --sharded` (tests/test_cli_sharded.py): the port over
+    a 4-entry CPU mesh (`mesh.data_size: 4`; JAX's over its 8 CPU
+    devices) writes the rows of the one-device build; with one device it
+    says so and uses it."""
+    from mmrs_tpu_torch.index.gallery import GalleryIndex
+
+    root, cfg, _, _ = setup
+    text = open(cfg).read() + "gallery:\n  batch_size: 8\n"
+    jcfg, tcfg = tmp_path / "j.yaml", tmp_path / "t.yaml"
+    jcfg.write_text(text)
+    tcfg.write_text(text + "mesh:\n  data_size: 4\n")
+    outs = {}
+    for name, main, c, extra in (("j", j_main, jcfg, ["--sharded"]),
+                                 ("t", t_main, tcfg, ["--sharded"]),
+                                 ("one", t_main, jcfg, [])):
+        out = str(tmp_path / name)
+        _run(main, ["index", "build", "--root", root, "--out", out,
+                    "--config", str(c), "--workers", "2", *extra], capsys)
+        outs[name] = GalleryIndex.load(out)
+    assert outs["t"].paths == outs["j"].paths == outs["one"].paths
+    np.testing.assert_allclose(outs["t"].embeddings, outs["one"].embeddings,
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(outs["t"].embeddings, outs["j"].embeddings,
+                               atol=2e-3)
     with pytest.raises(SystemExit) as e:
-        t_main(["dedup", "--mode", "embedding", "--index",
-                str(gov_tree / "emb_index"), "--gallery-shards", "2"])
-    assert e.value.code == 2 and "A.12" in capsys.readouterr().err
+        t_main(["index", "build", "--root", root, "--out",
+                str(tmp_path / "solo"), "--config", str(jcfg), "--workers",
+                "2", "--sharded"])
+    assert e.value.code == 0
+    assert "--sharded requested but only one device; using it" in \
+        capsys.readouterr().err
 
 
-# -- adapter train, serve: the JAX CLI's lines; A.12 refusals -----------------
+# -- adapter train, serve: the JAX CLI's lines; the --tp refusals -------------
 
 def test_adapter_train_root_prints_the_jax_json(setup, capsys, tmp_path):
     root, cfg, merges, _ = setup
@@ -381,8 +475,7 @@ def test_adapter_train_needs_an_input(capsys):
     assert "need --features or --root" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--tp", "2x4"],
-                                   ["--gallery-shards", "2"]])
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--tp", "2x4"]])
 def test_serve_multi_device_waits_for_a12(setup, torch_index, capsys, flags):
     _, cfg, _, _ = setup
     with pytest.raises(SystemExit) as e:
@@ -390,9 +483,11 @@ def test_serve_multi_device_waits_for_a12(setup, torch_index, capsys, flags):
     assert e.value.code == 2 and "A.12" in capsys.readouterr().err
 
 
-def test_serve_command_answers_over_http(setup, torch_index):
-    """`mmrs-torch serve` in its own process (MMRS_TORCH_DEVICE=cpu): it
-    answers /healthz and a text search, then stops on SIGTERM."""
+@pytest.mark.parametrize("shards", [1, 2])
+def test_serve_command_answers_over_http(setup, torch_index, shards):
+    """`mmrs-torch serve [--gallery-shards 2]` in its own process
+    (MMRS_TORCH_DEVICE=cpu): it answers /healthz, reporting its shards,
+    and a text search, then stops on SIGTERM."""
     import socket
     import subprocess
     import sys
@@ -407,7 +502,8 @@ def test_serve_command_answers_over_http(setup, torch_index):
     proc = subprocess.Popen(
         [sys.executable, "-m", "mmrs_tpu_torch.cli.main", "serve",
          "--index", torch_index, "--config", cfg, "--merges", merges,
-         "--port", str(port)], cwd=repo, stdout=subprocess.PIPE,
+         "--port", str(port), "--gallery-shards", str(shards)], cwd=repo,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=repo, MMRS_TORCH_DEVICE="cpu"))
     base = f"http://127.0.0.1:{port}"
@@ -424,6 +520,7 @@ def test_serve_command_answers_over_http(setup, torch_index):
                 assert time.time() < deadline, "server never came up"
                 time.sleep(0.2)
         assert health["rows"] == 6 and health["gallery_quant"] == "bf16"
+        assert health["gallery_shards"] == shards
         req = urllib.request.Request(
             base + "/v1/search",
             data=json.dumps({"text": "red", "k": 3}).encode(),

@@ -1608,3 +1608,130 @@ def test_engine_out_of_memory_names_the_planner(dev, monkeypatch):
     idx = GalleryIndex(emb, [f"p{i}" for i in range(8)], ["c"] * 8)
     with pytest.raises(RuntimeError, match="mmrs-torch plan --rows 8"):
         eng.SearchEngine(idx, device=dev)
+
+
+# -- the data axis (parallel/): shards on one card, and on distinct cards --------
+
+@pytest.fixture
+def cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards: a launch on one card while another "
+                    "is the current device")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _mesh(devices):
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(MeshConfig(data_size=len(devices)), devices)
+
+
+def _sharded_paths_match(devices, n=70_001, d=512):
+    """Flat bf16 / int8 / int4, the slot-sharded IVF and the dedup ring over
+    `devices` against the one-device kernels on the first: K4 / K5 / K8
+    ids and values equal, K1 / K7 values within 1e-5 and ids where
+    separated, K9 every id; each kernel launched once a shard."""
+    from mmrs_tpu_torch.parallel import dedup, ivf as pivf, quant4, topk
+
+    mesh = _mesh(devices)
+    s = len(devices)
+    first = devices[0]
+    g = _unit_rows(n, d, first, seed=7)
+    q = g[[3, n // 2, n - 1]].float()
+    fv, fi = cosine_topk(q.bfloat16(), g, 10)
+    before = cosine_topk.launches
+    v, i = topk.sharded_cosine_topk(q.bfloat16(), topk.place_gallery(g, mesh),
+                                    10, mesh, n_valid=n)
+    assert cosine_topk.launches - before == s
+    _clear_ids(v.cpu(), i.cpu().long(), fv.cpu(), fi.cpu().long(), 1e-5)
+    q8 = topk.place_gallery_quantized(g.float(), mesh)
+    v, i = topk.sharded_cosine_topk_quantized(q, *q8, 10, mesh, n_valid=n)
+    rv, ri = cosine_topk_quantized(q, *quantize_rows(g.float()), 10)
+    assert torch.equal(v.cpu(), rv.cpu()) and torch.equal(i.cpu(), ri.cpu())
+    q4 = quant4.place_gallery_int4(g.float(), mesh)
+    v, i = quant4.sharded_cosine_topk_int4(q, *q4, 10, mesh, n_valid=n)
+    rv, ri = cosine_topk_int4(q, *quantize_rows_int4(g.float()), 10)
+    assert torch.equal(v.cpu(), rv.cpu()) and torch.equal(i.cpu(), ri.cpu())
+    chunks = lambda: (g[a:a + 8192] for a in range(0, n, 8192))  # noqa: E731
+    for mode in ("", "int4"):
+        one = build_ivf_streaming(chunks, n, d, n_clusters=64, chunk=8192,
+                                  quantize=mode, device=first, seed=1)
+        placed = pivf.place_ivf(one, mesh)
+        for nprobe in (8, 64):
+            rv, ri = ivf_topk(q, one, k=10, nprobe=nprobe)
+            v, i = pivf.sharded_ivf_topk(q, placed, k=10, nprobe=nprobe,
+                                         mesh=mesh)
+            if mode == "int4":
+                assert torch.equal(v.cpu(), rv.cpu())
+            else:
+                assert float((v - rv.to(v.device)).abs().max()) <= 1e-5
+    x = g[:9_001].float()
+    x[9_000] = x[17]
+    x[4_500] = x[8_999]
+    want = first_match(x, x, 0.999, intra=True).cpu().long()
+    got = dedup.sharded_first_match(x, 0.999, mesh)
+    assert torch.equal(got, want) and got[9_000] == 17
+
+
+def test_sharded_paths_on_one_card_match_one_device(dev):
+    """A mesh that repeats one card four times (a one-card
+    machine) runs every sharded path shard by shard."""
+    _sharded_paths_match([torch.device("cuda", 0)] * 4)
+
+
+def test_sharded_paths_on_distinct_cards_match_one_device(cards):
+    _sharded_paths_match(cards)
+
+
+def test_probes_on_another_card_than_the_current_one(cards):
+    """Every raw launch runs under its tensors' device guard: the bucket
+    probes (K7, K8, their ids pass), the scans and K9 on the last card
+    while cuda:0 is the current device equal their plain versions."""
+    last = cards[-1]
+    g = _unit_rows(20_000, 256, last, seed=11)
+    q = g[[1, 9_999]].float()
+    chunks = lambda: (g[a:a + 4096] for a in range(0, 20_000, 4096))  # noqa
+    with torch.cuda.device(cards[0]):
+        assert torch.cuda.current_device() == 0
+        for mode in ("", "int8", "int4"):
+            ivf = build_ivf_streaming(chunks, 20_000, 256, n_clusters=32,
+                                      chunk=4096, quantize=mode, device=last,
+                                      seed=2)
+            v, i = ivf_topk(q, ivf, k=10, nprobe=8)
+            rv, ri = ivf_topk(q, ivf, k=10, nprobe=8, impl="torch")
+            assert v.device == last
+            assert float((v - rv).abs().max()) <= 1e-5
+            if mode == "int4":
+                assert torch.equal(v, rv) and torch.equal(i, ri)
+        v, i = cosine_topk(q.bfloat16(), g, 10)
+        rv, ri = cosine_topk(q.bfloat16(), g, 10, impl="torch")
+        _clear_ids(v, i.long(), rv, ri.long(), 1e-5)
+        x = g[:3000].float()
+        x[2999] = x[5]
+        assert torch.equal(first_match(x, x, 0.999, intra=True),
+                           first_match(x, x, 0.999, intra=True,
+                                       impl="torch"))
+        torch.cuda.synchronize(last)
+
+
+def test_gallery_shards_past_the_card_count_exits_2(dev, tmp_path, capsys,
+                                                   monkeypatch):
+    from mmrs_tpu_torch.cli.main import main
+    from mmrs_tpu_torch.index.gallery import _write_manifest, _write_shard
+
+    monkeypatch.delenv("MMRS_TORCH_DEVICE", raising=False)
+    emb = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
+    entry = _write_shard(str(tmp_path), 0, emb, [(f"p{i}.jpg", "c")
+                                                 for i in range(8)])
+    _write_manifest(str(tmp_path), [entry], 16)
+    n = torch.cuda.device_count()
+    for argv in (["search", "--index", str(tmp_path), "--text", "x"],
+                 ["dedup", "--mode", "embedding", "--index",
+                  str(tmp_path)]):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--gallery-shards", str(n + 1)])
+        assert e.value.code == 2
+        assert (f"--gallery-shards {n + 1} needs {n + 1} local devices; "
+                f"{n} available") in capsys.readouterr().err

@@ -213,10 +213,37 @@ def test_embedding_dedup_chains_equal_jax(n, d):
     assert got[f"img{n - 1}.jpg"] == "img7.jpg"
 
 
-def test_embedding_dedup_refuses_mesh():
-    x = np.eye(4, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        dedup.embedding_dedup(x, list("abcd"), mesh=object())
+@pytest.mark.parametrize("n,shards", [(50, 8), (333, 3), (333, 4)])
+def test_embedding_dedup_on_mesh_equals_jax(n, shards):
+    """mesh=: the ring over S CPU entries reports JAX's ring over S of its
+    8 CPU devices, which is the one-device report (chains resolved to the
+    ultimate keeper)."""
+    import jax
+
+    from mmrs_tpu.config import MeshConfig as JMeshConfig
+    from mmrs_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(n + shards)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[20] = x[5]
+    x[40] = x[20]                       # chain 40 -> 20 -> 5, across shards
+    x[n - 1] = x[7]
+    paths = [f"img{i}.jpg" for i in range(n)]
+    jm = j_make_mesh(JMeshConfig(data_size=shards), jax.devices()[:shards])
+    tm = make_mesh(MeshConfig(data_size=shards), [torch.device("cpu")]
+                   * shards)
+    rep = dedup.embedding_dedup(x, paths, tau=0.999, mesh=tm)
+    want = j_dedup.embedding_dedup(x, paths, tau=0.999, mesh=jm, impl="xla")
+    assert rep.duplicates == want.duplicates
+    assert rep.summary() == want.summary()
+    assert rep.duplicates == dedup.embedding_dedup(x, paths,
+                                                   tau=0.999).duplicates
+    got = dict(rep.duplicates)
+    assert got["img20.jpg"] == got["img40.jpg"] == "img5.jpg"
+    assert got[f"img{n - 1}.jpg"] == "img7.jpg"
 
 
 # -- normalize / manifest ------------------------------------------------------

@@ -52,7 +52,7 @@ def test_port_modules_import_no_jax_and_no_optional_packages():
                 "models.llama", "models.llava", "models.speculative",
                 "models.sentencepiece", "search.metrics", "cascade",
                 "cascade.verifier", "cascade.pipeline") + NEW_MODULES \
-            + ADAPT_SERVE_MODULES + OPERATIONS_MODULES:
+            + ADAPT_SERVE_MODULES + OPERATIONS_MODULES + PARALLEL_MODULES:
         assert f"mmrs_tpu_torch.{mod}" in names.split()
 
 
@@ -69,10 +69,14 @@ ADAPT_SERVE_MODULES = ("adapt", "adapt.tip_adapter", "adapt.driver",
 # the operations layer and the int4-weight LLaMA's modules
 OPERATIONS_MODULES = ("plan", "eval.parity", "lifecycle", "models.layers",
                       "models.quantize", "models.convert_jax")
+# the data axis of the mesh
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.topk",
+                    "parallel.quant4", "parallel.embed", "parallel.ivf",
+                    "parallel.dedup", "parallel.multihost")
 
 
 @pytest.mark.parametrize("mod", NEW_MODULES + ADAPT_SERVE_MODULES
-                         + OPERATIONS_MODULES)
+                         + OPERATIONS_MODULES + PARALLEL_MODULES)
 def test_each_new_module_imports_no_jax(mod):
     """Each module alone, in a fresh interpreter: no jax, mmrs_tpu or
     ml_dtypes (BF16 weights are read as their bits), no matplotlib (the F1

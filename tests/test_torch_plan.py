@@ -96,11 +96,14 @@ def test_render_and_hint_name_the_ports_flags():
     txt = T.plan(150_000_000, DIM, hbm_gb=80.0).render()
     assert "--gallery-quant" in txt or "--ann-nprobe" in txt
     assert "GB/chip" in txt and "mmrs-torch search" in txt
-    assert "--gallery-shards" not in T.plan(400_000_000, DIM,
-                                            chips=8).render()
+    # the sharded gallery is the port's too: the line names the flag, as
+    # the JAX package's names `--gallery-shards N`
+    assert T.plan(400_000_000, DIM, chips=8).render().splitlines()[-1] \
+        .endswith("mmrs-torch search --gallery-shards 8")
     msg = T.oom_hint(123, 45)
     assert "mmrs-torch plan --rows 123 --dim 45" in msg
-    assert "--gallery-quant" in msg and "--gallery-shards" not in msg
+    assert "--gallery-quant" in msg and "--gallery-shards" in msg
+    assert "A.12" not in msg
 
 
 def test_cli_plan_matches_the_library(capsys):

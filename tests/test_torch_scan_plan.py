@@ -17,6 +17,7 @@ heads into launches of its instances (`group_pieces`) to cover every head
 once. The kernels themselves run on the card (tests/test_torch_cuda.py).
 """
 
+import contextlib
 import numpy as np
 import pytest
 import torch
@@ -190,6 +191,9 @@ def _record_plans(monkeypatch):
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_cuda, "library", lambda: FakeLib())
     monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
+    # the launches' device guards (no card here)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
     return calls
 
 

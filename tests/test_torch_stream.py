@@ -119,6 +119,37 @@ def test_ring_reuses_prefetch_plus_one_slots(memmap, monkeypatch):
     assert ring.host[0].dtype == torch.float16
 
 
-def test_mesh_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        streaming_topk(_rows(4, 8), _rows(1, 8), k=2, mesh=object())
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("chunk_rows,k,shards", [(700, 10, 8), (1024, 7, 3),
+                                                 (250, 300, 4), (3000, 10, 2)])
+def test_streaming_on_a_mesh_equals_jax(memmap, prefetch, chunk_rows, k,
+                                        shards):
+    """mesh=: each chunk split by rows over S CPU entries (a ring each)
+    and scanned by sharded_cosine_topk, against JAX's sharded stream over
+    S of its 8 CPU devices and the one-device stream: ids equal, values
+    within 1e-5 (tests/test_multihost.py:257 holds the JAX pair to
+    1e-5)."""
+    import jax
+
+    from mmrs_tpu.config import MeshConfig as JMeshConfig
+    from mmrs_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+
+    mm, queries = memmap
+    jm = j_make_mesh(JMeshConfig(data_size=shards), jax.devices()[:shards])
+    tm = make_mesh(MeshConfig(data_size=shards), [torch.device("cpu")]
+                   * shards)
+    jv, ji = j_streaming_topk(mm, queries, k=k, chunk_rows=chunk_rows,
+                              device_dtype=jnp.float32, impl="xla",
+                              prefetch=prefetch, mesh=jm)
+    tv, ti = streaming_topk(mm, queries, k=k, chunk_rows=chunk_rows,
+                            dtype=torch.float32, prefetch=prefetch, mesh=tm)
+    ov, oi = streaming_topk(mm, queries, k=k, chunk_rows=chunk_rows,
+                            dtype=torch.float32, prefetch=prefetch)
+    assert ti.dtype == np.int64 and tv.shape == (5, k)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(ti, oi)
+    np.testing.assert_allclose(tv, jv, atol=1e-5)
+    np.testing.assert_allclose(tv, ov, atol=1e-6)
+    assert ti[0, 0] == 2990

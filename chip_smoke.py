@@ -170,8 +170,38 @@ nonzero exit and no result line:
         hybrid mesh with 2 shards each, this script's --mesh-worker),
         each placing only its rows: top-10, IVF at nprobe = C and the
         ring identical in both and equal to this process's answers;
+     j. the model axis of the mesh (parallel/vlm.py), run after 4e on its
+        seeded weights (the bf16 7B and the 1.1B draft made anew from the
+        seed, 4e's int8 model), on distinct cards where the machine has
+        them, else cuda:0 repeated (said which): (1) bf16 at TP = 2 (1x2)
+        and 4 (1x4): a pack of 8 through LLaVAVerifier(mesh=) with the
+        CLI's serving options (K2, K3, K10, K11 launched; shard caches
+        [L, 8, 32 / T, S, HD]), prefill logits within PREFILL_LOGIT_TOL
+        of 4e's one-device kernel route, greedy tokens equal to the first
+        near-tie, and one device fed the TP tokens finding each within
+        TP_TOKEN_GAP of its best; (2) quantize_llava weights + int8 KV at
+        TP = 2: prefill logits and all 32 tokens bit-equal to 4e's
+        one-device int8 run (K6 launched); (3) speculative (k = 4) at
+        TP = 2 with the draft replicated and sharded: tokens = (1)'s
+        TP = 2 greedy tokens to the first near-tie, the TP = 2 model fed
+        them finding each within TP_TOKEN_GAP of its best, slot
+        utilization; (4) DP x TP 2x2: 7 JPEGs padded to 8, verdicts = one
+        device's, one device fed the rows' tokens finding each within
+        TP_TOKEN_GAP of its best; (5) in 4e's step (4), before
+        its int8 checkpoint is removed: `cascade ... --verifier-int8 --tp
+        2` (verdicts = run (2)'s on two or more cards, else exit 2 with
+        the device-count message), then load_npz(placement=
+        llava_checkpoint_placement) bit-equal to shard_llava_params of
+        the one-device load, with the host's peak RSS for both loads; (6)
+        two DP x TP contrastive steps at B/32 width, batch 32, f32, on
+        a 2x2 mesh: losses and gradient norms within 4g's f32 tolerances
+        of the one-device step, the updates within the gradient's, K2
+        never launched; then ms a decode step and a pack at T = 1, 2, 4,
+        the card's busy share over a TP = 2 generate, the peak device
+        memory and the phase's seconds;
   5. launch counts: every kernel of each path ran during its phase 4 run
-     (K2, K10, K11 in every 4e run, K6 in the int8 ones, K1-K9 in 4i);
+     (K2, K10, K11 in every 4e run, K6 in the int8 ones, K1-K9 in 4i,
+     K2, K3, K6, K10 and K11 in 4j);
      phase 4's answers
      against the plain versions on the same inputs;
   6. times (CUDA events, after warm-up), kernel and plain version in turns,
@@ -922,19 +952,27 @@ def tiny_sentencepiece(path: str) -> None:
 
 
 def greedy_trace(lm, embeds, kv_dtype, attn: str, steps: int,
-                 forced=None):
+                 forced=None, stats=None):
     """Greedy decode of a batch with no EOS (the decode loop of
     llama.greedy_generate, prefill_chunk 64), keeping the prefill's last
     logits and each step's top-2 margin. With `forced` [B, steps] tokens
     it feeds those instead of its own choices and also returns, per step,
     how far the forced token's logit lies below the best one. (logits
-    [B, V], tokens [B, steps], margins [B, steps], gaps or None)."""
+    [B, V], tokens [B, steps], margins [B, steps], gaps or None). A
+    `stats` dict is given the cache's shapes (one a shard) and the ms of
+    a decode step (host clock, the card synchronized after the prefill
+    and at the end)."""
     from mmrs_tpu_torch.models import llama
 
     b, t, _ = embeds.shape
     cache_len = -(-(t + steps) // 64) * 64
     logits, cache = llama.prefill(lm, embeds, cache_len, torch.bfloat16,
                                   kv_dtype, 64, attn)
+    if stats is not None:
+        shards = cache if isinstance(cache, list) else [cache]
+        stats["cache"] = {tuple(c[0].shape) for c in shards}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
     first = logits[:, -1].float()
     toks, margins, gaps = [], [], []
     for i in range(steps):
@@ -951,6 +989,9 @@ def greedy_trace(lm, embeds, kv_dtype, attn: str, steps: int,
         emb = llama.embed_tokens(lm, feed[:, None])
         logits, cache = llama.forward(lm, emb, cache, t + i, torch.bfloat16,
                                       attn=attn)
+    if stats is not None:
+        torch.cuda.synchronize()
+        stats["step_ms"] = (time.perf_counter() - t0) / (steps - 1) * 1e3
     return (first, torch.stack(toks, 1), torch.stack(margins, 1),
             torch.stack(gaps, 1) if gaps else None)
 
@@ -975,12 +1016,14 @@ def agreed_steps(tokens, ref_tokens, ref_margins, near_tie: float,
 
 def profile_device(fn, top: int = 8):
     """torch.profiler over one call of fn: (wall ms, device ms summed over
-    kernels, [(kernel, ms, launches)] of the `top` largest)."""
+    kernels, [(kernel, ms, launches)] of the `top` largest). It records
+    the card's activity only: recording the host's ops too slows a
+    host-bound decode under the profiler and leaves more events to sort
+    out after it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1007,7 +1050,7 @@ def llava_phase(dev, root: str, kernels, cli):
     from mmrs_tpu_torch.models.sentencepiece import SentencePieceBPE
 
     bf16 = torch.bfloat16
-    ctx = {"launches": {}, "report": [], "e2e": {}}
+    ctx = {"launches": {}, "report": [], "e2e": {}, "traces": {}}
     t0 = time.perf_counter()
     cfg = llava.LLaVAConfig(vision=VIT_L14_336, lm=LLAMA2_7B)
     model = llava.LLaVA(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -1113,10 +1156,12 @@ def llava_phase(dev, root: str, kernels, cli):
         tol = PREFILL_LOGIT_TOL[name]
         with torch.inference_mode():
             ek, ep = embeds(m, False), embeds(m, True)
-            lk, tk, _, _ = greedy_trace(m.lm, ek, kv, "auto", LLAVA_MAX_NEW)
+            lk, tk, mk, _ = greedy_trace(m.lm, ek, kv, "auto", LLAVA_MAX_NEW)
             lp, tp, mp, _ = greedy_trace(m.lm, ep, kv, "torch", LLAVA_MAX_NEW)
             _, tf, _, gaps = greedy_trace(m.lm, ep, kv, "torch",
                                           LLAVA_MAX_NEW, forced=tk)
+        # the kernel route's trace: phase 4j's one-device reference
+        ctx["traces"][name] = (ek, lk, tk, mk)
         gap, same = float(gaps.max()), int((tf == tk).sum())
         err = float((lk - lp).abs().max())
         check(err <= tol, f"4e {name}: prefill logits differ by {err} "
@@ -1227,13 +1272,13 @@ def llava_phase(dev, root: str, kernels, cli):
     for fn in kernels:
         fn.launches = 0
     t1 = time.perf_counter()
-    code, lines = cli(["cascade", "--root", os.path.join(root, "folder"),
-                       "--positive-class", "cat", "--class-embed", embed,
-                       "--threshold=-1e30", "--verifier", "llava",
-                       "--verifier-int8", "--llava-checkpoint", ckpt,
-                       "--tokenizer-model", tok_path, "--chunk-size",
-                       str(VERIFY_BATCH), "--verify-batch", str(VERIFY_BATCH),
-                       "--out", audit])
+    argv = ["cascade", "--root", os.path.join(root, "folder"),
+            "--positive-class", "cat", "--class-embed", embed,
+            "--threshold=-1e30", "--verifier", "llava", "--verifier-int8",
+            "--llava-checkpoint", ckpt, "--tokenizer-model", tok_path,
+            "--chunk-size", str(VERIFY_BATCH), "--verify-batch",
+            str(VERIFY_BATCH)]
+    code, lines = cli(argv + ["--out", audit])
     cli_s = time.perf_counter() - t1
     counts = {fn.__name__: fn.launches for fn in kernels}
     ctx["launches"]["cli"] = counts
@@ -1250,6 +1295,9 @@ def llava_phase(dev, root: str, kernels, cli):
     by_path = dict(zip(paths, res2.verified))
     check(all(bool(int(r[4])) == bool(by_path[r[0]]) for r in rows),
           "4e CLI: verdicts differ from run (2)'s")
+    # phase 4j (5): --tp 2 and the placed load, on this checkpoint
+    ctx["tp_ckpt"] = tp_checkpoint_checks(dev, ckpt, cfg, cli, argv, want,
+                                          by_path)
     os.remove(ckpt)
     ctx["report"].append(
         f"(4) mmrs-torch cascade --verifier llava --verifier-int8 over "
@@ -1257,6 +1305,449 @@ def llava_phase(dev, root: str, kernels, cli):
         f"{lines[:5]}, verdicts = run (2)'s; save_npz {need / 2 ** 30:.2f} "
         f"GiB in {save_s:.1f} s, the command {cli_s:.1f} s")
     ctx["model"] = model
+    ctx["paths"], ctx["tok"] = paths, tok
+    return ctx
+
+
+# ---- phase 4j: the model axis of the mesh -------------------------------------
+
+# the tensor-parallel verifier (phase 4j): 4e's seeded LLaVA-v1.5-7B at TP
+# 2 and 4, one pack of VERIFY_BATCH with the CLI's serving options; the
+# DP x TP pack is TP_DP_IMAGES images padded to the data axis's width; the
+# contrastive step at B/32 width over a 2 x 2 mesh, TP_CONTRASTIVE_STEPS
+TP_WIDTHS = (2, 4)
+TP_DP_IMAGES = 7
+TP_CONTRASTIVE_STEPS = 2
+# how far below the best logit a model fed another route's tokens may find
+# them: above the largest such gap of the TP routes on the H100 (0.085 at
+# TP = 2, 0.106 at TP = 4 against one device; 0.036 speculative against
+# TP = 2; 0.057 DP x TP), below the median top-2 margin of the random 7B
+# (0.195: a route that picked the runner-up would lie a margin below)
+TP_TOKEN_GAP = 0.125
+
+
+def tp_devices(n: int):
+    """([n devices], how): n distinct cards where the machine has them,
+    else the first card n times (the model axis's shards run one after
+    another on it, their partial sums added by no-op copies)."""
+    have = torch.cuda.device_count()
+    if have >= n:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} distinct cards")
+    return ([torch.device("cuda", 0)] * n,
+            f"cuda:0 repeated {n} times ({have} card(s) here)")
+
+
+def peak_rss(fn):
+    """(fn(), the host's peak resident set while fn ran in GiB above the
+    level it started at, that peak in GiB): VmRSS sampled every 5 ms."""
+    import threading
+
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    base = rss()
+    peak = [base]
+    done = threading.Event()
+
+    def poll():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss())
+            time.sleep(0.005)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join()
+    peak[0] = max(peak[0], rss())
+    return out, (peak[0] - base) / 2 ** 30, peak[0] / 2 ** 30
+
+
+def tp_checkpoint_checks(dev, ckpt: str, cfg, cli, argv, want_lines,
+                         by_path):
+    """Phase 4j (5), run inside 4e's step (4) on its int8 checkpoint:
+    `cascade ... --tp 2` (verdicts = 4e run (2)'s on two or more cards,
+    else exit 2 with the device-count message), then the checkpoint
+    loaded straight into its TP = 2 placement, whose pieces must equal
+    shard_llava_params of the one-device load bit for bit."""
+    import contextlib
+    import io
+
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.models import checkpoint, convert_jax
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+    from mmrs_tpu_torch.parallel.vlm import (llava_checkpoint_placement,
+                                             llava_from_placed,
+                                             shard_llava_params)
+
+    out = {}
+    audit = os.path.join(os.path.dirname(ckpt), "audit_tp.csv")
+    err = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        code, lines = cli(argv + ["--tp", "2", "--out", audit])
+    out["cli_s"] = time.perf_counter() - t1
+    if torch.cuda.device_count() >= 2:
+        check(code == 0 and lines[:4] == want_lines,
+              f"4j CLI --tp 2: exit {code}, {lines[:5]}, want {want_lines}")
+        with open(audit) as f:
+            rows = list(csv.reader(f))[1:]
+        check(all(bool(int(r[4])) == bool(by_path[r[0]]) for r in rows),
+              "4j CLI --tp 2: verdicts differ from 4e run (2)'s")
+        out["cli"] = f"exit 0, verdicts = 4e run (2)'s"
+    else:
+        want = "--tp 2 needs 2 local devices; 1 available"
+        check(code == 2 and want in err.getvalue(),
+              f"4j CLI --tp 2 on one card: exit {code}, stderr "
+              f"{err.getvalue()[-300:]!r}")
+        out["cli"] = f"exit 2 on one card ({want!r}) in {out['cli_s']:.2f} s"
+    devs, how = tp_devices(2)
+    mesh = make_mesh(MeshConfig(data_size=1, model_size=2), devs)
+    t1 = time.perf_counter()
+    placed, out["rss_placed"], _ = peak_rss(lambda: checkpoint.load_npz(
+        ckpt, placement=llava_checkpoint_placement(mesh)))
+    tp_loaded = llava_from_placed(placed, cfg, mesh)
+    del placed
+    torch.cuda.synchronize()
+    out["placed_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tree, out["rss_plain"], _ = peak_rss(lambda: checkpoint.load_npz(ckpt))
+    one = convert_jax.from_jax_llava(tree, cfg, device=dev)
+    del tree
+    torch.cuda.synchronize()
+    out["plain_s"] = time.perf_counter() - t1
+    ref = shard_llava_params(one, mesh)
+    got_sd = tp_loaded.rows[0].state_dict()
+    want_sd = ref.rows[0].state_dict()
+    check(list(got_sd) == list(want_sd),
+          "4j placed load: the TP model's keys differ from "
+          "shard_llava_params'")
+    bad = [k for k in want_sd if not torch.equal(got_sd[k], want_sd[k])]
+    check(not bad, f"4j placed load: {len(bad)} pieces differ from "
+          f"shard_llava_params (first {bad[:3]})")
+    out["pieces"] = len(want_sd)
+    out["mesh"] = how
+    del tp_loaded, one, ref, got_sd, want_sd
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(dev, kernels, ctx4e, paths, tok):
+    """Phase 4j: the verifier's decoder tensor-parallel over the mesh's
+    model axis at LLaVA-v1.5-7B width and depth (4e's seeded weights),
+    and the DP x TP contrastive step at B/32 width. Returns what phases 5
+    and 6 read."""
+    import copy
+
+    from mmrs_tpu_torch.adapt import contrastive
+    from mmrs_tpu_torch.cascade.verifier import LLaVAVerifier
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.models import llava
+    from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
+    from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, VIT_B32,
+                                               VIT_L14_336)
+    from mmrs_tpu_torch.models.llama import LLAMA2_7B, LLAMA_1B
+    from mmrs_tpu_torch.ops.attention import mha_short_seq
+    from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                     decode_attention)
+    from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+    from mmrs_tpu_torch.ops.preprocess import normalize_images
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+    from mmrs_tpu_torch.parallel.vlm import (
+        make_tp_llava_speculative_generate, replicate_llama_params,
+        shard_llava_params)
+
+    bf16 = torch.bfloat16
+    tol = PREFILL_LOGIT_TOL["bf16"]
+    ctx = {"launches": {}, "report": [], "times": {}}
+    t0 = time.perf_counter()
+    devs, how = tp_devices(max(TP_WIDTHS))
+    meshes = {t: make_mesh(MeshConfig(data_size=1, model_size=t), devs[:t])
+              for t in TP_WIDTHS}
+    ctx["report"].append(f"4j mesh: {how}")
+    cfg = llava.LLaVAConfig(vision=VIT_L14_336, lm=LLAMA2_7B)
+    model = llava.LLaVA(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, dtype=bf16).requires_grad_(False)
+    draft = llava.LLaVA(llava.LLaVAConfig(vision=VIT_L14_336, lm=LLAMA_1B),
+                        torch.Generator(device=dev).manual_seed(SEED + 1),
+                        device=dev, dtype=bf16).requires_grad_(False)
+    int8_model = ctx4e["model"]
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in kernels}
+
+    def reset():
+        for fn in kernels:
+            fn.launches = 0
+
+    def serve(m, mesh=None, **kw):
+        return LLaVAVerifier(m, cfg, tok, max_new_tokens=LLAVA_MAX_NEW,
+                             prefill_chunk=64, early_stop=True, device=dev,
+                             mesh=mesh, **kw)
+
+    v1 = serve(model)
+    pack = paths[:VERIFY_BATCH]
+    images = torch.cat([v1._load_image(p) for p in pack])
+    pre_ids, post_ids = v1._prompt_ids(v1.prompt_template.format(
+        category="cat"))
+    pre, post = v1._ids(pre_ids, VERIFY_BATCH), v1._ids(post_ids,
+                                                         VERIFY_BATCH)
+    with torch.inference_mode():
+        emb = llava.build_multimodal_embeds(
+            model, pre, llava.encode_images(model, images, bf16), post, bf16)
+    cache_len = -(-(emb.shape[1] + LLAVA_MAX_NEW) // 64) * 64
+    # the one-device kernel route's trace of this pack (4e (1)): the
+    # reference of the checks below; 4j's model is 4e's, from the seed
+    ek, lk, tk, mk = ctx4e["traces"]["bf16"]
+    check(torch.equal(emb, ek), "4j: the pack's embeddings differ from "
+          "4e's (not the same model or inputs)")
+    ctx["times"]["tp1"] = (ctx4e["e2e"]["bf16"]["decode_step_ms"],
+                           ctx4e["pack_s"]["bf16"] * 1e3)
+
+    def timed(fn):
+        """(fn(), seconds), the card synchronized around it."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def forced(lm, emb, tokens, what):
+        """lm fed `tokens` [B, steps]: (how far the fed tokens lie below
+        lm's best at most, which must be within TP_TOKEN_GAP; the steps
+        where lm picks the same token)."""
+        with torch.inference_mode():
+            _, tf, _, gaps = greedy_trace(lm, emb, None, "auto",
+                                          tokens.shape[1], forced=tokens)
+        gap = float(gaps.max())
+        check(gap <= TP_TOKEN_GAP, f"{what}: a token lies {gap} below the "
+              f"best of the model fed them (limit {TP_TOKEN_GAP})")
+        return gap, int((tf == tokens).sum())
+
+    laps = {"setup": time.perf_counter() - t0}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t0 - sum(laps.values())
+
+    # (1) bf16 at TP = 2 and 4: logits and tokens against one device
+    trace = {}
+    for tp, mesh in meshes.items():
+        sh = shard_llava_params(model, mesh)
+        row = sh.rows[0]
+        reset()
+        verdicts, pack_s = timed(lambda: serve(sh, mesh).verify_batch(
+            pack, "cat"))
+        c = counts()
+        st = {}
+        with torch.inference_mode():
+            lt, tt, mt, _ = greedy_trace(row.lm, emb, None, "auto",
+                                         LLAVA_MAX_NEW, stats=st)
+        ctx["times"][f"tp{tp}"] = (st["step_ms"], pack_s * 1e3)
+        ctx["launches"][f"bf16_tp{tp}"] = c
+        for fn in (mha_short_seq, normalize_images, chunk_attention,
+                   decode_attention):
+            check(c[fn.__name__] > 0,
+                  f"4j bf16 TP={tp}: {fn.__name__} never launched")
+        want = (LLAMA2_7B.layers, VERIFY_BATCH, LLAMA2_7B.kv_heads // tp,
+                cache_len, LLAMA2_7B.head_dim)
+        check(st["cache"] == {want}, f"4j TP={tp}: shard caches "
+              f"{st['cache']}, want {want}")
+        err = float((lt - lk).abs().max())
+        check(err <= tol, f"4j bf16 TP={tp}: prefill logits differ from one "
+              f"device's by {err} (limit {tol})")
+        agreed = agreed_steps(tt, tk, mk, 2 * tol, f"4j bf16 TP={tp}")
+        # one device fed the TP tokens: each near its best
+        gap, same = forced(model.lm, emb, tt, f"4j bf16 TP={tp}")
+        trace[tp] = (tt, mt)
+        ctx["report"].append(
+            f"(1) bf16 TP={tp}: a pack of {VERIFY_BATCH} through "
+            f"verify_batch ({sum(verdicts)} verified), K10 "
+            f"{c['chunk_attention']} / K11 {c['decode_attention']} launches "
+            f"on shard caches {list(want)}; prefill logits max|d| vs one "
+            f"device {err:.4f} (limit {tol}); tokens = one device's for "
+            f"{agreed} of {tk.numel()} steps (to each row's first top-2 "
+            f"margin < {2 * tol}; one device's margins median "
+            f"{float(mk.median()):.4f}); fed the TP tokens, one device picks "
+            f"the same at {same} of {tt.numel()} steps, every TP token "
+            f"within {gap:.4f} of its best (limit {TP_TOKEN_GAP})")
+        lap(f"bf16_tp{tp}")
+        if tp == 2:
+            sh2 = sh
+            ctx["profile_tp2"] = profile_device(lambda: llava.generate(
+                row, images, pre, post, LLAVA_MAX_NEW, -1, bf16,
+                prefill_chunk=64))
+            lap("profile_tp2")
+        else:
+            del sh
+        del row
+    # (2) int8 weights + int8 KV at TP = 2: bit-equal to 4e's int8 run
+    reset()
+    v8 = serve(int8_model, meshes[2], kv_dtype=torch.int8)
+    v8.verify_batch(pack, "cat")
+    ctx["launches"]["int8_tp2"] = counts()
+    check(ctx["launches"]["int8_tp2"]["mlp_int8_fused"] > 0,
+          "4j int8 TP=2: mlp_int8_fused never launched")
+    e8, l1, t1_, _ = ctx4e["traces"]["int8"]
+    with torch.inference_mode():
+        l2, t2_, _, _ = greedy_trace(v8.params.rows[0].lm, e8, torch.int8,
+                                     "auto", LLAVA_MAX_NEW)
+    check(torch.equal(l1, l2), f"4j int8 TP=2: prefill logits differ from "
+          f"one device's (max|d| {float((l1 - l2).abs().max())})")
+    check(torch.equal(t1_, t2_), "4j int8 TP=2: tokens differ from one "
+          "device's")
+    ctx["report"].append(
+        f"(2) int8 weights + int8 KV, TP=2: prefill logits and all "
+        f"{t2_.numel()} tokens bit-equal to 4e's one-device int8 run")
+    del v8
+    lap("int8")
+    # (3) speculative, the 1.1B draft replicated and sharded, k = 4: the
+    # TP=2 model fed the speculative tokens finds each near its best
+    tt2, mt2 = trace[2]
+    seen = None     # (tokens, gap, same) of the last draft's run
+    for kind, place in (("replicated", replicate_llama_params),
+                        ("sharded", shard_llava_params)):
+        gen = make_tp_llava_speculative_generate(
+            cfg, draft.cfg, meshes[2], LLAVA_MAX_NEW, 4, -1, bf16,
+            prefill_chunk=64, return_stats=True)
+        dparams = place(draft, meshes[2])
+        reset()
+        t1 = time.perf_counter()
+        toks, st = gen(sh2, dparams, images, pre, post)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        ctx["launches"][f"spec_{kind}"] = counts()
+        agreed = agreed_steps(toks, tt2, mt2, 2 * tol,
+                              f"4j speculative ({kind} draft)")
+        if seen is None or not torch.equal(toks, seen[0]):
+            seen = (toks, *forced(sh2.rows[0].lm, emb, toks,
+                                  f"4j speculative ({kind} draft)"))
+        gap, same = seen[1:]
+        b = toks.shape[0]
+        util = (float(st["emitted"].sum()) - b) / (st["rounds"] * b * 5)
+        ctx["report"].append(
+            f"(3) speculative TP=2, {kind} draft (k=4): {secs:.2f} s, "
+            f"{st['rounds']} rounds, slot utilization {util:.3f}; tokens = "
+            f"TP=2 greedy for {agreed} of {tt2.numel()} steps (to the first "
+            f"near-tie); fed its tokens, the TP=2 model picks the same at "
+            f"{same} of {toks.numel()} steps, every token within {gap:.4f} "
+            f"of its best (limit {TP_TOKEN_GAP})")
+        del dparams
+    lap("speculative")
+    # (4) DP x TP 2 x 2: 7 JPEGs padded to 8, verdicts = one device's
+    mesh22 = make_mesh(MeshConfig(data_size=2, model_size=2), devs[:4])
+    few = paths[:TP_DP_IMAGES]
+    one = serve(model, eos_token=-1)
+    dp = serve(model, mesh22, eos_token=-1)
+    reset()
+    h_dp = dp.verify_batch_async(few, "cat")
+    c = counts()
+    ctx["launches"]["dp2_tp2"] = c
+    tok_dp = h_dp[0]
+    check(tok_dp.shape[0] == VERIFY_BATCH, f"4j DP x TP: {tok_dp.shape[0]} "
+          f"rows decoded, want {TP_DP_IMAGES} padded to {VERIFY_BATCH}")
+    got = dp.collect(h_dp)
+    want = one.collect(one.verify_batch_async(few, "cat"))
+    check(got == want, f"4j DP x TP verdicts {got} != one device's {want}")
+    # the real rows are the pack's first ones: each row decodes alone, so
+    # one device's trace of the pack holds their tokens and margins, and
+    # one device fed their tokens finds each near its best
+    n = TP_DP_IMAGES
+    agreed = agreed_steps(tok_dp[:n], tk[:n], mk[:n], 2 * tol, "4j DP x TP")
+    gap, same = forced(model.lm, emb[:n], tok_dp[:n], "4j DP x TP")
+    ctx["report"].append(
+        f"(4) DP x TP 2x2: {n} JPEGs padded to {tok_dp.shape[0]} rows, "
+        f"tokens = one device's for {agreed} of {tk[:n].numel()} steps; fed "
+        f"the rows' tokens, one device picks the same at {same} of "
+        f"{tok_dp[:n].numel()} steps, every token within {gap:.4f} of its "
+        f"best (limit {TP_TOKEN_GAP}); verdicts {got} = one device's; K10 "
+        f"{c['chunk_attention']} / K11 {c['decode_attention']} / K2 "
+        f"{c['mha_short_seq']} launches")
+    del one, dp, sh2, model, draft
+    torch.cuda.empty_cache()
+    lap("dp_tp")
+    # (6) the DP x TP contrastive step at B/32 width, batch 32
+    reset()
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    a = CLIP(CLIPConfig(vision=VIT_B32, text=CLIP_TEXT_B32),
+             torch.Generator().manual_seed(SEED)).to(dev)
+    b_ = copy.deepcopy(a)
+    imgs = torch.randn((CONTRASTIVE_BATCH, 224, 224, 3), device=dev,
+                       generator=g)
+    toks = torch.randint(1, 49407, (CONTRASTIVE_BATCH, 77), device=dev,
+                         generator=g)
+    toks[:, 20] = 49407
+    before = {k: v.clone() for k, v in a.state_dict().items()}
+    f32 = torch.float32
+    s1, o1 = contrastive.make_train_step(a, learning_rate=CONTRASTIVE_LR,
+                                         compute_dtype=f32)
+    s2, o2 = contrastive.make_train_step(b_, mesh=mesh22,
+                                         learning_rate=CONTRASTIVE_LR,
+                                         compute_dtype=f32)
+
+    def grad_norm(opt):
+        return math.sqrt(sum(float(p.grad.double().pow(2).sum())
+                             for grp in opt.param_groups
+                             for p in grp["params"] if p.grad is not None))
+
+    losses, norms, ms = [], [], {"one": [], "mesh": []}
+    for _ in range(TP_CONTRASTIVE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        la = float(s1(imgs, toks))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lb = float(s2(imgs, toks))
+        torch.cuda.synchronize()
+        ms["one"].append((t2 - t1) * 1e3)
+        ms["mesh"].append((time.perf_counter() - t2) * 1e3)
+        losses.append((la, lb))
+        norms.append((grad_norm(o1), grad_norm(o2)))
+    ltol, gtol = CONTRASTIVE_TOL["float32"]
+    for i, ((la, lb), (ga, gb)) in enumerate(zip(losses, norms)):
+        check(abs(la - lb) / la <= ltol and abs(ga - gb) / ga <= gtol,
+              f"4j contrastive step {i + 1}: loss {lb} / grad norm {gb} "
+              f"over the 2x2 mesh vs one device's {la} / {ga}")
+    sa, sb = a.state_dict(), b_.state_dict()
+    # Adam moves a weight by about lr a step whatever its gradient's size,
+    # so a gradient within rounding of 0 may step either way: a key bias's
+    # exact gradient is 0 (it shifts a softmax row alike), so those only
+    # keep the bound of 2 lr a step; the other updates agree to the
+    # gradient's tolerance, taken over the whole update
+    zero = [k for k in sa if k.endswith("attn.wk.bias")]
+    rest = [k for k in sa if k not in zero]
+    moved = sum(float((sa[k] - before[k]).double().pow(2).sum())
+                for k in rest)
+    apart = sum(float((sa[k] - sb[k]).double().pow(2).sum()) for k in rest)
+    worst = max(float((sa[k] - sb[k]).abs().max()) for k in sa)
+    rel = math.sqrt(apart / moved)
+    check(rel <= gtol and worst <= 2 * TP_CONTRASTIVE_STEPS * CONTRASTIVE_LR
+          * 1.01, f"4j contrastive: updates differ by {rel:.3e} of their "
+          f"norm (limit {gtol}), at most {worst:.3e} a weight")
+    c = counts()
+    ctx["launches"]["contrastive_2x2"] = c
+    check(c["mha_short_seq"] == 0, "4j contrastive steps launched K2")
+    ctx["times"]["contrastive_ms"] = ms
+    ctx["report"].append(
+        f"(6) contrastive ViT-B/32 + text B/32, batch {CONTRASTIVE_BATCH}, "
+        f"f32 compute, 2x2 mesh: losses (one device / mesh) "
+        + ", ".join(f"{la:.6f} / {lb:.6f}" for la, lb in losses)
+        + ", grad norms " + ", ".join(f"{ga:.4f} / {gb:.4f}"
+                                      for ga, gb in norms)
+        + f"; updated weights (key biases aside) apart by {rel:.3e} of the "
+        f"update's norm (limit {gtol}), every weight within {worst:.3e} "
+        f"(limit 2 lr a step); K2 launches 0; ms a step one device / mesh "
+        + ", ".join(f"{x:.1f} / {y:.1f}" for x, y in zip(ms["one"],
+                                                       ms["mesh"])))
+    del a, b_, o1, o2, s1, s2, sa, sb, before
+    lap("contrastive")
+    ctx["s"] = laps
     return ctx
 
 
@@ -4743,6 +5234,38 @@ def main(argv) -> int:
     for line in llava_ctx["report"]:
         say(f"phase 4e {line}")
     say(f"phase 4e: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4j. end to end: the model axis of the mesh (4e's weights) -----------
+    t0 = time.perf_counter()
+    tp_ctx = tp_phase(dev, kernels, llava_ctx, llava_ctx["paths"],
+                      llava_ctx["tok"])
+    ck = llava_ctx["tp_ckpt"]
+    tp_ctx["report"].append(
+        f"(5) in 4e step (4): mmrs-torch cascade ... --verifier-int8 --tp 2: "
+        f"{ck['cli']}; load_npz(placement=llava_checkpoint_placement) on "
+        f"{ck['mesh']}: {ck['pieces']} pieces bit-equal to "
+        f"shard_llava_params of the one-device load; host peak RSS above "
+        f"the start: placed {ck['rss_placed']:.3f} GiB in "
+        f"{ck['placed_s']:.1f} s, whole tree {ck['rss_plain']:.3f} GiB in "
+        f"{ck['plain_s']:.1f} s")
+    for line in tp_ctx["report"]:
+        say(f"phase 4j {line}")
+    tt = tp_ctx["times"]
+    wall, dev_ms, _ = tp_ctx["profile_tp2"]
+    say(f"phase 4j times on {card}: ms a decode step (past the prefill, "
+        f"host clock) / a pack of {VERIFY_BATCH} (32 new tokens; T=1 is "
+        f"4e's: its e2e step and a run_streaming pack; T>1 a greedy trace "
+        f"and a verify_batch pack), bf16: "
+        + ", ".join(f"T={t} {tt[f'tp{t}'][0]:.2f} / {tt[f'tp{t}'][1]:.1f}"
+                    for t in (1,) + TP_WIDTHS)
+        + f"; TP=2 generate busy {dev_ms:.1f} of "
+        f"{wall:.1f} ms ({dev_ms / wall:.3f}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    say(f"phase 4j: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in tp_ctx["s"].items())
+        + f"; the placed-load checks ran in 4e: "
+        f"{ck['cli_s'] + ck['placed_s'] + ck['plain_s']:.1f} s; budget "
+        f"120 s)")
     tmp.cleanup()
 
     # ---- 4f. end to end: the bilingual (EN + CN) union path ------------------
@@ -4845,6 +5368,13 @@ def main(argv) -> int:
     for fn in kernels[:9]:
         check(any(c[fn.__name__] for c in mesh_ctx["launches"].values()),
               f"{fn.__name__} never launched in phase 4i")
+    for run, counts in tp_ctx["launches"].items():
+        say(f"phase 5 launches during phase 4j ({run}): "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for name in ("mha_short_seq", "normalize_images", "mlp_int8_fused",
+                 "chunk_attention", "decode_attention"):
+        check(any(c[name] for c in tp_ctx["launches"].values()),
+              f"{name} never launched in phase 4j")
     # the verifier's main path is run (1), bf16 (phase 4e checked that
     # K2, K10 and K11 launched in every run and K6 in the int8 runs)
     launches["chunk_attention"] = llava_ctx["launches"]["bf16"][
@@ -5455,6 +5985,11 @@ def main(argv) -> int:
             run: c[name] for run, c in ops_ctx["launches"].items()
             if c[name]}
     extra["probe_buckets"]["q1_graph_ms"] = probe_q1[0]
+    for name in ("mha_short_seq", "normalize_images", "mlp_int8_fused",
+                 "chunk_attention", "decode_attention"):
+        extra.setdefault(name, {})["launches_4j"] = {
+            run: c[name] for run, c in tp_ctx["launches"].items()
+            if c[name]}
     for fn in kernels[:9]:
         extra.setdefault(fn.__name__, {})["launches_4i"] = {
             run: c[fn.__name__] for run, c in mesh_ctx["launches"].items()

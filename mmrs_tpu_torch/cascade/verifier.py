@@ -106,18 +106,26 @@ def llava_v1_prompt_parts(query: str,
 
 
 class LLaVAVerifier:
-    """The VLM verifier on one device via models/llava.py.
+    """The VLM verifier via models/llava.py, on one device or on a mesh.
 
     Needs: a LLaVA module (random, or from convert_jax.from_jax_llava), an
     LLaMA tokenizer exposing `encode(text) -> List[int]` and
     `decode(ids) -> str` (e.g. models/sentencepiece.SentencePieceBPE).
     Greedy decode at temperature 0; the answer is parsed with the
     reference's "yes"-substring test. The constructor is
-    TPULLaVAVerifier's without `mesh`, `layers` and `shard_draft`; the
-    attention routes are `attn_impl` (the vision tower's K2, "auto" or
-    "torch") and `attn` (the decoder's K10 / K11, in place of
-    `decode_attn` / `prefill_attn`: models/llama.ATTN_ROUTES); `device`
-    defaults to pipeline.default_device() and the models are moved there.
+    TPULLaVAVerifier's without `layers`; the attention routes are
+    `attn_impl` (the vision tower's K2, "auto" or "torch") and `attn`
+    (the decoder's K10 / K11, in place of `decode_attn` / `prefill_attn`:
+    models/llama.ATTN_ROUTES); `device` defaults to
+    pipeline.default_device() and the models are moved there.
+
+    `mesh` (parallel/mesh.Mesh with a model axis) hosts the decoder
+    tensor-parallel (parallel/vlm.py): `params` is sharded there unless
+    it is already placed (a vlm.MeshModel, e.g. vlm.llava_from_placed of
+    a checkpoint), and a draft is sharded too when its shapes divide the
+    model axis, else replicated; `shard_draft=True` on a draft that does
+    not divide raises ValueError, False replicates it. A data axis wider
+    than 1 splits each batch's rows: batches are padded to its width.
     """
 
     def __init__(self, params, cfg, tokenizer,
@@ -135,16 +143,27 @@ class LLaVAVerifier:
                  draft_params=None,
                  draft_cfg=None,
                  draft_tokens: int = 4,
-                 device=None):
+                 device=None,
+                 mesh=None,
+                 shard_draft: bool | None = None):
         import threading
 
         import torch
 
         from mmrs_tpu_torch.pipeline import default_device
 
-        self.device = (torch.device(device) if device is not None
-                       else default_device())
-        self.params = params.to(self.device)
+        self.mesh = mesh
+        self.shard_draft = shard_draft
+        self._tp_gen = None
+        if mesh is not None:
+            from mmrs_tpu_torch.parallel.mesh import first_device
+
+            self.device = first_device(mesh)
+        else:
+            self.device = (torch.device(device) if device is not None
+                           else default_device())
+        self.params = (params.to(self.device) if mesh is None
+                       else self._on_mesh(params, mesh))
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.prompt_template = prompt_template
@@ -162,8 +181,12 @@ class LLaVAVerifier:
         self.attn = attn
         # optional draft VLM: decode goes through models/speculative.py
         # (the same greedy output; decode_window does not apply there)
-        self.draft_params = (draft_params.to(self.device)
-                             if draft_params is not None else None)
+        self.draft_params = draft_params
+        if draft_params is not None:
+            self.draft_params = (draft_params.to(self.device)
+                                 if mesh is None
+                                 else self._draft_on_mesh(draft_params,
+                                                          draft_cfg, mesh))
         self.draft_cfg = draft_cfg
         self.draft_tokens = draft_tokens
         # realized speculative acceptance, accumulated at collect()
@@ -172,11 +195,66 @@ class LLaVAVerifier:
         self._spec_tokens = 0
         self._spec_slots = 0
 
+    @staticmethod
+    def _on_mesh(params, mesh):
+        from mmrs_tpu_torch.parallel.vlm import MeshModel, shard_llava_params
+
+        return (params if isinstance(params, MeshModel)
+                else shard_llava_params(params, mesh))
+
+    def _draft_on_mesh(self, draft, draft_cfg, mesh):
+        """The draft sharded when its decoder divides the model axis (or
+        as `shard_draft` says), else replicated."""
+        from mmrs_tpu_torch.parallel.vlm import (MeshModel,
+                                                 draft_tp_divisible,
+                                                 replicate_llama_params,
+                                                 shard_llava_params)
+
+        if isinstance(draft, MeshModel):
+            return draft
+        divisible = draft_tp_divisible((draft_cfg or draft.cfg).lm, mesh)
+        if self.shard_draft is None:
+            self.shard_draft = divisible
+        elif self.shard_draft and not divisible:
+            raise ValueError(
+                "shard_draft=True but the draft's heads/kv-heads/mlp/vocab "
+                "don't divide the mesh's model axis: use shard_draft=False "
+                "(replicated draft)")
+        return (shard_llava_params(draft, mesh) if self.shard_draft
+                else replicate_llama_params(draft, mesh))
+
+    def _tp_generate(self, images, pre, post):
+        """The mesh's generate (parallel/vlm.py), built at first use."""
+        if self._tp_gen is None:
+            from mmrs_tpu_torch.parallel.vlm import (
+                make_tp_llava_generate, make_tp_llava_speculative_generate)
+
+            kw = dict(compute_dtype=self.compute_dtype,
+                      attn_impl=self.attn_impl, kv_dtype=self.kv_dtype,
+                      prefill_chunk=self.prefill_chunk, attn=self.attn)
+            if self.draft_params is not None:
+                fn = make_tp_llava_speculative_generate(
+                    self.cfg, self.draft_cfg, self.mesh, self.max_new_tokens,
+                    self.draft_tokens, self.eos_token, return_stats=True,
+                    **kw)
+                self._tp_gen = lambda im, pr, po: fn(
+                    self.params, self.draft_params, im, pr, po)
+            else:
+                fn = make_tp_llava_generate(
+                    self.cfg, self.mesh, self.max_new_tokens, self.eos_token,
+                    decode_window=self.decode_window,
+                    early_stop=self.early_stop, **kw)
+                self._tp_gen = lambda im, pr, po: (
+                    fn(self.params, im, pr, po), None)
+        return self._tp_gen(images, pre, post)
+
     def _generate(self, images, pre, post):
         """(tokens [B, max_new] on the device, speculative stats or None):
         nothing is fetched to the host here."""
         from mmrs_tpu_torch.models import llava
 
+        if self.mesh is not None:
+            return self._tp_generate(images, pre, post)
         kw = dict(compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
                   kv_dtype=self.kv_dtype,
                   prefill_chunk=self.prefill_chunk, attn=self.attn)
@@ -252,11 +330,24 @@ class LLaVAVerifier:
         return torch.tensor([ids] * rows, dtype=torch.long,
                             device=self.device)
 
+    def _data_size(self) -> int:
+        """Width of the mesh's data axis (batch rows must divide it)."""
+        if self.mesh is None:
+            return 1
+        from mmrs_tpu_torch.parallel.mesh import data_size
+
+        return data_size(self.mesh)
+
     def generate_text(self, image_path: str, prompt: str) -> str:
         pre_ids, post_ids = self._prompt_ids(prompt)
         images = self._load_image(image_path)
-        out, spec = self._generate(images, self._ids(pre_ids, 1),
-                                   self._ids(post_ids, 1))
+        # a data axis splits the batch: the one row is tiled over its
+        # width (the data rows decode copies; row 0 is read)
+        d = self._data_size()
+        if d > 1:
+            images = images.repeat(d, 1, 1, 1)
+        out, spec = self._generate(images, self._ids(pre_ids, d),
+                                   self._ids(post_ids, d))
         ids = [t for t in out[0].tolist() if t != self.eos_token]
         self._record_spec(spec, out.shape[0])
         return self.tokenizer.decode(ids)
@@ -281,6 +372,11 @@ class LLaVAVerifier:
                 raise ValueError(f"{n_real} paths > fixed_batch {fixed_batch}")
             image_paths = list(image_paths) + [image_paths[0]] * (
                 fixed_batch - n_real)
+        # a data axis splits the batch: pad it to the axis's width
+        d = self._data_size()
+        if len(image_paths) % d:
+            image_paths = list(image_paths) + [image_paths[0]] * (
+                d - len(image_paths) % d)
         prompt = self.prompt_template.format(category=category)
         pre_ids, post_ids = self._prompt_ids(prompt)
         images = torch.cat([self._load_image(p) for p in image_paths])

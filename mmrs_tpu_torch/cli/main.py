@@ -78,7 +78,8 @@ or IVF slot strips; for `dedup --mode embedding` the ring; `index build
 governance commands are dry runs unless given --no-dry-run. `cascade`
 gates a folder with the CLIP tower and verifies the survivors with
 LLaVA-v1.5-7B (`--verifier llava`: a converted npz and its
-tokenizer.model; `--tp` other than 1 waits for ROADMAP A.12). `union` is
+tokenizer.model; `--tp N | DxT` hosts its decoder tensor-parallel over
+N local devices, or D data rows of T). `union` is
 the bilingual report: an EN CLIP pair and the CN Taiyi pair score one
 folder (`--cn-checkpoint`: the npz of {"visual", "text", "logit_scale"}).
 `weights convert` turns a released state dict (.pt / .bin / .safetensors
@@ -802,19 +803,47 @@ def _add_verifier_flags(parser) -> None:
     parser.add_argument("--draft-tokens", type=int, default=4,
                         help="draft tokens proposed per speculation round")
     parser.add_argument("--tp", default="1",
-                        help="verifier mesh; only 1 (one device) is ported")
+                        help="verifier mesh: N (decoder tensor-parallel over "
+                             "N devices) or DxT (batch-DP x decoder-TP)")
 
 
-def _one_device(args) -> bool:
-    """False (after the message) when the flags ask for a verifier mesh:
-    --tp other than 1 waits for ROADMAP A.12."""
+def _verifier_mesh(args):
+    """The verifier's mesh from --tp N | DxT (N = 1xN, decoder TP only;
+    DxT = batch-DP x decoder-TP over D*T local devices): None for one
+    device, or the int 2 after the message. The device count and the
+    Megatron divisibility of the 7B decoder are checked here, before any
+    checkpoint is read."""
     spec = str(getattr(args, "tp", "1")).lower()
-    if spec not in ("1", "1x1"):
-        print(f"--tp {spec}: tensor-parallel verifier hosting is ported "
-              f"with ROADMAP A.12; this port runs the verifier on one device",
-              file=sys.stderr)
-        return False
-    return True
+    try:
+        dp, tp = spec.split("x", 1) if "x" in spec else (1, spec)
+        dp, tp = int(dp), int(tp)
+    except ValueError:
+        print(f"--tp must be N or DxT, got {spec!r}", file=sys.stderr)
+        return 2
+    if dp < 1 or tp < 1:
+        print(f"--tp sizes must be >= 1, got {spec!r}", file=sys.stderr)
+        return 2
+    if dp * tp == 1:
+        return None
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.models.llama import LLAMA2_7B
+    from mmrs_tpu_torch.parallel.mesh import local_devices, make_mesh
+    from mmrs_tpu_torch.parallel.vlm import draft_tp_divisible
+
+    devices = local_devices(dp * tp)     # this process's cards only
+    if len(devices) < dp * tp:
+        print(f"--tp {spec} needs {dp * tp} local devices; "
+              f"{len(devices)} available", file=sys.stderr)
+        return 2
+    mesh = make_mesh(MeshConfig(data_size=dp, model_size=tp),
+                     devices[:dp * tp])
+    if not draft_tp_divisible(LLAMA2_7B, mesh):
+        print(f"--tp {spec} does not divide the 7B decoder's "
+              f"heads/kv-heads/mlp/vocab ({LLAMA2_7B.heads}/"
+              f"{LLAMA2_7B.kv_heads}/{LLAMA2_7B.mlp_dim}/"
+              f"{LLAMA2_7B.vocab_size})", file=sys.stderr)
+        return 2
+    return mesh
 
 
 def _make_verifier(args):
@@ -831,8 +860,9 @@ def _make_verifier(args):
         print("--verifier llava needs --llava-checkpoint and "
               "--tokenizer-model", file=sys.stderr)
         return 2
-    if not _one_device(args):
-        return 2
+    mesh = _verifier_mesh(args)
+    if isinstance(mesh, int):
+        return mesh
     import torch
 
     from mmrs_tpu_torch.cascade.verifier import LLaVAVerifier
@@ -852,7 +882,21 @@ def _make_verifier(args):
             device=dev)
         return quantize_llava(model) if args.verifier_int8 else model
 
-    vparams = load(args.llava_checkpoint, LLAMA2_7B)
+    if mesh is None:
+        vparams = load(args.llava_checkpoint, LLAMA2_7B)
+    else:
+        # stream the checkpoint straight into its TP placement: the host
+        # holds one array at a time, never the whole 7B
+        from mmrs_tpu_torch.parallel.vlm import (llava_checkpoint_placement,
+                                                 llava_from_placed,
+                                                 quantize_mesh_llava)
+
+        vparams = llava_from_placed(
+            checkpoint.load_npz(args.llava_checkpoint,
+                                placement=llava_checkpoint_placement(mesh)),
+            LLaVAConfig(vision=VIT_L14_336, lm=LLAMA2_7B), mesh)
+        if args.verifier_int8:
+            quantize_mesh_llava(vparams)
     dparams = dcfg = None
     if args.draft_checkpoint:
         dparams = load(args.draft_checkpoint, LLAMA_1B)
@@ -866,7 +910,7 @@ def _make_verifier(args):
         kv_dtype=(torch.int8 if args.verifier_int8 and fast else None),
         prefill_chunk=64 if fast else None,
         draft_params=dparams, draft_cfg=dcfg,
-        draft_tokens=args.draft_tokens, device=dev)
+        draft_tokens=args.draft_tokens, device=dev, mesh=mesh)
 
 
 def cmd_serve(args) -> int:
@@ -875,8 +919,6 @@ def cmd_serve(args) -> int:
     from mmrs_tpu_torch.pipeline import build_towers
     from mmrs_tpu_torch.serve import SearchService, make_server
 
-    if not _one_device(args):
-        return 2
     cfg = _load_config(args.config)
     idx = GalleryIndex.load(args.index)
     engine = _make_engine(args, cfg, idx)

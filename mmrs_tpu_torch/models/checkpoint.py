@@ -55,22 +55,38 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def load_npz(path: str) -> Dict[str, Any]:
+def load_npz(path: str, placement=None) -> Dict[str, Any]:
     """Load a param tree (nested dicts of CPU tensors and `QWeight`s, JAX
-    layouts)."""
+    layouts).
+
+    `placement` (optional, e.g. parallel/vlm.llava_checkpoint_placement):
+    flat key -> a function of the host tensor whose result becomes the
+    leaf, or None to keep the host tensor. Each member is placed as it is
+    read, so the host holds one array at a time (a TP-placed 7B is never
+    whole on the host). Keys keep their `@int8q` / `@int8s` suffixes (a
+    scale places differently from its codes); the `@bf16` storage marker
+    is stripped first."""
     flat: Dict[str, Any] = {}
     qpairs: Dict[str, list] = {}
     with np.load(path) as z:
         for k in z.files:
             v = z[k]
             if k.endswith(_BF16_SUFFIX):
-                flat[k[: -len(_BF16_SUFFIX)]] = bf16_from_bits(v)
-            elif k.endswith((_Q8_Q, _Q8_S)):
-                half = 0 if k.endswith(_Q8_Q) else 1
-                qpairs.setdefault(k[:-len(_Q8_Q)], [None, None])[half] = \
-                    torch.from_numpy(np.array(v))
+                k = k[: -len(_BF16_SUFFIX)]
+                t = bf16_from_bits(v)
             else:
-                flat[k] = torch.from_numpy(np.array(v))
+                # a member is read into an array of its own: no copy
+                t = torch.from_numpy(v if v.flags.writeable else np.array(v))
+            del v
+            if placement is not None:
+                put = placement(k)
+                if put is not None:
+                    t = put(t)
+            if k.endswith((_Q8_Q, _Q8_S)):
+                half = 0 if k.endswith(_Q8_Q) else 1
+                qpairs.setdefault(k[:-len(_Q8_Q)], [None, None])[half] = t
+            else:
+                flat[k] = t
     for base, (q, s) in qpairs.items():
         if q is None or s is None:
             raise ValueError(f"{path}: checkpoint is missing half of the "

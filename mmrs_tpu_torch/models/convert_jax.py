@@ -228,7 +228,8 @@ def _assign(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
             device) -> torch.nn.Module:
     """Load a meta-device module with the state dict's own tensors (their
     dtypes kept), each moved to `device` and made contiguous there."""
-    _int8_layers(model, sd)
+    with torch.device("meta"):         # placeholders: nothing allocated
+        _int8_layers(model, sd)
     sd = {k: v.to(device).contiguous() for k, v in sd.items()}
     model.load_state_dict(sd, strict=True, assign=True)
     return model.requires_grad_(False)

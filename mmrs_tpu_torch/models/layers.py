@@ -17,7 +17,11 @@ package:
   - the int8 MLP is the fused int8 MLP (ops/mlp_int8.py: the CUDA kernel
     on a GPU), with f32 hidden activations;
   - int4 layers (`QLinear4`, the int4-weight LLaMA) are unpacked to the
-    compute dtype and multiplied as float weights (f32 sums).
+    compute dtype and multiplied as float weights (f32 sums);
+  - a tensor-parallel decoder's or block's row-parallel products
+    (`row_parallel`) add f32 partial sums; int8 pieces share one global
+    activation scale and add exact int32 sums, equal to the one-device
+    int8 product.
 
 Weights live in `nn.Linear` modules ([out, in] layout; matmul weights in
 the compute dtype, biases f32), `QLinear` or `QLinear4` modules; the
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmrs_tpu_torch.ops.attention import mha_short_seq
-from mmrs_tpu_torch.ops.int8 import int8_linear, quantize_act
+from mmrs_tpu_torch.ops.int8 import INV_127, int8_linear, int_mm, quantize_act
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 
 
@@ -233,6 +237,39 @@ def matmul(x: torch.Tensor, layer, compute_dtype: torch.dtype,
     return y.reshape(*x.shape[:-1], -1).to(out_dtype)
 
 
+def row_parallel(xs, layers, compute_dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """The model axis's sum of the row-parallel products x_p @ W_p^T
+    (x_p [..., K_p] on piece p's device, W_p the layer's [N, K_p] piece):
+    f32 [..., N] on `device`, the pieces added there in position order.
+    One piece is `matmul`'s f32 result. Float pieces (and `QLinear4`
+    pieces, whole K-groups each) give f32 partial sums. `QLinear` pieces
+    follow the one-device int8 rule, as GSPMD's partitioning of the JAX
+    `_dense_int8` computes it: the input is quantized with the global row
+    max (the largest of the pieces' row maxima), the pieces' exact int32
+    sums are added, and acc * sx * s is taken once (the scales s are
+    replicated), so the result equals the whole layer's bit for bit."""
+    if len(xs) == 1:
+        return matmul(xs[0], layers[0], compute_dtype, torch.float32)
+    if isinstance(layers[0], QLinear):
+        x32 = [x.float() for x in xs]
+        amax = torch.stack([x.abs().amax(-1, keepdim=True).to(device)
+                            for x in x32]).amax(0)
+        sx = torch.clamp(amax, min=1e-12) * INV_127
+        acc = None
+        for x, layer in zip(x32, layers):
+            xq = torch.round(x / sx.to(x.device)).to(torch.int8)
+            part = int_mm(xq.reshape(-1, xq.shape[-1]), layer.q).to(device)
+            acc = part if acc is None else acc + part
+        acc = acc.reshape(*xs[0].shape[:-1], -1)
+        return torch.mul(acc, sx) * layers[0].s.to(device)
+    total = None
+    for x, layer in zip(xs, layers):
+        part = matmul(x, layer, compute_dtype, torch.float32).to(device)
+        total = part if total is None else total + part
+    return total
+
+
 def project(x: torch.Tensor, layer: nn.Linear, compute_dtype: torch.dtype
             ) -> torch.Tensor:
     """Final embedding projection: compute-dtype operands, f32 result (the
@@ -251,23 +288,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, width: int, heads: int):
-        super().__init__()
-        self.heads = heads
-        self.wq = nn.Linear(width, width)
-        self.wk = nn.Linear(width, width)
-        self.wv = nn.Linear(width, width)
-        self.wo = nn.Linear(width, width)
+    """Multi-head self-attention. With `tp` > 1 it is one model position's
+    piece (BlockPiece): heads / tp heads, the column pieces of wq / wk /
+    wv with their biases and the bias-free row piece of wo (the model
+    axis adds wo's bias once, Block.forward)."""
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                compute_dtype: torch.dtype, attn_impl: str = "auto"
-                ) -> torch.Tensor:
-        b, t, w = x.shape
-        hd = w // self.heads
+    def __init__(self, width: int, heads: int, tp: int = 1):
+        super().__init__()
+        self.heads = heads // tp
+        part = width // tp
+        self.wq = nn.Linear(width, part)
+        self.wk = nn.Linear(width, part)
+        self.wv = nn.Linear(width, part)
+        self.wo = nn.Linear(part, width, bias=tp == 1)
+
+    def heads_out(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                  compute_dtype: torch.dtype, attn_impl: str = "auto"
+                  ) -> torch.Tensor:
+        """The attention of the layer's heads, [B, T, heads * hd] in the
+        compute dtype: the input of wo."""
+        b, t, _ = x.shape
         cd = compute_dtype
-        # 1/sqrt(hd) folded into q, rounded to the compute dtype first (a
-        # host scalar: no device tensor is made per call)
-        scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=cd))
         if isinstance(self.wq, QLinear):
             # the int8 tower quantizes the layer input once for all three
             xq, sx = quantize_act(x)
@@ -275,10 +316,13 @@ class Attention(nn.Module):
                        for p in (self.wq, self.wk, self.wv))
         else:
             q, k, v = (dense(x, p, cd) for p in (self.wq, self.wk, self.wv))
+        hd = q.shape[-1] // self.heads
+        # 1/sqrt(hd) folded into q, rounded to the compute dtype first (a
+        # host scalar: no device tensor is made per call)
+        scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=cd))
         q = q * scale
         if mask is None:
-            out = mha_short_seq(q, k, v, self.heads, impl=attn_impl)
-            return dense(out, self.wo, cd)
+            return mha_short_seq(q, k, v, self.heads, impl=attn_impl)
 
         def split(y):                              # [B, H, T, hd]
             return y.reshape(b, t, self.heads, hd).transpose(1, 2)
@@ -286,15 +330,30 @@ class Attention(nn.Module):
         logits = split(q).float() @ split(k).float().transpose(-1, -2)
         probs = torch.softmax((logits + mask).to(cd), dim=-1)
         out = (probs.float() @ split(v).float()).to(cd)
-        return dense(out.transpose(1, 2).reshape(b, t, w), self.wo, cd)
+        return out.transpose(1, 2).reshape(b, t, -1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                compute_dtype: torch.dtype, attn_impl: str = "auto"
+                ) -> torch.Tensor:
+        return dense(self.heads_out(x, mask, compute_dtype, attn_impl),
+                     self.wo, compute_dtype)
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, hidden: int, act: Callable):
+    """Two-layer MLP. With `tp` > 1 it is one model position's piece
+    (BlockPiece): hidden / tp units, the column piece of w1 with its bias
+    and the bias-free row piece of w2."""
+
+    def __init__(self, width: int, hidden: int, act: Callable, tp: int = 1):
         super().__init__()
-        self.w1 = nn.Linear(width, hidden)
-        self.w2 = nn.Linear(hidden, width)
+        self.w1 = nn.Linear(width, hidden // tp)
+        self.w2 = nn.Linear(hidden // tp, width, bias=tp == 1)
         self.act = act
+
+    def inner(self, x: torch.Tensor, compute_dtype: torch.dtype
+              ) -> torch.Tensor:
+        """act(x @ w1^T + b1) in the compute dtype: the input of w2."""
+        return self.act(dense(x, self.w1, compute_dtype))
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
                 mlp_impl: str = "auto") -> torch.Tensor:
@@ -306,8 +365,32 @@ class MLP(nn.Module):
                 act="quick_gelu" if self.act is quick_gelu else "gelu",
                 impl=mlp_impl)
             return y.reshape(x.shape)
-        h = self.act(dense(x, self.w1, compute_dtype))
-        return dense(h, self.w2, compute_dtype)
+        return dense(self.inner(x, compute_dtype), self.w2, compute_dtype)
+
+
+class BlockPiece(nn.Module):
+    """One model position's piece of a tensor-parallel Block: heads / tp
+    heads and hidden / tp MLP units (the pieces' parameters are exactly
+    the Block's split ones, under the same names). The LayerNorms and the
+    biases of wo and w2 stay the Block's."""
+
+    def __init__(self, width: int, heads: int, hidden: int, act: Callable,
+                 tp: int):
+        super().__init__()
+        self.attn = Attention(width, heads, tp)
+        self.mlp = MLP(width, hidden, act, tp)
+
+
+def _row_dense(xs, layers, bias: Optional[torch.Tensor],
+               compute_dtype: torch.dtype, device: torch.device
+               ) -> torch.Tensor:
+    """sum_p x_p @ W_p^T + b over the model axis, rounded once to the
+    compute dtype on `device`: `dense` for one piece (the one-device
+    arithmetic), else row_parallel's f32 sum plus the f32 bias."""
+    if len(xs) == 1:
+        return dense(xs[0], layers[0], compute_dtype)
+    y = row_parallel(xs, layers, compute_dtype, device)
+    return (y if bias is None else y + bias.float()).to(compute_dtype)
 
 
 class Block(nn.Module):
@@ -321,11 +404,39 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(width)
         self.mlp = MLP(width, width * mlp_ratio, act)
 
+    def piece(self, tp: int) -> BlockPiece:
+        """An empty (meta-device) piece of this block for a model axis of
+        tp positions."""
+        with torch.device("meta"):
+            return BlockPiece(self.ln1.weight.shape[0], self.attn.heads,
+                              self.mlp.w1.out_features, self.mlp.act, tp)
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 compute_dtype: torch.dtype, attn_impl: str = "auto",
-                mlp_impl: str = "auto") -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask, compute_dtype, attn_impl)
-        return x + self.mlp(self.ln2(x), compute_dtype, mlp_impl)
+                mlp_impl: str = "auto", pieces=None, devices=None
+                ) -> torch.Tensor:
+        """The block on x's device, or tensor-parallel with `pieces` (one
+        BlockPiece a model position, pieces[p] on devices[p]): each piece
+        takes the LayerNorm's output and computes its heads and MLP units,
+        and the two row-parallel products are summed over the pieces in
+        f32 on x's device (row_parallel) with this block's bias before the
+        one rounding. Without pieces the block is its own one piece: the
+        one-device arithmetic."""
+        cd = compute_dtype
+        parts = [self] if pieces is None else list(pieces)
+        devs = [x.device] if pieces is None else list(devices)
+        h = self.ln1(x)
+        outs = [p.attn.heads_out(h.to(d), None if mask is None
+                                 else mask.to(d), cd, attn_impl)
+                for p, d in zip(parts, devs)]
+        x = x + _row_dense(outs, [p.attn.wo for p in parts],
+                           self.attn.wo.bias, cd, x.device)
+        h = self.ln2(x)
+        if isinstance(self.mlp.w1, QLinear):     # the fused int8 MLP (K6)
+            return x + self.mlp(h, cd, mlp_impl)
+        inner = [p.mlp.inner(h.to(d), cd) for p, d in zip(parts, devs)]
+        return x + _row_dense(inner, [p.mlp.w2 for p in parts],
+                              self.mlp.w2.bias, cd, x.device)
 
 
 def init_blocks(blocks: nn.ModuleList, generator: torch.Generator) -> None:

@@ -14,6 +14,10 @@ by wq/wk/wv and by w_gate/w_up); RMSNorm, RoPE and the softmax in f32; the
 gated MLP's gate and up come out in f32 and silu(gate) * up is rounded
 once; the int8 KV cache stores per-(row, head, position) f32 scales.
 
+A `TPLlama` is the same decoder tensor-parallel over one data row's model
+axis (parallel/vlm.py builds it): `forward` below is one path for both,
+and with one shard it is the one-device arithmetic.
+
 `attn` chooses the attention over the cache: "auto" is K10 / K11
 (ops/decode_attention.py: the CUDA kernels on a CUDA tensor, their plain
 versions on the CPU); "torch" their plain versions anywhere;
@@ -31,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmrs_tpu_torch.models.layers import QLinear, matmul
+from mmrs_tpu_torch.models.layers import QLinear, matmul, row_parallel
 from mmrs_tpu_torch.ops.decode_attention import (Pos, chunk_attention,
                                                  decode_attention,
                                                  query_positions)
@@ -177,30 +181,44 @@ def _project(x: torch.Tensor, layers, cd: torch.dtype,
 
 class LlamaBlock(nn.Module):
     """Pre-RMSNorm attention + gated-MLP block. Linear weights [out, in]
-    (bias-free), or `QLinear` after models/quantize.quantize_llama."""
+    (bias-free), or `QLinear` after models/quantize.quantize_llama.
 
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+    With `tp` > 1 it is one model position's piece of the block
+    (parallel/vlm.py): heads / tp query heads and kv_heads / tp kv heads
+    (column pieces of wq / wk / wv), mlp_dim / tp gated units (column
+    pieces of w_gate / w_up), and the matching row pieces of wo and
+    w_down. `forward` below drives the pieces: `attend` and `gate_up` give
+    the inputs of the two row-parallel products, which the model axis
+    sums (layers.row_parallel)."""
+
+    def __init__(self, cfg: LlamaConfig, tp: int = 1, device=None,
+                 dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        d, m = cfg.dim, cfg.mlp_dim
-        kvd = cfg.kv_heads * cfg.head_dim
+        d, hd = cfg.dim, cfg.head_dim
+        self.heads, self.kv_heads = cfg.heads // tp, cfg.kv_heads // tp
+        qd, kvd, m = self.heads * hd, self.kv_heads * hd, cfg.mlp_dim // tp
         self.attn_norm = nn.Parameter(torch.ones(d, **fk))
-        self.wq = nn.Linear(d, d, bias=False, **fk)
+        self.wq = nn.Linear(d, qd, bias=False, **fk)
         self.wk = nn.Linear(d, kvd, bias=False, **fk)
         self.wv = nn.Linear(d, kvd, bias=False, **fk)
-        self.wo = nn.Linear(d, d, bias=False, **fk)
+        self.wo = nn.Linear(qd, d, bias=False, **fk)
         self.mlp_norm = nn.Parameter(torch.ones(d, **fk))
         self.w_gate = nn.Linear(d, m, bias=False, **fk)
         self.w_up = nn.Linear(d, m, bias=False, **fk)
         self.w_down = nn.Linear(m, d, bias=False, **fk)
 
-    def forward(self, h: torch.Tensor, cache: Cache, li: int, pos: Pos,
-                rope, q_pos: torch.Tensor, cfg: LlamaConfig,
-                cd: torch.dtype, kv_limit: Optional[int], attn: str
-                ) -> torch.Tensor:
-        b, t, d = h.shape
-        nh, kvh, hd = cfg.heads, cfg.kv_heads, cfg.head_dim
-        x = rms_norm(h, self.attn_norm, cfg.norm_eps)
+    def attend(self, x: torch.Tensor, cache: Cache, li: int, pos: Pos,
+               rope, q_pos: torch.Tensor, cfg: LlamaConfig, cd: torch.dtype,
+               kv_limit: Optional[int], attn: str,
+               pairs: Optional[int] = None) -> torch.Tensor:
+        """The attention of the block's heads over its cache, [B, T,
+        heads * HD] in cd: the input of wo. `pairs` (None: the shard's
+        own B * kv_heads) is the number of (row, kv head) pairs K11 sizes
+        its launch for; forward passes the whole model's on the int8
+        weight route, so that a shard's pairs reduce as on one device."""
+        b, t, _ = x.shape
+        nh, kvh, hd = self.heads, self.kv_heads, cfg.head_dim
         q, k, v = _project(x, (self.wq, self.wk, self.wv), cd, cd)
         cos, sin = rope
         q = _rope(q.reshape(b, t, nh, hd), cos, sin)
@@ -219,17 +237,51 @@ class LlamaBlock(nn.Module):
             qb = qg.to(torch.bfloat16)
             if t == 1:
                 out = decode_attention(qb[:, :, :, 0], kc, ks, vc, vs, pos,
-                                       impl=impl)[:, :, :, None]
+                                       impl=impl, plan_pairs=pairs
+                                       )[:, :, :, None]
             else:
                 out = chunk_attention(qb, kc, ks, vc, vs, pos, impl=impl)
             out = out.to(cd)
-        out = out.permute(0, 3, 1, 2, 4).reshape(b, t, d)
-        h = h + matmul(out, self.wo, cd)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, t, nh * hd)
 
-        x = rms_norm(h, self.mlp_norm, cfg.norm_eps)
+    def gate_up(self, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+        """silu(gate) * up of the block's gated units, rounded once to cd:
+        the input of w_down."""
         gate, up = _project(x, (self.w_gate, self.w_up), cd, torch.float32)
-        inner = (F.silu(gate) * up).to(cd)
-        return h + matmul(inner, self.w_down, cd)
+        return (F.silu(gate) * up).to(cd)
+
+
+class LlamaShard(nn.Module):
+    """One model position of a tensor-parallel decoder (parallel/vlm.py):
+    its pieces of every block (`LlamaBlock(cfg, tp)`) and its vocab slice
+    of lm_head. The embedding and the final norm are the group's."""
+
+    def __init__(self, cfg: LlamaConfig, tp: int, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.blocks = nn.ModuleList(LlamaBlock(cfg, tp, **fk)
+                                    for _ in range(cfg.layers))
+        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size // tp, bias=False,
+                                 **fk)
+
+
+class TPLlama(nn.Module):
+    """A tensor-parallel decoder over one data row's model axis:
+    `shards[p]` (a LlamaShard) on `devices[p]`; the embedding and the
+    final norm on devices[0], where the residual stream lives. forward,
+    prefill and greedy_generate take it where they take a Llama; its
+    cache is a list of per-shard caches [L, B, KVH / tp, S, HD]. Built by
+    parallel/vlm.shard_llama_params or llava_from_placed."""
+
+    def __init__(self, cfg: LlamaConfig, embed: torch.Tensor,
+                 final_norm: torch.Tensor, shards, devices):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.shards = nn.ModuleList(shards)
+        self.devices = [torch.device(d) for d in devices]
 
 
 class Llama(nn.Module):
@@ -265,12 +317,14 @@ def embed_tokens(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
-               seq_len: Optional[int] = None, device=None) -> Cache:
+               seq_len: Optional[int] = None, device=None, tp: int = 1
+               ) -> Cache:
     """Stacked KV cache [L, B, KVH, S, HD] of zeros; `dtype=torch.int8`
     makes a QKVCache pair. `seq_len` (default cfg.max_seq) right-sizes it:
-    decode attention reads the live cache every step."""
+    decode attention reads the live cache every step. `tp` makes one
+    model position's cache: its kv_heads / tp heads."""
     s = seq_len or cfg.max_seq
-    shape = (cfg.layers, batch, cfg.kv_heads, s, cfg.head_dim)
+    shape = (cfg.layers, batch, cfg.kv_heads // tp, s, cfg.head_dim)
     if dtype == torch.int8:
         return tuple(QKVCache(torch.zeros(shape, dtype=torch.int8,
                                           device=device),
@@ -280,46 +334,98 @@ def init_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _shards(model, device: torch.device):
+    """(shards, their devices): a Llama is its own only shard."""
+    if isinstance(model, TPLlama):
+        return list(model.shards), model.devices
+    return [model], [device]
+
+
+def _on(x, device: torch.device):
+    """x (a tensor, a tuple of them, or an int position) on `device`."""
+    if isinstance(x, tuple):
+        return tuple(_on(y, device) for y in x)
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
 @torch.no_grad()
-def forward(model: Llama, embeds: torch.Tensor, cache: Cache, pos: Pos,
-            compute_dtype: torch.dtype = torch.bfloat16,
+def forward(model: Union[Llama, TPLlama], embeds: torch.Tensor, cache,
+            pos: Pos, compute_dtype: torch.dtype = torch.bfloat16,
             kv_limit: Optional[int] = None, last_logit_only: bool = False,
             attn: str = "auto") -> Tuple[torch.Tensor, Cache]:
     """(logits [B, T, V] f32, the cache, written in place). `pos` is the
     first query position: an int (every row) or an int tensor [B] (per-row
     offsets, speculative decode). `kv_limit` cuts the attention's view of
-    the cache (the chunk attends no further)."""
+    the cache (the chunk attends no further).
+
+    One path for one device and for a TPLlama: the residual stream and
+    the norms stay on the first device, each shard takes the normed input
+    and computes its heads and gated units (column pieces) into its own
+    cache, and the two row-parallel products of a block are summed over
+    the shards in f32 (layers.row_parallel) and rounded once to the
+    compute dtype. The shards' lm_head slices are gathered in shard
+    order, so an argmax over the logits breaks ties as one device does.
+    With one shard this is the one-device arithmetic."""
     if attn not in ATTN_ROUTES:
         raise ValueError(f"unknown attn {attn!r}; one of {ATTN_ROUTES}")
     cfg = model.cfg
+    cd = compute_dtype
     b, t, _ = embeds.shape
+    dev = embeds.device
+    shards, devs = _shards(model, dev)
+    caches = cache if isinstance(model, TPLlama) else [cache]
     if isinstance(pos, torch.Tensor):
-        pos = pos.to(device=embeds.device, dtype=torch.int32)
-    q_pos = query_positions(pos, b, t, embeds.device)
+        pos = pos.to(device=dev, dtype=torch.int32)
+    q_pos = query_positions(pos, b, t, dev)
     rope = _rope_tables(q_pos, cfg.head_dim, cfg.rope_theta)
-    h = embeds.to(compute_dtype)
-    for li, blk in enumerate(model.blocks):
-        h = blk(h, cache, li, pos, rope, q_pos, cfg, compute_dtype, kv_limit,
-                attn)
+    local = [(_on(pos, d), _on(rope, d), _on(q_pos, d)) for d in devs]
+    # int8 weights: TP's contract is bit-equality with one device, so each
+    # shard's K11 splits its keys as the whole model's launch does. Other
+    # routes plan for the shard's own pairs: on distinct cards a shard
+    # then fills its card (tp times the split of the whole model's plan)
+    pairs = (b * cfg.kv_heads
+             if isinstance(shards[0].blocks[0].wq, QLinear) else None)
+    h = embeds.to(cd)
+    for li in range(cfg.layers):
+        blocks = [s.blocks[li] for s in shards]
+        x = rms_norm(h, blocks[0].attn_norm, cfg.norm_eps)
+        outs = [blk.attend(x.to(d), c, li, p, r, qp, cfg, cd, kv_limit,
+                           attn, pairs)
+                for blk, d, c, (p, r, qp) in zip(blocks, devs, caches, local)]
+        h = h + row_parallel(outs, [blk.wo for blk in blocks], cd, dev).to(cd)
+        x = rms_norm(h, blocks[0].mlp_norm, cfg.norm_eps)
+        inner = [blk.gate_up(x.to(d), cd) for blk, d in zip(blocks, devs)]
+        h = h + row_parallel(inner, [blk.w_down for blk in blocks], cd,
+                             dev).to(cd)
     if last_logit_only:
         h = h[:, -1:]
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
-    return matmul(h, model.lm_head, compute_dtype, torch.float32), cache
+    logits = [matmul(h.to(d), s.lm_head, cd, torch.float32).to(dev)
+              for s, d in zip(shards, devs)]
+    logits = logits[0] if len(logits) == 1 else torch.cat(logits, -1)
+    return logits, cache
 
 
 def _round64(n: int) -> int:
     return -(-n // 64) * 64
 
 
-def prefill(model: Llama, prompt_embeds: torch.Tensor, cache_len: int,
-            compute_dtype: torch.dtype = torch.bfloat16, kv_dtype=None,
-            prefill_chunk: Optional[int] = None, attn: str = "auto"):
+def prefill(model: Union[Llama, TPLlama], prompt_embeds: torch.Tensor,
+            cache_len: int, compute_dtype: torch.dtype = torch.bfloat16,
+            kv_dtype=None, prefill_chunk: Optional[int] = None,
+            attn: str = "auto"):
     """A right-sized cache with the prompt run through it: (last-position
     logits [B, 1, V], cache). `prefill_chunk=C` runs C tokens at a time,
-    chunk i attending to cache[:round64(end of chunk i)] only."""
+    chunk i attending to cache[:round64(end of chunk i)] only. A TPLlama's
+    cache is one a shard, on the shard's device."""
     b, t, _ = prompt_embeds.shape
-    cache = init_cache(model.cfg, b, kv_dtype or compute_dtype, cache_len,
-                       prompt_embeds.device)
+    dtype = kv_dtype or compute_dtype
+    if isinstance(model, TPLlama):
+        cache = [init_cache(model.cfg, b, dtype, cache_len, d,
+                            len(model.devices)) for d in model.devices]
+    else:
+        cache = init_cache(model.cfg, b, dtype, cache_len,
+                           prompt_embeds.device)
     if prefill_chunk is not None and t > prefill_chunk:
         for s0 in range(0, t, prefill_chunk):
             piece = prompt_embeds[:, s0:s0 + prefill_chunk]
@@ -349,7 +455,7 @@ def _segments(t: int, max_new: int, cache_len: int,
     return out
 
 
-def greedy_generate(model: Llama, prompt_embeds: torch.Tensor,
+def greedy_generate(model: Union[Llama, TPLlama], prompt_embeds: torch.Tensor,
                     max_new_tokens: int = 32, eos_token: int = 2,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     kv_dtype=None, prefill_chunk: Optional[int] = None,

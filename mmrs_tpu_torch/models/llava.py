@@ -7,7 +7,8 @@ penultimate block (`vision_feature_layer=-2`; at 336 px the L/14 tower's
 maps the 576 patch tokens into the decoder's embedding space, they are
 spliced between the prompt's pre-image and post-image text tokens, and the
 decoder answers greedily (models/llama.py: K10 prefill chunks, K11 decode
-steps; models/speculative.py with a draft VLM).
+steps; models/speculative.py with a draft VLM). A `TPLLaVA` (one data row
+of parallel/vlm.shard_llava_params) runs through the same functions.
 """
 
 from __future__ import annotations
@@ -62,6 +63,21 @@ class LLaVA(nn.Module):
             nn.init.normal_(lin.weight, std=0.02, generator=generator)
             nn.init.zeros_(lin.bias)
         self.lm.reset_parameters(generator)
+
+
+class TPLLaVA(nn.Module):
+    """One data row of a tensor-parallel LLaVA (parallel/vlm.py): the
+    vision tower and the projector on the row's first model position, the
+    decoder a llama.TPLlama over the row's positions. The functions below
+    take it where they take a LLaVA: the tower runs once on the row's
+    first device (JAX computes the same values on every chip of the row)
+    and the decoder's shards take the image embeddings from there."""
+
+    def __init__(self, cfg: LLaVAConfig, visual: nn.Module, proj1: nn.Module,
+                 proj2: nn.Module, lm: nn.Module):
+        super().__init__()
+        self.cfg = cfg
+        self.visual, self.proj1, self.proj2, self.lm = visual, proj1, proj2, lm
 
 
 def vision_tokens(model: LLaVA, images: torch.Tensor,

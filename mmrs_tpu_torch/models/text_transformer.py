@@ -54,15 +54,19 @@ class TextTransformer(nn.Module):
                         std=self.cfg.width ** -0.5, generator=generator)
 
     def forward(self, tokens: torch.Tensor,          # [B, T] int
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                pieces=None, devices=None) -> torch.Tensor:
+        """`pieces[i]` (one layers.BlockPiece a model position, on
+        `devices`) runs block i tensor-parallel (Block.forward)."""
         cd = compute_dtype
         b, t = tokens.shape
         tokens = tokens.long()
         x = F.embedding(tokens, self.token_embedding.weight).to(cd)
         x = x + self.positional_embedding[:t].to(cd)[None]
         mask = causal_mask(t, x.device)
-        for blk in self.blocks:
-            x = blk(x, mask, cd)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, mask, cd, pieces=None if pieces is None
+                    else pieces[i], devices=devices)
         x = self.ln_final(x)
         eot = torch.argmax(tokens, dim=-1)                    # first max
         pooled = x[torch.arange(b, device=x.device), eot]

@@ -64,25 +64,28 @@ class VisionTransformer(nn.Module):
     def hidden_states(self, images: torch.Tensor,   # [B, H, W, 3]
                       compute_dtype: torch.dtype = torch.bfloat16,
                       n_blocks: Optional[int] = None,
-                      attn_impl: str = "auto", mlp_impl: str = "auto"
-                      ) -> torch.Tensor:
+                      attn_impl: str = "auto", mlp_impl: str = "auto",
+                      pieces=None, devices=None) -> torch.Tensor:
         """[B, N+1, W] tokens (CLS first) after the first `n_blocks` blocks
-        (default: all), before ln_post; LLaVA reads block -2's output."""
+        (default: all), before ln_post; LLaVA reads block -2's output.
+        `pieces[i]` (one layers.BlockPiece a model position, on
+        `devices`) runs block i tensor-parallel (Block.forward)."""
         cd = compute_dtype
         x = dense(patchify(images, self.cfg.patch_size), self.patch_embed, cd)
         cls = self.class_embedding.to(cd).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)                        # [B, N+1, W]
         x = x + self.positional_embedding.to(cd)[None]
         x = self.ln_pre(x)
-        for blk in self.blocks[:n_blocks]:
-            x = blk(x, None, cd, attn_impl, mlp_impl)
+        for i, blk in enumerate(self.blocks[:n_blocks]):
+            x = blk(x, None, cd, attn_impl, mlp_impl,
+                    None if pieces is None else pieces[i], devices)
         return x
 
     def forward(self, images: torch.Tensor,     # [B, H, W, 3], normalized
                 compute_dtype: torch.dtype = torch.bfloat16,
-                attn_impl: str = "auto", mlp_impl: str = "auto"
-                ) -> torch.Tensor:
+                attn_impl: str = "auto", mlp_impl: str = "auto",
+                pieces=None, devices=None) -> torch.Tensor:
         x = self.hidden_states(images, compute_dtype, None, attn_impl,
-                               mlp_impl)
+                               mlp_impl, pieces, devices)
         cls_tok = self.ln_post(x[:, 0, :])
         return project(cls_tok, self.proj, compute_dtype)      # f32

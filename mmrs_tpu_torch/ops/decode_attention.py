@@ -24,7 +24,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -339,11 +339,13 @@ def _on_the_card(name: str, q: torch.Tensor, k_cache, k_scales, v_cache,
 
 
 def _decode_launch(q, k_cache, k_scales, v_cache, v_scales, pos_t, pos0,
-                   quant: int, strides, scale: float) -> torch.Tensor:
-    """One K11 launch on q [B, KVH, G, HD] (G an instance of _GROUPS)."""
+                   quant: int, strides, scale: float,
+                   plan_pairs: Optional[int] = None) -> torch.Tensor:
+    """One K11 launch on q [B, KVH, G, HD] (G an instance of _GROUPS),
+    planned for `plan_pairs` (row, kv head) pairs (default B * KVH)."""
     b, kvh, g, hd = q.shape
     s = k_cache.shape[2]
-    plan = decode_plan(s, g, hd, bool(quant), b * kvh,
+    plan = decode_plan(s, g, hd, bool(quant), plan_pairs or b * kvh,
                        _dec_slots(bool(quant), g, hd, q.device.index or 0))
     q = q.contiguous()
     if q.data_ptr() % 16:
@@ -362,14 +364,16 @@ def _decode_launch(q, k_cache, k_scales, v_cache, v_scales, pos_t, pos0,
     return out
 
 
-def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos
-                 ) -> torch.Tensor:
+def _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos: Pos,
+                 plan_pairs: Optional[int] = None) -> torch.Tensor:
     return _on_the_card("decode_attention", q, k_cache, k_scales, v_cache,
-                        v_scales, pos, _decode_launches)
+                        v_scales, pos, partial(_decode_launches,
+                                               plan_pairs=plan_pairs))
 
 
 def _decode_launches(q, k_cache, k_scales, v_cache, v_scales, pos: Pos,
-                     scale: float) -> torch.Tensor:
+                     scale: float, plan_pairs: Optional[int] = None
+                     ) -> torch.Tensor:
     """K11 on q [B, KVH, G, HD] (hd % 8 == 0, B and KVH in one grid): the
     launches of `group_pieces`."""
     b, kvh, g, hd = q.shape
@@ -380,7 +384,7 @@ def _decode_launches(q, k_cache, k_scales, v_cache, v_scales, pos: Pos,
                          "rows")
     pos_t, pos0 = _pos_args(pos, b, q.device)
     args = (k_cache, k_scales, v_cache, v_scales, pos_t, pos0, quant, strides,
-            scale)
+            scale, plan_pairs)
     pieces = group_pieces(g, hd)
     if len(pieces) == 1 and pieces[0][2] == g:
         return _decode_launch(q, *args)
@@ -449,15 +453,21 @@ def decode_attention(
     v_scales: Optional[torch.Tensor],
     pos: Pos,                         # query position: int or [B]
     impl: str = "auto",
+    plan_pairs: Optional[int] = None,
 ) -> torch.Tensor:                    # [B, KVH, G, HD] f32
-    """One decode step's attention over the whole view (K11)."""
+    """One decode step's attention over the whole view (K11).
+    `plan_pairs` sizes the launch for that many (row, kv head) pairs in
+    place of B * KVH: a tensor-parallel shard of int8 weights passes the
+    whole model's, so that each of its pairs is reduced as on one device
+    (models/llama.forward)."""
     _check_impl(impl)
     if impl == "torch" or q.device.type == "cpu":
         b = q.shape[0]
         q_pos = query_positions(pos, b, 1, q.device)
         return _attn_torch(q[:, :, :, None], k_cache, k_scales, v_cache,
                            v_scales, q_pos, lanes=True)[:, :, :, 0]
-    return _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos)
+    return _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos,
+                        plan_pairs)
 
 
 def chunk_attention(

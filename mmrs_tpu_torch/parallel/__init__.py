@@ -1,7 +1,8 @@
-"""The data axis of the device mesh: sharded gallery scans, the
-slot-sharded IVF, the dedup ring, sharded embedding and multi-process row
-placement (counterpart of mmrs_tpu/parallel; the model axis, the
-verifier's tensor parallelism, is not here)."""
+"""The device mesh (counterpart of mmrs_tpu/parallel). Its data axis:
+sharded gallery scans, the slot-sharded IVF, the dedup ring, sharded
+embedding and multi-process row placement; its model axis: the
+verifier's tensor-parallel decoder (`parallel.vlm`, imported on its
+own)."""
 
 from mmrs_tpu_torch.parallel.mesh import make_mesh, shard_rows, replicate  # noqa: F401
 from mmrs_tpu_torch.parallel.topk import sharded_cosine_topk  # noqa: F401

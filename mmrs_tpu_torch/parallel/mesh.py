@@ -89,6 +89,22 @@ def num_shards(mesh: Mesh, axis: str = DATA_AXIS) -> int:
     return mesh.shape[axis]
 
 
+def data_size(mesh: Mesh) -> int:
+    """Width of the mesh's data axis (1 where it has none)."""
+    return int(mesh.shape.get(DATA_AXIS, 1))
+
+
+def model_size(mesh: Mesh) -> int:
+    """Width of the mesh's model axis (1 where it has none)."""
+    return int(mesh.shape.get(MODEL_AXIS, 1))
+
+
+def row_devices(mesh: Mesh, d: int) -> List[torch.device]:
+    """Data row d's devices along the model axis."""
+    grid = np.moveaxis(mesh.devices, mesh.axis_names.index(DATA_AXIS), 0)
+    return list(grid[d].ravel())
+
+
 def data_devices(mesh: Mesh, axis: str = DATA_AXIS) -> List[torch.device]:
     """The device of each position on `axis` (the first entry across the
     other axis: a piece split over `axis` is replicated over the other,

@@ -53,7 +53,9 @@ def distributed_init(
 ) -> bool:
     """Join the process group (idempotent, safe to skip). Returns True if
     more than one process is in it after the call. `coordinator_address`
-    is host:port of rank 0's TCP store; with no arguments, torchrun's
+    is host:port of rank 0's TCP store, or a rendezvous URL with its
+    scheme (`file:///shared/path`: no port to pick, as tests on one
+    machine use); with no arguments, torchrun's
     MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK are read when set, and
     a single process (tests, one machine) returns False with no side
     effects."""
@@ -69,8 +71,9 @@ def distributed_init(
                                f"{env.get('MASTER_PORT', '29500')}")
         num_processes = int(env["WORLD_SIZE"])
         process_id = int(env.get("RANK", "0"))
-    dist.init_process_group(backend="gloo",
-                            init_method=f"tcp://{coordinator_address}",
+    init = (coordinator_address if "://" in coordinator_address
+            else f"tcp://{coordinator_address}")
+    dist.init_process_group(backend="gloo", init_method=init,
                             world_size=int(num_processes),
                             rank=int(process_id or 0))
     return process_count() > 1

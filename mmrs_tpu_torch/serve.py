@@ -8,13 +8,14 @@ dependency):
                             "gallery_quant": "bf16"|"int8"|"int4",
                             "ann": {...}?, "verifier": {kind, draft?}}:
                             liveness plus the deployment shape in one call
-                            (the verifier runs on one device: no "tp"
-                            until ROADMAP A.12)
+                            (a meshed verifier adds "tp", and "dp" when
+                            its data axis is wider than 1)
   GET  /v1/stats         -> per-stage serving counters (StageStats: total
                             seconds, item counts, calls, items/call —
                             batch utilization — items/s, p50/p99), plus
                             "speculative" realized acceptance when the
-                            verifier decodes with a draft model
+                            verifier decodes with a draft model, and
+                            "verifier": {tp, dp?} when it runs on a mesh
   POST /v1/search        -> {"hits": [[{path, score, rank, cls}, ...], ...]}
         body: {"text": "a photo of lychee", "k": 10}
            or {"image_b64": "<base64 jpeg/png>", "k": 10}
@@ -195,10 +196,24 @@ class SearchService:
                  len(new_engine.index))
         return True
 
+    def verifier_mesh(self) -> Optional[dict]:
+        """{"tp": model-axis width, "dp": data-axis width when above 1}
+        of a verifier hosted on a mesh (parallel/vlm.py), else None."""
+        from mmrs_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+        mesh = getattr(self.verifier, "mesh", None)
+        if mesh is None:
+            return None
+        shape = mesh.shape
+        v = {"tp": int(shape.get(MODEL_AXIS, mesh.devices.size))}
+        if int(shape.get(DATA_AXIS, 1)) > 1:
+            v["dp"] = int(shape[DATA_AXIS])
+        return v
+
     def healthz(self) -> dict:
         """Liveness + deployment shape: gallery size/sharding/dtype and
-        the verifier's hosting (draft) in one ops-facing call. The
-        verifier has no tensor-parallel width until ROADMAP A.12."""
+        the verifier's hosting (tensor-parallel width, data-parallel
+        width, draft) in one ops-facing call."""
         body = {"ok": True}
         if self.engine_factory is not None:
             body["index_reloads"] = self.reloads
@@ -231,6 +246,7 @@ class SearchService:
                 }
         if self.verifier is not None:
             v = {"kind": type(self.verifier).__name__}
+            v.update(self.verifier_mesh() or {})
             if getattr(self.verifier, "draft_params", None) is not None:
                 v["draft"] = True
             body["verifier"] = v
@@ -470,6 +486,9 @@ def _make_handler(service: SearchService):
                     spec = speculative_stats_of(service.verifier)
                     if spec is not None:
                         body["speculative"] = spec
+                    hosting = service.verifier_mesh()
+                    if hosting is not None:
+                        body["verifier"] = hosting
                     return self._reply(200, body)
                 return self._reply(404, {"error": "unknown path"})
             except Exception as e:  # noqa: BLE001 — keep serving

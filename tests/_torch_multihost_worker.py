@@ -3,10 +3,16 @@
 One of N processes joined by torch.distributed over TCP (gloo, CPU
 entries): builds the process-major hybrid mesh, places only ITS rows of
 the gallery, and answers a sharded top-k, a slot-sharded IVF probe at
-nprobe == C and a dedup ring pass; writes the answers as JSON for the
-parent test to hold against each other and a numpy oracle.
+nprobe == C and a dedup ring pass, then decodes a tiny LLaMA with the
+decoder tensor-parallel over each process's model axis and the batch
+rows over the data axis across processes (parallel/vlm.make_tp_generate:
+the model axis never crosses a process); writes the answers as JSON for
+the parent test to hold against each other, a numpy oracle and the
+single-process decode.
 
-argv: coord nproc pid out_path [local_devices=2] [model_size=1]
+argv: coord nproc pid out_path [local_devices=2] [model_size=1] [weights]
+(coord: host:port or a rendezvous URL such as file:///path; weights: the
+npz of the LLaMA to decode with, none for no decode)
 """
 
 import json
@@ -17,6 +23,7 @@ def main() -> None:
     coord, nproc, pid, out_path = sys.argv[1:5]
     local_devices = int(sys.argv[5]) if len(sys.argv) > 5 else 2
     model_size = int(sys.argv[6]) if len(sys.argv) > 6 else 1
+    weights = sys.argv[7] if len(sys.argv) > 7 else None
 
     import numpy as np
     import torch
@@ -64,6 +71,25 @@ def main() -> None:
     dedup_first = sharded_first_match(torch.from_numpy(xd), tau=0.999,
                                       mesh=mesh, intra=True)
 
+    decode = None
+    if weights:
+        # the pod VLM serving shape of tests/_multihost_worker.py: the
+        # parent's weights and prompt seed, B=4 over the data axis
+        from mmrs_tpu_torch.models import checkpoint, convert_jax, llama
+        from mmrs_tpu_torch.parallel.vlm import (make_tp_generate,
+                                                 shard_llama_params)
+
+        lcfg = llama.LlamaConfig(vocab_size=96, dim=64, layers=2, heads=4,
+                                 kv_heads=2, mlp_dim=128, max_seq=64)
+        model = convert_jax.from_jax_llama(checkpoint.load_npz(weights),
+                                           lcfg)
+        prompt = torch.from_numpy(
+            np.random.default_rng(4).integers(3, 90, (4, 5)))
+        gen = make_tp_generate(lcfg, mesh, max_new_tokens=6, eos_token=-1,
+                               compute_dtype=torch.float32)
+        decode = gen(shard_llama_params(model, mesh),
+                     llama.embed_tokens(model, prompt)).tolist()
+
     with open(out_path, "w") as f:
         json.dump({
             "pid": int(pid),
@@ -75,6 +101,7 @@ def main() -> None:
             "idxs": idxs.tolist(),
             "ivf_idxs": ivf_idxs.tolist(),
             "dedup_first": dedup_first.tolist(),
+            "decode": decode,
         }, f)
 
 

@@ -437,8 +437,6 @@ def test_train_step_refuses_frozen_serving_towers():
     towers = t_build_towers(TConfig(), device="cpu")   # vit_b32, frozen
     with pytest.raises(ValueError, match="require grad"):
         contrastive.make_train_step(towers.params)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        contrastive.make_train_step(t_clip.CLIP(T_CFG), mesh=object())
 
 
 def test_bf16_step_learns():

@@ -177,6 +177,107 @@ def test_draft_verifier_equals_plain_and_jax(vlm, monkeypatch):
     assert t_verifier.speculative_stats_of(tv)["rounds"] > 0
 
 
+# -- the verifier on a mesh (parallel/vlm.py) ---------------------------------
+
+def _meshes(dp=2, tp=2):
+    """(JAX mesh over its CPU devices, the port's over CPU entries)."""
+    from jax.sharding import Mesh as JMesh
+
+    from mmrs_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+
+    jm = JMesh(np.asarray(jax.devices()[:dp * tp]).reshape(dp, tp),
+               (DATA_AXIS, MODEL_AXIS))
+    return jm, make_mesh(MeshConfig(data_size=dp, model_size=tp),
+                         [torch.device("cpu")] * (dp * tp))
+
+
+def test_tp_verifier_equals_one_device_and_jax(vlm):
+    """mesh= (2x2) hosts the decoder tensor-parallel, the tower once a data
+    row: text and answers equal the one-device verifier's and JAX's meshed
+    verifier's; an odd batch is padded to the data axis and a single
+    generate_text row tiled over it."""
+    params, _, model, _, paths = vlm
+    tok = ToyTokenizer()
+    jm, tm = _meshes()
+    jv = j_verifier.TPULLaVAVerifier(params, J_CFG, tok,
+                                     compute_dtype=jnp.float32, mesh=jm,
+                                     **KW)
+    one = t_verifier.LLaVAVerifier(model, model.cfg, tok,
+                                   compute_dtype=torch.float32, **KW)
+    tv = t_verifier.LLaVAVerifier(model, model.cfg, tok,
+                                  compute_dtype=torch.float32, mesh=tm, **KW)
+    q = "Does this image contain a cat?"
+    want = one.generate_text(paths[0], q)
+    assert tv.generate_text(paths[0], q) == want == jv.generate_text(
+        paths[0], q)
+    want = one.verify_batch(paths[:3], "cat")
+    assert tv.verify_batch(paths[:3], "cat") == want == jv.verify_batch(
+        paths[:3], "cat")
+    handle = tv.verify_batch_async(paths[:3], "cat")
+    assert handle[0].shape[0] == 4 and handle[2] == 3
+    assert tv._data_size() == 2 and one._data_size() == 1
+
+
+def test_tp_verifier_draft_is_replicated_or_sharded(vlm):
+    """A draft whose kv_heads=1 cannot split the model axis is replicated
+    (shard_draft picks False); shard_draft=True on it raises; the text is
+    the plain verifier's either way, and the speculative stats are
+    recorded as on one device (JAX's on its mesh)."""
+    params, dparams, model, dmodel, paths = vlm
+    tok = ToyTokenizer()
+    jm, tm = _meshes()
+    kw = dict(KW, draft_tokens=2)
+    tv = t_verifier.LLaVAVerifier(model, model.cfg, tok,
+                                  compute_dtype=torch.float32, mesh=tm,
+                                  draft_params=dmodel, draft_cfg=dmodel.cfg,
+                                  **kw)
+    assert tv.shard_draft is False
+    one = t_verifier.LLaVAVerifier(model, model.cfg, tok,
+                                   compute_dtype=torch.float32, **KW)
+    q = "Does this image contain a cat?"
+    assert tv.generate_text(paths[1], q) == one.generate_text(paths[1], q)
+    jv = j_verifier.TPULLaVAVerifier(params, J_CFG, tok,
+                                     compute_dtype=jnp.float32, mesh=jm,
+                                     draft_params=dparams, draft_cfg=J_DRAFT,
+                                     **kw)
+    jv.generate_text(paths[1], q)
+    assert tv.speculative_stats() == jv.speculative_stats()
+    with pytest.raises(ValueError, match="shard_draft"):
+        t_verifier.LLaVAVerifier(model, model.cfg, tok,
+                                 compute_dtype=torch.float32, mesh=tm,
+                                 draft_params=dmodel, draft_cfg=dmodel.cfg,
+                                 shard_draft=True, **KW)
+    # a draft that divides (the target itself) is sharded
+    ts = t_verifier.LLaVAVerifier(model, model.cfg, tok,
+                                  compute_dtype=torch.float32, mesh=tm,
+                                  draft_params=model, draft_cfg=model.cfg,
+                                  **kw)
+    assert ts.shard_draft is True
+    assert ts.generate_text(paths[1], q) == one.generate_text(paths[1], q)
+
+
+def test_tp_verifier_int8_weights_equal_one_device(vlm):
+    """quantize_llava weights with the int8 KV cache (--verifier-int8
+    --tp): the meshed verifier's text and answers are the one-device int8
+    verifier's."""
+    import copy
+
+    from mmrs_tpu_torch.models.quantize import quantize_llava
+
+    *_, model, _, paths = vlm
+    qmodel = quantize_llava(copy.deepcopy(model))
+    tok = ToyTokenizer()
+    kw = dict(KW, kv_dtype=torch.int8, compute_dtype=torch.float32)
+    one = t_verifier.LLaVAVerifier(qmodel, qmodel.cfg, tok, **kw)
+    tv = t_verifier.LLaVAVerifier(qmodel, qmodel.cfg, tok,
+                                  mesh=_meshes(1, 2)[1], **kw)
+    q = "Does this image contain a cat?"
+    assert tv.generate_text(paths[2], q) == one.generate_text(paths[2], q)
+    assert tv.verify_batch(paths, "cat") == one.verify_batch(paths, "cat")
+
+
 def _scorer(scores):
     return lambda ps: [scores[p] for p in ps]
 
@@ -297,7 +398,7 @@ def test_cli_stub_lines_equal_jax(cli_tree, capsys, extra):
 @pytest.mark.parametrize("argv,needle", [
     (["--verifier", "llava"], "--llava-checkpoint"),
     (["--verifier", "llava", "--llava-checkpoint", "x.npz",
-      "--tokenizer-model", "t.model", "--tp", "2"], "A.12"),
+      "--tokenizer-model", "t.model", "--tp", "2x3"], "does not divide"),
 ])
 def test_cli_usage_errors_exit_2(cli_tree, capsys, argv, needle):
     base, cfg, embed = cli_tree
@@ -314,3 +415,62 @@ def test_cli_needs_a_class_embedding(cli_tree, capsys):
                               "--positive-class", "cat", "--config", cfg,
                               "--threshold", "0"], capsys)
     assert code == 2 and "--class-embed" in res.err
+
+
+@pytest.fixture(scope="module")
+def llava_cli(cli_tree, tmp_path_factory):
+    """A tiny LLaVA checkpoint at the 336-px grid (the CLI's verifier
+    tower) and a SentencePiece model of bytes: the CLI's LLaVA-v1.5-7B
+    and L/14-336 configs are swapped for these sizes while it runs."""
+    from mmrs_tpu_torch.models import checkpoint
+    from mmrs_tpu_torch.models import sentencepiece as t_sp
+
+    base = tmp_path_factory.mktemp("llava_cli")
+    vis = VITConfig(image_size=336, patch_size=14, width=32, layers=1,
+                    heads=2, embed_dim=16)
+    lm = LlamaConfig(vocab_size=512, dim=32, layers=1, heads=4, kv_heads=4,
+                     mlp_dim=64, max_seq=2048)
+    model = t_llava.LLaVA(t_llava.LLaVAConfig(vision=vis, lm=lm),
+                          torch.Generator().manual_seed(3))
+    ckpt = str(base / "llava.npz")
+    checkpoint.save_npz(convert_jax.llava_tree(model), ckpt)
+    P = t_sp.Piece
+    pieces = [P("<unk>", 0.0, 2), P("<s>", 0.0, 3), P("</s>", 0.0, 3)]
+    pieces += [P(f"<0x{b:02X}>", -100.0, 6) for b in range(256)]
+    tok = str(base / "tokenizer.model")
+    with open(tok, "wb") as f:
+        f.write(t_sp.serialize_model(pieces))
+    return vis, lm, ckpt, tok
+
+
+def _llava_cascade(cli_tree, llava_cli, monkeypatch, capsys, tp):
+    from mmrs_tpu_torch.models import configs as t_configs
+    from mmrs_tpu_torch.models import llama as t_llama
+
+    base, cfg, embed = cli_tree
+    vis, lm, ckpt, tok = llava_cli
+    monkeypatch.setattr(t_configs, "VIT_L14_336", vis)
+    monkeypatch.setattr(t_llama, "LLAMA2_7B", lm)
+    audit = str(base / f"llava_tp{tp}.csv")
+    code, res = _cli(t_main, [
+        "cascade", "--root", str(base / "tree"), "--positive-class", "cat",
+        "--class-embed", embed, "--config", cfg, "--threshold=-1e9",
+        "--verifier", "llava", "--llava-checkpoint", ckpt,
+        "--tokenizer-model", tok, "--verify-batch", "3", "--tp", tp,
+        "--out", audit], capsys)
+    assert code == 0, res.err
+    with open(audit) as f:
+        return res.out.splitlines()[:5], list(csv.reader(f))
+
+
+@pytest.mark.parametrize("tp", ["2", "2x2"])
+def test_cli_tp_cascade_equals_one_device(cli_tree, llava_cli, monkeypatch,
+                                          capsys, tp):
+    """`mmrs-torch cascade --verifier llava --tp 2 | 2x2` (the checkpoint
+    loaded straight into its placement on CPU entries; packs of 3, odd
+    against the data axis of 2): the lines and the audit rows, verdicts
+    included, of `--tp 1`."""
+    want = _llava_cascade(cli_tree, llava_cli, monkeypatch, capsys, "1")
+    got = _llava_cascade(cli_tree, llava_cli, monkeypatch, capsys, tp)
+    assert got == want
+    assert want[0][2] == "verifier calls: 8"

@@ -419,7 +419,7 @@ def test_index_build_sharded_matches_jax(setup, capsys, tmp_path):
         capsys.readouterr().err
 
 
-# -- adapter train, serve: the JAX CLI's lines; the --tp refusals -------------
+# -- adapter train, serve: the JAX CLI's lines; the --tp usage errors --------
 
 def test_adapter_train_root_prints_the_jax_json(setup, capsys, tmp_path):
     root, cfg, merges, _ = setup
@@ -475,12 +475,33 @@ def test_adapter_train_needs_an_input(capsys):
     assert "need --features or --root" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--tp", "2x4"]])
-def test_serve_multi_device_waits_for_a12(setup, torch_index, capsys, flags):
-    _, cfg, _, _ = setup
-    with pytest.raises(SystemExit) as e:
-        t_main(["serve", "--index", torch_index, "--config", cfg, *flags])
-    assert e.value.code == 2 and "A.12" in capsys.readouterr().err
+@pytest.mark.parametrize("spec,needle", [
+    ("abc", "--tp must be N or DxT"), ("0", "--tp sizes must be >= 1"),
+    ("4096", "does not divide"), ("6", "does not divide"),
+    ("2x3", "does not divide")])
+@pytest.mark.parametrize("cmd", ["cascade", "serve"])
+def test_tp_usage_errors_exit_2_before_the_checkpoint(capsys, cmd, spec,
+                                                      needle):
+    """--tp N | DxT is parsed, the device count checked and the 7B
+    decoder's Megatron divisibility checked before any checkpoint is read
+    (the paths do not exist): both packages' _make_verifier give 2. On
+    the CPU the port has as many entries as asked, so 4096 fails the
+    divisibility check (JAX's 8-device mesh fails the count first)."""
+    from mmrs_tpu.cli.main import _make_verifier as j_make
+    from mmrs_tpu.cli.main import build_parser as j_parser
+    from mmrs_tpu_torch.cli.main import _make_verifier as t_make
+    from mmrs_tpu_torch.cli.main import build_parser as t_parser
+
+    extra = (["--root", "r", "--positive-class", "c", "--class-embed",
+              "e.npy", "--threshold", "0"] if cmd == "cascade"
+             else ["--index", "idx"])
+    argv = [cmd, *extra, "--verifier", "llava", "--llava-checkpoint",
+            "missing.npz", "--tokenizer-model", "missing.model", "--tp",
+            spec]
+    assert j_make(j_parser().parse_args(argv)) == 2
+    capsys.readouterr()
+    assert t_make(t_parser().parse_args(argv)) == 2
+    assert needle in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("shards", [1, 2])

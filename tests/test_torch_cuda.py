@@ -1735,3 +1735,63 @@ def test_gallery_shards_past_the_card_count_exits_2(dev, tmp_path, capsys,
         assert e.value.code == 2
         assert (f"--gallery-shards {n + 1} needs {n + 1} local devices; "
                 f"{n} available") in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_decode_on_a_repeated_card_equals_one_device(dev, tp):
+    """The model axis on `cuda:0` repeated (parallel/vlm.py): int8 weights
+    with the int8 KV cache decode through each shard's K10 / K11 to
+    logits and tokens bit-equal to one device's (K11 planned for the
+    whole model's pairs); bf16 TP tokens stay within the prefill's
+    rounding of one device's logits."""
+    import copy
+
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.models import llama
+    from mmrs_tpu_torch.models.quantize import quantize_llama
+    from mmrs_tpu_torch.parallel import vlm
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, layers=2, heads=4,
+                            kv_heads=4, mlp_dim=1024, max_seq=256)
+    base = llama.Llama(cfg, torch.Generator(device=dev).manual_seed(3),
+                       device=dev, dtype=torch.bfloat16
+                       ).requires_grad_(False)
+    mesh = make_mesh(MeshConfig(data_size=1, model_size=tp),
+                     [torch.device("cuda", 0)] * tp)
+    tokens = torch.randint(3, 512, (8, 70), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(4))
+    emb = llama.embed_tokens(base, tokens)
+    sh = vlm.shard_llama_params(base, mesh).rows[0]
+    one, _ = llama.prefill(base, emb, 128, prefill_chunk=64)
+    got, _ = llama.prefill(sh, emb, 128, prefill_chunk=64)
+    assert float((got - one).abs().max()) < 0.1
+    q = quantize_llama(copy.deepcopy(base))
+    qsh = vlm.shard_llama_params(q, mesh).rows[0]
+    c0, d0 = chunk_attention.launches, decode_attention.launches
+    one, _ = llama.prefill(q, emb, 128, torch.bfloat16, torch.int8, 64)
+    got, _ = llama.prefill(qsh, emb, 128, torch.bfloat16, torch.int8, 64)
+    assert torch.equal(got, one)
+    want = llama.greedy_generate(q, emb, 12, -1, kv_dtype=torch.int8,
+                                 prefill_chunk=64)
+    out = llama.greedy_generate(qsh, emb, 12, -1, kv_dtype=torch.int8,
+                                prefill_chunk=64)
+    assert torch.equal(out, want)
+    assert chunk_attention.launches > c0 and decode_attention.launches > d0
+
+
+def test_tp_flag_past_the_card_count_exits_2(dev, capsys, monkeypatch):
+    """`--tp` with more cards than the machine has exits 2 naming the
+    count, before the (missing) checkpoint is read."""
+    from mmrs_tpu_torch.cli.main import _make_verifier, build_parser
+
+    monkeypatch.delenv("MMRS_TORCH_DEVICE", raising=False)
+    n = torch.cuda.device_count()
+    args = build_parser().parse_args([
+        "cascade", "--root", "r", "--positive-class", "c", "--class-embed",
+        "e.npy", "--threshold", "0", "--verifier", "llava",
+        "--llava-checkpoint", "missing.npz", "--tokenizer-model",
+        "missing.model", "--tp", f"2x{2 * n}"])
+    assert _make_verifier(args) == 2
+    assert (f"--tp 2x{2 * n} needs {4 * n} local devices; {n} available"
+            in capsys.readouterr().err)

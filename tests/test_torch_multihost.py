@@ -8,7 +8,6 @@ every process and equal to the numpy oracles of tests/test_multihost.py.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -151,30 +150,91 @@ def _dedup_oracle():
     return out
 
 
+LCFG = dict(vocab_size=96, dim=64, layers=2, heads=4, kv_heads=2,
+            mlp_dim=128, max_seq=64)
+
+
+def _decode_weights(tmp_path) -> str:
+    """tests/_multihost_worker.py's LLaMA (JAX init from key 3) as an
+    npz the workers load."""
+    import jax
+
+    from mmrs_tpu.models import llama as j_llama
+    from mmrs_tpu.models.llama import LlamaConfig as JLlamaConfig
+    from mmrs_tpu_torch.models import checkpoint
+
+    params = jax.tree.map(np.asarray, j_llama.init(jax.random.key(3),
+                                                   JLlamaConfig(**LCFG)))
+    path = str(tmp_path / "llama.npz")
+    checkpoint.save_npz(params, path)
+    return path
+
+
+def _decode_oracles(weights: str):
+    """The workers' decode on one device in one process: the port's
+    greedy_generate and JAX's, from the same weights and prompt."""
+    import jax
+    import jax.numpy as jnp
+
+    from mmrs_tpu.models import llama as j_llama
+    from mmrs_tpu.models.llama import LlamaConfig as JLlamaConfig
+    from mmrs_tpu_torch.models import checkpoint, convert_jax, llama
+
+    prompt = np.random.default_rng(4).integers(3, 90, (4, 5))
+    tree = checkpoint.load_npz(weights)
+    model = convert_jax.from_jax_llama(tree, llama.LlamaConfig(**LCFG))
+    port = llama.greedy_generate(
+        model, llama.embed_tokens(model, torch.from_numpy(prompt)), 6, -1,
+        torch.float32).numpy()
+    jparams = jax.tree.map(jnp.asarray, jax_tree(tree))
+    jax_out = np.asarray(j_llama.greedy_generate(
+        jparams, j_llama.embed_tokens(jparams, jnp.asarray(prompt,
+                                                           jnp.int32)),
+        JLlamaConfig(**LCFG), max_new_tokens=6, eos_token=-1,
+        compute_dtype=jnp.float32))
+    return port, jax_out
+
+
+def jax_tree(tree):
+    """A loaded tree's torch leaves as numpy arrays (JAX takes them)."""
+    if isinstance(tree, dict):
+        return {k: jax_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
 def _spawn_workers(tmp_path, nproc: int, local_devices: int,
-                   model_size: int):
-    """nproc torch.distributed worker processes over gloo; their JSON."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+                   model_size: int, weights: str = ""):
+    """nproc torch.distributed worker processes over gloo, joined by a
+    file rendezvous under tmp_path (no port is picked, so nothing else
+    on the machine can take it first); their JSON. A failed worker's
+    exit code and the tail of its stderr are in the assertion message."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, MMRS_TORCH_DEVICE="cpu",
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     worker = os.path.join(os.path.dirname(__file__),
                           "_torch_multihost_worker.py")
+    rendezvous = f"file://{tmp_path / 'rendezvous'}"
     outs = [str(tmp_path / f"out{i}.json") for i in range(nproc)]
-    procs = [subprocess.Popen(
-        [sys.executable, worker, f"127.0.0.1:{port}", str(nproc), str(i),
-         outs[i], str(local_devices), str(model_size)], env=env)
-        for i in range(nproc)]
+    errs = [tmp_path / f"err{i}.txt" for i in range(nproc)]
+    procs = []
+    for i in range(nproc):
+        with open(errs[i], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, worker, rendezvous, str(nproc), str(i),
+                 outs[i], str(local_devices), str(model_size), weights],
+                env=env, stderr=err))
     try:
         rcs = [p.wait(timeout=240) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    assert rcs == [0] * nproc, rcs
+    if rcs != [0] * nproc:
+        tails = "\n".join(f"worker {i} exit {rc}:\n"
+                          + errs[i].read_text()[-2000:]
+                          for i, rc in enumerate(rcs) if rc != 0)
+        raise AssertionError(f"worker exit codes {rcs}\n{tails}")
     return [json.load(open(o)) for o in outs]
 
 
@@ -186,6 +246,7 @@ def test_two_process_sharded_topk_ivf_and_dedup(tmp_path):
     t0 = time.perf_counter()
     r0, r1 = _spawn_workers(tmp_path, nproc=2, local_devices=2,
                             model_size=1)
+    assert r0["decode"] is None
     assert r0["mesh_shape"] == {"data": 4, "model": 1}
     assert r0["proc_grid"] == [[0], [0], [1], [1]] == r1["proc_grid"]
     assert r0["local_rows"] == [0, 500] and r1["local_rows"] == [500, 1000]
@@ -203,20 +264,27 @@ def test_two_process_sharded_topk_ivf_and_dedup(tmp_path):
 
 def test_four_process_distributed(tmp_path):
     """4 processes x 2 CPU entries with a model axis of 2: each data row is
-    one whole process, so the entire data axis (4) crosses processes.
-    About 6 s here, so it stays in the default tier."""
-    rs = _spawn_workers(tmp_path, nproc=4, local_devices=2, model_size=2)
+    one whole process, so the entire data axis (4) crosses processes; the
+    decode runs the decoder TP over each process's two entries and one
+    batch row a process, and must equal the single-process decode (the
+    port's and JAX's). About 7 s here, so it stays in the default tier."""
+    weights = _decode_weights(tmp_path)
+    rs = _spawn_workers(tmp_path, nproc=4, local_devices=2, model_size=2,
+                        weights=weights)
     r0 = rs[0]
     assert r0["mesh_shape"] == {"data": 4, "model": 2}
     assert r0["proc_grid"] == [[0, 0], [1, 1], [2, 2], [3, 3]]
     assert [r["local_rows"] for r in rs] == [
         [0, 250], [250, 500], [500, 750], [750, 1000]]
     for r in rs[1:]:
-        for key in ("proc_grid", "idxs", "vals", "ivf_idxs", "dedup_first"):
+        for key in ("proc_grid", "idxs", "vals", "ivf_idxs", "dedup_first",
+                    "decode"):
             assert r[key] == r0[key], key
     oracle = _oracle()
     np.testing.assert_array_equal(np.asarray(r0["idxs"]), oracle)
     np.testing.assert_array_equal(np.asarray(r0["ivf_idxs"]), oracle)
     np.testing.assert_array_equal(np.asarray(r0["dedup_first"]),
                                   _dedup_oracle())
-
+    port, jax_out = _decode_oracles(weights)
+    np.testing.assert_array_equal(np.asarray(r0["decode"]), port)
+    np.testing.assert_array_equal(port, jax_out)

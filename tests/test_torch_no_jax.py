@@ -72,7 +72,7 @@ OPERATIONS_MODULES = ("plan", "eval.parity", "lifecycle", "models.layers",
 # the data axis of the mesh
 PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.topk",
                     "parallel.quant4", "parallel.embed", "parallel.ivf",
-                    "parallel.dedup", "parallel.multihost")
+                    "parallel.dedup", "parallel.multihost", "parallel.vlm")
 
 
 @pytest.mark.parametrize("mod", NEW_MODULES + ADAPT_SERVE_MODULES

@@ -506,6 +506,92 @@ def test_verify_drives_the_llava_verifier_async_path(tmp_path):
     assert svc.stats.as_dict()["verifier"]["calls"] == 1
 
 
+def test_verify_with_tp_hosted_verifier_matches_one_device(tmp_path):
+    """SearchService.verify_images with a 2x2-meshed LLaVAVerifier (the
+    --tp 2x2 serving config): the VLM worker drives the TP generate and
+    the verdicts equal the one-device verifier's (and JAX's meshed
+    service's); /healthz and /v1/stats report the verifier's tp and dp."""
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JMesh
+
+    from mmrs_tpu.cascade.verifier import TPULLaVAVerifier
+    from mmrs_tpu.models import llava as j_llava
+    from mmrs_tpu.models.configs import VITConfig as JVITConfig
+    from mmrs_tpu.models.llama import LlamaConfig as JLlamaConfig
+    from mmrs_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from mmrs_tpu_torch.cascade.verifier import LLaVAVerifier
+    from mmrs_tpu_torch.config import MeshConfig
+    from mmrs_tpu_torch.models import convert_jax, llava
+    from mmrs_tpu_torch.models.configs import VITConfig
+    from mmrs_tpu_torch.models.llama import LlamaConfig
+    from mmrs_tpu_torch.parallel.mesh import make_mesh
+
+    class Tok:
+        def encode(self, t):
+            return [3 + (ord(c) % 60) for c in t][:12]
+
+        def decode(self, ids):
+            return "yes" if ids and ids[0] % 2 == 0 else "no"
+
+    lm = dict(vocab_size=128, dim=64, layers=2, heads=4, kv_heads=2,
+              mlp_dim=128, max_seq=128)
+    vis = dict(image_size=32, patch_size=8, width=48, layers=2, heads=4,
+               embed_dim=32)
+    jcfg = j_llava.LLaVAConfig(vision=JVITConfig(**vis),
+                               lm=JLlamaConfig(**lm))
+    params = j_llava.init(jax.random.key(0), jcfg)
+    cfg = llava.LLaVAConfig(vision=VITConfig(**vis), lm=LlamaConfig(**lm))
+    model = convert_jax.from_jax_llava(jax.tree.map(np.asarray, params),
+                                       cfg)
+    kw = dict(max_new_tokens=3, eos_token=-1, image_size=32)
+    mesh = make_mesh(MeshConfig(data_size=2, model_size=2),
+                     [torch.device("cpu")] * 4)
+    jmesh = JMesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                  (DATA_AXIS, MODEL_AXIS))
+    verifiers = {
+        "one": LLaVAVerifier(model, cfg, Tok(), compute_dtype=torch.float32,
+                             device="cpu", **kw),
+        "tp": LLaVAVerifier(model, cfg, Tok(), compute_dtype=torch.float32,
+                            mesh=mesh, **kw),
+        "jax": TPULLaVAVerifier(params, jcfg, Tok(),
+                                compute_dtype=jnp.float32, mesh=jmesh, **kw)}
+    blobs = [_jpeg_blob(v) for v in (40, 120, 220)]
+    got = {}
+    for name, v in verifiers.items():
+        svc = SearchService(engine=None, towers=_stub_towers(), verifier=v,
+                            verify_batch=4, logit_scale=1.0,
+                            batch_window=0.05)
+        try:
+            got[name] = [r["verified"] for r in svc.verify_images(
+                blobs, "cat", threshold=0.0)]
+            if name == "tp":
+                srv = make_server(svc, port=0)
+                t = threading.Thread(target=srv.serve_forever, daemon=True)
+                t.start()
+                try:
+                    base = f"http://127.0.0.1:{srv.server_address[1]}"
+                    health = _get(base + "/healthz")["verifier"]
+                    stats = _get(base + "/v1/stats")["verifier"]
+                finally:
+                    srv.shutdown()
+                    srv.server_close()
+            if name == "jax":
+                j_health = svc.healthz()["verifier"]
+        finally:
+            svc.close()
+    assert got["tp"] == got["one"] == got["jax"]
+    assert health == {"kind": "LLaVAVerifier", "tp": 2, "dp": 2}
+    assert {k: j_health[k] for k in ("tp", "dp")} == {"tp": 2, "dp": 2}
+    assert stats == {"tp": 2, "dp": 2}
+    svc = SearchService(engine=None, towers=_stub_towers(),
+                        verifier=verifiers["one"], batch_window=0.01)
+    try:
+        assert svc.healthz()["verifier"] == {"kind": "LLaVAVerifier"}
+        assert svc.verifier_mesh() is None
+    finally:
+        svc.close()
+
+
 def test_stats_surface_speculative_acceptance():
     class SpecVerifier:
         def verify(self, image_path, category):

@@ -8,10 +8,10 @@
 // layer slice cache[li], with S cut to the caller's kv_limit: nothing is
 // sliced out or copied), in bf16 or int8 with f32 per-position scales
 // [B, KVH, S]. q is bf16; int8 K/V widen exactly to bf16; every product
-// is summed in f32. Head dims: any hd % 8 == 0 up to 256 (K11: 512) runs
-// on the smallest compiled instance HDP in {64, 128, 256, 512} that holds
-// it (ops/decode_attention.py pads a ragged hd to a multiple of 8, and
-// runs K10's rows past 256 as K11 calls, one a query row); cache
+// is summed in f32. Head dims: any hd % 8 == 0 up to 256 (K11: 1024) runs
+// on the smallest compiled instance HDP in {64, 128, 256, 512, 1024} that
+// holds it (ops/decode_attention.py pads a ragged hd to a multiple of 8,
+// and runs K10's rows past 256 as K11 calls, one a query row); cache
 // rows stay hd elements with stride hd (read as they are: the staged rows
 // are zero past hd, nothing is read there, and no padded copy of the cache
 // is made), the staged q is zero past hd, and only hd output dims are
@@ -98,10 +98,11 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const unsigned ch
 // of kDecStages stages (cp.async, int8 tiles raw, scales beside them):
 // the K tiles, then the V tiles, so the V tiles are in flight while the
 // softmax is exchanged. A key row is scored by a segment of LPR = min(32,
-// HDP / 8) lanes, EPL = HDP / LPR elements a lane (8; 16 at HDP = 512), a
-// segmented shuffle sum (lanes past hd add exact zeros), so a warp scores
-// 32 / LPR keys a step. HDP = 512 runs G <= 4 (the warps' [G, HDP]
-// partials must fit the ring).
+// HDP / 8) lanes, EPL = HDP / LPR elements a lane (8; 16 at HDP = 512, 32
+// at 1024), a segmented shuffle sum (lanes past hd add exact zeros), so a
+// warp scores 32 / LPR keys a step. HDP = 512 runs G <= 4 and HDP = 1024
+// G <= 2 (the warps' [G, HDP] partials must fit the ring, and a lane's
+// [G, EPL] q and accumulators its registers).
 //
 // The softmax is the reference's, exchanged through distributed shared
 // memory: (1) each block's max, combined (exact in any order); (2) each
@@ -120,7 +121,7 @@ constexpr int kDecStages = 4;    // ring depth: tiles in flight
 constexpr int kDecMaxCluster = 8;
 
 // keys a staged tile: 16 KB of rows, at most 128 keys (64 bf16 rows of
-// HDP = 128, 32 of 256; 128 rows otherwise)
+// HDP = 128, 32 of 256, 8 of 1024; 128 rows otherwise)
 template <typename T, int HDP>
 __host__ __device__ constexpr int dec_keys() {
   return 16384 / (HDP * (int)sizeof(T)) < 128 ? 16384 / (HDP * (int)sizeof(T)) : 128;
@@ -184,8 +185,10 @@ __device__ __forceinline__ void block_reduce(const F (&x)[G], F* scratch, F* out
   }
 }
 
+// three blocks an SM at G = 1 up to HDP = 512; at 1024 a lane's 32-wide q,
+// accumulator and key row need more registers than that leaves
 template <typename T, int HDP, int G>
-__global__ void __launch_bounds__(kDecThreads, G == 1 ? 3 : 1)
+__global__ void __launch_bounds__(kDecThreads, G == 1 && HDP <= 512 ? 3 : 1)
 decode_kernel(const __nv_bfloat16* __restrict__ q, CacheView c, const int* __restrict__ pos,
               int pos0, int hd, float hd_scale, int span, int cached, float* __restrict__ out) {
   constexpr int EPL = dec_lane_elems<HDP>();   // elements a lane
@@ -754,7 +757,9 @@ int decode_by_group(int G, const CacheView& c, const DecodeArgs& a, cudaStream_t
   switch (G) {
     case 1: return launch_decode<T, HDP, 1>(c, a, s);
     case 2: return launch_decode<T, HDP, 2>(c, a, s);
-    case 4: return launch_decode<T, HDP, 4>(c, a, s);
+    case 4:
+      if constexpr (HDP <= 512) return launch_decode<T, HDP, 4>(c, a, s);
+      else return static_cast<int>(cudaErrorInvalidValue);
     case 8:
       if constexpr (HDP <= 256) return launch_decode<T, HDP, 8>(c, a, s);
       else return static_cast<int>(cudaErrorInvalidValue);
@@ -785,13 +790,14 @@ CacheView make_view(const void* k, const void* v, const void* ks, const void* vs
                    sb, sh, ssb, ssh, S};
 }
 
-// The instance that runs head dim hd: the smallest of 64, 128, 256, 512
-// that holds it, for hd % 8 == 0 (cache rows in whole 8-byte pieces); 0
-// when there is none. 512 is K11's only (K10's rows past 256 run as K11
-// calls).
+// The instance that runs head dim hd: the smallest of 64, 128, 256, 512,
+// 1024 that holds it, for hd % 8 == 0 (cache rows in whole 8-byte pieces);
+// 0 when there is none. 512 and 1024 are K11's only (K10's rows past 256
+// run as K11 calls).
 int padded_head_dim(int hd) {
   if (hd < 8 || hd % 8) return 0;
-  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : hd <= 512 ? 512 : 0;
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : hd <= 512 ? 512
+                                                            : hd <= 1024 ? 1024 : 0;
 }
 
 // f.run<T, HDP>() for the instance of (quant, hd); `none` when there is
@@ -803,10 +809,12 @@ int by_instance(int quant, int hd, const F& f, int none) {
     case 128: return f.template run<__nv_bfloat16, 128>();
     case 256: return f.template run<__nv_bfloat16, 256>();
     case 512: return f.template run<__nv_bfloat16, 512>();
+    case 1024: return f.template run<__nv_bfloat16, 1024>();
     case -64: return f.template run<int8_t, 64>();
     case -128: return f.template run<int8_t, 128>();
     case -256: return f.template run<int8_t, 256>();
     case -512: return f.template run<int8_t, 512>();
+    case -1024: return f.template run<int8_t, 1024>();
     default: return none;
   }
 }
@@ -825,7 +833,9 @@ struct SlotsCall {
     switch (G) {
       case 1: return decode_slots<T, HDP, 1>(smem);
       case 2: return decode_slots<T, HDP, 2>(smem);
-      case 4: return decode_slots<T, HDP, 4>(smem);
+      case 4:
+        if constexpr (HDP <= 512) return decode_slots<T, HDP, 4>(smem);
+        else return -1;
       case 8:
         if constexpr (HDP <= 256) return decode_slots<T, HDP, 8>(smem);
         else return -1;
@@ -857,8 +867,8 @@ struct ChunkCall {
 extern "C" {
 
 // quant: 1 = int8 K/V with f32 scales, 0 = bf16 K/V (ks/vs null). HD % 8
-// == 0 and HD <= 512 (run on the instance of padded_head_dim), G one of
-// 1, 2, 4, 8 (1, 2, 4 past HD = 256); B and KVH <= 65535 (the caller
+// == 0 and HD <= 1024 (run on the instance of padded_head_dim), G one of
+// 1, 2, 4, 8 (1, 2, 4 past HD = 256; 1, 2 past 512); B and KVH <= 65535 (the caller
 // slices larger grids into launches). pos holds one int32 position per batch row, or is null and
 // every row is at pos0. The caller (mmrs_tpu_torch/ops/decode_attention.py:
 // _decode_cuda) checks CUDA, the dtypes, the shapes, q/out contiguous and

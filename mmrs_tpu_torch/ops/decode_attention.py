@@ -40,12 +40,12 @@ DEC_MIN_TILES = 2         # K11 tiles a block's span holds at least
 DEC_LOGIT_BUDGET = 96 * 1024   # K11 bytes of [G, span] f32 logits kept
 DEC_MAX_SLOTS = 1 << 24   # the longest view K11 plans for
 _KEYS = 64                # K10 keys per staged tile (csrc: kAttnKeys)
-HEAD_DIMS = (64, 128, 256, 512)   # the kernels' head-dim instances (csrc:
-                             # padded_head_dim): hd % 8 == 0 runs on the
-                             # smallest that holds it; 512 is K11's only
+HEAD_DIMS = (64, 128, 256, 512, 1024)   # the kernels' head-dim instances
+                          # (csrc: padded_head_dim): hd % 8 == 0 runs on the
+                          # smallest that holds it; 512 and 1024 are K11's
 K10_MAX_HD = 256          # K10's widest instance; past it, K11 a query row
 _GROUPS = (1, 2, 4, 8)    # K11's instances (csrc: decode_by_group; G <= 4
-                          # at 512)
+                          # at 512, G <= 2 at 1024)
 MAX_GRID = 65535          # batch rows or kv heads a launch takes
 
 Pos = Union[int, torch.Tensor]
@@ -67,7 +67,7 @@ def query_positions(pos: Pos, b: int, t: int, device) -> torch.Tensor:
 def padded_head_dim(hd: int) -> int:
     """The head dim of the kernel instance that runs hd: the smallest of
     HEAD_DIMS that holds it (rows are zero past hd). K11's plain version
-    sums in that instance's lane order; past 512 (no instance, so no
+    sums in that instance's lane order; past 1024 (no instance, so no
     kernel order) it takes the next power of two."""
     return next((w for w in HEAD_DIMS if w >= hd), 1 << (hd - 1).bit_length())
 
@@ -290,12 +290,13 @@ def _common_checks(name: str, q: torch.Tensor, g: int, hd: int) -> None:
 def group_pieces(g: int, hd: int = 64) -> Tuple[Tuple[int, int, int], ...]:
     """K11 at any G: the (first head, heads, width) of each launch. Each
     launch reads the whole view once, so there are as few as the largest
-    instance allows (ceil(G / 8); ceil(G / 4) at hd past 256): pieces of
-    that many heads, the last one's heads padded with zero queries up to
-    the smallest instance that holds them (G = 7 -> one launch at 8; 12 ->
-    8 + 4). Every head's softmax is its own, so a split changes no result;
-    padded heads are dropped."""
-    widths = _GROUPS if padded_head_dim(hd) <= K10_MAX_HD else _GROUPS[:-1]
+    instance allows (ceil(G / 8); ceil(G / 4) at hd past 256, ceil(G / 2)
+    past 512): pieces of that many heads, the last one's heads padded with
+    zero queries up to the smallest instance that holds them (G = 7 -> one
+    launch at 8; 12 -> 8 + 4). Every head's softmax is its own, so a split
+    changes no result; padded heads are dropped."""
+    hdp = padded_head_dim(hd)
+    widths = _GROUPS[:4 if hdp <= K10_MAX_HD else 3 if hdp <= 512 else 2]
     top = widths[-1]
     pieces = []
     for start in range(0, g, top):

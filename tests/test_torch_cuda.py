@@ -812,18 +812,18 @@ def test_kv_attention_kernels_refuse_what_they_cannot_run(dev):
         decode_attention(q.float(), k[0], ks[0], v[0], vs[0], 3)
     with pytest.raises(ValueError, match="bf16 cache"):
         decode_attention(q, k[0].float(), None, v[0].float(), None, 3)
-    with pytest.raises(ValueError, match="head dims"):   # past 512
-        odd = torch.zeros((2, 2, 64, 520), dtype=torch.bfloat16, device=dev)
-        decode_attention(torch.zeros((2, 2, 1, 520), dtype=torch.bfloat16,
+    with pytest.raises(ValueError, match="head dims"):   # past 1024
+        odd = torch.zeros((2, 2, 64, 1032), dtype=torch.bfloat16, device=dev)
+        decode_attention(torch.zeros((2, 2, 1, 1032), dtype=torch.bfloat16,
                                      device=dev), odd, None, odd, None, 3)
     cpu = [t.cpu() for t in (q, k[0], ks[0], v[0], vs[0])]
     with pytest.raises(ValueError, match="CUDA"):
         _decode_cuda(*cpu, 3)
     with pytest.raises(ValueError, match="CUDA"):
         _chunk_cuda(cpu[0][:, :, :, None], *cpu[1:], 3)
-    with pytest.raises(ValueError, match="head dims"):   # past 512
-        wide = torch.zeros((2, 2, 64, 576), dtype=torch.bfloat16, device=dev)
-        chunk_attention(torch.zeros((2, 2, 1, 3, 576), dtype=torch.bfloat16,
+    with pytest.raises(ValueError, match="head dims"):   # past 1024
+        wide = torch.zeros((2, 2, 64, 1088), dtype=torch.bfloat16, device=dev)
+        chunk_attention(torch.zeros((2, 2, 1, 3, 1088), dtype=torch.bfloat16,
                                     device=dev), wide, None, wide, None, 0)
 
 
@@ -1265,12 +1265,13 @@ def _odd_cache(dev, b, kvh, s, hd, quantized, seed):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("hd", [100, 288, 500])
+@pytest.mark.parametrize("hd", [100, 288, 500, 576, 1024])
 @pytest.mark.parametrize("g", [1, 4, 8])
 def test_kv_attention_kernels_ragged_and_wide_heads_match_plain(
         dev, quantized, hd, g):
     """hd % 8 != 0 (q and a copy of the cache zero-padded to 8) and hd past
-    256 (K11's 512 instance, G in pieces of 4; K10's rows as K11 calls)."""
+    256 (K11's 512 instance, G in pieces of 4; past 512 its 1024 instance,
+    G in pieces of 2; K10's rows as K11 calls)."""
     s = 704
     cache = _odd_cache(dev, 2, 2, s, hd, quantized, seed=hd + g)
     gen = torch.Generator(device=dev).manual_seed(hd)

@@ -163,7 +163,7 @@ def test_chunk_per_row_positions_stacked(quantized):
 
 
 @pytest.mark.parametrize("quantized", [True, False])
-@pytest.mark.parametrize("hd", [80, 96, 256, 100, 288])
+@pytest.mark.parametrize("hd", [80, 96, 256, 100, 288, 576])
 def test_decode_and_chunk_plain_match_pallas_at_any_head_dim(quantized, hd):
     """Head dims between and past the 64 / 128 instances (LLaMA-family
     80, 96 and 256; the kernels run them on the smallest instance that
@@ -186,7 +186,8 @@ def test_decode_and_chunk_plain_match_pallas_at_any_head_dim(quantized, hd):
     _close(t_da.chunk_attention(qc, k, ks, v, vs, 30), want)
 
 
-@pytest.mark.parametrize("hd", [8, 32, 72, 80, 96, 136, 200, 264, 288, 504])
+@pytest.mark.parametrize("hd", [8, 32, 72, 80, 96, 136, 200, 264, 288, 504,
+                                576, 1000])
 def test_lane_logits_below_an_instance_equal_the_zero_padded_sum(hd):
     """K11's plain logits at hd < HDP follow the HDP instance's lane tree:
     bit for bit the sum over q and k zero-padded to HDP, whose lanes
@@ -205,6 +206,29 @@ def test_lane_logits_below_an_instance_equal_the_zero_padded_sum(hd):
     assert torch.equal(got, want)
     assert float((got - q @ k[:, :, None].transpose(-1, -2)).abs().max()
                  ) < 1e-4
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hd", [512, 576, 1024])
+def test_wide_head_dims_plan(hd, quant):
+    """Past 512 K11 runs its 1024 instance at G <= 2 (pieces of two heads),
+    a lane 32 elements of a key row (one warp a key); every plan fits a
+    block's shared memory, and the ring holds the warps' [G, HDP] f32
+    partials (csrc: the ring's static_assert)."""
+    hdp = t_da.padded_head_dim(hd)
+    top = 4 if hdp == 512 else 2
+    assert hdp == (512 if hd <= 512 else 1024)
+    assert t_da.lane_elems(hdp) == hdp // 32
+    assert t_da.group_pieces(8, hd) == tuple(
+        (s, top, top) for s in range(0, 8, top))
+    assert t_da.group_pieces(3, hd)[-1][2] <= top
+    keys = t_da.dec_keys(hdp, quant)
+    stage = keys * (hdp * (1 if quant else 2) + 4)
+    for g in (w for w in (1, 2, 4) if w <= top):
+        assert 4 * stage >= 8 * g * hdp * 4
+        for s, heads in ((704, 256), (704, 16), (8192, 2), (1, 1)):
+            assert t_da.decode_plan(s, g, hd, quant, heads, 132).smem <= \
+                t_da.SMEM_LIMIT
 
 
 def test_chunk_rows_equal_decode_steps():

@@ -29,6 +29,7 @@ import numpy as np
 
 from mmrs_tpu_torch.io.dataset import FolderDataset
 from mmrs_tpu_torch.utils.logging import get_logger
+from mmrs_tpu_torch.utils.profiling import trace
 
 log = get_logger(__name__)
 
@@ -64,7 +65,16 @@ class GalleryIndex:
         mtimes/sizes — not just the total row count, so an in-place rebuild
         with a new checkpoint never serves stale embeddings) so big galleries
         never need full RAM residency; pass consolidate=False to force in-RAM
-        concatenation."""
+        concatenation. Spanned as `gallery.load` (rows loaded, bytes
+        consolidated)."""
+        with trace("gallery.load") as span:
+            index = GalleryIndex._load(directory, mmap, consolidate, span)
+            span.items = len(index)
+        return index
+
+    @staticmethod
+    def _load(directory: str, mmap: bool, consolidate: Optional[bool],
+              span: trace) -> "GalleryIndex":
         with open(os.path.join(directory, "manifest.json"), encoding="utf-8") as f:
             man = json.load(f)
         paths, classes = [], []
@@ -113,6 +123,7 @@ class GalleryIndex:
                     out[row:row + arr.shape[0]] = arr
                     row += arr.shape[0]
                 out.flush()
+                span.nbytes = out.nbytes
                 del out
                 os.replace(tmp, combined)
                 tmp_s = sidecar + ".tmp"
@@ -179,23 +190,29 @@ def _stream_into(
     encode_fn: Callable[[np.ndarray], np.ndarray],
     batch_size: int,
     shard_rows: int,
-) -> None:
+) -> int:
     """Shared build loop: embed `ds` and append complete shards in place
-    (atomic shard writes, manifest rewritten after every shard)."""
+    (atomic shard writes, manifest rewritten after every shard). Returns
+    the rows written. Each shard's write is spanned as `gallery.flush`
+    (its rows and bytes)."""
     buf_rows: List[np.ndarray] = []
     buf_meta: List[Tuple[str, str]] = []
     shard_samples = 0
+    written = 0
 
     def flush():
-        nonlocal buf_rows, buf_meta, shard_samples
+        nonlocal buf_rows, buf_meta, shard_samples, written
         if not buf_meta:
             return
-        rows = np.concatenate(buf_rows, axis=0)
-        entry = _write_shard(out_dir, _next_shard_id(shards), rows,
-                             buf_meta)
-        entry["samples"] = shard_samples
-        shards.append(entry)
-        _write_manifest(out_dir, shards, int(rows.shape[1]))
+        with trace("gallery.flush") as span:
+            rows = np.concatenate(buf_rows, axis=0)
+            span.items, span.nbytes = rows.shape[0], rows.nbytes
+            entry = _write_shard(out_dir, _next_shard_id(shards), rows,
+                                 buf_meta)
+            entry["samples"] = shard_samples
+            shards.append(entry)
+            _write_manifest(out_dir, shards, int(rows.shape[1]))
+        written += rows.shape[0]
         buf_rows, buf_meta = [], []
         shard_samples = 0
 
@@ -215,6 +232,7 @@ def _stream_into(
         if sum(r.shape[0] for r in buf_rows) >= shard_rows:
             flush()
     flush()
+    return written
 
 
 def build_index(
@@ -229,27 +247,31 @@ def build_index(
     L2-normalized embeddings [B,D]) into a sharded on-disk index.
 
     Quarantined (corrupt) images are dropped, mirroring the reference's
-    error-label filter (CLIP/lab1.py:81)."""
-    os.makedirs(out_dir, exist_ok=True)
-    man_path = os.path.join(out_dir, "manifest.json")
+    error-label filter (CLIP/lab1.py:81). The call is spanned as
+    `gallery.build` (rows indexed)."""
+    with trace("gallery.build") as span:
+        os.makedirs(out_dir, exist_ok=True)
+        man_path = os.path.join(out_dir, "manifest.json")
 
-    shards: List[dict] = []
-    if resume and os.path.exists(man_path):
-        with open(man_path, encoding="utf-8") as f:
-            man = json.load(f)
-        shards = man["shards"]
-        log.info("resuming index build: %d rows in %d complete shards",
-                 sum(s["rows"] for s in shards), len(shards))
+        shards: List[dict] = []
+        if resume and os.path.exists(man_path):
+            with open(man_path, encoding="utf-8") as f:
+                man = json.load(f)
+            shards = man["shards"]
+            log.info("resuming index build: %d rows in %d complete shards",
+                     sum(s["rows"] for s in shards), len(shards))
 
-    # NOTE: resume skips whole BATCH-aligned sample prefixes. Shard rows
-    # count only successfully encoded images; to make resume exact we also
-    # persist per-shard how many SAMPLES were consumed.
-    done_samples = sum(s.get("samples", s["rows"]) for s in shards)
-    # any dataclass with `samples` and FolderDataset's batches() works
-    # (an in-memory synthetic set, say): resume keeps the dataset's class
-    ds = dataclasses.replace(dataset, samples=dataset.samples[done_samples:])
-    _stream_into(out_dir, shards, ds, encode_fn, batch_size, shard_rows)
-    return GalleryIndex.load(out_dir)
+        # NOTE: resume skips whole BATCH-aligned sample prefixes. Shard rows
+        # count only successfully encoded images; to make resume exact we
+        # also persist per-shard how many SAMPLES were consumed.
+        done_samples = sum(s.get("samples", s["rows"]) for s in shards)
+        # any dataclass with `samples` and FolderDataset's batches() works
+        # (an in-memory synthetic set, say): resume keeps the dataset's class
+        ds = dataclasses.replace(dataset,
+                                 samples=dataset.samples[done_samples:])
+        span.items = _stream_into(out_dir, shards, ds, encode_fn, batch_size,
+                                  shard_rows)
+        return GalleryIndex.load(out_dir)
 
 
 def update_index(
@@ -262,20 +284,23 @@ def update_index(
     """Incremental update (SURVEY §7 'index/ ... incremental update'): embed
     only paths NOT already in the index and append them as new shards.
     Existing shards are untouched, so updates are as cheap as the new data;
-    deleted files stay until `compact_index` drops them."""
-    man_path = os.path.join(out_dir, "manifest.json")
-    with open(man_path, encoding="utf-8") as f:
-        shards = json.load(f)["shards"]
-    have = set()
-    for s in shards:
-        with open(os.path.join(out_dir, s["meta"]), encoding="utf-8") as f:
-            have.update(m[0] for m in json.load(f))
-    new = [smp for smp in dataset.samples if smp[0] not in have]
-    log.info("index update: %d existing rows, %d new images",
-             len(have), len(new))
-    ds = dataclasses.replace(dataset, samples=new)
-    _stream_into(out_dir, shards, ds, encode_fn, batch_size, shard_rows)
-    return GalleryIndex.load(out_dir)
+    deleted files stay until `compact_index` drops them. The call is
+    spanned as `gallery.build` (rows indexed)."""
+    with trace("gallery.build") as span:
+        man_path = os.path.join(out_dir, "manifest.json")
+        with open(man_path, encoding="utf-8") as f:
+            shards = json.load(f)["shards"]
+        have = set()
+        for s in shards:
+            with open(os.path.join(out_dir, s["meta"]), encoding="utf-8") as f:
+                have.update(m[0] for m in json.load(f))
+        new = [smp for smp in dataset.samples if smp[0] not in have]
+        log.info("index update: %d existing rows, %d new images",
+                 len(have), len(new))
+        ds = dataclasses.replace(dataset, samples=new)
+        span.items = _stream_into(out_dir, shards, ds, encode_fn, batch_size,
+                                  shard_rows)
+        return GalleryIndex.load(out_dir)
 
 
 def compact_index(

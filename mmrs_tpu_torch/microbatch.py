@@ -1,6 +1,7 @@
 """Request micro-batching for the serving layer.
 
-Copy of mmrs_tpu/microbatch.py (stdlib only). Concurrent requests are
+Copy of mmrs_tpu/microbatch.py (the standard library and utils/stats),
+which also counts each item's queue wait. Concurrent requests are
 coalesced into single device dispatches: a gallery top-k scan is bound by
 the bytes of the gallery, so queries that arrive together ride one
 kernel launch for about the price of one.
@@ -17,7 +18,9 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Hashable, List, Sequence
+from typing import Any, Callable, Hashable, List, Optional, Sequence
+
+from mmrs_tpu_torch.utils.stats import StageStats
 
 
 @dataclass
@@ -27,6 +30,7 @@ class _Item:
     done: threading.Event = field(default_factory=threading.Event)
     result: Any = None
     error: BaseException | None = None
+    submitted: float = field(default_factory=time.perf_counter)
 
 
 class MicroBatcher:
@@ -40,12 +44,17 @@ class MicroBatcher:
     first queued item for stragglers to join the batch — the knob trading
     a bounded latency bump for fewer device dispatches. `max_batch` caps
     items per handler call (across keys per drain, per group per call).
+
+    With `stats`, each item's wait from its submit to the start of its
+    handler call is recorded there as stage `queue_wait`.
     """
 
     def __init__(self, handler: Callable[[Hashable, List[Any]], Sequence[Any]],
                  max_batch: int = 64, batch_window: float = 0.002,
-                 name: str = "microbatch"):
+                 name: str = "microbatch",
+                 stats: Optional[StageStats] = None):
         self._handler = handler
+        self._stats = stats
         self.max_batch = max_batch
         self.batch_window = batch_window
         self.name = name
@@ -158,6 +167,10 @@ class MicroBatcher:
             for it in batch:
                 groups.setdefault(it.key, []).append(it)
             for key, items in groups.items():
+                if self._stats is not None:
+                    now = time.perf_counter()
+                    for it in items:
+                        self._stats.record("queue_wait", now - it.submitted)
                 try:
                     results = self._handler(key, [it.payload for it in items])
                     if len(results) != len(items):

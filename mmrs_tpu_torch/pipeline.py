@@ -30,6 +30,7 @@ from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
                                            TAIYI_ROBERTA_LARGE, TAIYI_TINY)
 from mmrs_tpu_torch.models.quantize import quantize_clip_visual
 from mmrs_tpu_torch.ops.preprocess import normalize_images
+from mmrs_tpu_torch.utils.profiling import trace
 
 # "int8": the bf16 compute mix with an int8 vision tower (models/quantize.py)
 # and a bf16 text tower, as mmrs_tpu/pipeline.py
@@ -131,18 +132,30 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
         return clip.encode_image(m, x, compute_dtype, normalize=normalize,
                                  attn_impl=impl, mlp_impl=impl)
 
+    # the image path's spans: `towers.upload` (the pageable host-to-device
+    # copy), `towers.encode` (K3 and the tower's launches, no sync) and
+    # `towers.fetch` (the wait for the card and the device-to-host copy)
     def encode_fn(images_u8: torch.Tensor, normalize: bool = True
                   ) -> torch.Tensor:
-        return params_encode_fn(model, images_u8, normalize)
+        with trace("towers.encode", items=images_u8.shape[0]):
+            return params_encode_fn(model, images_u8, normalize)
 
     def _upload(pixels_u8: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(device)
+        with trace("towers.upload", items=len(pixels_u8),
+                   nbytes=pixels_u8.nbytes):
+            return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(
+                device)
+
+    def _fetch(emb: torch.Tensor) -> np.ndarray:
+        with trace("towers.fetch", items=emb.shape[0],
+                   nbytes=emb.numel() * emb.element_size()):
+            return emb.cpu().numpy()
 
     def image_encode(pixels_u8: np.ndarray) -> np.ndarray:
-        return encode_fn(_upload(pixels_u8)).cpu().numpy()
+        return _fetch(encode_fn(_upload(pixels_u8)))
 
     def image_encode_raw(pixels_u8: np.ndarray) -> np.ndarray:
-        return encode_fn(_upload(pixels_u8), normalize=False).cpu().numpy()
+        return _fetch(encode_fn(_upload(pixels_u8), normalize=False))
 
     text_encode = None
     if tokenizer is not None and isinstance(ccfg, TaiyiCLIPConfig):

@@ -12,7 +12,9 @@ dependency):
                             its data axis is wider than 1)
   GET  /v1/stats         -> per-stage serving counters (StageStats: total
                             seconds, item counts, calls, items/call —
-                            batch utilization — items/s, p50/p99), plus
+                            batch utilization — items/s, p50/p99; stage
+                            "queue_wait": each query's wait in the device
+                            batcher's queue, submit to dispatch), plus
                             "speculative" realized acceptance when the
                             verifier decodes with a draft model, and
                             "verifier": {tp, dp?} when it runs on a mesh
@@ -136,9 +138,12 @@ class SearchService:
 
         self._fetch_lock = (threading.Lock() if serialize_fetch
                             else contextlib.nullcontext())
+        # the search batcher's queue wait (submit to dispatch) is stage
+        # `queue_wait`
         self._device = MicroBatcher(self._device_handler, max_batch=max_batch,
                                     batch_window=batch_window,
-                                    name="mmrs-device-batcher")
+                                    name="mmrs-device-batcher",
+                                    stats=self.stats)
         self._vlm = MicroBatcher(self._vlm_handler, max_batch=max_batch,
                                  batch_window=batch_window,
                                  name="mmrs-vlm-batcher")

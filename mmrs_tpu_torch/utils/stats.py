@@ -119,16 +119,3 @@ class StageStats:
             for name, rec in self._items()
         }
 
-
-class StageTimer:
-    """Context-manager timer for a single stage."""
-
-    def __init__(self) -> None:
-        self.seconds = 0.0
-
-    def __enter__(self) -> "StageTimer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.seconds = time.perf_counter() - self._t0

@@ -63,7 +63,7 @@ NEW_MODULES = ("models.release", "models.convert", "models.bert", "eval",
 # adaptation and the serving layer
 ADAPT_SERVE_MODULES = ("adapt", "adapt.tip_adapter", "adapt.driver",
                        "adapt.contrastive", "serve", "microbatch",
-                       "io.augment", "utils.trials", "utils.profiling")
+                       "io.augment", "utils.profiling")
 
 
 # the operations layer and the int4-weight LLaMA's modules

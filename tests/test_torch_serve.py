@@ -821,3 +821,34 @@ def test_close_never_strands_racing_submitters(mb_cls):
     for t in threads:
         t.join(timeout=10)
     assert not any(t.is_alive() for t in threads), "submitter stranded"
+
+
+def test_queue_wait_counts_the_wait_behind_a_slow_handler():
+    """The port's batcher records each item's wait, submit to the start of
+    its handler call: with one item a call, the second item waits out the
+    first item's handler."""
+    from mmrs_tpu_torch.utils.stats import StageStats
+
+    stats, handled = StageStats(), []
+
+    def slow(key, payloads):
+        t0 = time.perf_counter()
+        time.sleep(0.05)
+        handled.append(time.perf_counter() - t0)
+        return payloads
+
+    mb = MicroBatcher(slow, max_batch=1, batch_window=0.0, stats=stats)
+    assert mb.submit_many("k", [1, 2]) == [1, 2]
+    mb.close()
+    rec = stats.stages["queue_wait"]
+    assert (rec.calls, rec.count) == (2, 2)
+    first, second = rec.recent
+    assert second > handled[0] > first
+    assert stats.as_dict()["queue_wait"]["p99_seconds"] == second
+
+
+def test_stats_endpoint_reports_queue_wait(world):
+    _post(world.base + "/v1/search", {"text": "a thing", "k": 2})
+    st = _get(world.base + "/v1/stats")["stages"]["queue_wait"]
+    assert st["count"] >= 1
+    assert 0.0 <= st["p50_seconds"] <= st["p99_seconds"]

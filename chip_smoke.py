@@ -51,6 +51,12 @@ nonzero exit and no result line:
      K2 f32 at [8, 577, 1024] / 16 (1e-5), bf16 at hd 160 and past 65,535
      images, K1 / K4 / K9 at D = 100, 520 and 2304, K10 / K11 at head dims
      100, 288, 576 and 1024 and at B or KVH past 65,535 (`repair_checks`);
+     the dense epilogue (`bias_act`) at the towers' [12,800 x 768 / 3,072]
+     and [65,792 x 1,024 / 4,096] f32 sums with zeros, ties and exp
+     overflows, with and without a bias, with no activation, QuickGELU
+     and GELU, every bf16 bit equal; a ViT-B/32 and a ViT-L/14 tower's
+     256-image batch with 6 launches a block plus the patch embedding's,
+     its embedding equal to the plain ops' in every bit;
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -204,6 +210,7 @@ nonzero exit and no result line:
         the card's busy share over a TP = 2 generate, the peak device
         memory and the phase's seconds;
   5. launch counts: every kernel of each path ran during its phase 4 run
+     (4a: the dense epilogue 73 times a ViT-B/32 batch)
      (K2, K10, K11 in every 4e run, K6 in the int8 ones, K1-K9 in 4i,
      K2, K3, K6, K10 and K11 in 4j);
      phase 4's answers
@@ -237,7 +244,10 @@ nonzero exit and no result line:
      at Q=1), each rung's predicted Q=1 beside its measurement, the plan
      at 1M / 10M / 100M rows; phase 4h's seven lifecycle stages (host
      clock); the int4 LLaMA's decode ms a step beside bf16 and int8 at the
-     same depth, and the int4 unpack's share of device time.
+     same depth, and the int4 unpack's share of device time; the dense
+     epilogue at phase 3's shapes (QuickGELU or none as the towers run
+     them, and GELU) beside its bound and the plain ops, and the two
+     towers' batch with the kernel and with the plain ops.
 Then the script's total time (the build included). The line before the
 last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -2206,7 +2216,8 @@ def bilingual_phase(dev, root: str, kernels, cli):
             x = normalize_images(torch.from_numpy(pixels_u8).to(dev),
                                  dtype=bf16, impl="torch")
             return clip.encode_image(towers.params, x, bf16,
-                                     attn_impl="torch").cpu().numpy()
+                                     attn_impl="torch",
+                                     mlp_impl="torch").cpu().numpy()
         return encode
 
     idx = GalleryIndex.load(index)
@@ -4218,6 +4229,144 @@ def kv_attention_times(dev, gen, prompt_len: int):
     return out, (spreads, eager), cache_len, (start, c, lim)
 
 
+# ---- the float dense layer's epilogue (phases 3, 5 and 6) ---------------------
+
+# [M, N] f32 sums of the towers' denses in one index batch of 256 images:
+# ViT-B/32 (50 tokens) wq/wk/wv/wo/w2 and w1, ViT-L/14 (257 tokens) alike;
+# w1's epilogue carries QuickGELU
+EPILOGUE_SHAPES = (("B/32 w", 12800, 768, None),
+                   ("B/32 w1", 12800, 3072, "quick_gelu"),
+                   ("L/14 w", 65792, 1024, None),
+                   ("L/14 w1", 65792, 4096, "quick_gelu"))
+EPILOGUE_BATCH = 256          # the benchmark's index batch
+
+
+def epilogue_sums(dev, m: int, n: int, seed: int) -> torch.Tensor:
+    """f32 sums with zeros, negative zeros, bf16 rounding ties, values past
+    QuickGELU's exp overflow and subnormal values among them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((m, n), device=dev, generator=g) * 3.0
+    flat = y.view(-1)
+    flat[::101] = 0.0
+    flat[7::103] = -0.0
+    flat[3::107] = 1.0 + 2.0 ** -8
+    flat[11::113] = -60.0
+    flat[17::131] = 1e-39
+    return y
+
+
+def dense_epilogue_phase(dev) -> dict:
+    """The epilogue kernel against its plain ops at the towers' shapes
+    (every bf16 bit, bias with each activation, and without a bias), its
+    ms beside its bound (6 bytes an element over PEAK_BYTES) and the plain
+    ops' ms (time_pair), and, for a ViT-B/32 and a ViT-L/14 tower at
+    random weights, the launches of one 256-image batch (6 a block plus
+    the patch embedding) and the batch's ms with the kernel and with the
+    plain ops in every dense."""
+    from mmrs_tpu_torch.models import layers, vit
+    from mmrs_tpu_torch.models.configs import IMAGE_TOWERS
+    from mmrs_tpu_torch.ops.dense_epilogue import bias_act
+
+    out = {"lines": [], "times": {}, "bounds": {}, "towers": {}}
+    bad = 0
+    with torch.inference_mode():
+        for i, (name, m, n, act) in enumerate(EPILOGUE_SHAPES):
+            y = epilogue_sums(dev, m, n, SEED + i)
+            b = torch.randn(n, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(i))
+            for a in (None, "quick_gelu", "gelu"):
+                for bias in (b, None):
+                    got = bias_act(y, bias, a, torch.bfloat16)
+                    ref = bias_act(y, bias, a, torch.bfloat16, impl="torch")
+                    diff = int((got.view(torch.int16)
+                                != ref.view(torch.int16)).sum())
+                    bad += diff
+                    check(diff == 0, f"bias_act {name} [{m},{n}] act {a} "
+                          f"bias {bias is not None}: {diff} elements differ")
+            for a in dict.fromkeys((act, "gelu")):
+                key = f"{name} [{m},{n}] {a or 'bias'}"
+                out["times"][key] = time_pair(
+                    lambda: bias_act(y, b, a, torch.bfloat16),
+                    lambda: bias_act(y, b, a, torch.bfloat16, impl="torch"),
+                    iters=20)
+                out["bounds"][key] = m * n * 6 / PEAK_BYTES * 1e3
+            del y
+        out["lines"].append(
+            f"phase 3 dense epilogue bias_act at {len(EPILOGUE_SHAPES)} "
+            f"tower shapes x (none, quick_gelu, gelu) x (bias, none): "
+            f"{bad} bf16 elements differ from the plain ops")
+
+        def plain(y32, bias, act, out_dtype, impl="auto"):
+            return bias_act(y32, bias, act, out_dtype, impl="torch")
+
+        for name in ("vit_b32", "vit_l14"):
+            cfg = IMAGE_TOWERS[name]
+            with torch.device(dev):
+                model = vit.VisionTransformer(cfg)
+            model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+            model = model.eval().requires_grad_(False)
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.Linear):
+                    mod.weight.data = mod.weight.data.bfloat16()
+            px = torch.randn((EPILOGUE_BATCH, 224, 224, 3), device=dev,
+                             generator=torch.Generator(device=dev
+                                                       ).manual_seed(1)
+                             ).bfloat16()
+            before = bias_act.launches
+            emb = model(px)
+            launches = bias_act.launches - before
+            check(launches == 6 * cfg.layers + 1,
+                  f"{name} batch of {EPILOGUE_BATCH}: {launches} bias_act "
+                  f"launches, want {6 * cfg.layers + 1}")
+            kernel_fn = layers.bias_act
+
+            def run_with(fn, call):
+                layers.bias_act = fn
+                try:
+                    return call()
+                finally:
+                    layers.bias_act = kernel_fn
+
+            ref = run_with(plain, lambda: model(px))
+            check(torch.equal(emb, ref), f"{name}: the tower's embedding "
+                  f"with the kernel differs from the plain ops'")
+            # kernel, plain, plain, kernel
+            k1, p1, p2, k2 = (run_with(fn, lambda: time_ms(
+                lambda: model(px), iters=3, warmup=1))
+                for fn in (kernel_fn, plain, plain, kernel_fn))
+            out["towers"][name] = {"launches": launches,
+                                   "kernel_ms": (k1 + k2) / 2,
+                                   "plain_ms": (p1 + p2) / 2}
+            out["lines"].append(
+                f"phase 3 dense epilogue {name} batch {EPILOGUE_BATCH}: "
+                f"{launches} bias_act launches, embedding equal to the "
+                f"plain ops' in every bit")
+            del model, px
+    return out
+
+
+def epilogue_time_lines(epi: dict, card: str):
+    """Phase 6's lines for dense_epilogue_phase's times."""
+    lines = [f"phase 6 dense epilogue bias_act on {card} (CUDA events, 20 "
+             f"calls, kernel and plain in turns; bound = 6 bytes an element "
+             f"over 3.35 TB/s):"]
+    for key, (kms, pms) in epi["times"].items():
+        bound = epi["bounds"][key]
+        m, n = (int(v) for v in key.split("[")[1].split("]")[0].split(","))
+        lines.append(
+            f"  {key}: kernel {kms:.4f} ms ({m * n * 6 / kms / 1e6:.0f} "
+            f"GB/s, {kms / bound:.2f}x its bound {bound:.4f} ms), plain "
+            f"ops {pms:.4f} ms ({pms / kms:.2f}x the kernel)")
+    for name, t in epi["towers"].items():
+        lines.append(
+            f"  {name} tower, batch {EPILOGUE_BATCH} (random weights): "
+            f"{t['kernel_ms']:.2f} ms with the kernel, {t['plain_ms']:.2f} "
+            f"ms with the plain ops ({EPILOGUE_BATCH / t['kernel_ms'] * 1e3:.0f}"
+            f" / {EPILOGUE_BATCH / t['plain_ms'] * 1e3:.0f} img/s), "
+            f"{t['launches']} launches")
+    return lines
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4258,6 +4407,7 @@ def main(argv) -> int:
     from mmrs_tpu_torch.ops.attention import mha_short_seq
     from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
                                                      decode_attention)
+    from mmrs_tpu_torch.ops.dense_epilogue import bias_act
     from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
     from mmrs_tpu_torch.ops.normalize import l2_normalize
     from mmrs_tpu_torch.ops.preprocess import normalize_images
@@ -4279,7 +4429,7 @@ def main(argv) -> int:
     kernels = (cosine_topk, mha_short_seq, normalize_images,
                cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused,
                probe_buckets, probe_buckets_q4, first_match,
-               chunk_attention, decode_attention)
+               chunk_attention, decode_attention, bias_act)
     quant_topk = {"int8": (cosine_topk_quantized, quantize_rows),
                   "int4": (cosine_topk_int4, quantize_rows_int4)}
 
@@ -4327,7 +4477,11 @@ def main(argv) -> int:
              - normalize_images(px, impl="torch").float()).abs().max())
         say(f"phase 3 K3 normalize_images [224,224,224,3] u8->bf16: max "
             f"{ulps} ulp, max|d| {errs['normalize_images']:.3e}")
-
+    epi = dense_epilogue_phase(dev)
+    errs["bias_act"] = 0.0            # every bit checked
+    for line in epi["lines"]:
+        say(line)
+    with torch.inference_mode():
         errs["mha_short_seq"] = 0.0
         for b, t, w, h in ((EMBED_BATCH, 50, 768, 12), (32, 257, 1024, 16),
                            (LLAVA_B, 577, 1024, 16), (LLAVA_B, 65, 1024, 16),
@@ -4876,14 +5030,21 @@ def main(argv) -> int:
     picks = list(range(0, SMOKE_IMAGES, SMOKE_IMAGES // 8))
     qpx = np.stack([ds.image(*samples[i]) for i in picks])
     tmp = tempfile.TemporaryDirectory()
+    epi_before = bias_act.launches
     idx = launched(
-        (normalize_images, mha_short_seq),
+        (normalize_images, mha_short_seq, bias_act),
         lambda: build_index(ds, towers.image_encode,
                             os.path.join(tmp.name, "idx"),
                             batch_size=cfg.gallery.batch_size),
         "build_index")
     check(len(idx) == SMOKE_IMAGES and idx.dim == DIM,
           f"index has {len(idx)} rows of dim {idx.dim}")
+    # one epilogue launch a dense: six a block and the patch embedding
+    epi_batches = -(-SMOKE_IMAGES // cfg.gallery.batch_size)
+    epi_per_batch = 6 * model.visual.cfg.layers + 1
+    check(bias_act.launches - epi_before == epi_batches * epi_per_batch,
+          f"build_index: {bias_act.launches - epi_before} bias_act launches"
+          f" in {epi_batches} batches, want {epi_per_batch} a batch")
     check(bool(np.isfinite(idx.embeddings).all()), "non-finite rows")
     engine = SearchEngine(idx, SearchConfig(), device=dev)
 
@@ -5497,7 +5658,8 @@ def main(argv) -> int:
         check(launches_ivf[fn.__name__] > 0,
               f"{fn.__name__} never launched in phase 4c")
     launches = {name: launches_bf16[name] for name in
-                ("cosine_topk", "mha_short_seq", "normalize_images")}
+                ("cosine_topk", "mha_short_seq", "normalize_images",
+                 "bias_act")}
     launches.update({name: launches_quant[name] for name in
                      ("cosine_topk_quantized", "cosine_topk_int4",
                       "mlp_int8_fused")})
@@ -5556,7 +5718,8 @@ def main(argv) -> int:
                       f"1M {mode} engine top-10 != plain")
         ref = clip.encode_image(
             model, normalize_images(torch.from_numpy(qpx).to(dev),
-                                    impl="torch"), attn_impl="torch")
+                                    impl="torch"), attn_impl="torch",
+            mlp_impl="torch")
         cos = float((torch.from_numpy(qvec).to(dev) * ref).sum(1).min())
         check(cos >= 0.999, f"kernel-path embed cosine to plain {cos}")
         ref8 = clip.encode_image(
@@ -5683,7 +5846,7 @@ def main(argv) -> int:
             lambda: cn_t.encode_fn(pxl),
             lambda: clip.encode_image(
                 cn_t.params, normalize_images(pxl, impl="torch"),
-                attn_impl="torch"), iters=5, warmup=2)}
+                attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)}
         ids = torch.randint(5, len(CN_VOCAB), (TAIYI_BATCH, 16), device=dev,
                             generator=gen)
         bi["taiyi_ms"] = time_ms(lambda: clip.taiyi_encode_text(
@@ -5740,6 +5903,9 @@ def main(argv) -> int:
             {q: flat[f"{q} Q=1 k=10"]["eager_ms"] for q in IVF_RUNGS.values()},
             {q: ivf_ms[(q, 1)][0] for q in IVF_RUNGS.values()},
             probe_q1[0], ivfs)
+    for line in epilogue_time_lines(epi, card):
+        say(line)
+    times["bias_act"] = epi["times"]["L/14 w1 [65792,4096] quick_gelu"]
     say(f"phase 6 times on {card}:")
     for name, (kms, pms) in times.items():
         say(f"  {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
@@ -5986,6 +6152,8 @@ def main(argv) -> int:
         # hi/mid/lo split on the tensor cores
         "first_match": least_ms(DEDUP_ROWS * DIM * 4 + DEDUP_ROWS * 4,
                                 6 * 2 * DIM * pairs, "bf16"),
+        # f32 sums read once, bf16 written once
+        "bias_act": least_ms(65792 * 4096 * 6, 0, "f32"),
     }
     k9_bf16_bound = least_ms(DEDUP_ROWS * DIM * 2 + DEDUP_ROWS * 4,
                              2 * DIM * pairs, "bf16")
@@ -6026,6 +6194,8 @@ def main(argv) -> int:
         "decode_attention": ("cuda",
                              "mmrs_tpu_torch/csrc/decode_attention.cu",
                              "mmrs_tpu/ops/decode_attention.py:237"),
+        "bias_act": ("cuda", "mmrs_tpu_torch/csrc/dense_epilogue.cu",
+                     "none (layers.dense's epilogue, the port's own)"),
     }
     extra = {"first_match": {   # ms/plain_ms/bound_ms above are f32's
         "bf16_ms": k9_ms["bf16"][0], "bf16_plain_ms": k9_ms["bf16"][1],

@@ -51,8 +51,10 @@ def encode_image(model: CLIP, images: torch.Tensor,
                  normalize: bool = True, attn_impl: str = "auto",
                  mlp_impl: str = "auto") -> torch.Tensor:
     """[B, H, W, 3] CLIP-normalized images -> [B, embed_dim] f32.
-    `attn_impl` / `mlp_impl` select the attention and int8-MLP kernels'
-    implementation ("auto" or "torch", as in ops/)."""
+    `attn_impl` / `mlp_impl` select the implementation ("auto" or "torch",
+    as in ops/) of the attention's kernels (K2, its denses' epilogue) and
+    the MLP's (the int8 MLP, the float denses' epilogue, the patch
+    embedding's): with both "torch" the tower runs the plain ops."""
     feats = model.visual(images, compute_dtype, attn_impl, mlp_impl)
     return l2_normalize(feats) if normalize else feats
 

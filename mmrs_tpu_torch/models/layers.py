@@ -5,7 +5,9 @@ towers and the LLaMA decoder (`matmul`) use. Numerics follow the JAX
 package:
   - matmuls take the compute dtype (bf16 by default); the products are
     summed in f32, the f32 bias is added to the f32 sums and the result
-    is rounded once to the compute dtype;
+    is rounded once to the compute dtype (on the card, with an MLP's
+    activation, in one epilogue kernel: ops/dense_epilogue.py; the
+    attention's denses follow `attn_impl`, the MLP's `mlp_impl`);
   - int8 layers (`QLinear`, the int8 serving tower) quantize their input
     per row (round half to even), multiply int8 by int8 into exact int32
     sums, and rescale and add the bias in f32 before the one rounding;
@@ -39,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmrs_tpu_torch.ops.attention import mha_short_seq
+from mmrs_tpu_torch.ops.dense_epilogue import (act_name, bias_act, gelu,
+                                               quick_gelu, records_grad)
 from mmrs_tpu_torch.ops.int8 import INV_127, int8_linear, int_mm, quantize_act
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 
@@ -177,42 +181,39 @@ def int8_weight(w32: torch.Tensor, dim: int):
     return torch.round(w32 / s).to(torch.int8), s.squeeze(dim)
 
 
-def _records_grad(*tensors: torch.Tensor) -> bool:
-    """Whether autograd records an op on these tensors (a training step)."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def _mm_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x2d @ w.T as f32 sums of the compute-dtype operands' products (exact
     in f32). cuBLAS returns them directly for bf16 operands (`out_dtype`,
     CUDA only, no autograd formula); elsewhere, and in a training step,
     the operands are widened to f32 first."""
-    if x2d.is_cuda and x2d.dtype != torch.float32 and not _records_grad(
+    if x2d.is_cuda and x2d.dtype != torch.float32 and not records_grad(
             x2d, w):
         return torch.mm(x2d, w.T, out_dtype=torch.float32)
     return x2d.float() @ w.float().T
 
 
-def dense(x: torch.Tensor, layer, compute_dtype: torch.dtype
+def dense(x: torch.Tensor, layer, compute_dtype: torch.dtype,
+          act: Optional[Callable] = None, impl: str = "auto"
           ) -> torch.Tensor:
-    """x @ W^T + b in the compute dtype: f32 sums plus the f32 bias,
-    rounded once (mmrs_tpu layers.dense). A `QLinear` quantizes x per row
-    first, in x's own dtype (layers._dense_int8)."""
+    """act(x @ W^T + b) in the compute dtype: f32 sums plus the f32 bias,
+    rounded once (mmrs_tpu layers.dense), then `act` (None, quick_gelu or
+    gelu) on the rounded result. A `QLinear` quantizes x per row first, in
+    x's own dtype (layers._dense_int8). A float layer's epilogue (bias,
+    rounding, activation) goes to ops/dense_epilogue.bias_act with `impl`
+    ("auto": one kernel launch on the card; "torch": the plain ops) for
+    bf16 results in calls autograd does not record, else to the plain
+    ops; both give the same bits."""
     if isinstance(layer, QLinear):
         xq, sx = quantize_act(x)
-        return int8_linear(xq, sx, layer.q, layer.s, layer.bias,
-                           compute_dtype)
+        y = int8_linear(xq, sx, layer.q, layer.s, layer.bias, compute_dtype)
+        return y if act is None else act(y)
     x = x.to(compute_dtype)
     y = _mm_f32(x.reshape(-1, x.shape[-1]), layer.weight.to(compute_dtype))
-    y = y.reshape(*x.shape[:-1], -1)
-    if layer.bias is None:
-        return y.to(compute_dtype)
-    if _records_grad(y, layer.bias):   # `out=` has no autograd formula
-        return (y + layer.bias.float()).to(compute_dtype)
-    # one pass: the f32 sum, rounded as it is stored
-    return torch.add(y, layer.bias.float(),
-                     out=torch.empty_like(y, dtype=compute_dtype))
+    bias = None if layer.bias is None else layer.bias.float()
+    if compute_dtype != torch.bfloat16 or records_grad(y, bias):
+        impl = "torch"
+    y = bias_act(y, bias, act_name(act), compute_dtype, impl=impl)
+    return y.reshape(*x.shape[:-1], -1)
 
 
 def matmul(x: torch.Tensor, layer, compute_dtype: torch.dtype,
@@ -278,15 +279,6 @@ def project(x: torch.Tensor, layer: nn.Linear, compute_dtype: torch.dtype
                     layer.weight.to(compute_dtype).float())
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """OpenAI CLIP activation: x * sigmoid(1.702 x)."""
-    return x * torch.sigmoid(1.702 * x.float()).to(x.dtype)
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x.float()).to(x.dtype)
-
-
 class Attention(nn.Module):
     """Multi-head self-attention. With `tp` > 1 it is one model position's
     piece (BlockPiece): heads / tp heads, the column pieces of wq / wk /
@@ -315,7 +307,8 @@ class Attention(nn.Module):
             q, k, v = (int8_linear(xq, sx, p.q, p.s, p.bias, cd)
                        for p in (self.wq, self.wk, self.wv))
         else:
-            q, k, v = (dense(x, p, cd) for p in (self.wq, self.wk, self.wv))
+            q, k, v = (dense(x, p, cd, impl=attn_impl)
+                       for p in (self.wq, self.wk, self.wv))
         hd = q.shape[-1] // self.heads
         # 1/sqrt(hd) folded into q, rounded to the compute dtype first (a
         # host scalar: no device tensor is made per call)
@@ -336,7 +329,7 @@ class Attention(nn.Module):
                 compute_dtype: torch.dtype, attn_impl: str = "auto"
                 ) -> torch.Tensor:
         return dense(self.heads_out(x, mask, compute_dtype, attn_impl),
-                     self.wo, compute_dtype)
+                     self.wo, compute_dtype, impl=attn_impl)
 
 
 class MLP(nn.Module):
@@ -350,10 +343,10 @@ class MLP(nn.Module):
         self.w2 = nn.Linear(hidden // tp, width, bias=tp == 1)
         self.act = act
 
-    def inner(self, x: torch.Tensor, compute_dtype: torch.dtype
-              ) -> torch.Tensor:
+    def inner(self, x: torch.Tensor, compute_dtype: torch.dtype,
+              mlp_impl: str = "auto") -> torch.Tensor:
         """act(x @ w1^T + b1) in the compute dtype: the input of w2."""
-        return self.act(dense(x, self.w1, compute_dtype))
+        return dense(x, self.w1, compute_dtype, act=self.act, impl=mlp_impl)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
                 mlp_impl: str = "auto") -> torch.Tensor:
@@ -362,10 +355,10 @@ class MLP(nn.Module):
             y = mlp_int8_fused(
                 x.reshape(-1, x.shape[-1]).to(compute_dtype), w1.q, w1.s,
                 w1.bias, w2.q, w2.s, w2.bias,
-                act="quick_gelu" if self.act is quick_gelu else "gelu",
-                impl=mlp_impl)
+                act=act_name(self.act), impl=mlp_impl)
             return y.reshape(x.shape)
-        return dense(self.inner(x, compute_dtype), self.w2, compute_dtype)
+        return dense(self.inner(x, compute_dtype, mlp_impl), self.w2,
+                     compute_dtype, impl=mlp_impl)
 
 
 class BlockPiece(nn.Module):
@@ -382,13 +375,14 @@ class BlockPiece(nn.Module):
 
 
 def _row_dense(xs, layers, bias: Optional[torch.Tensor],
-               compute_dtype: torch.dtype, device: torch.device
-               ) -> torch.Tensor:
+               compute_dtype: torch.dtype, device: torch.device,
+               impl: str = "auto") -> torch.Tensor:
     """sum_p x_p @ W_p^T + b over the model axis, rounded once to the
     compute dtype on `device`: `dense` for one piece (the one-device
-    arithmetic), else row_parallel's f32 sum plus the f32 bias."""
+    arithmetic, its epilogue by `impl`), else row_parallel's f32 sum plus
+    the f32 bias."""
     if len(xs) == 1:
-        return dense(xs[0], layers[0], compute_dtype)
+        return dense(xs[0], layers[0], compute_dtype, impl=impl)
     y = row_parallel(xs, layers, compute_dtype, device)
     return (y if bias is None else y + bias.float()).to(compute_dtype)
 
@@ -430,13 +424,14 @@ class Block(nn.Module):
                                  else mask.to(d), cd, attn_impl)
                 for p, d in zip(parts, devs)]
         x = x + _row_dense(outs, [p.attn.wo for p in parts],
-                           self.attn.wo.bias, cd, x.device)
+                           self.attn.wo.bias, cd, x.device, attn_impl)
         h = self.ln2(x)
         if isinstance(self.mlp.w1, QLinear):     # the fused int8 MLP (K6)
             return x + self.mlp(h, cd, mlp_impl)
-        inner = [p.mlp.inner(h.to(d), cd) for p, d in zip(parts, devs)]
+        inner = [p.mlp.inner(h.to(d), cd, mlp_impl)
+                 for p, d in zip(parts, devs)]
         return x + _row_dense(inner, [p.mlp.w2 for p in parts],
-                              self.mlp.w2.bias, cd, x.device)
+                              self.mlp.w2.bias, cd, x.device, mlp_impl)
 
 
 def init_blocks(blocks: nn.ModuleList, generator: torch.Generator) -> None:

@@ -95,7 +95,7 @@ def vision_tokens(model: LLaVA, images: torch.Tensor,
 
 def project(model: LLaVA, feats: torch.Tensor,
             compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    h = gelu(dense(feats, model.proj1, compute_dtype))
+    h = dense(feats, model.proj1, compute_dtype, act=gelu)
     return dense(h, model.proj2, compute_dtype)
 
 

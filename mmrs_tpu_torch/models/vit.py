@@ -71,7 +71,10 @@ class VisionTransformer(nn.Module):
         `pieces[i]` (one layers.BlockPiece a model position, on
         `devices`) runs block i tensor-parallel (Block.forward)."""
         cd = compute_dtype
-        x = dense(patchify(images, self.cfg.patch_size), self.patch_embed, cd)
+        # the patch embedding's epilogue follows the MLPs' route: the plain
+        # tower (attn_impl = mlp_impl = "torch") runs no kernel
+        x = dense(patchify(images, self.cfg.patch_size), self.patch_embed, cd,
+                  impl=mlp_impl)
         cls = self.class_embedding.to(cd).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)                        # [B, N+1, W]
         x = x + self.positional_embedding.to(cd)[None]

@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu", "quant_topk.cu",
                 "mlp_int8.cu", "ivf_probe.cu", "first_match.cu",
-                "decode_attention.cu")
+                "decode_attention.cu", "dense_epilogue.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -77,6 +77,8 @@ _SIGNATURES = {
     "mmrs_chunk_attention": ((_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                               _I, _I, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _P),
                              _I),
+    "mmrs_bias_act_slots": ((_I, _I), _I),
+    "mmrs_bias_act": ((_P, _P, _P, _LL, _I, _I, _I, _I, _P), _I),
 }
 
 
@@ -170,7 +172,10 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of t's device's current stream: the raw query, as torch's
+    own kernel launchers make it (a `torch.cuda.current_stream` object
+    costs ~5 us of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 @lru_cache(maxsize=None)

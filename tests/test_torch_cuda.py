@@ -13,7 +13,9 @@ of the tensor-core attention, ragged row tiles of the int8 MLP, f32
 inputs, masked bucket slots and equal scores across probed buckets. The int8 and int4 scans and the
 int4 bucket probe must equal their plain versions exactly (ids and values),
 and so must the fused int8 MLP (nonzero biases, rows of exact rounding
-ties) and the all-pairs first match (every id, f32 and bf16 inputs). The
+ties), the all-pairs first match (every id, f32 and bf16 inputs) and the
+float dense layer's epilogue (every bf16 bit, with zeros, ties, exp
+overflows and subnormal sums). The
 KV-cache attention kernels read strided layer views of stacked caches, with
 per-row positions and kv_limit windows; they must agree with their plain
 versions to 2e-2 (both round the probabilities to bf16, and a last-bit
@@ -38,6 +40,7 @@ from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
                                                  decode_attention,
                                                  group_pieces)
 from mmrs_tpu_torch.ops.attention import mha_short_seq
+from mmrs_tpu_torch.ops.dense_epilogue import _bias_act_cuda, bias_act
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.ops.quant import (_topk_quant_cuda, cosine_topk_quantized,
@@ -1338,7 +1341,7 @@ def test_taiyi_pair_on_the_card_matches_its_plain_route(dev):
     assert mha_short_seq.launches > before[0]
     assert normalize_images.launches > before[1]
     ref = clip.encode_image(card.params, normalize_images(px, impl="torch"),
-                            attn_impl="torch")
+                            attn_impl="torch", mlp_impl="torch")
     assert float((emb * ref).sum(1).min()) >= 0.999
     texts = ["一张荔枝的图片", "狗"]
     np.testing.assert_allclose(card.text_encode(texts), cpu.text_encode(texts),
@@ -1796,3 +1799,137 @@ def test_tp_flag_past_the_card_count_exits_2(dev, capsys, monkeypatch):
     assert _make_verifier(args) == 2
     assert (f"--tp 2x{2 * n} needs {4 * n} local devices; {n} available"
             in capsys.readouterr().err)
+
+
+# ---- the float dense layer's epilogue -----------------------------------------
+
+def _epilogue_sums(m, n, dev, seed):
+    """f32 GEMM sums with the values the epilogue must round as PyTorch
+    does: exact zeros, negative zeros, bf16 rounding ties, values past
+    QuickGELU's exp overflow (|1.702 y| > 88) and subnormal sums."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((m, n), device=dev, generator=g) * 3.0
+    flat = y.view(-1)
+    flat[::101] = 0.0
+    flat[7::103] = -0.0
+    flat[3::107] = 1.0 + 2.0 ** -8          # halfway between two bf16
+    flat[5::109] = -(1.0 + 3 * 2.0 ** -8)
+    flat[11::113] = -60.0
+    flat[13::127] = 60.0
+    flat[17::131] = 1e-39
+    return y
+
+
+def _epilogue_bias(n, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(n, device=dev, generator=g)
+
+
+@pytest.mark.parametrize("m,n", [
+    (12800, 768), (12800, 3072),      # ViT-B/32: 256 images x 50 tokens
+    (65792, 1024), (65792, 4096),     # ViT-L/14: 256 images x 257 tokens
+    (1, 8), (4 * 257 + 3, 1024),      # one row; ragged rows
+    (1000, 8 * 97),                   # a column count no stride divides
+])
+@pytest.mark.parametrize("act", [None, "quick_gelu", "gelu"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_dense_epilogue_kernel_matches_plain(dev, m, n, act, with_bias):
+    """The kernel equals the plain ops (torch.add(out=bf16), then
+    quick_gelu's sigmoid chain or F.gelu in f32) bit for bit."""
+    y = _epilogue_sums(m, n, dev, seed=m + n)
+    b = _epilogue_bias(n, dev, seed=n) if with_bias else None
+    before = bias_act.launches
+    out = bias_act(y, b, act, torch.bfloat16)
+    assert bias_act.launches == before + 1
+    ref = bias_act(y, b, act, torch.bfloat16, impl="torch")
+    diff = out.view(torch.int16) != ref.view(torch.int16)
+    assert not bool(diff.any()), (
+        f"{int(diff.sum())} of {diff.numel()} elements differ, first at "
+        f"{diff.nonzero()[0].tolist()}")
+
+
+def test_dense_epilogue_kernel_rejects_what_it_cannot_run(dev):
+    y = torch.randn((4, 32), device=dev)
+    b = torch.randn(32, device=dev)
+    with pytest.raises(ValueError, match="N % 8"):
+        bias_act(torch.randn((4, 12), device=dev), None, None,
+                 torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 sums"):
+        bias_act(y.bfloat16(), b, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 sums"):
+        bias_act(y, b, None, torch.float32)
+    with pytest.raises(ValueError, match="f32 bias"):
+        bias_act(y, b.bfloat16(), None, torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 bias"):
+        bias_act(y, b[:16], None, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        bias_act(torch.randn((4, 64), device=dev)[:, :32], b, None,
+                 torch.bfloat16)
+    with pytest.raises(ValueError, match="inputs on"):
+        bias_act(y, b.cpu(), None, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bias_act_cuda(y.cpu(), None, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="activation"):
+        bias_act(y, b, "relu", torch.bfloat16)
+    with pytest.raises(RuntimeError, match="autograd"):
+        bias_act(y.requires_grad_(True), b, None, torch.bfloat16)
+    assert bias_act(torch.empty((0, 32), device=dev), b, "gelu",
+                    torch.bfloat16).shape == (0, 32)
+
+
+def test_dense_on_the_card_takes_the_epilogue_kernel(dev):
+    """A bf16 inference dense launches the kernel once (with its MLP's
+    activation); `impl="torch"`, an f32 one and a training call keep the
+    plain ops, with the kernel's bits; a ragged width raises."""
+    from torch import nn
+
+    lin = nn.Linear(64, 256).to(dev).requires_grad_(False)
+    x = torch.randn((3, 50, 64), device=dev).bfloat16()
+    before = bias_act.launches
+    with torch.no_grad():
+        got = layers.dense(x, lin, torch.bfloat16, act=layers.quick_gelu)
+    assert bias_act.launches == before + 1
+    y = torch.mm(x.reshape(-1, 64), lin.weight.bfloat16().T,
+                 out_dtype=torch.float32)
+    want = bias_act(y, lin.bias, "quick_gelu", torch.bfloat16, impl="torch")
+    assert torch.equal(got.reshape(-1, 256).view(torch.int16),
+                       want.view(torch.int16))
+    with torch.no_grad():
+        plain = layers.dense(x, lin, torch.bfloat16, act=layers.quick_gelu,
+                             impl="torch")
+    assert torch.equal(plain.view(torch.int16), got.view(torch.int16))
+    layers.dense(x, lin, torch.float32)
+    with pytest.raises(ValueError, match="N % 8"):
+        layers.dense(x, nn.Linear(64, 36).to(dev).requires_grad_(False),
+                     torch.bfloat16)
+    lin.requires_grad_(True)
+    layers.dense(x, lin, torch.bfloat16, act=layers.gelu).float().sum(
+        ).backward()
+    assert bias_act.launches == before + 1 and lin.bias.grad is not None
+
+
+@pytest.mark.parametrize("name,layers_n", [("vit_b32", 12), ("vit_l14", 24)])
+def test_image_tower_launches_the_epilogue_per_dense(dev, name, layers_n):
+    """Six denses a block (wq, wk, wv, wo, w1 with its QuickGELU, w2) and
+    the bias-free patch embedding: one launch each, no more; the plain
+    tower (attn_impl = mlp_impl = "torch") launches none."""
+    from mmrs_tpu_torch.models import vit
+    from mmrs_tpu_torch.models.configs import IMAGE_TOWERS
+
+    cfg = IMAGE_TOWERS[name]
+    assert cfg.layers == layers_n
+    model = vit.VisionTransformer(cfg, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval().requires_grad_(False)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Linear):
+            m.weight.data = m.weight.data.bfloat16()
+    images = torch.randn((2, 224, 224, 3), device=dev).bfloat16()
+    before = bias_act.launches
+    with torch.inference_mode():
+        out = model(images)
+    assert bias_act.launches - before == 6 * layers_n + 1
+    assert torch.isfinite(out).all()
+    before = bias_act.launches
+    with torch.inference_mode():
+        model(images, attn_impl="torch", mlp_impl="torch")
+    assert bias_act.launches == before

@@ -1,19 +1,21 @@
 """Seeded random weights, made on the device in the dtype they are served in.
 
-Every parameter of a configuration's towers is named and shaped by its
-reference module (`reference/<kind>.weight_shapes`); the parameters of one
-distribution are drawn by one call of a device generator and handed out
-as views. Matmul weights are bfloat16 (the served dtype); embeddings,
-biases and LayerNorm parameters float32, as the served towers keep them.
-Biases and LayerNorm parameters are random too, so that a path that drops
-one shows.
+Every parameter of a configuration's parts is named and shaped by its
+reference module (`reference/<kind>.weight_shapes`): the pair's two
+towers (`make`), or a verifier's tower, projector and decoder (`draw`
+over the list its reference gives); the parameters of one distribution
+are drawn by one call of a device generator and handed out as views.
+Matmul weights are bfloat16 (the served dtype); embeddings, biases and
+LayerNorm parameters float32, as the served towers keep them. Biases and
+LayerNorm parameters are random too, so that a path that drops one
+shows.
 """
 
 from __future__ import annotations
 
 import importlib
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -57,10 +59,13 @@ def _law(init: str, shape: tuple, spec: Dict
     }[init]
 
 
-def make(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The pair's weights from `seed`, on `device`."""
+def draw(params: Sequence[Tuple[str, tuple, str, Dict]], seed: int,
+         device) -> Dict[str, torch.Tensor]:
+    """The parameters (name, shape, init, spec of the part each belongs
+    to) drawn from `seed` on `device`, in the dtype they are served in:
+    one draw a law, handed out as views."""
     groups: Dict[Tuple, List[Tuple[str, tuple]]] = {}
-    for name, shape, init, spec in shapes(cfg):
+    for name, shape, init, spec in params:
         groups.setdefault(_law(init, shape, spec), []).append((name, shape))
     gen = torch.Generator(device=device).manual_seed(seed)
     out: Dict[str, torch.Tensor] = {}
@@ -76,6 +81,11 @@ def make(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
             flat[pick < OUTLIER_SHARE] *= gain
         for (name, shape), part in zip(leaves, flat.split(sizes)):
             out[name] = part.view(shape)
-    out["logit_scale"] = torch.tensor(math.log(1 / 0.07), device=device)
     return out
 
+
+def make(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The pair's weights from `seed`, on `device`."""
+    out = draw(shapes(cfg), seed, device)
+    out["logit_scale"] = torch.tensor(math.log(1 / 0.07), device=device)
+    return out

@@ -11,6 +11,13 @@ once on one NVIDIA GPU.
     python3 chip_smoke.py --flat-times ROOT
         (only phase 6's flat-scan and bucket-probe timing, of the package
         under ROOT, as one JSON line: what --parent runs)
+    python3 chip_smoke.py --siglip [--parent DIR]
+        (phases 1-2's build, then only the SigLIP phase: K2 at hd 72, E1
+        and K6 at tanh GELU, the so400m/14 tower's batch; with --parent,
+        K2 of DIR's tree at the same shape, --k2-times DIR)
+    python3 chip_smoke.py --k2-times ROOT
+        (K2 at SigLIP's [256, 729, 1152] / 16 of the package under ROOT,
+        as one JSON line)
     python3 chip_smoke.py --mesh-worker COORD NPROC PID OUT CENTS
         (one of phase 4i's processes on the card; the phase starts them)
 
@@ -264,6 +271,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -4367,6 +4375,173 @@ def epilogue_time_lines(epi: dict, card: str):
     return lines
 
 
+# ---- the SigLIP so400m/14 tower's kernels (K2 at hd 72, E1 tanh GELU) -------
+
+SIGLIP_BATCH = 256            # the siglip-so400m.index cell's batch
+SIGLIP_T, SIGLIP_W, SIGLIP_HEADS, SIGLIP_MLP = 729, 1152, 16, 4304
+
+
+def k2_times(dev) -> dict:
+    """K2 at SigLIP's [256, 729, 1152] / 16 heads of 72, of whatever
+    package `mmrs_tpu_torch` imports (this tree's, or a parent's under
+    --k2-times ROOT): ms a call (CUDA events) and the plan it took."""
+    from mmrs_tpu_torch.ops.attention import mha_plan, mha_short_seq
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((SIGLIP_BATCH, SIGLIP_T, SIGLIP_W), device=dev,
+                           generator=gen).bfloat16() for _ in range(3))
+    hd = SIGLIP_W // SIGLIP_HEADS
+    q = q * hd ** -0.5
+    with torch.inference_mode():
+        ms = time_ms(lambda: mha_short_seq(q, k, v, SIGLIP_HEADS), iters=10)
+    return {"ms": ms, "plan": list(mha_plan(SIGLIP_T, hd, torch.bfloat16))}
+
+
+def siglip_phase(dev, card: str, parent: Optional[str] = None) -> list:
+    """SigLIP's kernels at the index cell's shapes: K2 at [256, 729, 1152]
+    / 16 heads of 72 on its HDP = 80 instance against the plain version,
+    its ms beside the parent tree's (hd 72 padded to 128; a process of its
+    own, --k2-times), SDPA's and the bound; E1's tanh GELU at [186,624,
+    4304] f32 sums (every bf16 bit against the plain ops, its ms beside
+    its bound); K6's tanh GELU at [5,832, 1152] -> 4304 (H padded to 4320)
+    equal to its plain version; K3 with SigLIP's mean and std at [256,
+    384, 384, 3] against its plain version; and one `image_encode` of 256
+    uint8 images through `build_towers`'s pair (random weights) with its
+    K3, K2, E1 and pool-attention launches."""
+    import torch.nn.functional as F
+
+    from mmrs_tpu_torch.models.layers import MLP
+    from mmrs_tpu_torch.models.quantize import quantize_tree
+    from mmrs_tpu_torch.ops.attention import mha_short_seq, pool_attention
+    from mmrs_tpu_torch.ops.dense_epilogue import bias_act, gelu_tanh
+    from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+
+    lines = []
+    b, t, w, h = SIGLIP_BATCH, SIGLIP_T, SIGLIP_W, SIGLIP_HEADS
+    hd = w // h
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.inference_mode():
+        q, k, v = (torch.randn((b, t, w), device=dev, generator=gen)
+                   .bfloat16() for _ in range(3))
+        q = q * hd ** -0.5
+        d = float((mha_short_seq(q, k, v, h).float()
+                   - mha_short_seq(q, k, v, h, impl="torch").float())
+                  .abs().max())
+        check(d <= 2e-2, f"K2 SigLIP [{b},{t},{w}]/{h}: max|d| {d}")
+        kms, pms = time_pair(lambda: mha_short_seq(q, k, v, h),
+                             lambda: mha_short_seq(q, k, v, h, impl="torch"),
+                             iters=5, warmup=2)
+        q4, k4, v4 = (x.view(b, t, h, hd).transpose(1, 2).contiguous()
+                      for x in (q, k, v))
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), iters=10)
+        del q4, k4, v4
+        bound, by = least_ms(4 * 2 * b * t * w, 4.0 * b * t * t * w, "bf16")
+        old = {}
+        if parent is not None:
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--k2-times",
+                 parent], capture_output=True, text=True, timeout=1200)
+            check(out.returncode == 0, f"--k2-times {parent}: "
+                  f"{out.stderr[-2000:]}")
+            old = json.loads(out.stdout.strip().splitlines()[-1])
+        lines.append(
+            f"phase 3 K2 SigLIP [{b},{t},{w}]/{h} (hd {hd}) bf16 on {card}: "
+            f"max|d| {d:.3e}; kernel {kms:.4f} ms (HDP 80), "
+            + (f"parent {old['ms']:.4f} ms (plan {old['plan']}), "
+               if old else "")
+            + f"SDPA {sdpa:.4f} ms, plain {pms:.4f} ms; bound {bound:.4f} "
+            f"ms ({by}): {100 * bound / kms:.1f}% of it")
+        del q, k, v
+
+        rows = b * t
+        y = epilogue_sums(dev, rows, SIGLIP_MLP, SEED + 7)
+        bias = torch.randn(SIGLIP_MLP, device=dev, generator=gen)
+        got = bias_act(y, bias, "gelu_tanh", torch.bfloat16)
+        ref = bias_act(y, bias, "gelu_tanh", torch.bfloat16, impl="torch")
+        diff = got.view(torch.int16) != ref.view(torch.int16)
+        n_diff = int(diff.sum())
+        ulps = bf16_ulps(got, ref)
+        check(n_diff == 0, f"E1 gelu_tanh [{rows},{SIGLIP_MLP}]: {n_diff} "
+              f"elements differ from the plain ops, at most {ulps} ulp")
+        del got, ref, diff
+        ems, eplain = time_pair(
+            lambda: bias_act(y, bias, "gelu_tanh", torch.bfloat16),
+            lambda: bias_act(y, bias, "gelu_tanh", torch.bfloat16,
+                             impl="torch"), iters=10)
+        ebound = (rows * SIGLIP_MLP * 6 + 4 * SIGLIP_MLP) / PEAK_BYTES * 1e3
+        lines.append(
+            f"phase 3 E1 gelu_tanh [{rows},{SIGLIP_MLP}] f32 -> bf16 on "
+            f"{card}: {n_diff} elements differ from the plain ops; kernel "
+            f"{ems:.4f} ms ({ems / ebound:.2f}x its bound {ebound:.4f} ms, "
+            f"{100 * ebound / ems:.1f}%), plain ops {eplain:.4f} ms")
+        del y
+
+        m = 8 * t
+        with torch.device(dev):       # quantized as the int8 tower is
+            mlp = quantize_tree(MLP(w, SIGLIP_MLP, gelu_tanh))
+        layer1, layer2 = mlp.w1, mlp.w2
+        check(layer1.q.shape == (4320, w), f"K6: the int8 MLP's w1 is "
+              f"{tuple(layer1.q.shape)}, want H padded to 4320")
+        x = torch.randn((m, w), device=dev, generator=gen).bfloat16()
+        args = (x, layer1.q, layer1.s, layer1.bias, layer2.q, layer2.s,
+                layer2.bias)
+        got = mlp_int8_fused(*args, act="gelu_tanh")
+        ref = mlp_int8_fused(*args, act="gelu_tanh", impl="torch")
+        n_diff = int((got != ref).sum())
+        check(n_diff == 0, f"K6 gelu_tanh [{m},{w}]->{SIGLIP_MLP}: {n_diff} "
+              f"elements differ")
+        lines.append(f"phase 3 K6 gelu_tanh [{m},{w}] -> {SIGLIP_MLP} (H "
+                     f"padded to 4320): {n_diff} elements differ from plain")
+        del x, got, ref, mlp, layer1, layer2
+
+        # the main path: the pair through build_towers, one image_encode
+        # of uint8 384 px images (K3 with SigLIP's mean and std, the
+        # tower, the MAP head's `towers.pool`), its launches counted
+        from mmrs_tpu_torch.config import Config, ModelConfig
+        from mmrs_tpu_torch.ops.preprocess import normalize_images
+        from mmrs_tpu_torch.pipeline import build_towers
+
+        towers = build_towers(Config(model=ModelConfig(
+            image_tower="siglip_so400m_384",
+            text_tower="siglip_text_so400m", dtype="bfloat16"), seed=SEED),
+            device=dev)
+        cfg = towers.clip_config.vision
+        s = cfg.image_size
+        px_u8 = torch.randint(0, 256, (b, s, s, 3), device=dev,
+                              dtype=torch.uint8, generator=gen)
+        half = (0.5, 0.5, 0.5)
+        got = normalize_images(px_u8, mean=half, std=half)
+        ref = normalize_images(px_u8, impl="torch", mean=half, std=half)
+        # as tests/test_torch_cuda.py: at most one bf16 ulp apart
+        k3_ok = torch.allclose(got.float(), ref.float(), atol=1e-6,
+                               rtol=2 ** -7)
+        check(k3_ok, f"K3 SigLIP mean / std [{b},{s},{s},3] against the "
+              f"plain ops")
+        del got, ref
+        px = px_u8.cpu().numpy()
+        fns = (normalize_images, mha_short_seq, bias_act, pool_attention)
+        before = [f.launches for f in fns]
+        emb = towers.image_encode(px)
+        counts = tuple(f.launches - n for f, n in zip(fns, before))
+        want = (1, cfg.layers, 6 * cfg.layers + 1 + 6, 1)
+        check(counts == want,
+              f"SigLIP image_encode batch: K3 / K2 / E1 / pool launches "
+              f"{counts}, want {want}")
+        check(emb.shape == (b, cfg.embed_dim) and bool(np.isfinite(
+            emb).all()), f"SigLIP image_encode: {emb.shape}")
+        tower = time_ms(lambda: towers.encode_fn(px_u8), iters=3, warmup=1)
+        lines.append(
+            f"phase 3 SigLIP so400m/14 image_encode (build_towers, bf16, "
+            f"random weights), batch {b} of uint8 {s} px on {card}: K3 "
+            f"with mean / std 0.5 within one bf16 ulp of the plain ops; "
+            f"{tower:.1f} ms on device tensors ({b / tower * 1e3:.1f} "
+            f"img/s); {counts[0]} K3, {counts[1]} K2, {counts[2]} E1, "
+            f"{counts[3]} pool-attention launches")
+        del towers, px_u8, px
+    return lines
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4375,6 +4550,29 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["--mesh-worker"] and len(argv) == 6:
         return mesh_worker(argv[1:])
+    if argv[:1] == ["--k2-times"] and len(argv) == 2:
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        print(json.dumps(k2_times(torch.device("cuda", 0))))
+        return 0
+    if argv[:1] == ["--siglip"] and len(argv) in (1, 3):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from mmrs_tpu_torch.ops import _cuda
+
+        _cuda.build()
+        _cuda.library()
+        log = _cuda.library_path()[:-3] + ".log"
+        if os.path.exists(log):
+            for name, usage in ptxas_lines(log):
+                if "mha_mma_kernel" in name or "bias_act" in name:
+                    say(f"  ptxas {name}: {usage}")
+        parent = (os.path.abspath(argv[2]) if argv[1:2] == ["--parent"]
+                  else None)
+        for line in siglip_phase(torch.device("cuda", 0), card_line(),
+                                 parent):
+            say(line)
+        print(json.dumps({"ok": True, "seconds": time.perf_counter()
+                          - t_start}))
+        return 0
     if argv[:1] == ["--flat-times"] and len(argv) == 2:
         sys.path.insert(0, os.path.abspath(argv[1]))
         dev = torch.device("cuda", 0)
@@ -4480,6 +4678,8 @@ def main(argv) -> int:
     epi = dense_epilogue_phase(dev)
     errs["bias_act"] = 0.0            # every bit checked
     for line in epi["lines"]:
+        say(line)
+    for line in siglip_phase(dev, card, parent):
         say(line)
     with torch.inference_mode():
         errs["mha_short_seq"] = 0.0

@@ -253,7 +253,10 @@ def cmd_index_build(args) -> int:
         else:
             print("--sharded requested but only one device; using it",
                   file=sys.stderr)
-    ds = FolderDataset.from_root(args.root, num_workers=args.workers)
+    vision = towers.clip_config.vision
+    ds = FolderDataset.from_root(args.root, num_workers=args.workers,
+                                 image_size=vision.image_size,
+                                 stack=vision.stack)
     idx = build_index(ds, encode, args.out,
                       batch_size=cfg.gallery.batch_size,
                       shard_rows=cfg.gallery.shard_rows,
@@ -270,7 +273,10 @@ def cmd_index_update(args) -> int:
 
     cfg = _load_config(args.config)
     towers = build_towers(cfg)
-    ds = FolderDataset.from_root(args.root, num_workers=args.workers)
+    vision = towers.clip_config.vision
+    ds = FolderDataset.from_root(args.root, num_workers=args.workers,
+                                 image_size=vision.image_size,
+                                 stack=vision.stack)
     idx = update_index(ds, towers.image_encode, args.index,
                        batch_size=cfg.gallery.batch_size,
                        shard_rows=cfg.gallery.shard_rows)
@@ -394,7 +400,9 @@ def cmd_search(args) -> int:
     towers = build_towers(cfg, tokenizer=_make_tokenizer(args, cfg))
 
     if args.image:
-        loaded = [load_image(p) for p in args.image]
+        vision = towers.clip_config.vision
+        loaded = [load_image(p, vision.image_size, vision.stack)
+                  for p in args.image]
         bad = [p for p, r in zip(args.image, loaded) if not r.ok]
         if bad:
             print("could not decode query image(s): " + ", ".join(bad),

@@ -54,4 +54,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 
+// GELU's tanh approximation with the roundings of PyTorch's CUDA kernel
+// (F.gelu(x, approximate="tanh") on f32): x^3 as (x * x) * x, the inner
+// sum x + kappa x^3 as one FMA (as nvcc contracts that kernel's
+// expression), tanhf, then (0.5 x) (1 + tanh); beta and kappa are that
+// kernel's double constants cast to f32.
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float beta = static_cast<float>(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
+  const float kappa = static_cast<float>(0.044715);
+  const float cube = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(beta, fmaf(kappa, cube, x));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
+}
+
 }  // namespace mmrs

@@ -1,7 +1,8 @@
 // The float dense layer's epilogue in one pass (mmrs_tpu_torch/ops/
 // dense_epilogue.py): the f32 sums of a bf16 GEMM, plus the f32 bias,
-// rounded once to bf16, then optionally QuickGELU or GELU with the
-// roundings of the plain PyTorch ops it replaces, written as bf16.
+// rounded once to bf16, then optionally QuickGELU, GELU or GELU's tanh
+// approximation with the roundings of the plain PyTorch ops it replaces,
+// written as bf16.
 //
 // Replaces the Pallas TPU kernel: none. The JAX package leaves this
 // epilogue to XLA, which fuses it into the matrix product; the port's
@@ -21,6 +22,7 @@
 //   QuickGELU: s = bf16_rn(1 / (1 + expf(-(1.702f * y))))   sigmoid, .to()
 //              out = bf16_rn(y * s)                          x * s in bf16
 //   GELU:      out = bf16_rn(y * 0.5f * (1 + erff(y * M_SQRT1_2)))
+//   tanh GELU: out = bf16_rn(mmrs::gelu_tanh(y))          common.cuh
 #include <math.h>
 
 #include "common.cuh"
@@ -28,7 +30,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-enum Act { kNone = 0, kQuickGelu = 1, kGelu = 2 };
+enum Act { kNone = 0, kQuickGelu = 1, kGelu = 2, kGeluTanh = 3 };
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -44,6 +46,8 @@ __device__ __forceinline__ float activate(float y) {
   } else if (ACT == kGelu) {
     const float alpha = static_cast<float>(M_SQRT1_2);
     return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erff(__fmul_rn(y, alpha))));
+  } else if (ACT == kGeluTanh) {
+    return mmrs::gelu_tanh(y);
   }
   return y;
 }
@@ -105,7 +109,7 @@ int slots() {
 extern "C" {
 
 // Blocks of kThreads the card holds at once for an instance (act: 0 none,
-// 1 QuickGELU, 2 GELU), or -1.
+// 1 QuickGELU, 2 GELU, 3 tanh GELU), or -1.
 int mmrs_bias_act_slots(int act, int has_bias) {
   switch (act * 2 + (has_bias ? 1 : 0)) {
     case 0: return slots<kNone, false>();
@@ -114,6 +118,8 @@ int mmrs_bias_act_slots(int act, int has_bias) {
     case 3: return slots<kQuickGelu, true>();
     case 4: return slots<kGelu, false>();
     case 5: return slots<kGelu, true>();
+    case 6: return slots<kGeluTanh, false>();
+    case 7: return slots<kGeluTanh, true>();
   }
   return -1;
 }
@@ -128,7 +134,7 @@ int mmrs_bias_act_slots(int act, int has_bias) {
 // is restored (as a PyTorch device guard does).
 int mmrs_bias_act(const void* y, const void* bias, void* out, long long m, int n, int act,
                   int blocks, int device, void* stream) {
-  if (n < 8 || n % 8 || m < 1 || blocks < 1 || act < 0 || act > 2 ||
+  if (n < 8 || n % 8 || m < 1 || blocks < 1 || act < 0 || act > 3 ||
       (static_cast<long long>(blocks) * kThreads) % (n / 8))
     return static_cast<int>(cudaErrorInvalidValue);
   int caller = 0;
@@ -144,6 +150,8 @@ int mmrs_bias_act(const void* y, const void* bias, void* out, long long m, int n
     case 3: rc = launch<kQuickGelu, true>(y, bias, out, m, n, blocks, s); break;
     case 4: rc = launch<kGelu, false>(y, bias, out, m, n, blocks, s); break;
     case 5: rc = launch<kGelu, true>(y, bias, out, m, n, blocks, s); break;
+    case 6: rc = launch<kGeluTanh, false>(y, bias, out, m, n, blocks, s); break;
+    case 7: rc = launch<kGeluTanh, true>(y, bias, out, m, n, blocks, s); break;
   }
   if (caller != device) cudaSetDevice(caller);
   return rc;

@@ -10,8 +10,9 @@
 // f32 and the output is rounded to the input type.
 //
 // What bounds it on the H100: at the vision towers' T (50 for B/32, 257 for
-// L/14, 577 for the 336-px L/14) the products are 4 T^2 hd flops a head
-// against 8 T hd bytes, so the bound is bytes below T ~ 600 and a generic
+// L/14, 577 for the 336-px L/14, 729 for SigLIP at 384 px) the products
+// are 4 T^2 hd flops a head against 8 T hd bytes, so the bound is bytes
+// below T ~ 600 and a generic
 // implementation loses to the [B, H, T, T] logits' traffic and to head
 // transposes in device memory. Every route here moves only the four
 // [B, T, W] tensors: a block reads its head's column slice straight from
@@ -220,7 +221,9 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores. HDP: hd padded to 32, 64 or 128. VEC: 16-byte
+// bf16 on tensor cores. HDP: hd padded to 32, 64, 80 or 128 (80: SigLIP's
+// heads of 72, ViT-H/14's of 80; its rows of 88 bf16, 176 bytes, keep
+// ldmatrix's eight row addresses on distinct banks). VEC: 16-byte
 // cp.async rows (hd % 8 == 0, W % 8 == 0, 16-byte aligned pointers); else
 // element loads. Grid (ceil(T / rows), heads, B), rows = 16 * warps.
 constexpr int kMmaThreads = 256;   // 8 warps at most
@@ -418,6 +421,7 @@ int mmrs_mha_short_seq_mma(const void* q, const void* k, const void* v, void* ou
   if (warps < 1 || warps > kMmaThreads / 32) return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 32) return launch_mma_vec<32>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
   if (hd <= 64) return launch_mma_vec<64>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
+  if (hd <= 80) return launch_mma_vec<80>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
   if (hd <= 128) return launch_mma_vec<128>(vec, q, k, v, out, B, Tn, W, heads, warps, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

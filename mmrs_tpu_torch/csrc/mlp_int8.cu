@@ -1,5 +1,6 @@
 // Int8 transformer MLP for Hopper (sm_90a), in four launches:
-//   row-quantize x -> s8 GEMM with w1, * scales + bias, GELU / quick_gelu
+//   row-quantize x -> s8 GEMM with w1, * scales + bias, GELU / tanh GELU /
+//   quick_gelu
 //   (f32 h) -> row-quantize h -> s8 GEMM with w2, * scales + bias -> x's
 //   dtype.
 //
@@ -62,13 +63,15 @@ constexpr int kQuantRows = kThreads / 32;  // rows a row_quant block takes
 // the constant 127, which XLA turns into this product
 constexpr float kInv127 = 1.f / 127.f;
 
-// act: 0 = quick_gelu, x * sigmoid(1.702 x); 1 = erf GELU.
+// act: 0 = quick_gelu, x * sigmoid(1.702 x); 1 = erf GELU; 2 = GELU's
+// tanh approximation (F.gelu(h, approximate="tanh")'s roundings).
 __device__ __forceinline__ float activation(float h, int act) {
   if (act == 0) {
     // 1 / v correctly rounded: the bits of the division the reference takes
     const float sig = __frcp_rn(__fadd_rn(1.f, expf(-__fmul_rn(1.702f, h))));
     return __fmul_rn(h, sig);
   }
+  if (act == 2) return mmrs::gelu_tanh(h);
   return __fmul_rn(__fmul_rn(h, 0.5f), __fadd_rn(1.f, erff(__fmul_rn(h, 0.70710678118654752f))));
 }
 
@@ -296,7 +299,8 @@ int mmrs_mlp_int8_geometry(int what) {
   return what >= 0 && what < 4 ? v[what] : -1;
 }
 
-// dtype: 0 = bf16, 1 = f32; act: 0 = quick_gelu, 1 = gelu. Scratch from
+// dtype: 0 = bf16, 1 = f32; act: 0 = quick_gelu, 1 = gelu, 2 = tanh GELU
+// (H padded by the caller to a multiple of 32, with zero units). Scratch from
 // the caller: xq int8 [M, W], sx f32 [M], h f32 [M, H], hmax f32 [M,
 // ceil(H / 128)], hq int8 [M, H], sh f32 [M]. The caller
 // (mmrs_tpu_torch/ops/mlp_int8.py) plans with `mlp_plan` and checks: CUDA,

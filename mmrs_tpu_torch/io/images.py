@@ -63,15 +63,22 @@ class ImageLoadResult:
 
 
 def load_image(path: str, size: int = 224, stack: str = "openai") -> ImageLoadResult:
-    """Decode + resize + center-crop one image with quarantine-on-error.
+    """Decode + resize (+ center-crop) one image with quarantine-on-error.
 
-    stack: "openai" (clip.load preprocess geometry) or "hf" (CLIPProcessor).
+    stack: "openai" (clip.load preprocess geometry), "hf" (CLIPProcessor)
+    or "siglip" (SiglipImageProcessor: the whole image resized to size x
+    size, bicubic, no crop).
     """
-    from mmrs_tpu_torch.ops.preprocess import hf_resize_center_crop, resize_center_crop
+    from mmrs_tpu_torch.ops.preprocess import (hf_resize_center_crop,
+                                               resize_center_crop,
+                                               resize_square)
 
+    fn = {"openai": resize_center_crop, "hf": hf_resize_center_crop,
+          "siglip": resize_square}.get(stack)
+    if fn is None:
+        raise ValueError(f"unknown preprocessing stack {stack!r}")
     try:
         img = pil_loader(path)
-        fn = resize_center_crop if stack == "openai" else hf_resize_center_crop
         return ImageLoadResult(fn(img, size), True, path)
     except Exception as e:  # noqa: BLE001 — quarantine ANY decode failure
         return ImageLoadResult(

@@ -2,9 +2,11 @@
 
 Counterpart of mmrs_tpu/models/clip.py: the CLIP pair and the Chinese
 Taiyi pair (a ViT image tower with the Taiyi RoBERTa text tower,
-models/bert.py). The scoring contracts are the reference's:
-softmax over `100 * image @ text.T` (CLIP/lab1.py:90-91) and the
-logit-scaled cosine (code/merge_dataset.py:275-279). logit_scale stays f32.
+models/bert.py), and the SigLIP pair (its ViT with a MAP head and its
+bidirectional text tower; it holds the sigmoid loss's logit_scale and
+logit_bias). The scoring contracts are the reference's: softmax over
+`100 * image @ text.T` (CLIP/lab1.py:90-91) and the logit-scaled cosine
+(code/merge_dataset.py:275-279). logit_scale stays f32.
 """
 
 from __future__ import annotations
@@ -116,3 +118,33 @@ def taiyi_encode_text(model: TaiyiCLIP, tokens: torch.Tensor,
     num_labels] f32 (the classifier's logits, L2-normalized)."""
     feats = model.text(tokens, attention_mask, compute_dtype)
     return l2_normalize(feats) if normalize else feats
+
+
+# --- SigLIP pair -------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SigLIPConfig:
+    vision: VITConfig
+    text: TextConfig
+    logit_scale_init: float = float(np.log(10.0))   # the paper's t' init
+    logit_bias_init: float = -10.0
+
+
+class SigLIP(nn.Module):
+    """The SigLIP pair: `visual` (pool="map") and `text` (bidirectional,
+    last-token pooling, a biased head), with the sigmoid loss's learned
+    `logit_scale` and `logit_bias` (f32). `encode_image` / `encode_text`
+    take it as they take the CLIP pair. With a generator the weights are
+    random-initialized from it; without one they are placeholders."""
+
+    def __init__(self, cfg: SigLIPConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = VisionTransformer(cfg.vision, generator)
+        self.text = TextTransformer(cfg.text, generator)
+        self.logit_scale = nn.Parameter(
+            torch.tensor(cfg.logit_scale_init, dtype=torch.float32))
+        self.logit_bias = nn.Parameter(
+            torch.tensor(cfg.logit_bias_init, dtype=torch.float32))
+

@@ -40,9 +40,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmrs_tpu_torch.ops.attention import mha_short_seq
-from mmrs_tpu_torch.ops.dense_epilogue import (act_name, bias_act, gelu,
-                                               quick_gelu, records_grad)
+from mmrs_tpu_torch.ops.attention import mha_short_seq, pool_attention
+from mmrs_tpu_torch.ops.dense_epilogue import (ACTIVATIONS, act_name,
+                                               bias_act, gelu, quick_gelu,
+                                               records_grad)
 from mmrs_tpu_torch.ops.int8 import INV_127, int8_linear, int_mm, quantize_act
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 
@@ -274,9 +275,11 @@ def row_parallel(xs, layers, compute_dtype: torch.dtype,
 def project(x: torch.Tensor, layer: nn.Linear, compute_dtype: torch.dtype
             ) -> torch.Tensor:
     """Final embedding projection: compute-dtype operands, f32 result (the
-    JAX towers keep the projected features in f32)."""
+    JAX towers keep the projected features in f32), plus the layer's f32
+    bias where it has one (SigLIP's text head)."""
+    bias = None if layer.bias is None else layer.bias.float()
     return F.linear(x.to(compute_dtype).float(),
-                    layer.weight.to(compute_dtype).float())
+                    layer.weight.to(compute_dtype).float(), bias)
 
 
 class Attention(nn.Module):
@@ -388,15 +391,17 @@ def _row_dense(xs, layers, bias: Optional[torch.Tensor],
 
 
 class Block(nn.Module):
-    """CLIP-style pre-LayerNorm residual block."""
+    """CLIP-style pre-LayerNorm residual block. `hidden` is the MLP's width
+    (default mlp_ratio x width; SigLIP's 4304), `eps` the LayerNorms'."""
 
     def __init__(self, width: int, heads: int, act: Callable,
-                 mlp_ratio: int = 4):
+                 mlp_ratio: int = 4, hidden: Optional[int] = None,
+                 eps: float = 1e-5):
         super().__init__()
-        self.ln1 = LayerNorm(width)
+        self.ln1 = LayerNorm(width, eps)
         self.attn = Attention(width, heads)
-        self.ln2 = LayerNorm(width)
-        self.mlp = MLP(width, width * mlp_ratio, act)
+        self.ln2 = LayerNorm(width, eps)
+        self.mlp = MLP(width, hidden or width * mlp_ratio, act)
 
     def piece(self, tp: int) -> BlockPiece:
         """An empty (meta-device) piece of this block for a model axis of
@@ -432,6 +437,36 @@ class Block(nn.Module):
                  for p, d in zip(parts, devs)]
         return x + _row_dense(inner, [p.mlp.w2 for p in parts],
                               self.mlp.w2.bias, cd, x.device, mlp_impl)
+
+
+class MapHead(nn.Module):
+    """Multihead attention pooling (SigLIP's `SiglipMultiheadAttention
+    PoolingHead`): a learned probe [1, 1, W] attends over the tokens
+    (`nn.MultiheadAttention`'s in-projection as wq / wk / wv, its
+    out-projection as wo, through `dense`), then h + MLP(LayerNorm(h)).
+    Returns the pooled [B, W] in the compute dtype."""
+
+    def __init__(self, width: int, heads: int, hidden: int, act: Callable,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.probe = nn.Parameter(torch.zeros(1, 1, width))
+        self.attn = Attention(width, heads)
+        self.ln = LayerNorm(width, eps)
+        self.mlp = MLP(width, hidden, act)
+
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
+                attn_impl: str = "auto", mlp_impl: str = "auto"
+                ) -> torch.Tensor:
+        cd, a = compute_dtype, self.attn
+        # the probe's query is the same for every image: one row
+        q = dense(self.probe, a.wq, cd, impl=attn_impl)
+        k, v = (dense(x, p, cd, impl=attn_impl) for p in (a.wk, a.wv))
+        scale = float(torch.tensor(1.0 / math.sqrt(q.shape[-1] // a.heads),
+                                   dtype=cd))
+        out = pool_attention((q * scale).expand(x.shape[0], -1, -1), k, v,
+                             a.heads, impl=attn_impl)
+        h = dense(out, a.wo, cd, impl=attn_impl)
+        return (h + self.mlp(self.ln(h), cd, mlp_impl))[:, 0]
 
 
 def init_blocks(blocks: nn.ModuleList, generator: torch.Generator) -> None:

@@ -30,7 +30,9 @@ import torch
 from torch import nn
 
 from mmrs_tpu_torch.models.checkpoint import QWeight
-from mmrs_tpu_torch.models.layers import QLinear, QLinear4, int8_weight
+from mmrs_tpu_torch.models.layers import (MLP, QLinear, QLinear4,
+                                          int8_weight)
+from mmrs_tpu_torch.ops.mlp_int8 import pad_hidden
 
 # layers eligible for int8, by attribute name: the JAX package's key set
 # {wq, wk, wv, wo, w1, w2, patch_kernel}, whose `patch_kernel` is the
@@ -40,13 +42,28 @@ QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "patch_embed"})
 
 def quantize_tree(module: nn.Module, keys=QUANT_KEYS) -> nn.Module:
     """Replace every eligible `nn.Linear` below `module` by its `QLinear`.
-    Layers that are already quantized are left as they are."""
+    Layers that are already quantized are left as they are. An MLP whose
+    two layers are int8 takes its hidden units in whole 32s
+    (`pad_int8_mlp`)."""
     for name, child in list(module.named_children()):
         if name in keys and isinstance(child, nn.Linear):
             setattr(module, name, QLinear.from_linear(child))
         else:
             quantize_tree(child, keys)
+    if isinstance(module, MLP):
+        pad_int8_mlp(module)
     return module
+
+
+def pad_int8_mlp(mlp: MLP) -> MLP:
+    """An int8 MLP of a ragged hidden width (SigLIP's 4304) with zero
+    units up to the next multiple of 32 in its buffers (ops/mlp_int8.
+    pad_hidden: the same bits), so that the fused kernel takes its weights
+    as they are in every call. Other MLPs are left as they are."""
+    w1, w2 = mlp.w1, mlp.w2
+    if isinstance(w1, QLinear) and isinstance(w2, QLinear):
+        w1.q, w1.s, w1.bias, w2.q = pad_hidden(w1.q, w1.s, w1.bias, w2.q)
+    return mlp
 
 
 def quantize_clip_visual(model: nn.Module) -> nn.Module:

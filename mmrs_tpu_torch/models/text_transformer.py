@@ -1,9 +1,13 @@
-"""CLIP text tower — causal transformer with EOT-token pooling.
+"""CLIP text tower — causal transformer with EOT-token pooling — and
+SigLIP's.
 
 Counterpart of mmrs_tpu/models/text_transformer.py: token + positional
 embedding, causally-masked pre-LN blocks, ln_final, the hidden state at the
 EOT position (the argmax token id — EOT has the highest id in the CLIP
-vocab), `text_projection` -> [B, embed_dim] f32, unnormalized.
+vocab), `text_projection` -> [B, embed_dim] f32, unnormalized. SigLIP's
+tower (`causal=False`, `pool="last"`, `head_bias`) is bidirectional (its
+blocks take the unmasked attention kernel, K2), pools the last position
+and adds the head's f32 bias.
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmrs_tpu_torch.models.configs import TextConfig
-from mmrs_tpu_torch.models.layers import (Block, LayerNorm, gelu, init_blocks,
-                                          project, quick_gelu)
+from mmrs_tpu_torch.models.layers import (ACTIVATIONS, Block, LayerNorm,
+                                          init_blocks, project)
 
 
 def causal_mask(t: int, device=None) -> torch.Tensor:
@@ -35,11 +39,15 @@ class TextTransformer(nn.Module):
         self.token_embedding = nn.Embedding(cfg.vocab_size, w)
         self.positional_embedding = nn.Parameter(
             torch.zeros(cfg.context_length, w))
-        act = quick_gelu if cfg.quick_gelu else gelu
+        if cfg.pool not in ("eot", "last"):
+            raise ValueError(f"unknown text pooling {cfg.pool!r}")
+        eps = cfg.layer_norm_eps
         self.blocks = nn.ModuleList(
-            Block(w, cfg.heads, act) for _ in range(cfg.layers))
-        self.ln_final = LayerNorm(w)
-        self.text_projection = nn.Linear(w, cfg.embed_dim, bias=False)
+            Block(w, cfg.heads, ACTIVATIONS[cfg.act], hidden=cfg.hidden,
+                  eps=eps) for _ in range(cfg.layers))
+        self.ln_final = LayerNorm(w, eps)
+        self.text_projection = nn.Linear(w, cfg.embed_dim,
+                                         bias=cfg.head_bias)
         if generator is not None:
             self.reset_parameters(generator)
 
@@ -52,6 +60,8 @@ class TextTransformer(nn.Module):
         init_blocks(self.blocks, generator)
         nn.init.normal_(self.text_projection.weight,
                         std=self.cfg.width ** -0.5, generator=generator)
+        if self.cfg.head_bias:
+            nn.init.zeros_(self.text_projection.bias)
 
     def forward(self, tokens: torch.Tensor,          # [B, T] int
                 compute_dtype: torch.dtype = torch.bfloat16,
@@ -63,11 +73,14 @@ class TextTransformer(nn.Module):
         tokens = tokens.long()
         x = F.embedding(tokens, self.token_embedding.weight).to(cd)
         x = x + self.positional_embedding[:t].to(cd)[None]
-        mask = causal_mask(t, x.device)
+        mask = causal_mask(t, x.device) if self.cfg.causal else None
         for i, blk in enumerate(self.blocks):
             x = blk(x, mask, cd, pieces=None if pieces is None
                     else pieces[i], devices=devices)
         x = self.ln_final(x)
-        eot = torch.argmax(tokens, dim=-1)                    # first max
-        pooled = x[torch.arange(b, device=x.device), eot]
+        if self.cfg.pool == "last":
+            pooled = x[:, -1]
+        else:
+            eot = torch.argmax(tokens, dim=-1)                # first max
+            pooled = x[torch.arange(b, device=x.device), eot]
         return project(pooled, self.text_projection, cd)      # f32

@@ -3,7 +3,8 @@ plain PyTorch version.
 
 Counterpart of mmrs_tpu/ops/attention.py. The vision towers' attention is
 unmasked over short sequences (T = 50 for B/32, 257 for L/14, 577 for the
-336-px L/14). The kernels (`csrc/mha_short_seq.cu`) read each head's column
+336-px L/14, 729 for SigLIP so400m/14 at 384 px, heads of 72). The kernels
+(`csrc/mha_short_seq.cu`) read each head's column
 slice straight from the [B, T, W] projections: bf16 heads up to 128 wide
 run on tensor cores (key tiles streamed through shared memory, an exact
 two-pass softmax in registers); f32, and bf16 heads wider than 128, on
@@ -20,6 +21,10 @@ in q's dtype.
 
 `impl`: "auto" (the kernel for CUDA tensors, the plain version for CPU
 tensors) or "torch" (the plain version anywhere).
+
+`pool_attention` is SigLIP's MAP head's attention: one learned query per
+image over the tower's T tokens, in plain PyTorch on any device (no
+kernel: it is 1/T of the tower's attention).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from mmrs_tpu_torch.ops import _cuda
 
 SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
 MMA_MAX_HD = 128      # widest bf16 head of the tensor-core route
+MMA_HDP = (32, 64, 80, 128)   # the tensor-core route's padded head dims
 MMA_KEYS = 64         # csrc/attention_mma.cuh kAttnKeys
 MMA_WARPS = 8         # csrc/mha_short_seq.cu kMmaThreads / 32
 FMA_TILE = 64         # csrc/mha_short_seq.cu kFmaTile: rows, keys, dims a step
@@ -64,12 +70,13 @@ def mha_plan(t: int, hd: int, dtype: torch.dtype) -> MhaPlan:
     """Launch shape of the kernel. bf16 with hd <= 128: tensor cores, 16
     query rows per warp, 4 to 8 warps (fewer for T < 64), shared memory
     bounded whatever T is: the Q tile [rows, hdp + 8] and a double-buffered
-    ring of K and V tiles [64, hdp + 8], hdp = hd padded to 32, 64 or 128.
+    ring of K and V tiles [64, hdp + 8], hdp = hd padded to 32, 64, 80 or
+    128 (80: SigLIP's heads of 72, and ViT-H/14's of 80).
     Otherwise the CUDA-core route: 64 query rows against key tiles of 64,
     64 head dims at a time, in FMA_SMEM bytes whatever T and hd are (Q and
     K chunks, the V chunk and the probabilities, [64][68] f32 each)."""
     if dtype == torch.bfloat16 and hd <= MMA_MAX_HD:
-        hdp = 32 if hd <= 32 else 64 if hd <= 64 else 128
+        hdp = next(p for p in MMA_HDP if hd <= p)
         # the fewest padded query rows, then the most warps (fewer blocks
         # restaging K and V): 8 warps at T = 577, 6 at 257, 4 at 50
         fewest = min(4, -(-t // 16))
@@ -137,3 +144,32 @@ def mha_short_seq(
 
 
 mha_short_seq.launches = 0   # kernel launches, for showing the path ran it
+
+
+def pool_attention(
+    q: torch.Tensor,        # [B, Q, W], scale already folded into q
+    k: torch.Tensor,        # [B, T, W]
+    v: torch.Tensor,        # [B, T, W]
+    heads: int,
+    impl: str = "auto",
+) -> torch.Tensor:          # [B, Q, W]
+    """Q queries a row (SigLIP's MAP head: one probe) over T keys, with
+    mha_short_seq's math: f32 logits and softmax, the probabilities
+    rounded to v's dtype, f32 sums, the output in q's dtype. Plain ops on
+    every device and `impl`."""
+    if impl not in ("auto", "torch"):
+        raise ValueError(f"unknown impl {impl!r}")
+    b, nq, w = q.shape
+    t, hd = k.shape[1], w // heads
+
+    def split(x, n):                              # [B, H, n, hd] f32
+        return x.reshape(b, n, heads, hd).transpose(1, 2).float()
+
+    logits = split(q, nq) @ split(k, t).transpose(-1, -2)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = probs.float() @ split(v, t)
+    pool_attention.launches += 1
+    return out.transpose(1, 2).reshape(b, nq, w).to(q.dtype)
+
+
+pool_attention.launches = 0   # calls, for showing the path ran it

@@ -6,10 +6,10 @@ version.
 added to the sums, one rounding to the compute dtype, and, where an MLP's
 first layer hands it over, the activation. The plain version is the ops
 the layer always ran: `torch.add(acc, b, out=)` (or `(acc + b).to()` while
-autograd records), then `quick_gelu` / `gelu` op by op. The kernel
-(`csrc/dense_epilogue.cu`) does all of it in one pass over the sums,
-with the same roundings, bit for bit: 6 bytes an element, where the plain
-ops move about 6 for the bias and about 34 more for QuickGELU.
+autograd records), then `quick_gelu` / `gelu` / `gelu_tanh` op by op.
+The kernel (`csrc/dense_epilogue.cu`) does all of it in one pass over the
+sums, with the same roundings, bit for bit: 6 bytes an element, where the
+plain ops move about 6 for the bias and about 34 more for QuickGELU.
 
 `bias_act(y32, bias, act, out_dtype, impl=)`: "auto" (the kernel for CUDA
 tensors, the plain version for CPU tensors) or "torch" (the plain version
@@ -30,7 +30,7 @@ from mmrs_tpu_torch.ops import _cuda
 
 THREADS = 256         # csrc/dense_epilogue.cu kThreads
 COLUMNS = 8           # columns a thread takes: two 16-byte f32 loads
-_ACT_CODE = {None: 0, "quick_gelu": 1, "gelu": 2}
+_ACT_CODE = {None: 0, "quick_gelu": 1, "gelu": 2, "gelu_tanh": 3}
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +42,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float()).to(x.dtype)
 
 
-ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu}
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU's tanh approximation (`gelu_pytorch_tanh`: SigLIP)."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu, "gelu_tanh": gelu_tanh}
 
 
 def act_name(act: Optional[Callable]) -> Optional[str]:
@@ -141,8 +146,8 @@ def bias_act(y32: torch.Tensor, bias: Optional[torch.Tensor],
              impl: str = "auto") -> torch.Tensor:
     """act(round(y32 + bias)) in out_dtype: the f32 sums of a dense layer,
     plus its f32 bias (None: none), rounded once, then `act` ("quick_gelu",
-    "gelu" or None) with the plain ops' roundings. On a CUDA tensor the
-    kernel runs, or this raises."""
+    "gelu", "gelu_tanh" or None) with the plain ops' roundings. On a CUDA
+    tensor the kernel runs, or this raises."""
     if impl not in ("auto", "torch"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "torch" or y32.device.type == "cpu":

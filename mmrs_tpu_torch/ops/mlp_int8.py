@@ -11,6 +11,11 @@ per-row int8 activation quantization (half to even), exact int8 products,
 f32 rescale and bias, the activation in f32 (h is never rounded to bf16),
 and the output rounded once to x's dtype. Both give the same bits.
 
+The activation is QuickGELU, GELU or GELU's tanh approximation. The
+kernels take H in whole 32s: SigLIP's H = 4304 is padded to 4320 by zero
+units once, when its tower is quantized (`pad_hidden`,
+models/quantize.py).
+
 Weights are in the port's [out, in] layout: w1_q [H, W], w2_q [W, H], with
 per-output-channel f32 scales and biases.
 
@@ -38,14 +43,27 @@ TILE_N = 128
 STAGES = 3
 SMEM_BYTES = STAGES * (TILE_M + TILE_N) * 128 + 1024
 MAX_GRID_Y = 65535
-_ACT_CODE = {"quick_gelu": 0, "gelu": 1}
+_ACT_CODE = {"quick_gelu": 0, "gelu": 1, "gelu_tanh": 2}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def _activation(h: torch.Tensor, act: str) -> torch.Tensor:
     if act == "quick_gelu":
         return h * torch.sigmoid(1.702 * h)
+    if act == "gelu_tanh":
+        return F.gelu(h, approximate="tanh")
     return F.gelu(h)
+
+
+def pad_hidden(w1_q, s1, b1, w2_q):
+    """The layers with H padded to a multiple of 32 by zero units (zero
+    codes, unit scales, zero biases): a zero unit's h is act(0) = 0, whose
+    code is 0, so the padded MLP gives the same bits (SigLIP's H = 4304)."""
+    pad = -w1_q.shape[0] % 32
+    if not pad:
+        return w1_q, s1, b1, w2_q
+    return (F.pad(w1_q, (0, 0, 0, pad)), F.pad(s1, (0, pad), value=1.0),
+            F.pad(b1, (0, pad)), F.pad(w2_q, (0, pad)).contiguous())
 
 
 def _mlp_int8_torch(x, w1_q, s1, b1, w2_q, s2, b2, act: str) -> torch.Tensor:
@@ -69,10 +87,12 @@ def mlp_plan(m: int, w: int, h: int) -> MlpPlan:
     [m, h], its per-tile row maxima and the int8 codes of x and h in device
     memory between them. Refuses, with a message, what they cannot run: W
     or H not a multiple of 32 (whole 16-byte chunks of both operands,
-    4-value row quantization), M < 1, or more than 65,535 column tiles."""
+    4-value row quantization; a ragged H is padded once beforehand,
+    `pad_hidden`), M < 1, or more than 65,535 column tiles."""
     if w % 32 or h % 32 or w < 32 or h < 32:
         raise ValueError(f"mlp_int8 kernel needs W % 32 == 0 and H % 32 == "
-                         f"0 (32-byte K steps), got W={w}, H={h}")
+                         f"0 (32-byte K steps; pad a ragged H with "
+                         f"pad_hidden), got W={w}, H={h}")
     if not 1 <= m < 2 ** 31:
         raise ValueError(f"mlp_int8 kernel needs 1 <= M < 2^31, got M={m}")
     if -(-max(w, h) // TILE_N) > MAX_GRID_Y:

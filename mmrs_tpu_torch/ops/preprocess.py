@@ -8,10 +8,15 @@ travels host -> device as uint8 and the per-pixel affine
 affine is the Triton kernel `csrc/normalize_triton.py`; on a CPU tensor it
 is the plain PyTorch version below.
 
-CLIP normalization constants from code/custom.py:28.
+CLIP normalization constants from code/custom.py:28 (the default); a
+tower with its own (SigLIP: 0.5 and 0.5) passes them. Host geometry:
+`resize_center_crop` (CLIP) or `resize_square` (SigLIP: no crop).
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,10 +27,14 @@ from mmrs_tpu_torch.ops import _cuda
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
-# the f32 values both versions use: mean, and 1/std divided in f32
-_MEAN32 = tuple(float(np.float32(m)) for m in CLIP_MEAN)
-_INV_STD32 = tuple(float(np.float32(1.0) / np.float32(s)) for s in CLIP_STD)
 _BLOCK = 4096         # elements per Triton program
+
+
+@lru_cache(maxsize=None)
+def _affine32(mean: Tuple[float, ...], std: Tuple[float, ...]):
+    """The f32 values both versions use: mean, and 1/std divided in f32."""
+    return (tuple(float(np.float32(m)) for m in mean),
+            tuple(float(np.float32(1.0) / np.float32(s)) for s in std))
 
 
 # --------------------------------------------------------------------------
@@ -59,20 +68,30 @@ def hf_resize_center_crop(img, size: int = 224):
     return resize_center_crop(img, size)
 
 
+def resize_square(img, size: int = 384):
+    """HF SiglipImageProcessor's geometry: BICUBIC resize of the whole
+    image to size x size, no crop. Returns HWC uint8 ndarray."""
+    from PIL import Image
+
+    img = img.resize((size, size), Image.BICUBIC)
+    return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
 # --------------------------------------------------------------------------
 # Device side: fused uint8 -> normalized bf16
 # --------------------------------------------------------------------------
 
-def _normalize_torch(images_u8: torch.Tensor, dtype: torch.dtype
-                     ) -> torch.Tensor:
+def _normalize_torch(images_u8: torch.Tensor, dtype: torch.dtype,
+                     affine=None) -> torch.Tensor:
+    mean32, inv_std32 = affine or _affine32(CLIP_MEAN, CLIP_STD)
     x = images_u8.to(torch.float32) * (1.0 / 255.0)
-    mean = torch.tensor(_MEAN32, dtype=torch.float32, device=x.device)
-    inv_std = torch.tensor(_INV_STD32, dtype=torch.float32, device=x.device)
+    mean = torch.tensor(mean32, dtype=torch.float32, device=x.device)
+    inv_std = torch.tensor(inv_std32, dtype=torch.float32, device=x.device)
     return ((x - mean) * inv_std).to(dtype)
 
 
-def _normalize_triton(images_u8: torch.Tensor, dtype: torch.dtype
-                      ) -> torch.Tensor:
+def _normalize_triton(images_u8: torch.Tensor, dtype: torch.dtype,
+                      affine=None) -> torch.Tensor:
     _cuda.require_cuda("normalize_images", images_u8)
     if images_u8.dtype != torch.uint8 or images_u8.shape[-1] != 3:
         raise ValueError(f"normalize_images takes uint8 [..., 3], got "
@@ -83,10 +102,11 @@ def _normalize_triton(images_u8: torch.Tensor, dtype: torch.dtype
     if n >= 2 ** 31:
         raise ValueError(f"normalize_images kernel takes < 2^31 elements, "
                          f"got {n}")
+    mean32, inv_std32 = affine or _affine32(CLIP_MEAN, CLIP_STD)
     kernel = _cuda.triton_module("normalize_triton").normalize_kernel
     out = torch.empty(images_u8.shape, dtype=dtype, device=images_u8.device)
     with torch.cuda.device(images_u8.device):
-        kernel[(-(-n // _BLOCK),)](images_u8, out, n, *_MEAN32, *_INV_STD32,
+        kernel[(-(-n // _BLOCK),)](images_u8, out, n, *mean32, *inv_std32,
                                   BLOCK=_BLOCK, num_warps=8)
     normalize_images.launches += 1
     return out
@@ -96,14 +116,17 @@ def normalize_images(
     images_u8: torch.Tensor,        # [B, H, W, 3] uint8
     dtype: torch.dtype = torch.bfloat16,
     impl: str = "auto",
+    mean: Sequence[float] = CLIP_MEAN,
+    std: Sequence[float] = CLIP_STD,
 ) -> torch.Tensor:
-    """(x/255 - mean) / std, output in the compute dtype. On a CUDA tensor
-    the Triton kernel runs, or this raises."""
+    """(x/255 - mean) / std per channel, output in the compute dtype. On a
+    CUDA tensor the Triton kernel runs, or this raises."""
     if impl not in ("auto", "torch"):
         raise ValueError(f"unknown impl {impl!r}")
+    affine = _affine32(tuple(mean), tuple(std))
     if impl == "torch" or images_u8.device.type == "cpu":
-        return _normalize_torch(images_u8, dtype)
-    return _normalize_triton(images_u8, dtype)
+        return _normalize_torch(images_u8, dtype, affine)
+    return _normalize_triton(images_u8, dtype, affine)
 
 
 normalize_images.launches = 0   # kernel launches, for showing the path ran it

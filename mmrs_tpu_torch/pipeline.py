@@ -1,21 +1,23 @@
 """Glue layer: config -> towers -> encode callables.
 
-Counterpart of mmrs_tpu/pipeline.py for the CLIP pair and the Taiyi pair
+Counterpart of mmrs_tpu/pipeline.py for the CLIP pair, the Taiyi pair
 (`text_tower: taiyi_roberta`: a ViT with the Chinese RoBERTa text tower,
 whose text encoder takes a WordPiece tokenizer's ids and attention
-mask). Encoders are plain
-callables `pixels_u8 [B,S,S,3] -> np.ndarray [B,D]`, so index build, search
-and calibration compose as in the JAX package. On a CUDA device the image
-path runs the normalize kernel (Triton) and the towers' attention kernel
-(CUDA), and with `model.dtype: int8` the fused int8 MLP kernel (CUDA); on
-the CPU it runs their plain PyTorch versions.
+mask) and the SigLIP pair (`image_tower: siglip_so400m_384`, `text_tower:
+siglip_text_so400m`: its text tower takes ids; no SentencePiece
+vocabulary ships with the port).
+Encoders are plain callables `pixels_u8 [B,S,S,3] -> np.ndarray [B,D]`,
+so index build, search and calibration compose as in the JAX package. On
+a CUDA device the image path runs the normalize kernel (Triton) and the
+towers' attention kernel (CUDA), and with `model.dtype: int8` the fused
+int8 MLP kernel (CUDA); on the CPU it runs their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -23,11 +25,13 @@ from torch import nn
 
 from mmrs_tpu_torch.config import Config
 from mmrs_tpu_torch.models import clip
-from mmrs_tpu_torch.models.clip import (CLIP, CLIPConfig, TaiyiCLIP,
+from mmrs_tpu_torch.models.clip import (CLIP, CLIPConfig, SigLIP,
+                                        SigLIPConfig, TaiyiCLIP,
                                         TaiyiCLIPConfig)
 from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
                                            CLIP_TEXT_TINY, IMAGE_TOWERS,
-                                           TAIYI_ROBERTA_LARGE, TAIYI_TINY)
+                                           TAIYI_ROBERTA_LARGE, TAIYI_TINY,
+                                           TEXT_TOWERS, TextConfig)
 from mmrs_tpu_torch.models.quantize import quantize_clip_visual
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.utils.profiling import trace
@@ -75,14 +79,34 @@ def default_device() -> torch.device:
         f"pass device='cpu'")
 
 
+def _siglip_text(cfg: Config, vision) -> TextConfig:
+    """The text tower `cfg.model.text_tower` names for a SigLIP image
+    tower: a SigLIP one (last-token pooling) of the same embed dim."""
+    text = TEXT_TOWERS.get(cfg.model.text_tower)
+    if not (isinstance(text, TextConfig) and text.pool == "last"
+            and text.embed_dim == vision.embed_dim):
+        siglip = sorted(k for k, t in TEXT_TOWERS.items()
+                        if isinstance(t, TextConfig) and t.pool == "last")
+        raise ValueError(
+            f"image tower {cfg.model.image_tower!r} pairs with a SigLIP "
+            f"text tower of {vision.embed_dim}-d, one of {siglip}; got "
+            f"text_tower {cfg.model.text_tower!r}")
+    return text
+
+
 def build_towers(cfg: Config, tokenizer=None, device=None,
-                 impl: str = "auto") -> Towers:
+                 impl: str = "auto",
+                 weights: Optional[Dict[str, torch.Tensor]] = None) -> Towers:
     """Construct the configured tower pair on `device` (default:
-    `default_device()`): CLIP, or with `text_tower: taiyi_roberta` the
-    Taiyi pair. Weights come from cfg.model.checkpoint_path (an npz written
-    by either package's checkpoint.save_npz: the tree of `mmrs-torch
-    weights convert`, or for Taiyi {"visual", "text", "logit_scale"});
-    without one the towers are random-initialized from cfg.seed (bring-up
+    `default_device()`): CLIP, with `text_tower: taiyi_roberta` the Taiyi
+    pair, or with a MAP-pooled (SigLIP) image tower the SigLIP pair, whose
+    text tower `text_tower` names. Weights come from
+    `weights` (a state dict under the pair's own parameter names, taken
+    as they are: `load_state_dict(assign=True)` into a model made on the
+    meta device), else from cfg.model.checkpoint_path (an npz written by
+    either package's checkpoint.save_npz: the tree of `mmrs-torch weights
+    convert`, or for Taiyi {"visual", "text", "logit_scale"}); without
+    either the towers are random-initialized from cfg.seed (bring-up
     mode). `impl` is the image path's kernel route: "auto" (the kernels
     on the card), or "torch" (their plain versions)."""
     from mmrs_tpu_torch.models import convert_jax
@@ -90,10 +114,16 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
     if cfg.model.dtype not in _DTYPES:
         raise ValueError(f"unknown model dtype {cfg.model.dtype!r}")
     compute_dtype = _DTYPES[cfg.model.dtype]
+    if cfg.model.image_tower not in IMAGE_TOWERS:
+        raise ValueError(f"unknown image tower {cfg.model.image_tower!r}; "
+                         f"one of {sorted(IMAGE_TOWERS)}")
     device = torch.device(device) if device is not None else default_device()
 
     vision = IMAGE_TOWERS[cfg.model.image_tower]
-    if cfg.model.text_tower == "taiyi_roberta":
+    if vision.pool == "map":
+        ccfg = SigLIPConfig(vision=vision, text=_siglip_text(cfg, vision))
+        make = SigLIP
+    elif cfg.model.text_tower == "taiyi_roberta":
         # the text head's projection must match the image embed dim; the
         # tiny pair exists for CI/smoke runs
         taiyi = (TAIYI_TINY if cfg.model.image_tower == "vit_tiny"
@@ -112,7 +142,14 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
                 "vit_tiny": CLIP_TEXT_TINY}[cfg.model.image_tower]
         ccfg = CLIPConfig(vision=vision, text=text)
         make = CLIP
-    if cfg.model.checkpoint_path:
+    if weights is not None:
+        with torch.device("meta"):
+            model = make(ccfg)
+        model.load_state_dict(weights, strict=True, assign=True)
+    elif cfg.model.checkpoint_path:
+        if make is SigLIP:
+            raise ValueError("no converter reads SigLIP checkpoints yet; "
+                             "pass the state dict as weights=")
         model = convert_jax.load_npz(cfg.model.checkpoint_path, ccfg)
     else:
         model = make(ccfg, generator=torch.Generator().manual_seed(cfg.seed))
@@ -128,12 +165,14 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
 
     def params_encode_fn(m: nn.Module, images_u8: torch.Tensor,
                          normalize: bool = True) -> torch.Tensor:
-        x = normalize_images(images_u8, dtype=compute_dtype, impl=impl)
+        x = normalize_images(images_u8, dtype=compute_dtype, impl=impl,
+                             mean=vision.mean, std=vision.std)
         return clip.encode_image(m, x, compute_dtype, normalize=normalize,
                                  attn_impl=impl, mlp_impl=impl)
 
     # the image path's spans: `towers.upload` (the pageable host-to-device
-    # copy), `towers.encode` (K3 and the tower's launches, no sync) and
+    # copy), `towers.encode` (K3 and the tower's launches, no sync; inside
+    # it a MAP-pooled tower's `towers.pool`, models/vit.py) and
     # `towers.fetch` (the wait for the card and the device-to-host copy)
     def encode_fn(images_u8: torch.Tensor, normalize: bool = True
                   ) -> torch.Tensor:

@@ -41,7 +41,7 @@ from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
                                                  group_pieces)
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.dense_epilogue import _bias_act_cuda, bias_act
-from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused, pad_hidden
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.ops.quant import (_topk_quant_cuda, cosine_topk_quantized,
                                       quantize_rows)
@@ -138,6 +138,10 @@ def test_cosine_topk_kernel_rejects_what_it_cannot_run(dev):
     (2, 129, 96, 3, torch.bfloat16, 2e-2),      # three key tiles
     (2, 33, 120, 3, torch.bfloat16, 2e-2),      # hd 40, zero-padded to 64
     (2, 70, 100, 4, torch.bfloat16, 2e-2),      # hd 25: element loads
+    (2, 729, 1152, 16, torch.bfloat16, 2e-2),   # SigLIP so400m: hd 72 on
+    (3, 64, 1152, 16, torch.bfloat16, 2e-2),    # the 80 instance; its text
+    (2, 33, 160, 2, torch.bfloat16, 2e-2),      # hd 80, a ViT-H/14 head
+    (2, 17, 144, 2, torch.bfloat16, 2e-2),      # hd 72, a ragged tile
 ])
 def test_mha_kernel_matches_plain(dev, b, t, w, heads, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(t)
@@ -170,6 +174,39 @@ def test_normalize_kernel_matches_plain(dev, shape, dtype):
     else:   # one bf16 ulp: f32 rounding of (x*c - m)*s may fuse differently
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_normalize_kernel_takes_siglips_mean_and_std(dev, dtype):
+    x = torch.randint(0, 256, (2, 384, 384, 3), device=dev,
+                      dtype=torch.uint8,
+                      generator=torch.Generator(device=dev).manual_seed(4))
+    half = (0.5, 0.5, 0.5)
+    out = normalize_images(x, dtype=dtype, mean=half, std=half)
+    ref = normalize_images(x, dtype=dtype, impl="torch", mean=half, std=half)
+    # as the CLIP constants: (x*c - m)*s may fuse differently, one f32
+    # rounding (and so at most one bf16 ulp) apart
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
+                               rtol=2 ** -7 if dtype == torch.bfloat16 else 0)
+    assert abs(float(out.float().min()) + 1.0) <= 1e-6
+    assert abs(float(out.float().max()) - 1.0) <= 1e-6
+
+
+def test_mha_kernel_runs_the_80_instance_for_heads_of_72(dev):
+    """SigLIP's heads of 72 take the HDP = 80 instance (the plan
+    `k2_roofline.index_kind` reads), B/32's heads of 64 the 64 one."""
+    names = {}
+    for w, heads in ((1152, 16), (768, 12)):
+        q, k, v = (torch.randn((2, 50, w), device=dev).bfloat16()
+                   for _ in range(3))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mha_short_seq(q, k, v, heads)
+            torch.cuda.synchronize()
+        names[w // heads] = [e.key for e in prof.key_averages()
+                             if "mha_mma_kernel" in e.key]
+    assert len(names[72]) == 1 and "mha_mma_kernel<80," in names[72][0]
+    assert len(names[64]) == 1 and "mha_mma_kernel<64," in names[64][0]
 
 
 # -- int8 / int4 gallery scans (K4, K5): exact against plain ---------------------
@@ -265,7 +302,7 @@ def _mlp_input(m, w, dtype, dev, seed):
     (300, 1024, 4096, torch.bfloat16),        # L/14: 8-row tiles
     (33, 128, 512, torch.float32),
 ])
-@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu", "gelu_tanh"])
 def test_mlp_int8_kernel_matches_plain(dev, m, w, h, dtype, act):
     w1, w2 = _mlp_weights(w, h, dev, seed=m)
     x = _mlp_input(m, w, dtype, dev, seed=m + 1)
@@ -285,9 +322,10 @@ def test_mlp_int8_kernel_matches_plain(dev, m, w, h, dtype, act):
     (4616, 1024, 4096),                       # L/14-336: 8 x 577 rows
     (129, 96, 384),                           # ragged column tiles
     (577, 1024, 8192),                        # 32 KB f32 h rows
+    (2 * 729, 1152, 4304),                    # SigLIP: H padded to 4320
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu", "gelu_tanh"])
 def test_mlp_int8_kernel_ragged_rows_match_plain(dev, m, w, h, dtype, act):
     """Row counts that leave the last 128-row GEMM tile ragged (or a lone
     row): rows past M are neither read nor written, and every element
@@ -295,7 +333,9 @@ def test_mlp_int8_kernel_ragged_rows_match_plain(dev, m, w, h, dtype, act):
     w1, w2 = _mlp_weights(w, h, dev, seed=m + w)
     x = _mlp_input(m + 1, w, dtype, dev, seed=m)[1:] if m > 1 else \
         _mlp_input(2, w, dtype, dev, seed=m)[:1]
-    args = (x.contiguous(), w1.q, w1.s, w1.bias, w2.q, w2.s, w2.bias)
+    # a ragged H (SigLIP's) is padded once, as models/quantize.py does
+    q1, s1, b1, q2 = pad_hidden(w1.q, w1.s, w1.bias, w2.q)
+    args = (x.contiguous(), q1, s1, b1, q2, w2.s, w2.bias)
     before = mlp_int8_fused.launches
     out = mlp_int8_fused(*args, act=act)
     torch.cuda.synchronize()
@@ -314,6 +354,10 @@ def test_mlp_int8_kernel_rejects_what_it_cannot_run(dev):
                        w2.bias[:80])
     with pytest.raises(ValueError, match="bf16 or f32"):
         mlp_int8_fused(x.half(), w1.q, w1.s, w1.bias, w2.q, w2.s, w2.bias)
+    with pytest.raises(ValueError, match="pad_hidden"):      # H = 376
+        mlp_int8_fused(x, w1.q[:376].contiguous(), w1.s[:376],
+                       w1.bias[:376], w2.q[:, :376].contiguous(), w2.s,
+                       w2.bias)
 
 
 def test_dense_bf16_on_the_card_matches_the_cpu(dev):
@@ -1830,8 +1874,9 @@ def _epilogue_bias(n, dev, seed):
     (65792, 1024), (65792, 4096),     # ViT-L/14: 256 images x 257 tokens
     (1, 8), (4 * 257 + 3, 1024),      # one row; ragged rows
     (1000, 8 * 97),                   # a column count no stride divides
+    (8 * 729, 4304),                  # SigLIP w1: 8 images x 729 tokens
 ])
-@pytest.mark.parametrize("act", [None, "quick_gelu", "gelu"])
+@pytest.mark.parametrize("act", [None, "quick_gelu", "gelu", "gelu_tanh"])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_dense_epilogue_kernel_matches_plain(dev, m, n, act, with_bias):
     """The kernel equals the plain ops (torch.add(out=bf16), then

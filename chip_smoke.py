@@ -15,6 +15,9 @@ once on one NVIDIA GPU.
         (phases 1-2's build, then only the SigLIP phase: K2 at hd 72, E1
         and K6 at tanh GELU, the so400m/14 tower's batch; with --parent,
         K2 of DIR's tree at the same shape, --k2-times DIR)
+    python3 chip_smoke.py --layer-norm
+        (phases 1-2's build, then only the LayerNorm phase: E2 at the
+        index cells' shapes and each index tower's batch)
     python3 chip_smoke.py --k2-times ROOT
         (K2 at SigLIP's [256, 729, 1152] / 16 of the package under ROOT,
         as one JSON line)
@@ -63,7 +66,13 @@ nonzero exit and no result line:
      overflows, with and without a bias, with no activation, QuickGELU
      and GELU, every bf16 bit equal; a ViT-B/32 and a ViT-L/14 tower's
      256-image batch with 6 launches a block plus the patch embedding's,
-     its embedding equal to the plain ops' in every bit;
+     its embedding equal to the plain ops' in every bit; the towers'
+     LayerNorm (E2) at the index cells' [12,800 x 768], [65,792 x 1,024]
+     and [186,624 x 1,152] rows (some far from zero mean, outlier gains)
+     within one bf16 ulp of its plain ops and missing an f64 LayerNorm no
+     more often, timed beside its bound, the plain ops and F.layer_norm,
+     and each index tower's batch through build_towers with its E2
+     launches, with E2 and with the plain ops;
   4. end to end through the port's public paths at ViT-B/32 width (random
      weights from a seed), each with the kernel launch counts set to 0
      just before it and read just after:
@@ -217,7 +226,7 @@ nonzero exit and no result line:
         the card's busy share over a TP = 2 generate, the peak device
         memory and the phase's seconds;
   5. launch counts: every kernel of each path ran during its phase 4 run
-     (4a: the dense epilogue 73 times a ViT-B/32 batch)
+     (4a: the dense epilogue 73 times a ViT-B/32 batch, E2 26 times)
      (K2, K10, K11 in every 4e run, K6 in the int8 ones, K1-K9 in 4i,
      K2, K3, K6, K10 and K11 in 4j);
      phase 4's answers
@@ -324,15 +333,19 @@ KV_ATTN_TOL = 2e-2
 PREFILL_LOGIT_TOL = {"bf16": 0.5, "int8": 1.5}
 # The token checks of 4e and 4j (token_check): a route's greedy tokens fed
 # to the model it is held against, over every step. The gap: how far below
-# that model's best logit a fed token may lie; above the largest such gap
-# of the bf16 routes on the H100 (4e: 0.110 kernel vs plain; 4j: 0.085 at
-# TP = 2, 0.106 at TP = 4 against one device, 0.036 speculative against
-# TP = 2 and 0.057 DP x TP), below the median top-2 margin of the random
-# 7B (0.195: a route that picked the runner-up would lie a margin below).
-# The floor: the least share of the steps at which that model picks the
-# fed token; below the lowest bf16 reading (235 of 256 = 0.918; 219 of 224
-# DP x TP); a runner-up route is picked at none.
-TP_TOKEN_GAP = 0.125
+# that model's best logit a fed token may lie. Over 10 verify packs
+# (probe_tp_token_gap.py on an H100, with and without the tower's E2
+# norms) the bf16 routes' gaps reached 0.184 (4e, kernel vs plain), 0.154
+# (4j, TP = 4 against one device) and 0.140 (TP = 2), medians 0.11-0.14,
+# 0.10-0.11 and 0.08-0.10; one bf16 ulp at half of the image embeddings'
+# elements moved a pack's 4j gap by up to 0.06 either way (0.036
+# speculative against TP = 2 and 0.057 DP x TP, one pack). Above the
+# largest, below the median of the packs' median top-2 margins of the
+# random 7B (0.206: a route that picked the runner-up would lie a margin
+# below). The floor: the least share of the steps at which that model
+# picks the fed token; below the lowest bf16 reading (227 of 256 = 0.887;
+# 219 of 224 DP x TP); a runner-up route is picked at none.
+TP_TOKEN_GAP = 0.19
 TOKEN_FLOOR = 0.85
 # 4e's speculative tokens fed to the one-device kernel-route target: its
 # verify passes run K10 over k + 1 rows where the target's greedy trace
@@ -4542,6 +4555,163 @@ def siglip_phase(dev, card: str, parent: Optional[str] = None) -> list:
     return lines
 
 
+# ---- the towers' LayerNorm (E2) ------------------------------------------------
+
+# [M, W] rows of one 256-image index batch's full-width norms, and eps:
+# ViT-B/32 (50 tokens), ViT-L/14 (257), SigLIP so400m/14 (729)
+LAYER_NORM_SHAPES = (("B/32", 12800, 768, 1e-5), ("L/14", 65792, 1024, 1e-5),
+                     ("SigLIP", 186624, 1152, 1e-6))
+# the index cells' image towers, each with a text tower of its pair
+LAYER_NORM_TOWERS = (("vit_b32", "clip_text"), ("vit_l14", "clip_text"),
+                     ("siglip_so400m_384", "siglip_text_so400m"))
+
+
+def ln_rows(dev, m: int, w: int, seed: int) -> torch.Tensor:
+    """bf16 rows as the towers' residual streams: N(0, 1), every third row
+    40 std from zero mean, every fifth of small spread. A copy of
+    tests/layer_norm_cases.rows, which the E2 tests use: keep the two
+    alike."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, w), device=dev, generator=g)
+    x[::3] += 40.0
+    x[1::5] *= 0.01
+    return x.bfloat16()
+
+
+def ln_ulps(a: torch.Tensor, b: torch.Tensor, gain: torch.Tensor) -> float:
+    """Largest |a - b| in bf16 spacings at max(|a|, |b|); an output within
+    |gain| / 256 of zero counted at the spacing there (the f32 rounding of
+    the row's mean, through the gain, sets the difference there). A copy
+    of tests/layer_norm_cases.ulps, which the E2 tests hold to one ulp:
+    keep the two alike."""
+    a, b = a.float(), b.float()
+    scale = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                          gain.abs() * 2.0 ** -8)
+    _, e = torch.frexp(scale)
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(scale),
+                                               e - 8)).max())
+
+
+def layer_norm_phase(dev, card: str) -> dict:
+    """E2 against its plain ops at the index cells' shapes (outlier gains:
+    1/64 of them 8x): every element within one bf16 ulp of the plain ops
+    (`ln_ulps`), and its misses of an f64 LayerNorm rounded to bf16 no more
+    than theirs; its ms beside its bound (bf16 in and out, the f32 gains
+    and offsets once, over PEAK_BYTES), the plain ops' ms and F.layer_norm
+    on the bf16 rows with bf16 gains and offsets (`library_ms`: a
+    yardstick the port never calls).
+    Then one image_encode of 256 uint8 images through build_towers for
+    each index tower (random weights): its E2 launches (ln_pre where the
+    tower has it, two a block, ln_post, the MAP head's) and the batch's ms
+    on device tensors with E2 and with the plain ops in every norm."""
+    import torch.nn.functional as F
+
+    from mmrs_tpu_torch.config import Config, ModelConfig
+    from mmrs_tpu_torch.models import layers
+    from mmrs_tpu_torch.ops.layer_norm import layer_norm
+    from mmrs_tpu_torch.pipeline import build_towers
+
+    out = {"lines": [], "times": {}, "ulps": 0.0, "towers": {}}
+    with torch.inference_mode():
+        for i, (name, m, w, eps) in enumerate(LAYER_NORM_SHAPES):
+            x = ln_rows(dev, m, w, SEED + i)
+            g = torch.Generator(device=dev).manual_seed(SEED + 10 + i)
+            gain = 1.0 + 0.05 * torch.randn(w, device=dev, generator=g)
+            gain[torch.rand(w, device=dev, generator=g) < 1 / 64] *= 8.0
+            off = 0.02 * torch.randn(w, device=dev, generator=g)
+            before = layer_norm.launches
+            got = layer_norm(x, gain, off, eps)
+            check(layer_norm.launches == before + 1,
+                  f"E2 {name}: the kernel did not launch")
+            ref = layer_norm(x, gain, off, eps, impl="torch")
+            ulps = ln_ulps(got, ref, gain)
+            out["ulps"] = max(out["ulps"], ulps)
+            xd = x.double()
+            mean = xd.mean(-1, keepdim=True)
+            var = (xd - mean).square().mean(-1, keepdim=True)
+            exact = ((xd - mean) * torch.rsqrt(var + eps) * gain.double()
+                     + off.double()).bfloat16()
+            del xd, mean, var
+            miss_k = int((got != exact).sum())
+            miss_p = int((ref != exact).sum())
+            del got, ref, exact
+            check(ulps <= 1.0, f"E2 {name} [{m},{w}]: {ulps} bf16 ulp from "
+                  f"the plain ops")
+            check(miss_k <= miss_p, f"E2 {name} [{m},{w}]: {miss_k} elements "
+                  f"miss the f64 LayerNorm, the plain ops {miss_p}")
+            kms, pms = time_pair(
+                lambda: layer_norm(x, gain, off, eps),
+                lambda: layer_norm(x, gain, off, eps, impl="torch"),
+                iters=20)
+            # on the card alone: at B/32's 39 MB the eager call's host
+            # dispatch is longer than the kernel
+            alone = graph_ms(lambda: layer_norm(x, gain, off, eps))[0]
+            g16, o16 = gain.bfloat16(), off.bfloat16()   # its dtype rule
+            lib = time_ms(lambda: F.layer_norm(x, (w,), g16, o16, eps),
+                          iters=20)
+            bound = least_ms(4 * m * w + 8 * w, 0, "bf16")[0]
+            key = f"{name} [{m},{w}]"
+            out["times"][key] = {"ms": kms, "alone_ms": alone,
+                                 "plain_ms": pms, "library_ms": lib,
+                                 "bound_ms": bound}
+            out["lines"].append(
+                f"phase 3 E2 layer_norm {key} eps {eps:g} on {card}: "
+                f"{ulps:.0f} bf16 ulp from the plain ops at most; f64 misses "
+                f"{miss_k} (plain {miss_p}) of {m * w}; kernel {kms:.4f} ms "
+                f"eager, {alone:.4f} ms on the card alone ("
+                f"{100 * bound / alone:.1f}% of its bound {bound:.4f} ms, "
+                f"{(4 * m * w + 8 * w) / alone / 1e6:.0f} GB/s), plain ops "
+                f"{pms:.4f} ms ({pms / kms:.2f}x eager), F.layer_norm on "
+                f"bf16 {lib:.4f} ms")
+            del x
+
+        kernel_fn = layers.layer_norm
+
+        def plain(x, weight, bias, eps, impl="auto"):
+            return kernel_fn(x, weight, bias, eps, impl="torch")
+
+        def run_with(fn, call):
+            layers.layer_norm = fn
+            try:
+                return call()
+            finally:
+                layers.layer_norm = kernel_fn
+
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for image_tower, text_tower in LAYER_NORM_TOWERS:
+            towers = build_towers(Config(model=ModelConfig(
+                image_tower=image_tower, text_tower=text_tower,
+                dtype="bfloat16"), seed=SEED), device=dev)
+            cfg = towers.clip_config.vision
+            s = cfg.image_size
+            px_u8 = torch.randint(0, 256, (256, s, s, 3), device=dev,
+                                  dtype=torch.uint8, generator=gen)
+            want = (int(cfg.pre_norm) + 2 * cfg.layers + 1
+                    + int(cfg.pool == "map"))
+            before = layer_norm.launches
+            emb = towers.image_encode(px_u8.cpu().numpy())
+            launches = layer_norm.launches - before
+            check(launches == want, f"{image_tower} image_encode: {launches}"
+                  f" E2 launches, want {want}")
+            check(bool(np.isfinite(emb).all()), f"{image_tower}: non-finite")
+            # E2, plain, plain, E2
+            k1, p1, p2, k2 = (run_with(fn, lambda: time_ms(
+                lambda: towers.encode_fn(px_u8), iters=3, warmup=1))
+                for fn in (kernel_fn, plain, plain, kernel_fn))
+            out["towers"][image_tower] = {
+                "launches": launches, "kernel_ms": (k1 + k2) / 2,
+                "plain_ms": (p1 + p2) / 2}
+            out["lines"].append(
+                f"phase 3 E2 {image_tower} image_encode (build_towers, bf16,"
+                f" random weights), batch 256 on {card}: {launches} E2 "
+                f"launches (want {want}); {(k1 + k2) / 2:.2f} ms a batch on "
+                f"device tensors with E2, {(p1 + p2) / 2:.2f} ms with the "
+                f"plain ops in every norm")
+            del towers, px_u8
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4569,6 +4739,23 @@ def main(argv) -> int:
                   else None)
         for line in siglip_phase(torch.device("cuda", 0), card_line(),
                                  parent):
+            say(line)
+        print(json.dumps({"ok": True, "seconds": time.perf_counter()
+                          - t_start}))
+        return 0
+    if argv == ["--layer-norm"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from mmrs_tpu_torch.ops import _cuda
+
+        _cuda.build()
+        _cuda.library()
+        log = _cuda.library_path()[:-3] + ".log"
+        if os.path.exists(log):
+            for name, usage in ptxas_lines(log):
+                if "e2_layer_norm" in name:
+                    say(f"  ptxas {name}: {usage}")
+        for line in layer_norm_phase(torch.device("cuda", 0),
+                                     card_line())["lines"]:
             say(line)
         print(json.dumps({"ok": True, "seconds": time.perf_counter()
                           - t_start}))
@@ -4606,6 +4793,7 @@ def main(argv) -> int:
     from mmrs_tpu_torch.ops.decode_attention import (chunk_attention,
                                                      decode_attention)
     from mmrs_tpu_torch.ops.dense_epilogue import bias_act
+    from mmrs_tpu_torch.ops.layer_norm import layer_norm
     from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
     from mmrs_tpu_torch.ops.normalize import l2_normalize
     from mmrs_tpu_torch.ops.preprocess import normalize_images
@@ -4627,7 +4815,7 @@ def main(argv) -> int:
     kernels = (cosine_topk, mha_short_seq, normalize_images,
                cosine_topk_quantized, cosine_topk_int4, mlp_int8_fused,
                probe_buckets, probe_buckets_q4, first_match,
-               chunk_attention, decode_attention, bias_act)
+               chunk_attention, decode_attention, bias_act, layer_norm)
     quant_topk = {"int8": (cosine_topk_quantized, quantize_rows),
                   "int4": (cosine_topk_int4, quantize_rows_int4)}
 
@@ -4680,6 +4868,10 @@ def main(argv) -> int:
     for line in epi["lines"]:
         say(line)
     for line in siglip_phase(dev, card, parent):
+        say(line)
+    ln = layer_norm_phase(dev, card)
+    errs["layer_norm"] = ln["ulps"]   # bf16 ulp (ln_ulps)
+    for line in ln["lines"]:
         say(line)
     with torch.inference_mode():
         errs["mha_short_seq"] = 0.0
@@ -5230,7 +5422,7 @@ def main(argv) -> int:
     picks = list(range(0, SMOKE_IMAGES, SMOKE_IMAGES // 8))
     qpx = np.stack([ds.image(*samples[i]) for i in picks])
     tmp = tempfile.TemporaryDirectory()
-    epi_before = bias_act.launches
+    epi_before, ln_before = bias_act.launches, layer_norm.launches
     idx = launched(
         (normalize_images, mha_short_seq, bias_act),
         lambda: build_index(ds, towers.image_encode,
@@ -5245,6 +5437,11 @@ def main(argv) -> int:
     check(bias_act.launches - epi_before == epi_batches * epi_per_batch,
           f"build_index: {bias_act.launches - epi_before} bias_act launches"
           f" in {epi_batches} batches, want {epi_per_batch} a batch")
+    # one E2 launch a norm: ln_pre, two a block, ln_post (the CLS rows)
+    ln_per_batch = 2 * model.visual.cfg.layers + 2
+    check(layer_norm.launches - ln_before == epi_batches * ln_per_batch,
+          f"build_index: {layer_norm.launches - ln_before} layer_norm "
+          f"launches in {epi_batches} batches, want {ln_per_batch} a batch")
     check(bool(np.isfinite(idx.embeddings).all()), "non-finite rows")
     engine = SearchEngine(idx, SearchConfig(), device=dev)
 
@@ -5859,7 +6056,7 @@ def main(argv) -> int:
               f"{fn.__name__} never launched in phase 4c")
     launches = {name: launches_bf16[name] for name in
                 ("cosine_topk", "mha_short_seq", "normalize_images",
-                 "bias_act")}
+                 "bias_act", "layer_norm")}
     launches.update({name: launches_quant[name] for name in
                      ("cosine_topk_quantized", "cosine_topk_int4",
                       "mlp_int8_fused")})
@@ -6106,6 +6303,9 @@ def main(argv) -> int:
     for line in epilogue_time_lines(epi, card):
         say(line)
     times["bias_act"] = epi["times"]["L/14 w1 [65792,4096] quick_gelu"]
+    ln_l14 = ln["times"]["L/14 [65792,1024]"]
+    times["layer_norm"] = (ln_l14["ms"], ln_l14["plain_ms"])
+    library_ms["layer_norm"] = ln_l14["library_ms"]
     say(f"phase 6 times on {card}:")
     for name, (kms, pms) in times.items():
         say(f"  {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
@@ -6354,6 +6554,8 @@ def main(argv) -> int:
                                 6 * 2 * DIM * pairs, "bf16"),
         # f32 sums read once, bf16 written once
         "bias_act": least_ms(65792 * 4096 * 6, 0, "f32"),
+        # bf16 rows read and written once, the f32 gains and offsets once
+        "layer_norm": least_ms(65792 * 1024 * 4 + 8 * 1024, 0, "bf16"),
     }
     k9_bf16_bound = least_ms(DEDUP_ROWS * DIM * 2 + DEDUP_ROWS * 4,
                              2 * DIM * pairs, "bf16")
@@ -6396,8 +6598,11 @@ def main(argv) -> int:
                              "mmrs_tpu/ops/decode_attention.py:237"),
         "bias_act": ("cuda", "mmrs_tpu_torch/csrc/dense_epilogue.cu",
                      "none (layers.dense's epilogue, the port's own)"),
+        "layer_norm": ("cuda", "mmrs_tpu_torch/csrc/layer_norm.cu",
+                       "none (layers.LayerNorm, the port's own)"),
     }
-    extra = {"first_match": {   # ms/plain_ms/bound_ms above are f32's
+    extra = {"layer_norm": {"shapes": ln["times"], "towers": ln["towers"]},
+             "first_match": {   # ms/plain_ms/bound_ms above are f32's
         "bf16_ms": k9_ms["bf16"][0], "bf16_plain_ms": k9_ms["bf16"][1],
         "bf16_bound_ms": k9_bf16_bound[0],
         "f32_fma_bound_ms": k9_fma_bound[0],

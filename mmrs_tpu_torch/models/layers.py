@@ -11,7 +11,8 @@ package:
   - int8 layers (`QLinear`, the int8 serving tower) quantize their input
     per row (round half to even), multiply int8 by int8 into exact int32
     sums, and rescale and add the bias in f32 before the one rounding;
-  - LayerNorm runs in f32 regardless of the compute dtype;
+  - LayerNorm runs in f32 regardless of the compute dtype (on the card,
+    bf16 rows in one kernel: ops/layer_norm.py; it follows `mlp_impl`);
   - unmasked (vision) attention is the fused short-sequence MHA
     (ops/attention.py: the CUDA kernel on a GPU), with f32 softmax;
   - masked (text) attention is plain PyTorch with the softmax in the
@@ -45,11 +46,14 @@ from mmrs_tpu_torch.ops.dense_epilogue import (ACTIVATIONS, act_name,
                                                bias_act, gelu, quick_gelu,
                                                records_grad)
 from mmrs_tpu_torch.ops.int8 import INV_127, int8_linear, int_mm, quantize_act
+from mmrs_tpu_torch.ops.layer_norm import layer_norm
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm computed in f32; output in the input's dtype."""
+    """LayerNorm computed in f32; output in the input's dtype. `impl`
+    ("auto": one E2 launch for bf16 rows on the card outside autograd;
+    "torch": the plain ops) goes to ops/layer_norm.layer_norm."""
 
     def __init__(self, width: int, eps: float = 1e-5):
         super().__init__()
@@ -57,9 +61,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, impl=impl)
 
 
 class QLinear(nn.Module):
@@ -424,13 +427,13 @@ class Block(nn.Module):
         cd = compute_dtype
         parts = [self] if pieces is None else list(pieces)
         devs = [x.device] if pieces is None else list(devices)
-        h = self.ln1(x)
+        h = self.ln1(x, mlp_impl)
         outs = [p.attn.heads_out(h.to(d), None if mask is None
                                  else mask.to(d), cd, attn_impl)
                 for p, d in zip(parts, devs)]
         x = x + _row_dense(outs, [p.attn.wo for p in parts],
                            self.attn.wo.bias, cd, x.device, attn_impl)
-        h = self.ln2(x)
+        h = self.ln2(x, mlp_impl)
         if isinstance(self.mlp.w1, QLinear):     # the fused int8 MLP (K6)
             return x + self.mlp(h, cd, mlp_impl)
         inner = [p.mlp.inner(h.to(d), cd, mlp_impl)
@@ -466,7 +469,7 @@ class MapHead(nn.Module):
         out = pool_attention((q * scale).expand(x.shape[0], -1, -1), k, v,
                              a.heads, impl=attn_impl)
         h = dense(out, a.wo, cd, impl=attn_impl)
-        return (h + self.mlp(self.ln(h), cd, mlp_impl))[:, 0]
+        return (h + self.mlp(self.ln(h, mlp_impl), cd, mlp_impl))[:, 0]
 
 
 def init_blocks(blocks: nn.ModuleList, generator: torch.Generator) -> None:

@@ -111,7 +111,7 @@ class VisionTransformer(nn.Module):
             x = torch.cat([cls, x], dim=1)                    # [B, N+1, W]
         x = x + self.positional_embedding.to(cd)[None]
         if self.cfg.pre_norm:
-            x = self.ln_pre(x)
+            x = self.ln_pre(x, mlp_impl)
         for i, blk in enumerate(self.blocks[:n_blocks]):
             x = blk(x, None, cd, attn_impl, mlp_impl,
                     None if pieces is None else pieces[i], devices)
@@ -125,7 +125,7 @@ class VisionTransformer(nn.Module):
                                mlp_impl, pieces, devices)
         if self.cfg.pool == "map":
             with trace("towers.pool", items=x.shape[0]):
-                return self.head(self.ln_post(x), compute_dtype, attn_impl,
-                                 mlp_impl).float()
-        cls_tok = self.ln_post(x[:, 0, :])
+                return self.head(self.ln_post(x, mlp_impl), compute_dtype,
+                                 attn_impl, mlp_impl).float()
+        cls_tok = self.ln_post(x[:, 0, :], mlp_impl)
         return project(cls_tok, self.proj, compute_dtype)      # f32

@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CUDA_SOURCES = ("cosine_topk.cu", "mha_short_seq.cu", "quant_topk.cu",
                 "mlp_int8.cu", "ivf_probe.cu", "first_match.cu",
-                "decode_attention.cu", "dense_epilogue.cu")
+                "decode_attention.cu", "dense_epilogue.cu", "layer_norm.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -79,6 +79,9 @@ _SIGNATURES = {
                              _I),
     "mmrs_bias_act_slots": ((_I, _I), _I),
     "mmrs_bias_act": ((_P, _P, _P, _LL, _I, _I, _I, _I, _P), _I),
+    "mmrs_layer_norm_slots": ((_I, _I), _I),
+    "mmrs_layer_norm": ((_P, _LL, _P, _P, _I, _P, _LL, _I, _F, _I, _I, _P),
+                        _I),
 }
 
 

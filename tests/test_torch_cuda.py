@@ -15,7 +15,10 @@ int4 bucket probe must equal their plain versions exactly (ids and values),
 and so must the fused int8 MLP (nonzero biases, rows of exact rounding
 ties), the all-pairs first match (every id, f32 and bf16 inputs) and the
 float dense layer's epilogue (every bf16 bit, with zeros, ties, exp
-overflows and subnormal sums). The
+overflows and subnormal sums). The towers' LayerNorm (E2) must lie within
+one bf16 ulp of its plain version (f32 statistics both; near zero, within
+the f32 rounding of the row's mean carried through the gain) and miss an
+f64 LayerNorm no more often than the plain version does. The
 KV-cache attention kernels read strided layer views of stacked caches, with
 per-row positions and kv_limit windows; they must agree with their plain
 versions to 2e-2 (both round the probabilities to bf16, and a last-bit
@@ -23,6 +26,8 @@ difference of exp() or of the f32 sums can flip one rounding: one ulp of
 a probability, 2^-8 at most, times |v| < 5), 99% of the outputs to 1e-4.
 """
 
+import os
+import sys
 from functools import lru_cache
 
 import numpy as np
@@ -41,6 +46,7 @@ from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
                                                  group_pieces)
 from mmrs_tpu_torch.ops.attention import mha_short_seq
 from mmrs_tpu_torch.ops.dense_epilogue import _bias_act_cuda, bias_act
+from mmrs_tpu_torch.ops.layer_norm import _layer_norm_cuda, layer_norm
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused, pad_hidden
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.ops.quant import (_topk_quant_cuda, cosine_topk_quantized,
@@ -48,6 +54,9 @@ from mmrs_tpu_torch.ops.quant import (_topk_quant_cuda, cosine_topk_quantized,
 from mmrs_tpu_torch.ops.quant4 import (_topk_int4_cuda, cosine_topk_int4,
                                        prep_queries, quantize_rows_int4)
 from mmrs_tpu_torch.ops.topk import cosine_topk
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import layer_norm_cases as ln_cases  # noqa: E402
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -1978,3 +1987,144 @@ def test_image_tower_launches_the_epilogue_per_dense(dev, name, layers_n):
     with torch.inference_mode():
         model(images, attn_impl="torch", mlp_impl="torch")
     assert bias_act.launches == before
+
+
+# ---- the towers' LayerNorm (E2) ------------------------------------------------
+
+LN_WIDTHS = (128, 144, 512, 768, 1024, 1152)     # models/configs.py's presets
+LN_CELLS = ((12800, 768), (65792, 1024), (186624, 1152))   # B/32, L/14, SigLIP
+
+
+@pytest.mark.parametrize("m,w", [(1000, w) for w in LN_WIDTHS] + list(
+    LN_CELLS) + [(1, 8), (5, 2048), (777, 2040)])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_layer_norm_kernel_matches_plain(dev, m, w, eps):
+    x = ln_cases.rows(m, w, device=dev, seed=m + w)
+    gain, off = ln_cases.params(w, device=dev, seed=w)
+    before = layer_norm.launches
+    with torch.no_grad():
+        got = layer_norm(x, gain, off, eps)
+    assert layer_norm.launches == before + 1
+    ref = layer_norm(x, gain, off, eps, impl="torch")
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert ln_cases.ulps(got, ref, gain) <= 1.0
+
+
+@pytest.mark.parametrize("m,w", [(8 * 577, 1024), (1000, 768),
+                                 (1000, 1152)])
+def test_layer_norm_kernel_reads_bf16_params(dev, m, w):
+    """LLaVA's tower is cast to bf16 whole: the kernel reads its gains and
+    offsets as stored, as the plain ops widen them."""
+    x = ln_cases.rows(m, w, device=dev, seed=w + 7)
+    gain, off = (p.bfloat16() for p in ln_cases.params(w, device=dev, seed=w))
+    before = layer_norm.launches
+    got = layer_norm(x, gain, off, 1e-5)
+    assert layer_norm.launches == before + 1
+    assert ln_cases.ulps(got, layer_norm(x, gain, off, 1e-5, impl="torch"),
+                    gain.float()) <= 1.0
+
+
+@pytest.mark.parametrize("m,w", LN_CELLS)
+def test_layer_norm_kernel_misses_f64_no_more_than_plain(dev, m, w):
+    """Against an f64 LayerNorm rounded to bf16, the kernel's share of
+    elements that differ is no larger than the plain route's."""
+    x = ln_cases.rows(m, w, device=dev, seed=w)
+    gain, off = ln_cases.params(w, device=dev, seed=w + 1)
+    xd = x.double()
+    mean = xd.mean(-1, keepdim=True)
+    var = (xd - mean).square().mean(-1, keepdim=True)
+    exact = ((xd - mean) * torch.rsqrt(var + 1e-6) * gain.double()
+             + off.double()).bfloat16()
+    del xd, mean
+    kernel = int((layer_norm(x, gain, off, 1e-6) != exact).sum())
+    plain = int((layer_norm(x, gain, off, 1e-6, impl="torch")
+                 != exact).sum())
+    assert kernel <= plain, (kernel, plain, exact.numel())
+
+
+def test_layer_norm_kernel_reads_strided_rows(dev):
+    """CLIP's ln_post over x[:, 0, :] (row stride T * W, read in place),
+    a view off the 16-byte grid (copied first) and [B, T, W] rows."""
+    x = ln_cases.rows(64 * 257, 1024, device=dev, seed=3).view(64, 257, 1024)
+    gain, off = ln_cases.params(1024, device=dev, seed=4)
+    for rows in (x[:, 0, :], x.view(-1)[4:4 + 9 * 1024].view(9, 1024), x):
+        got = layer_norm(rows, gain, off, 1e-5)
+        assert got.is_contiguous() and got.shape == rows.shape
+        assert torch.equal(got, layer_norm(rows.contiguous(), gain, off,
+                                           1e-5))
+        assert ln_cases.ulps(got, layer_norm(rows, gain, off, 1e-5,
+                                        impl="torch"), gain) <= 1.0
+
+
+def test_layer_norm_kernel_rejects_what_it_cannot_run(dev):
+    x = ln_cases.rows(4, 64, device=dev, seed=1)
+    gain, off = ln_cases.params(64, device=dev, seed=1)
+    with pytest.raises(ValueError, match="W % 8"):
+        layer_norm(x[:, :60], gain[:60], off[:60], 1e-5)
+    wide = ln_cases.rows(2, 2056, device=dev, seed=2)
+    with pytest.raises(ValueError, match="W % 8"):
+        layer_norm(wide, *ln_cases.params(2056, device=dev, seed=2), 1e-5)
+    with pytest.raises(ValueError, match="f32 or bf16 weight"):
+        layer_norm(x, gain.half(), off.half(), 1e-5)
+    with pytest.raises(ValueError, match="one dtype"):
+        layer_norm(x, gain.bfloat16(), off, 1e-5)
+    with pytest.raises(ValueError, match="f32 or bf16 bias"):
+        layer_norm(x, gain, off[:32], 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm(x, gain.cpu(), off.cpu(), 1e-5)
+    with pytest.raises(ValueError, match="bf16 rows"):
+        _layer_norm_cuda(x.float(), gain, off, 1e-5)
+    with pytest.raises(RuntimeError, match="autograd"):
+        _layer_norm_cuda(x, gain.requires_grad_(True), off, 1e-5)
+    gain.requires_grad_(False)
+    assert layer_norm(x[:0], gain, off, 1e-5).shape == (0, 64)
+
+
+def test_layer_norm_plain_routes_on_the_card(dev):
+    """f32 rows, impl="torch" and a recording autograd keep the plain ops
+    on the card and launch nothing."""
+    import torch.nn.functional as F
+
+    x = ln_cases.rows(50, 256, device=dev, seed=5)
+    gain, off = ln_cases.params(256, device=dev, seed=6)
+    before = layer_norm.launches
+    assert torch.equal(layer_norm(x.float(), gain, off, 1e-5),
+                       F.layer_norm(x.float(), (256,), gain, off, 1e-5))
+    assert torch.equal(layer_norm(x, gain, off, 1e-5, impl="torch"),
+                       F.layer_norm(x.float(), (256,), gain, off,
+                                    1e-5).bfloat16())
+    gain.requires_grad_(True)
+    layer_norm(x, gain, off, 1e-5).float().sum().backward()
+    assert gain.grad is not None
+    assert layer_norm.launches == before
+
+
+@pytest.mark.parametrize("name,whole", [
+    ("vit_b32", False), ("vit_l14", False), ("siglip_so400m_384", False),
+    ("vit_l14", True)])      # cast to bf16 whole, as LLaVA's tower is
+def test_image_tower_launches_two_norms_a_block(dev, name, whole):
+    """CLIP: ln_pre, two a block and ln_post (the CLS rows); SigLIP: two a
+    block, ln_post and the MAP head's; the plain tower (attn_impl =
+    mlp_impl = "torch") launches none."""
+    from mmrs_tpu_torch.models import vit
+    from mmrs_tpu_torch.models.configs import IMAGE_TOWERS
+
+    cfg = IMAGE_TOWERS[name]
+    model = vit.VisionTransformer(cfg, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval().requires_grad_(False)
+    if whole:
+        model = model.bfloat16()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Linear):
+            m.weight.data = m.weight.data.bfloat16()
+    s = cfg.image_size
+    images = torch.randn((2, s, s, 3), device=dev).bfloat16()
+    before = layer_norm.launches
+    with torch.inference_mode():
+        out = model(images)
+    assert layer_norm.launches - before == 2 * cfg.layers + 2
+    assert torch.isfinite(out).all()
+    before = layer_norm.launches
+    with torch.inference_mode():
+        model(images, attn_impl="torch", mlp_impl="torch")
+    assert layer_norm.launches == before

@@ -153,12 +153,13 @@ def test_a_runner_up_gap_fails_the_gap_limit():
     gaps = torch.zeros((2, 8))
     gaps[1, 3] = chip_smoke.TP_TOKEN_GAP * 1.5
     same = torch.ones((2, 8), dtype=torch.bool)
-    with pytest.raises(RuntimeError, match="lies 0.1875 below the best"):
+    with pytest.raises(RuntimeError, match=f"lies {gaps[1, 3]:.4f} below "
+                       f"the best .* \\(limit {chip_smoke.TP_TOKEN_GAP}\\)"):
         chip_smoke.token_check(gaps, same, chip_smoke.TP_TOKEN_GAP,
                                chip_smoke.TOKEN_FLOOR, "bf16")
     assert chip_smoke.token_check(gaps / 2, same, chip_smoke.TP_TOKEN_GAP,
                                   chip_smoke.TOKEN_FLOOR, "bf16") == (
-        chip_smoke.TP_TOKEN_GAP * 0.75, 16)
+        float(gaps[1, 3] / 2), 16)
 
 
 def _originals():
@@ -243,3 +244,39 @@ def test_probe_imports_no_jax_and_refuses_without_a_gpu():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.stdout.splitlines()[0] == "False False"
     assert r.returncode != 0
+
+
+def test_gap_probe_imports_no_jax_and_refuses_without_a_gpu():
+    """probe_tp_token_gap.py, which read the spread that TP_TOKEN_GAP is
+    set from, imports the port only and without a card exits nonzero
+    before building anything."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, probe_tp_token_gap as p\n"
+         "print('jax' in sys.modules, 'mmrs_tpu' in sys.modules)\n"
+         "sys.exit(p.main(['probe_tp_token_gap.py', '--packs', '1']))\n"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert r.stdout.splitlines()[0] == "False False"
+    assert r.returncode != 0
+
+
+def test_gap_probe_nudge_moves_one_ulp_in_the_image_rows():
+    """The probe's rounding witness: one bf16 step of the raw bits at
+    about half the elements of the rows asked for, up or down; zeros and
+    the text rows stay, and the same seed gives the same tensor."""
+    import probe_tp_token_gap as probe
+
+    emb = torch.randn(2, 9, 16).bfloat16()
+    emb[0, 3, :4] = 0.0
+    got = probe.nudge(emb, 2, 5, seed=7)
+    assert torch.equal(got, probe.nudge(emb, 2, 5, seed=7))
+    assert torch.equal(got[:, :2], emb[:, :2])
+    assert torch.equal(got[:, 7:], emb[:, 7:])
+    assert torch.equal(got[0, 3, :4], emb[0, 3, :4])
+    steps = (got[:, 2:7].view(torch.int16).int()
+             - emb[:, 2:7].view(torch.int16).int())
+    assert set(steps.unique().tolist()) <= {-1, 0, 1}
+    moved = float((steps != 0).float().mean())
+    assert 0.35 < moved < 0.65
+    assert float((got[:, 2:7].float() - emb[:, 2:7].float()).abs().max()) > 0

@@ -1231,7 +1231,7 @@ def llava_phase(dev, root: str, kernels, cli):
     def embeds(m, plain: bool):
         with torch.inference_mode():
             impl = "torch" if plain else "auto"
-            img = llava.encode_images(m, images, bf16, impl, impl)
+            img = llava.encode_images(m, images, bf16, impl)
             return llava.build_multimodal_embeds(m, pre, img, post, bf16)
 
     def e2e(m, kv, draft_model=None):
@@ -2237,8 +2237,7 @@ def bilingual_phase(dev, root: str, kernels, cli):
             x = normalize_images(torch.from_numpy(pixels_u8).to(dev),
                                  dtype=bf16, impl="torch")
             return clip.encode_image(towers.params, x, bf16,
-                                     attn_impl="torch",
-                                     mlp_impl="torch").cpu().numpy()
+                                     impl="torch").cpu().numpy()
         return encode
 
     idx = GalleryIndex.load(index)
@@ -2351,8 +2350,8 @@ def plain_towers(towers, dev):
         x = normalize_images(torch.from_numpy(np.ascontiguousarray(px))
                              .to(dev), dtype=torch.bfloat16, impl="torch")
         return clip.encode_image(towers.params, x, torch.bfloat16,
-                                 normalize=normalize, attn_impl="torch",
-                                 mlp_impl="torch").cpu().numpy()
+                                 normalize=normalize,
+                                 impl="torch").cpu().numpy()
 
     return Towers(image_encode=encode, text_encode=towers.text_encode,
                   params=towers.params, clip_config=towers.clip_config,
@@ -6115,14 +6114,12 @@ def main(argv) -> int:
                       f"1M {mode} engine top-10 != plain")
         ref = clip.encode_image(
             model, normalize_images(torch.from_numpy(qpx).to(dev),
-                                    impl="torch"), attn_impl="torch",
-            mlp_impl="torch")
+                                    impl="torch"), impl="torch")
         cos = float((torch.from_numpy(qvec).to(dev) * ref).sum(1).min())
         check(cos >= 0.999, f"kernel-path embed cosine to plain {cos}")
         ref8 = clip.encode_image(
             towers8.params, normalize_images(torch.from_numpy(qpx).to(dev),
-                                             impl="torch"),
-            attn_impl="torch", mlp_impl="torch")
+                                             impl="torch"), impl="torch")
         cos8 = float((torch.from_numpy(qvec8).to(dev) * ref8).sum(1).min())
         check(cos8 >= 0.999, f"int8 kernel-path embed cosine to plain {cos8}")
     say(f"phase 5 checks: engine top-10 = plain top-10 (image, text "
@@ -6185,7 +6182,7 @@ def main(argv) -> int:
                 lambda: tw.encode_fn(px),
                 lambda: clip.encode_image(
                     tw.params, normalize_images(px, impl="torch"),
-                    attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)
+                    impl="torch"), iters=5, warmup=2)
         # the bucket probes K7 / K8 at Q=8, nprobe=128, k=10 (timed above,
         # with --parent's): on the card alone, beside plain's eager ms; then
         # IVF top-10 end to end (centroid scores, probe, spill, merge)
@@ -6243,7 +6240,7 @@ def main(argv) -> int:
             lambda: cn_t.encode_fn(pxl),
             lambda: clip.encode_image(
                 cn_t.params, normalize_images(pxl, impl="torch"),
-                attn_impl="torch", mlp_impl="torch"), iters=5, warmup=2)}
+                impl="torch"), iters=5, warmup=2)}
         ids = torch.randint(5, len(CN_VOCAB), (TAIYI_BATCH, 16), device=dev,
                             generator=gen)
         bi["taiyi_ms"] = time_ms(lambda: clip.taiyi_encode_text(

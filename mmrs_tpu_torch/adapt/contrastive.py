@@ -11,8 +11,8 @@ What it keeps of the JAX step:
     layer casts its weights as the JAX layers do);
   - the attention route: the JAX loss runs its towers on XLA attention
     (mmrs_tpu/models/layers.py's default `attn_impl="xla"`), never on a
-    Pallas kernel, so the vision tower runs `attn_impl="torch"` (and
-    `mlp_impl="torch"`) and the text tower its plain masked attention.
+    Pallas kernel, so the vision tower runs `impl="torch"` (the plain
+    ops) and the text tower its plain masked attention.
     The kernels record no autograd history and refuse grad-requiring
     inputs (ops/_cuda.refuse_grad);
   - the optimizer: AdamW with no schedule, weight decay on every
@@ -91,8 +91,7 @@ def _embed(model: CLIP, images: torch.Tensor, tokens: torch.Tensor,
     """L2-normalized (image, text) embeddings. With `pieces` ({tower:
     [each block's BlockPieces, one a model position on `devices`]}) the
     towers run tensor-parallel (layers.Block.forward)."""
-    img = model.visual(images, compute_dtype, attn_impl="torch",
-                       mlp_impl="torch",
+    img = model.visual(images, compute_dtype, impl="torch",
                        pieces=None if pieces is None else pieces["visual"],
                        devices=devices)
     txt = model.text(tokens, compute_dtype,

@@ -113,8 +113,9 @@ class LLaVAVerifier:
     `decode(ids) -> str` (e.g. models/sentencepiece.SentencePieceBPE).
     Greedy decode at temperature 0; the answer is parsed with the
     reference's "yes"-substring test. The constructor is
-    TPULLaVAVerifier's without `layers`; the attention routes are
-    `attn_impl` (the vision tower's K2, "auto" or "torch") and `attn`
+    TPULLaVAVerifier's without `layers`; the kernel routes are
+    `attn_impl` (the whole vision tower's, "auto" or "torch": K2, E1, E2
+    and, with int8 weights, K6; it keeps the JAX option's name) and `attn`
     (the decoder's K10 / K11, in place of `decode_attn` / `prefill_attn`:
     models/llama.ATTN_ROUTES); `device` defaults to
     pipeline.default_device() and the models are moved there.
@@ -229,9 +230,9 @@ class LLaVAVerifier:
             from mmrs_tpu_torch.parallel.vlm import (
                 make_tp_llava_generate, make_tp_llava_speculative_generate)
 
-            kw = dict(compute_dtype=self.compute_dtype,
-                      attn_impl=self.attn_impl, kv_dtype=self.kv_dtype,
-                      prefill_chunk=self.prefill_chunk, attn=self.attn)
+            kw = dict(compute_dtype=self.compute_dtype, impl=self.attn_impl,
+                      kv_dtype=self.kv_dtype, prefill_chunk=self.prefill_chunk,
+                      attn=self.attn)
             if self.draft_params is not None:
                 fn = make_tp_llava_speculative_generate(
                     self.cfg, self.draft_cfg, self.mesh, self.max_new_tokens,
@@ -255,7 +256,7 @@ class LLaVAVerifier:
 
         if self.mesh is not None:
             return self._tp_generate(images, pre, post)
-        kw = dict(compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
+        kw = dict(compute_dtype=self.compute_dtype, impl=self.attn_impl,
                   kv_dtype=self.kv_dtype,
                   prefill_chunk=self.prefill_chunk, attn=self.attn)
         if self.draft_params is not None:

@@ -1045,22 +1045,15 @@ def cmd_parity(args) -> int:
         import torch
 
         from mmrs_tpu_torch.models import convert_jax
-        from mmrs_tpu_torch.models.clip import CLIP, CLIPConfig
-        from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32,
-                                                   CLIP_TEXT_L14,
-                                                   CLIP_TEXT_TINY,
-                                                   IMAGE_TOWERS)
+        from mmrs_tpu_torch.models.clip import pair_config
         from mmrs_tpu_torch.pipeline import default_device
 
         tower = args.int8_tower
-        ccfg = CLIPConfig(
-            vision=IMAGE_TOWERS[tower],
-            text={"vit_b32": CLIP_TEXT_B32, "vit_l14": CLIP_TEXT_L14,
-                  "vit_tiny": CLIP_TEXT_TINY}[tower])
+        make, ccfg = pair_config(tower, "clip_text")
         ckpt = args.checkpoint or _load_config(
             args.config).model.checkpoint_path
         model = (convert_jax.load_npz(ckpt, ccfg) if ckpt else
-                 CLIP(ccfg, generator=torch.Generator().manual_seed(0)))
+                 make(ccfg, generator=torch.Generator().manual_seed(0)))
         model = model.to(default_device()).requires_grad_(False)
         g = parity.int8_geometry_gate(model, ccfg)
         del model

@@ -359,10 +359,10 @@ def int8_geometry_gate(model, ccfg, n_images: int = 16, images=None,
         gallery = d_gal if gallery is None else gallery
     imgs = torch.tensor(np.asarray(images, np.float32)).to(device)
     f32 = clip_mod.encode_image(model, imgs, torch.float32,
-                                attn_impl=impl, mlp_impl=impl).cpu().numpy()
+                                impl=impl).cpu().numpy()
     q8_model = quantize_clip_visual(copy.deepcopy(model))
     q8 = clip_mod.encode_image(q8_model, imgs, torch.bfloat16,
-                               attn_impl=impl, mlp_impl=impl).cpu().numpy()
+                               impl=impl).cpu().numpy()
     del q8_model
     cos = np.sum(f32 * q8, axis=1)
     gal = np.concatenate([f32, np.asarray(gallery, np.float32)])

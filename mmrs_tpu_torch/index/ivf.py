@@ -612,9 +612,7 @@ def probe_buckets(
     f32, global ids [Q, k] int32). Scores are f32 sums of q * row (int8
     rows widen exactly, the query is never quantized), times the slot's
     scale for int8. On a CUDA tensor the kernel runs, or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "auto" and q.device.type != "cpu":
+    if _cuda.takes_kernel(impl, q):
         return _probe_buckets_cuda(q, probe, buckets, bucket_ids, scales, k)
     d = buckets.shape[2]
 
@@ -675,9 +673,7 @@ def probe_buckets_q4(
     dots and the shared f32 epilogue (ops/quant4._score_f32), so they are
     bit-identical to the JAX package's. On a CUDA tensor the kernel runs,
     or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "auto" and q_q.device.type != "cpu":
+    if _cuda.takes_kernel(impl, q_q):
         return _probe_buckets_q4_cuda(q_q, q_scale, rs_q, probe, buckets,
                                       bucket_ids, scales, k)
     w = buckets.shape[2]

@@ -1,4 +1,5 @@
-"""Dual-tower CLIP: encode_image / encode_text / similarity logits.
+"""Dual-tower CLIP: encode_image / encode_text / similarity logits, and
+`pair_config`, the one rule that picks a pair from its towers' names.
 
 Counterpart of mmrs_tpu/models/clip.py: the CLIP pair and the Chinese
 Taiyi pair (a ViT image tower with the Taiyi RoBERTa text tower,
@@ -12,14 +13,18 @@ logit_bias). The scoring contracts are the reference's: softmax over
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from mmrs_tpu_torch.models.bert import Bert
-from mmrs_tpu_torch.models.configs import BertConfig, TextConfig, VITConfig
+from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
+                                           CLIP_TEXT_TINY, IMAGE_TOWERS,
+                                           TAIYI_ROBERTA_LARGE, TAIYI_TINY,
+                                           TEXT_TOWERS, BertConfig,
+                                           TextConfig, VITConfig)
 from mmrs_tpu_torch.models.text_transformer import TextTransformer
 from mmrs_tpu_torch.models.vit import VisionTransformer
 from mmrs_tpu_torch.ops.normalize import l2_normalize
@@ -50,14 +55,12 @@ class CLIP(nn.Module):
 @torch.inference_mode()
 def encode_image(model: CLIP, images: torch.Tensor,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 normalize: bool = True, attn_impl: str = "auto",
-                 mlp_impl: str = "auto") -> torch.Tensor:
-    """[B, H, W, 3] CLIP-normalized images -> [B, embed_dim] f32.
-    `attn_impl` / `mlp_impl` select the implementation ("auto" or "torch",
-    as in ops/) of the attention's kernels (K2, its denses' epilogue) and
-    the MLP's (the int8 MLP, the float denses' epilogue, the patch
-    embedding's): with both "torch" the tower runs the plain ops."""
-    feats = model.visual(images, compute_dtype, attn_impl, mlp_impl)
+                 normalize: bool = True, impl: str = "auto"
+                 ) -> torch.Tensor:
+    """[B, H, W, 3] CLIP-normalized images -> [B, embed_dim] f32. `impl`
+    routes every kernel of the tower ("auto" or "torch", as in ops/):
+    with "torch" the tower runs the plain ops."""
+    feats = model.visual(images, compute_dtype, impl)
     return l2_normalize(feats) if normalize else feats
 
 
@@ -148,3 +151,51 @@ class SigLIP(nn.Module):
         self.logit_bias = nn.Parameter(
             torch.tensor(cfg.logit_bias_init, dtype=torch.float32))
 
+
+
+# --- the pair rule -----------------------------------------------------------
+
+def _siglip_text(image_tower: str, text_tower: str,
+                 vision: VITConfig) -> TextConfig:
+    """The text tower `text_tower` names for a SigLIP image tower: a
+    SigLIP one (last-token pooling) of the same embed dim."""
+    text = TEXT_TOWERS.get(text_tower)
+    if not (isinstance(text, TextConfig) and text.pool == "last"
+            and text.embed_dim == vision.embed_dim):
+        siglip = sorted(k for k, t in TEXT_TOWERS.items()
+                        if isinstance(t, TextConfig) and t.pool == "last")
+        raise ValueError(
+            f"image tower {image_tower!r} pairs with a SigLIP text tower of "
+            f"{vision.embed_dim}-d, one of {siglip}; got text_tower "
+            f"{text_tower!r}")
+    return text
+
+
+def pair_config(image_tower: str, text_tower: str) -> Tuple[type, object]:
+    """(pair class, pair config) of a configured image and text tower: with
+    a MAP-pooled (SigLIP) image tower the SigLIP pair, whose text tower
+    `text_tower` names; with `text_tower: taiyi_roberta` the Taiyi pair;
+    else CLIP with the image tower's own text tower. Raises ValueError on
+    an unknown image tower or a pairing that does not fit."""
+    if image_tower not in IMAGE_TOWERS:
+        raise ValueError(f"unknown image tower {image_tower!r}; "
+                         f"one of {sorted(IMAGE_TOWERS)}")
+    vision = IMAGE_TOWERS[image_tower]
+    if vision.pool == "map":
+        return SigLIP, SigLIPConfig(
+            vision=vision, text=_siglip_text(image_tower, text_tower, vision))
+    if text_tower == "taiyi_roberta":
+        # the text head's projection must match the image embed dim; the
+        # tiny pair exists for CI/smoke runs
+        taiyi = (TAIYI_TINY if image_tower == "vit_tiny"
+                 else TAIYI_ROBERTA_LARGE)
+        if taiyi.num_labels != vision.embed_dim:
+            raise ValueError(
+                f"text tower 'taiyi_roberta' projects to "
+                f"{taiyi.num_labels}-d but image tower {image_tower!r} "
+                f"embeds {vision.embed_dim}-d; pair Taiyi with vit_l14 (the "
+                f"reference's pairing) or vit_tiny")
+        return TaiyiCLIP, TaiyiCLIPConfig(vision=vision, text=taiyi)
+    text = {"vit_b32": CLIP_TEXT_B32, "vit_l14": CLIP_TEXT_L14,
+            "vit_tiny": CLIP_TEXT_TINY}[image_tower]
+    return CLIP, CLIPConfig(vision=vision, text=text)

@@ -6,13 +6,12 @@ package:
   - matmuls take the compute dtype (bf16 by default); the products are
     summed in f32, the f32 bias is added to the f32 sums and the result
     is rounded once to the compute dtype (on the card, with an MLP's
-    activation, in one epilogue kernel: ops/dense_epilogue.py; the
-    attention's denses follow `attn_impl`, the MLP's `mlp_impl`);
+    activation, in one epilogue kernel: ops/dense_epilogue.py);
   - int8 layers (`QLinear`, the int8 serving tower) quantize their input
     per row (round half to even), multiply int8 by int8 into exact int32
     sums, and rescale and add the bias in f32 before the one rounding;
   - LayerNorm runs in f32 regardless of the compute dtype (on the card,
-    bf16 rows in one kernel: ops/layer_norm.py; it follows `mlp_impl`);
+    bf16 rows in one kernel: ops/layer_norm.py);
   - unmasked (vision) attention is the fused short-sequence MHA
     (ops/attention.py: the CUDA kernel on a GPU), with f32 softmax;
   - masked (text) attention is plain PyTorch with the softmax in the
@@ -25,6 +24,8 @@ package:
     (`row_parallel`) add f32 partial sums; int8 pieces share one global
     activation scale and add exact int32 sums, equal to the one-device
     int8 product.
+Every kernel a tower launches (K2, K6, E1 and E2) follows one `impl`:
+"auto" (the kernels on the card) or "torch" (the plain ops anywhere).
 
 Weights live in `nn.Linear` modules ([out, in] layout; matmul weights in
 the compute dtype, biases f32), `QLinear` or `QLinear4` modules; the
@@ -41,10 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmrs_tpu_torch.ops._cuda import records_grad
 from mmrs_tpu_torch.ops.attention import mha_short_seq, pool_attention
 from mmrs_tpu_torch.ops.dense_epilogue import (ACTIVATIONS, act_name,
-                                               bias_act, gelu, quick_gelu,
-                                               records_grad)
+                                               bias_act, gelu, quick_gelu)
 from mmrs_tpu_torch.ops.int8 import INV_127, int8_linear, int_mm, quantize_act
 from mmrs_tpu_torch.ops.layer_norm import layer_norm
 from mmrs_tpu_torch.ops.mlp_int8 import mlp_int8_fused
@@ -301,7 +302,7 @@ class Attention(nn.Module):
         self.wo = nn.Linear(part, width, bias=tp == 1)
 
     def heads_out(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                  compute_dtype: torch.dtype, attn_impl: str = "auto"
+                  compute_dtype: torch.dtype, impl: str = "auto"
                   ) -> torch.Tensor:
         """The attention of the layer's heads, [B, T, heads * hd] in the
         compute dtype: the input of wo."""
@@ -313,7 +314,7 @@ class Attention(nn.Module):
             q, k, v = (int8_linear(xq, sx, p.q, p.s, p.bias, cd)
                        for p in (self.wq, self.wk, self.wv))
         else:
-            q, k, v = (dense(x, p, cd, impl=attn_impl)
+            q, k, v = (dense(x, p, cd, impl=impl)
                        for p in (self.wq, self.wk, self.wv))
         hd = q.shape[-1] // self.heads
         # 1/sqrt(hd) folded into q, rounded to the compute dtype first (a
@@ -321,7 +322,7 @@ class Attention(nn.Module):
         scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=cd))
         q = q * scale
         if mask is None:
-            return mha_short_seq(q, k, v, self.heads, impl=attn_impl)
+            return mha_short_seq(q, k, v, self.heads, impl=impl)
 
         def split(y):                              # [B, H, T, hd]
             return y.reshape(b, t, self.heads, hd).transpose(1, 2)
@@ -332,10 +333,10 @@ class Attention(nn.Module):
         return out.transpose(1, 2).reshape(b, t, -1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                compute_dtype: torch.dtype, attn_impl: str = "auto"
+                compute_dtype: torch.dtype, impl: str = "auto"
                 ) -> torch.Tensor:
-        return dense(self.heads_out(x, mask, compute_dtype, attn_impl),
-                     self.wo, compute_dtype, impl=attn_impl)
+        return dense(self.heads_out(x, mask, compute_dtype, impl),
+                     self.wo, compute_dtype, impl=impl)
 
 
 class MLP(nn.Module):
@@ -350,21 +351,21 @@ class MLP(nn.Module):
         self.act = act
 
     def inner(self, x: torch.Tensor, compute_dtype: torch.dtype,
-              mlp_impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto") -> torch.Tensor:
         """act(x @ w1^T + b1) in the compute dtype: the input of w2."""
-        return dense(x, self.w1, compute_dtype, act=self.act, impl=mlp_impl)
+        return dense(x, self.w1, compute_dtype, act=self.act, impl=impl)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
-                mlp_impl: str = "auto") -> torch.Tensor:
+                impl: str = "auto") -> torch.Tensor:
         if isinstance(self.w1, QLinear):
             w1, w2 = self.w1, self.w2
             y = mlp_int8_fused(
                 x.reshape(-1, x.shape[-1]).to(compute_dtype), w1.q, w1.s,
                 w1.bias, w2.q, w2.s, w2.bias,
-                act=act_name(self.act), impl=mlp_impl)
+                act=act_name(self.act), impl=impl)
             return y.reshape(x.shape)
-        return dense(self.inner(x, compute_dtype, mlp_impl), self.w2,
-                     compute_dtype, impl=mlp_impl)
+        return dense(self.inner(x, compute_dtype, impl), self.w2,
+                     compute_dtype, impl=impl)
 
 
 class BlockPiece(nn.Module):
@@ -414,9 +415,8 @@ class Block(nn.Module):
                               self.mlp.w1.out_features, self.mlp.act, tp)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                compute_dtype: torch.dtype, attn_impl: str = "auto",
-                mlp_impl: str = "auto", pieces=None, devices=None
-                ) -> torch.Tensor:
+                compute_dtype: torch.dtype, impl: str = "auto",
+                pieces=None, devices=None) -> torch.Tensor:
         """The block on x's device, or tensor-parallel with `pieces` (one
         BlockPiece a model position, pieces[p] on devices[p]): each piece
         takes the LayerNorm's output and computes its heads and MLP units,
@@ -427,19 +427,18 @@ class Block(nn.Module):
         cd = compute_dtype
         parts = [self] if pieces is None else list(pieces)
         devs = [x.device] if pieces is None else list(devices)
-        h = self.ln1(x, mlp_impl)
+        h = self.ln1(x, impl)
         outs = [p.attn.heads_out(h.to(d), None if mask is None
-                                 else mask.to(d), cd, attn_impl)
+                                 else mask.to(d), cd, impl)
                 for p, d in zip(parts, devs)]
         x = x + _row_dense(outs, [p.attn.wo for p in parts],
-                           self.attn.wo.bias, cd, x.device, attn_impl)
-        h = self.ln2(x, mlp_impl)
+                           self.attn.wo.bias, cd, x.device, impl)
+        h = self.ln2(x, impl)
         if isinstance(self.mlp.w1, QLinear):     # the fused int8 MLP (K6)
-            return x + self.mlp(h, cd, mlp_impl)
-        inner = [p.mlp.inner(h.to(d), cd, mlp_impl)
-                 for p, d in zip(parts, devs)]
+            return x + self.mlp(h, cd, impl)
+        inner = [p.mlp.inner(h.to(d), cd, impl) for p, d in zip(parts, devs)]
         return x + _row_dense(inner, [p.mlp.w2 for p in parts],
-                              self.mlp.w2.bias, cd, x.device, mlp_impl)
+                              self.mlp.w2.bias, cd, x.device, impl)
 
 
 class MapHead(nn.Module):
@@ -458,18 +457,17 @@ class MapHead(nn.Module):
         self.mlp = MLP(width, hidden, act)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
-                attn_impl: str = "auto", mlp_impl: str = "auto"
-                ) -> torch.Tensor:
+                impl: str = "auto") -> torch.Tensor:
         cd, a = compute_dtype, self.attn
         # the probe's query is the same for every image: one row
-        q = dense(self.probe, a.wq, cd, impl=attn_impl)
-        k, v = (dense(x, p, cd, impl=attn_impl) for p in (a.wk, a.wv))
+        q = dense(self.probe, a.wq, cd, impl=impl)
+        k, v = (dense(x, p, cd, impl=impl) for p in (a.wk, a.wv))
         scale = float(torch.tensor(1.0 / math.sqrt(q.shape[-1] // a.heads),
                                    dtype=cd))
         out = pool_attention((q * scale).expand(x.shape[0], -1, -1), k, v,
-                             a.heads, impl=attn_impl)
-        h = dense(out, a.wo, cd, impl=attn_impl)
-        return (h + self.mlp(self.ln(h, mlp_impl), cd, mlp_impl))[:, 0]
+                             a.heads)
+        h = dense(out, a.wo, cd, impl=impl)
+        return (h + self.mlp(self.ln(h, impl), cd, impl))[:, 0]
 
 
 def init_blocks(blocks: nn.ModuleList, generator: torch.Generator) -> None:

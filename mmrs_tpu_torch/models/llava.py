@@ -82,14 +82,12 @@ class TPLLaVA(nn.Module):
 
 def vision_tokens(model: LLaVA, images: torch.Tensor,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  attn_impl: str = "auto", mlp_impl: str = "auto"
-                  ) -> torch.Tensor:
+                  impl: str = "auto") -> torch.Tensor:
     """[B, N, W] hidden states after block (layers + vision_feature_layer
     + 1) — HF's hidden_states[-2] — without the CLS token."""
     cfg = model.cfg
     n_run = cfg.vision.layers + cfg.vision_feature_layer + 1
-    x = model.visual.hidden_states(images, compute_dtype, n_run, attn_impl,
-                                   mlp_impl)
+    x = model.visual.hidden_states(images, compute_dtype, n_run, impl)
     return x[:, 1:, :] if cfg.drop_cls else x
 
 
@@ -101,10 +99,10 @@ def project(model: LLaVA, feats: torch.Tensor,
 
 def encode_images(model: LLaVA, images: torch.Tensor,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  attn_impl: str = "auto", mlp_impl: str = "auto"
-                  ) -> torch.Tensor:
-    """[B, H, W, 3] CLIP-normalized images -> [B, N, lm_dim]."""
-    feats = vision_tokens(model, images, compute_dtype, attn_impl, mlp_impl)
+                  impl: str = "auto") -> torch.Tensor:
+    """[B, H, W, 3] CLIP-normalized images -> [B, N, lm_dim]. `impl`
+    routes the vision tower's kernels ("auto" or "torch")."""
+    feats = vision_tokens(model, images, compute_dtype, impl)
     return project(model, feats, compute_dtype)
 
 
@@ -124,13 +122,13 @@ def build_multimodal_embeds(model: LLaVA, pre_tokens: torch.Tensor,
 def generate(model: LLaVA, images: torch.Tensor, pre_tokens: torch.Tensor,
              post_tokens: torch.Tensor, max_new_tokens: int = 32,
              eos_token: int = 2, compute_dtype: torch.dtype = torch.bfloat16,
-             attn_impl: str = "auto", mlp_impl: str = "auto",
-             kv_dtype=None, prefill_chunk: Optional[int] = None,
+             impl: str = "auto", kv_dtype=None,
+             prefill_chunk: Optional[int] = None,
              decode_window: Optional[int] = None, early_stop: bool = False,
              attn: str = "auto") -> torch.Tensor:
     """Greedy VQA decode (temperature 0), the verifier's contract:
     [B, max_new_tokens] int32, EOS-padded."""
-    img = encode_images(model, images, compute_dtype, attn_impl, mlp_impl)
+    img = encode_images(model, images, compute_dtype, impl)
     embeds = build_multimodal_embeds(model, pre_tokens, img, post_tokens,
                                      compute_dtype)
     return llama.greedy_generate(
@@ -145,8 +143,8 @@ def generate_speculative(model: LLaVA, draft: LLaVA, images: torch.Tensor,
                          max_new_tokens: int = 32, draft_tokens: int = 4,
                          eos_token: int = 2,
                          compute_dtype: torch.dtype = torch.bfloat16,
-                         attn_impl: str = "auto", mlp_impl: str = "auto",
-                         kv_dtype=None, prefill_chunk: Optional[int] = None,
+                         impl: str = "auto", kv_dtype=None,
+                         prefill_chunk: Optional[int] = None,
                          attn: str = "auto", return_stats: bool = False):
     """Greedy VQA decode accelerated by a smaller draft VLM; the tokens are
     the target's own greedy output (models/speculative.py). Both models
@@ -155,12 +153,10 @@ def generate_speculative(model: LLaVA, draft: LLaVA, images: torch.Tensor,
     from mmrs_tpu_torch.models.speculative import speculative_generate
 
     emb_t = build_multimodal_embeds(
-        model, pre_tokens,
-        encode_images(model, images, compute_dtype, attn_impl, mlp_impl),
+        model, pre_tokens, encode_images(model, images, compute_dtype, impl),
         post_tokens, compute_dtype)
     emb_d = build_multimodal_embeds(
-        draft, pre_tokens,
-        encode_images(draft, images, compute_dtype, attn_impl, mlp_impl),
+        draft, pre_tokens, encode_images(draft, images, compute_dtype, impl),
         post_tokens, compute_dtype)
     return speculative_generate(
         model.lm, draft.lm, emb_t, emb_d, max_new_tokens=max_new_tokens,

@@ -93,39 +93,37 @@ class VisionTransformer(nn.Module):
 
     def hidden_states(self, images: torch.Tensor,   # [B, H, W, 3]
                       compute_dtype: torch.dtype = torch.bfloat16,
-                      n_blocks: Optional[int] = None,
-                      attn_impl: str = "auto", mlp_impl: str = "auto",
+                      n_blocks: Optional[int] = None, impl: str = "auto",
                       pieces=None, devices=None) -> torch.Tensor:
         """[B, N+1, W] tokens (CLS first; [B, N, W] without a class token)
         after the first `n_blocks` blocks (default: all), before ln_post;
-        LLaVA reads block -2's output.
+        LLaVA reads block -2's output. `impl` routes every kernel of the
+        tower (layers.Block): "auto" or "torch" (the plain ops).
         `pieces[i]` (one layers.BlockPiece a model position, on
         `devices`) runs block i tensor-parallel (Block.forward)."""
         cd = compute_dtype
-        # the patch embedding's epilogue follows the MLPs' route: the plain
-        # tower (attn_impl = mlp_impl = "torch") runs no kernel
         x = dense(patchify(images, self.cfg.patch_size), self.patch_embed, cd,
-                  impl=mlp_impl)
+                  impl=impl)
         if self.cfg.class_token:
             cls = self.class_embedding.to(cd).expand(x.shape[0], 1, -1)
             x = torch.cat([cls, x], dim=1)                    # [B, N+1, W]
         x = x + self.positional_embedding.to(cd)[None]
         if self.cfg.pre_norm:
-            x = self.ln_pre(x, mlp_impl)
+            x = self.ln_pre(x, impl)
         for i, blk in enumerate(self.blocks[:n_blocks]):
-            x = blk(x, None, cd, attn_impl, mlp_impl,
-                    None if pieces is None else pieces[i], devices)
+            x = blk(x, None, cd, impl, None if pieces is None else pieces[i],
+                    devices)
         return x
 
     def forward(self, images: torch.Tensor,     # [B, H, W, 3], normalized
                 compute_dtype: torch.dtype = torch.bfloat16,
-                attn_impl: str = "auto", mlp_impl: str = "auto",
-                pieces=None, devices=None) -> torch.Tensor:
-        x = self.hidden_states(images, compute_dtype, None, attn_impl,
-                               mlp_impl, pieces, devices)
+                impl: str = "auto", pieces=None, devices=None
+                ) -> torch.Tensor:
+        x = self.hidden_states(images, compute_dtype, None, impl, pieces,
+                               devices)
         if self.cfg.pool == "map":
             with trace("towers.pool", items=x.shape[0]):
-                return self.head(self.ln_post(x, mlp_impl), compute_dtype,
-                                 attn_impl, mlp_impl).float()
-        cls_tok = self.ln_post(x[:, 0, :], mlp_impl)
+                return self.head(self.ln_post(x, impl), compute_dtype,
+                                 impl).float()
+        cls_tok = self.ln_post(x[:, 0, :], impl)
         return project(cls_tok, self.proj, compute_dtype)      # f32

@@ -25,6 +25,7 @@ import subprocess
 import sys
 import time
 from functools import lru_cache
+from typing import Optional
 
 import torch
 
@@ -193,12 +194,29 @@ def triton_module(name: str):
     return mod
 
 
+def takes_kernel(impl: str, x: torch.Tensor) -> bool:
+    """The one route rule of every op that takes `impl`: "auto" runs the
+    kernel on a CUDA tensor and the plain PyTorch version elsewhere,
+    "torch" the plain version anywhere; any other value raises
+    ValueError. An op adds its own conditions on its inputs (dtype, shape,
+    autograd) after this."""
+    if impl in ("auto", "torch"):
+        return impl == "auto" and x.device.type == "cuda"
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records an op on these tensors (a training step)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """A kernel's output has no autograd history: its launch writes a fresh
     tensor through raw pointers. So a kernel refuses (RuntimeError) to run
     under grad mode on a floating input that requires grad, where it would
     silently cut the graph and leave those inputs' gradients at zero.
-    Training takes the plain route (`impl="torch"`, `attn_impl="torch"`).
+    Training takes the plain route (`impl="torch"`).
     None entries (absent scales) are skipped."""
     if not torch.is_grad_enabled():
         return

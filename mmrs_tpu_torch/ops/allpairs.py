@@ -204,13 +204,11 @@ def first_match(
     row_offset) count: keep-first dedup; offsets of 0 when a and b are the
     same unsharded matrix. On a CUDA tensor the kernel runs, or this
     raises: there is no fallback."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "torch" or (impl == "auto" and a.device.type == "cpu"):
-        return _first_match_torch(a, b, tau, intra, int(row_offset),
-                                  int(col_offset))
-    return _first_match_cuda(a, b, tau, intra, int(row_offset),
-                             int(col_offset))
+    if _cuda.takes_kernel(impl, a):
+        return _first_match_cuda(a, b, tau, intra, int(row_offset),
+                                 int(col_offset))
+    return _first_match_torch(a, b, tau, intra, int(row_offset),
+                              int(col_offset))
 
 
 first_match.launches = 0   # kernel launches, for showing the path ran it

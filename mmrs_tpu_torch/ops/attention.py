@@ -136,11 +136,9 @@ def mha_short_seq(
 ) -> torch.Tensor:          # [B, T, W]
     """Fused MHA for short sequences; softmax in f32, no head transposes in
     device memory. On a CUDA tensor the kernel runs, or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "torch" or q.device.type == "cpu":
-        return _mha_torch(q, k, v, heads)
-    return _mha_cuda(q, k, v, heads)
+    if _cuda.takes_kernel(impl, q):
+        return _mha_cuda(q, k, v, heads)
+    return _mha_torch(q, k, v, heads)
 
 
 mha_short_seq.launches = 0   # kernel launches, for showing the path ran it
@@ -151,14 +149,11 @@ def pool_attention(
     k: torch.Tensor,        # [B, T, W]
     v: torch.Tensor,        # [B, T, W]
     heads: int,
-    impl: str = "auto",
 ) -> torch.Tensor:          # [B, Q, W]
     """Q queries a row (SigLIP's MAP head: one probe) over T keys, with
     mha_short_seq's math: f32 logits and softmax, the probabilities
     rounded to v's dtype, f32 sums, the output in q's dtype. Plain ops on
-    every device and `impl`."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
+    every device: it takes no `impl`."""
     b, nq, w = q.shape
     t, hd = k.shape[1], w // heads
 

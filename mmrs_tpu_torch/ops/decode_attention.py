@@ -441,11 +441,6 @@ def _chunk_launch(q, k_cache, k_scales, v_cache, v_scales, pos: Pos,
     return out
 
 
-def _check_impl(impl: str) -> None:
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-
-
 def decode_attention(
     q: torch.Tensor,                  # [B, KVH, G, HD]
     k_cache: torch.Tensor,            # [B, KVH, S, HD] int8 or bf16
@@ -461,14 +456,12 @@ def decode_attention(
     place of B * KVH: a tensor-parallel shard of int8 weights passes the
     whole model's, so that each of its pairs is reduced as on one device
     (models/llama.forward)."""
-    _check_impl(impl)
-    if impl == "torch" or q.device.type == "cpu":
-        b = q.shape[0]
-        q_pos = query_positions(pos, b, 1, q.device)
-        return _attn_torch(q[:, :, :, None], k_cache, k_scales, v_cache,
-                           v_scales, q_pos, lanes=True)[:, :, :, 0]
-    return _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos,
-                        plan_pairs)
+    if _cuda.takes_kernel(impl, q):
+        return _decode_cuda(q, k_cache, k_scales, v_cache, v_scales, pos,
+                            plan_pairs)
+    q_pos = query_positions(pos, q.shape[0], 1, q.device)
+    return _attn_torch(q[:, :, :, None], k_cache, k_scales, v_cache,
+                       v_scales, q_pos, lanes=True)[:, :, :, 0]
 
 
 def chunk_attention(
@@ -483,17 +476,17 @@ def chunk_attention(
 ) -> torch.Tensor:                    # [B, KVH, G, C, HD] f32
     """Causal attention of C query rows (at pos + c) over the cache prefix
     (K10). `kv_limit` cuts the view's S: the chunk attends no further."""
-    _check_impl(impl)
+    kernel = _cuda.takes_kernel(impl, q)
     if kv_limit is not None:
         k_cache, v_cache = k_cache[:, :, :kv_limit], v_cache[:, :, :kv_limit]
         if k_scales is not None:
             k_scales = k_scales[:, :, :kv_limit]
             v_scales = v_scales[:, :, :kv_limit]
-    if impl == "torch" or q.device.type == "cpu":
-        b, _, _, c, _ = q.shape
-        q_pos = query_positions(pos, b, c, q.device)
-        return _attn_torch(q, k_cache, k_scales, v_cache, v_scales, q_pos)
-    return _chunk_cuda(q, k_cache, k_scales, v_cache, v_scales, pos)
+    if kernel:
+        return _chunk_cuda(q, k_cache, k_scales, v_cache, v_scales, pos)
+    b, _, _, c, _ = q.shape
+    q_pos = query_positions(pos, b, c, q.device)
+    return _attn_torch(q, k_cache, k_scales, v_cache, v_scales, q_pos)
 
 
 decode_attention.launches = 0   # kernel launches, for showing the path ran it

@@ -61,18 +61,12 @@ def act_name(act: Optional[Callable]) -> Optional[str]:
     raise ValueError(f"no epilogue for the activation {act!r}")
 
 
-def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
-    """Whether autograd records an op on these tensors (a training step)."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def _bias_act_torch(y32: torch.Tensor, bias: Optional[torch.Tensor],
                     act: Optional[str], out_dtype: torch.dtype
                     ) -> torch.Tensor:
     if bias is None:
         y = y32.to(out_dtype)
-    elif records_grad(y32, bias):   # `out=` has no autograd formula
+    elif _cuda.records_grad(y32, bias):   # `out=` has no autograd formula
         y = (y32 + bias.float()).to(out_dtype)
     else:
         # one pass: the f32 sum, rounded as it is stored
@@ -148,11 +142,9 @@ def bias_act(y32: torch.Tensor, bias: Optional[torch.Tensor],
     plus its f32 bias (None: none), rounded once, then `act` ("quick_gelu",
     "gelu", "gelu_tanh" or None) with the plain ops' roundings. On a CUDA
     tensor the kernel runs, or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "torch" or y32.device.type == "cpu":
-        return _bias_act_torch(y32, bias, act, out_dtype)
-    return _bias_act_cuda(y32, bias, act, out_dtype)
+    if _cuda.takes_kernel(impl, y32):
+        return _bias_act_cuda(y32, bias, act, out_dtype)
+    return _bias_act_torch(y32, bias, act, out_dtype)
 
 
 bias_act.launches = 0   # kernel launches, for showing the path ran it

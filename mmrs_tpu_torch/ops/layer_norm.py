@@ -32,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from mmrs_tpu_torch.ops import _cuda
-from mmrs_tpu_torch.ops.dense_epilogue import records_grad
 
 THREADS = 256                 # csrc/layer_norm.cu kThreads
 WARPS = THREADS // 32         # rows a block takes at once: one a warp
@@ -114,13 +113,11 @@ def _layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 
 def takes_kernel(x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor, impl: str) -> bool:
-    """Whether `layer_norm` launches the kernel: "auto", bf16 rows on a
-    CUDA device, and autograd not recording the call."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    return (impl == "auto" and x.device.type == "cuda"
-            and x.dtype == torch.bfloat16
-            and not records_grad(x, weight, bias))
+    """Whether `layer_norm` launches the kernel: the route rule
+    (_cuda.takes_kernel), bf16 rows, and autograd not recording the
+    call."""
+    return (_cuda.takes_kernel(impl, x) and x.dtype == torch.bfloat16
+            and not _cuda.records_grad(x, weight, bias))
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -184,13 +184,12 @@ def mlp_int8_fused(
 ) -> torch.Tensor:         # [M, W] in x.dtype
     """One transformer MLP block on int8 weights. On a CUDA tensor the
     kernel runs, or this raises: there is no fallback."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
+    kernel = _cuda.takes_kernel(impl, x)
     if act not in _ACT_CODE:
         raise ValueError(f"unknown activation {act!r}")
-    if impl == "torch" or x.device.type == "cpu":
-        return _mlp_int8_torch(x, w1_q, s1, b1, w2_q, s2, b2, act)
-    return _mlp_int8_cuda(x, w1_q, s1, b1, w2_q, s2, b2, act)
+    if kernel:
+        return _mlp_int8_cuda(x, w1_q, s1, b1, w2_q, s2, b2, act)
+    return _mlp_int8_torch(x, w1_q, s1, b1, w2_q, s2, b2, act)
 
 
 mlp_int8_fused.launches = 0   # calls that launched the kernels (four a call)

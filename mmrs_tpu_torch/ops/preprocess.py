@@ -121,12 +121,11 @@ def normalize_images(
 ) -> torch.Tensor:
     """(x/255 - mean) / std per channel, output in the compute dtype. On a
     CUDA tensor the Triton kernel runs, or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
+    kernel = _cuda.takes_kernel(impl, images_u8)
     affine = _affine32(tuple(mean), tuple(std))
-    if impl == "torch" or images_u8.device.type == "cpu":
-        return _normalize_torch(images_u8, dtype, affine)
-    return _normalize_triton(images_u8, dtype, affine)
+    if kernel:
+        return _normalize_triton(images_u8, dtype, affine)
+    return _normalize_torch(images_u8, dtype, affine)
 
 
 normalize_images.launches = 0   # kernel launches, for showing the path ran it

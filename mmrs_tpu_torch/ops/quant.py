@@ -106,12 +106,11 @@ def cosine_topk_quantized(
     """Top-k over an int8 gallery: the queries are quantized per row, then
     scored with exact int8 products. Returns (values [Q, k] f32, ids [Q, k]
     int32), best first. On a CUDA tensor the kernel runs, or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
+    kernel = _cuda.takes_kernel(impl, queries)
     q_q, q_scale = quantize_rows(queries)
-    if impl == "torch" or queries.device.type == "cpu":
-        return topk.sorted_topk(scores_q8(q_q, q_scale, gallery_q, scales), k)
-    return _topk_quant_cuda(q_q, q_scale, gallery_q, scales, k)
+    if kernel:
+        return _topk_quant_cuda(q_q, q_scale, gallery_q, scales, k)
+    return topk.sorted_topk(scores_q8(q_q, q_scale, gallery_q, scales), k)
 
 
 cosine_topk_quantized.launches = 0   # kernel launches (shows a path ran it)

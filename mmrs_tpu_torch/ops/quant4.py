@@ -146,13 +146,12 @@ def cosine_topk_int4(
     """Top-k over an int4 packed gallery. Returns (values [Q, k] f32, ids
     [Q, k] int32), best first, equal scores lowest row first. On a CUDA
     tensor the kernel runs, or this raises."""
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
+    kernel = _cuda.takes_kernel(impl, queries)
     q_q, q_scale, rs_q = prep_queries(queries)
-    if impl == "torch" or queries.device.type == "cpu":
-        return topk.sorted_topk(
-            scores_int4(q_q, q_scale, rs_q, packed, scales), k)
-    return _topk_int4_cuda(q_q, q_scale, rs_q, packed, scales, k)
+    if kernel:
+        return _topk_int4_cuda(q_q, q_scale, rs_q, packed, scales, k)
+    return topk.sorted_topk(
+        scores_int4(q_q, q_scale, rs_q, packed, scales), k)
 
 
 cosine_topk_int4.launches = 0   # kernel launches, for showing the path ran it

@@ -290,11 +290,9 @@ def cosine_topk(
     Returns (values [Q, k] f32, ids [Q, k] int32), best first. On a CUDA
     tensor the kernel runs, or this raises: there is no fallback.
     """
-    if impl not in ("auto", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "torch" or queries.device.type == "cpu":
-        return _cosine_topk_torch(queries, gallery, k)
-    return _cosine_topk_cuda(queries, gallery, k)
+    if _cuda.takes_kernel(impl, queries):
+        return _cosine_topk_cuda(queries, gallery, k)
+    return _cosine_topk_torch(queries, gallery, k)
 
 
 cosine_topk.launches = 0   # kernel launches, for showing the path ran it

@@ -462,8 +462,8 @@ def make_tp_generate(cfg: LlamaConfig, mesh: Mesh, max_new_tokens: int,
 def make_tp_llava_generate(cfg: llava.LLaVAConfig, mesh: Mesh,
                            max_new_tokens: int = 32, eos_token: int = 2,
                            compute_dtype: torch.dtype = torch.bfloat16,
-                           attn_impl: str = "auto", mlp_impl: str = "auto",
-                           kv_dtype=None, prefill_chunk: Optional[int] = None,
+                           impl: str = "auto", kv_dtype=None,
+                           prefill_chunk: Optional[int] = None,
                            decode_window: Optional[int] = None,
                            early_stop: bool = False, attn: str = "auto"):
     """`gen(params, images, pre_tokens, post_tokens)`: llava.generate of a
@@ -474,7 +474,7 @@ def make_tp_llava_generate(cfg: llava.LLaVAConfig, mesh: Mesh,
     def row(model, images, pre, post):
         return llava.generate(
             model, images, pre, post, max_new_tokens, eos_token,
-            compute_dtype, attn_impl, mlp_impl, kv_dtype=kv_dtype,
+            compute_dtype, impl, kv_dtype=kv_dtype,
             prefill_chunk=prefill_chunk, decode_window=decode_window,
             early_stop=early_stop, attn=attn)
 
@@ -485,10 +485,9 @@ def make_tp_llava_generate(cfg: llava.LLaVAConfig, mesh: Mesh,
 def make_tp_llava_speculative_generate(
         cfg: llava.LLaVAConfig, draft_cfg: llava.LLaVAConfig, mesh: Mesh,
         max_new_tokens: int = 32, draft_tokens: int = 4, eos_token: int = 2,
-        compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "auto",
-        mlp_impl: str = "auto", kv_dtype=None,
-        prefill_chunk: Optional[int] = None, attn: str = "auto",
-        return_stats: bool = False):
+        compute_dtype: torch.dtype = torch.bfloat16, impl: str = "auto",
+        kv_dtype=None, prefill_chunk: Optional[int] = None,
+        attn: str = "auto", return_stats: bool = False):
     """`gen(params, draft_params, images, pre_tokens, post_tokens)`:
     llava.generate_speculative with the target decoder tensor-parallel and
     the draft VLM sharded or replicated, as its params were placed
@@ -499,7 +498,7 @@ def make_tp_llava_speculative_generate(
     def row(model, draft, images, pre, post):
         return llava.generate_speculative(
             model, draft, images, pre, post, max_new_tokens, draft_tokens,
-            eos_token, compute_dtype, attn_impl, mlp_impl, kv_dtype=kv_dtype,
+            eos_token, compute_dtype, impl, kv_dtype=kv_dtype,
             prefill_chunk=prefill_chunk, attn=attn,
             return_stats=return_stats)
 

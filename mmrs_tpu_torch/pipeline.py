@@ -25,13 +25,7 @@ from torch import nn
 
 from mmrs_tpu_torch.config import Config
 from mmrs_tpu_torch.models import clip
-from mmrs_tpu_torch.models.clip import (CLIP, CLIPConfig, SigLIP,
-                                        SigLIPConfig, TaiyiCLIP,
-                                        TaiyiCLIPConfig)
-from mmrs_tpu_torch.models.configs import (CLIP_TEXT_B32, CLIP_TEXT_L14,
-                                           CLIP_TEXT_TINY, IMAGE_TOWERS,
-                                           TAIYI_ROBERTA_LARGE, TAIYI_TINY,
-                                           TEXT_TOWERS, TextConfig)
+from mmrs_tpu_torch.models.clip import CLIP, SigLIP, TaiyiCLIP
 from mmrs_tpu_torch.models.quantize import quantize_clip_visual
 from mmrs_tpu_torch.ops.preprocess import normalize_images
 from mmrs_tpu_torch.utils.profiling import trace
@@ -79,28 +73,12 @@ def default_device() -> torch.device:
         f"pass device='cpu'")
 
 
-def _siglip_text(cfg: Config, vision) -> TextConfig:
-    """The text tower `cfg.model.text_tower` names for a SigLIP image
-    tower: a SigLIP one (last-token pooling) of the same embed dim."""
-    text = TEXT_TOWERS.get(cfg.model.text_tower)
-    if not (isinstance(text, TextConfig) and text.pool == "last"
-            and text.embed_dim == vision.embed_dim):
-        siglip = sorted(k for k, t in TEXT_TOWERS.items()
-                        if isinstance(t, TextConfig) and t.pool == "last")
-        raise ValueError(
-            f"image tower {cfg.model.image_tower!r} pairs with a SigLIP "
-            f"text tower of {vision.embed_dim}-d, one of {siglip}; got "
-            f"text_tower {cfg.model.text_tower!r}")
-    return text
-
-
 def build_towers(cfg: Config, tokenizer=None, device=None,
                  impl: str = "auto",
                  weights: Optional[Dict[str, torch.Tensor]] = None) -> Towers:
-    """Construct the configured tower pair on `device` (default:
-    `default_device()`): CLIP, with `text_tower: taiyi_roberta` the Taiyi
-    pair, or with a MAP-pooled (SigLIP) image tower the SigLIP pair, whose
-    text tower `text_tower` names. Weights come from
+    """Construct the tower pair that clip.pair_config picks for
+    cfg.model's image and text towers on `device` (default:
+    `default_device()`). Weights come from
     `weights` (a state dict under the pair's own parameter names, taken
     as they are: `load_state_dict(assign=True)` into a model made on the
     meta device), else from cfg.model.checkpoint_path (an npz written by
@@ -114,34 +92,8 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
     if cfg.model.dtype not in _DTYPES:
         raise ValueError(f"unknown model dtype {cfg.model.dtype!r}")
     compute_dtype = _DTYPES[cfg.model.dtype]
-    if cfg.model.image_tower not in IMAGE_TOWERS:
-        raise ValueError(f"unknown image tower {cfg.model.image_tower!r}; "
-                         f"one of {sorted(IMAGE_TOWERS)}")
+    make, ccfg = clip.pair_config(cfg.model.image_tower, cfg.model.text_tower)
     device = torch.device(device) if device is not None else default_device()
-
-    vision = IMAGE_TOWERS[cfg.model.image_tower]
-    if vision.pool == "map":
-        ccfg = SigLIPConfig(vision=vision, text=_siglip_text(cfg, vision))
-        make = SigLIP
-    elif cfg.model.text_tower == "taiyi_roberta":
-        # the text head's projection must match the image embed dim; the
-        # tiny pair exists for CI/smoke runs
-        taiyi = (TAIYI_TINY if cfg.model.image_tower == "vit_tiny"
-                 else TAIYI_ROBERTA_LARGE)
-        if taiyi.num_labels != vision.embed_dim:
-            raise ValueError(
-                f"text tower 'taiyi_roberta' projects to "
-                f"{taiyi.num_labels}-d but image tower "
-                f"{cfg.model.image_tower!r} embeds {vision.embed_dim}-d; "
-                f"pair Taiyi with vit_l14 (the reference's pairing) or "
-                f"vit_tiny")
-        ccfg = TaiyiCLIPConfig(vision=vision, text=taiyi)
-        make = TaiyiCLIP
-    else:
-        text = {"vit_b32": CLIP_TEXT_B32, "vit_l14": CLIP_TEXT_L14,
-                "vit_tiny": CLIP_TEXT_TINY}[cfg.model.image_tower]
-        ccfg = CLIPConfig(vision=vision, text=text)
-        make = CLIP
     if weights is not None:
         with torch.device("meta"):
             model = make(ccfg)
@@ -166,9 +118,9 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
     def params_encode_fn(m: nn.Module, images_u8: torch.Tensor,
                          normalize: bool = True) -> torch.Tensor:
         x = normalize_images(images_u8, dtype=compute_dtype, impl=impl,
-                             mean=vision.mean, std=vision.std)
+                             mean=ccfg.vision.mean, std=ccfg.vision.std)
         return clip.encode_image(m, x, compute_dtype, normalize=normalize,
-                                 attn_impl=impl, mlp_impl=impl)
+                                 impl=impl)
 
     # the image path's spans: `towers.upload` (the pageable host-to-device
     # copy), `towers.encode` (K3 and the tower's launches, no sync; inside
@@ -197,7 +149,7 @@ def build_towers(cfg: Config, tokenizer=None, device=None,
         return _fetch(encode_fn(_upload(pixels_u8), normalize=False))
 
     text_encode = None
-    if tokenizer is not None and isinstance(ccfg, TaiyiCLIPConfig):
+    if tokenizer is not None and make is TaiyiCLIP:
         def text_encode(texts):
             ids, mask = (torch.from_numpy(np.asarray(x)).to(device)
                          for x in tokenizer(texts))

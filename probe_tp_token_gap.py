@@ -124,7 +124,7 @@ def probe(sm, dev, packs: int, with_nudge: bool, rows):
                                  saved(*a, **{**kw, "impl": "torch"}))
         try:
             with torch.inference_mode():
-                img = llava.encode_images(model, images, bf16, impl, impl)
+                img = llava.encode_images(model, images, bf16, impl)
                 return llava.build_multimodal_embeds(model, pre, img, post,
                                                      bf16)
         finally:

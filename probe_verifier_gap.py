@@ -4,8 +4,9 @@ one NVIDIA GPU.
 
     python3 probe_verifier_gap.py             (from the repository root)
     python3 probe_verifier_gap.py --tree DIR  (DIR: an unpacked earlier
-        commit of this repository: its package in place of this one's, on
-        the inputs that a run without --tree saved)
+        commit of this repository whose towers take one `impl`: its
+        package in place of this one's, on the inputs that a run without
+        --tree saved)
 
 Builds chip_smoke.py phase 4e's seeded LLaVA-v1.5-7B and its first verify
 pack (8 synthetic JPEGs, the llava_v1 prompt around the image), then holds
@@ -113,6 +114,11 @@ def plain_only(orig):
     return lambda *args, **kw: orig(*args, **{**kw, "impl": "torch"})
 
 
+def kernel_only(orig):
+    """orig, run on its kernel whatever impl its caller passes."""
+    return lambda *args, **kw: orig(*args, **{**kw, "impl": "auto"})
+
+
 def mha_f64(q, k, v, heads, impl="auto"):
     """The tower's attention (ops/attention's plain math) in f64: q, k, v
     [B, T, W] with 1/sqrt(hd) in q; p rounded to v's type, out to q's."""
@@ -199,9 +205,12 @@ def probe(sm, dev, out_rows, saved: bool = False):
     img_k = normalize_images(u8, dtype=bf16)
     img_p = normalize_images(u8, dtype=bf16, impl="torch")
 
-    def embeds(img, attn_impl, mlp_impl):
-        with torch.inference_mode():
-            e = llava.encode_images(model, img, bf16, attn_impl, mlp_impl)
+    def embeds(img, impl, *kernels):
+        """The image embeds with the tower on `impl`, and the layers'
+        functions named in `kernels` on their kernels all the same."""
+        with torch.inference_mode(), patched(
+                *((layers, name, kernel_only) for name in kernels)):
+            e = llava.encode_images(model, img, bf16, impl)
             return llava.build_multimodal_embeds(model, pre, e, post, bf16)
 
     def trace(emb, kv, attn, forced=None):
@@ -213,14 +222,14 @@ def probe(sm, dev, out_rows, saved: bool = False):
     for weights in ("bf16", "int8"):
         if weights == "int8":
             quantize_llava(model)
-        e_p = embeds(img_p, "torch", "torch")
-        towers = {"K3": embeds(img_k, "torch", "torch"),
-                  "K2": embeds(img_p, "auto", "torch"),
-                  "all": embeds(img_k, "auto", "auto")}
+        e_p = embeds(img_p, "torch")
+        towers = {"K3": embeds(img_k, "torch"),
+                  "K2": embeds(img_p, "torch", "mha_short_seq"),
+                  "all": embeds(img_k, "auto")}
         with patched((layers, "mha_short_seq", lambda _: mha_f64)):
-            towers["f64"] = embeds(img_p, "torch", "torch")
+            towers["f64"] = embeds(img_p, "torch")
         if weights == "int8":
-            towers["K6"] = embeds(img_p, "torch", "auto")
+            towers["K6"] = embeds(img_p, "torch", "mlp_int8_fused")
         rows = [("K3", towers["K3"], "torch", patched()),
                 ("K2", towers["K2"], "torch", patched())]
         if weights == "int8":
@@ -265,12 +274,11 @@ def probe(sm, dev, out_rows, saved: bool = False):
                   f"{float(mp.median()):.4f}; {time.perf_counter() - t0:.1f} "
                   f"s", flush=True)
         # K2 alone and the f64 control, block by block
-        plain = block_taps(model, lambda: embeds(img_p, "torch", "torch"))
-        routes = {"K2": block_taps(model, lambda: embeds(img_p, "auto",
-                                                          "torch"))}
+        plain = block_taps(model, lambda: embeds(img_p, "torch"))
+        routes = {"K2": block_taps(model, lambda: embeds(
+            img_p, "torch", "mha_short_seq"))}
         with patched((layers, "mha_short_seq", lambda _: mha_f64)):
-            routes["f64"] = block_taps(model, lambda: embeds(
-                img_p, "torch", "torch"))
+            routes["f64"] = block_taps(model, lambda: embeds(img_p, "torch"))
         for name, taps in routes.items():
             for i in BLOCKS:
                 d = float((taps[i][2].float() - plain[i][2].float()).abs()

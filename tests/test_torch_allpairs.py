@@ -194,7 +194,7 @@ def test_dedup_groups_matches_jax(d):
 def test_kernel_path_refuses_cpu_tensors_and_unknown_impl():
     a = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        allpairs.first_match(a, a, 0.5, impl="cuda")
+        allpairs._first_match_cuda(a, a, 0.5, False, 0, 0)
     with pytest.raises(ValueError, match="impl"):
         allpairs.first_match(a, a, 0.5, impl="pallas")
 

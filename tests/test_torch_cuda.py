@@ -38,7 +38,7 @@ from mmrs_tpu_torch.index.ivf import (build_ivf_streaming, ivf_topk,
                                       probe_buckets, probe_buckets_q4)
 from mmrs_tpu_torch.models import layers
 from mmrs_tpu_torch.models.llama import _quantize_kv
-from mmrs_tpu_torch.ops.allpairs import first_match
+from mmrs_tpu_torch.ops.allpairs import _first_match_cuda, first_match
 from mmrs_tpu_torch.ops import topk as topk_mod
 from mmrs_tpu_torch.ops.decode_attention import (_chunk_cuda, _decode_cuda,
                                                  chunk_attention,
@@ -785,7 +785,7 @@ def test_first_match_kernel_rejects_what_it_cannot_run(dev):
         first_match(x[:, :8].contiguous(), x[:, :8].bfloat16(), 0.5)
     cpu = torch.randn((10, 16))
     with pytest.raises(ValueError, match="CUDA"):
-        first_match(cpu, cpu, 0.5, impl="cuda")
+        _first_match_cuda(cpu, cpu, 0.5, False, 0, 0)
 
 
 def _kv_cache(dev, layers, b, kvh, s, hd, quantized, seed):
@@ -1394,7 +1394,7 @@ def test_taiyi_pair_on_the_card_matches_its_plain_route(dev):
     assert mha_short_seq.launches > before[0]
     assert normalize_images.launches > before[1]
     ref = clip.encode_image(card.params, normalize_images(px, impl="torch"),
-                            attn_impl="torch", mlp_impl="torch")
+                            impl="torch")
     assert float((emb * ref).sum(1).min()) >= 0.999
     texts = ["一张荔枝的图片", "狗"]
     np.testing.assert_allclose(card.text_encode(texts), cpu.text_encode(texts),
@@ -1966,7 +1966,7 @@ def test_dense_on_the_card_takes_the_epilogue_kernel(dev):
 def test_image_tower_launches_the_epilogue_per_dense(dev, name, layers_n):
     """Six denses a block (wq, wk, wv, wo, w1 with its QuickGELU, w2) and
     the bias-free patch embedding: one launch each, no more; the plain
-    tower (attn_impl = mlp_impl = "torch") launches none."""
+    tower (impl="torch") launches none."""
     from mmrs_tpu_torch.models import vit
     from mmrs_tpu_torch.models.configs import IMAGE_TOWERS
 
@@ -1985,7 +1985,7 @@ def test_image_tower_launches_the_epilogue_per_dense(dev, name, layers_n):
     assert torch.isfinite(out).all()
     before = bias_act.launches
     with torch.inference_mode():
-        model(images, attn_impl="torch", mlp_impl="torch")
+        model(images, impl="torch")
     assert bias_act.launches == before
 
 
@@ -2104,8 +2104,8 @@ def test_layer_norm_plain_routes_on_the_card(dev):
     ("vit_l14", True)])      # cast to bf16 whole, as LLaVA's tower is
 def test_image_tower_launches_two_norms_a_block(dev, name, whole):
     """CLIP: ln_pre, two a block and ln_post (the CLS rows); SigLIP: two a
-    block, ln_post and the MAP head's; the plain tower (attn_impl =
-    mlp_impl = "torch") launches none."""
+    block, ln_post and the MAP head's; the plain tower (impl="torch")
+    launches none."""
     from mmrs_tpu_torch.models import vit
     from mmrs_tpu_torch.models.configs import IMAGE_TOWERS
 
@@ -2126,5 +2126,5 @@ def test_image_tower_launches_two_norms_a_block(dev, name, whole):
     assert torch.isfinite(out).all()
     before = layer_norm.launches
     with torch.inference_mode():
-        model(images, attn_impl="torch", mlp_impl="torch")
+        model(images, impl="torch")
     assert layer_norm.launches == before

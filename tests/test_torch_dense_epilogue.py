@@ -66,7 +66,7 @@ def _old_dense(x, layer, compute_dtype, impl="auto"):
                      out=torch.empty_like(y, dtype=compute_dtype))
 
 
-def _old_inner(self, x, compute_dtype, mlp_impl="auto"):
+def _old_inner(self, x, compute_dtype, impl="auto"):
     return self.act(_old_dense(x, self.w1, compute_dtype))
 
 
@@ -216,22 +216,21 @@ def test_impl_torch_takes_the_plain_route(routes):
     assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("attn_impl,mlp_impl", [
-    ("torch", "torch"), ("torch", "auto"), ("auto", "torch")])
-def test_block_denses_follow_their_impl(routes, attn_impl, mlp_impl):
-    """wq, wk, wv and wo take `attn_impl`; w1 (with its activation) and
-    w2 take `mlp_impl`."""
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+def test_block_denses_follow_their_impl(routes, impl):
+    """wq, wk, wv, wo, w1 (with its activation) and w2 all take the
+    block's one `impl`."""
     blk = _block(layers.quick_gelu, torch.bfloat16, seed=5)
     x = torch.randn((2, 5, 64), generator=torch.Generator().manual_seed(3)
                     ).to(torch.bfloat16)
-    blk(x, None, torch.bfloat16, attn_impl=attn_impl, mlp_impl=mlp_impl)
-    assert routes == [(None, attn_impl)] * 4 + [("quick_gelu", mlp_impl),
-                                                (None, mlp_impl)]
+    blk(x, None, torch.bfloat16, impl=impl)
+    assert routes == [(None, impl)] * 4 + [("quick_gelu", impl),
+                                           (None, impl)]
 
 
 def test_the_plain_image_tower_runs_no_epilogue_kernel(routes):
-    """With attn_impl = mlp_impl = "torch" every dense of the ViT, the
-    patch embedding's too, takes the plain ops."""
+    """With impl="torch" every dense of the ViT, the patch embedding's
+    too, takes the plain ops."""
     from mmrs_tpu_torch.models import vit
     from mmrs_tpu_torch.models.configs import VITConfig
 
@@ -242,7 +241,7 @@ def test_the_plain_image_tower_runs_no_epilogue_kernel(routes):
     images = torch.randn((2, 32, 32, 3),
                          generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        plain = model(images, attn_impl="torch", mlp_impl="torch")
+        plain = model(images, impl="torch")
     assert len(routes) == 6 * cfg.layers + 1
     assert set(impl for _, impl in routes) == {"torch"}
     routes.clear()
@@ -323,14 +322,14 @@ def test_mlp_inner_and_block_forward_are_unchanged(monkeypatch, dtype, act):
                     ).to(dtype)
     h = blk.ln2(x)
     inner = blk.mlp.inner(h, dtype)
-    fwd = blk(x, None, dtype, attn_impl="torch")
+    fwd = blk(x, None, dtype, impl="torch")
     mask = torch.triu(torch.full((9, 9), float("-inf")), 1)
     fwd_masked = blk(x, mask, dtype)
     monkeypatch.setattr(layers, "dense", _old_dense)
     monkeypatch.setattr(layers.MLP, "inner", _old_inner)
     assert torch.equal(_bits(inner), _bits(blk.mlp.inner(h, dtype)))
     assert torch.equal(_bits(fwd), _bits(blk(x, None, dtype,
-                                             attn_impl="torch")))
+                                             impl="torch")))
     assert torch.equal(_bits(fwd_masked), _bits(blk(x, mask, dtype)))
 
 

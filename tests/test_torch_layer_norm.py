@@ -6,7 +6,7 @@ gains and rows far from zero mean, and must be the ops the layer ran
 before E2, bit for bit. The kernel's route is taken only by bf16 CUDA rows
 outside autograd with `impl="auto"`: the CPU, f32 rows, a recording
 autograd and `impl="torch"` keep the plain ops and leave the launch count
-alone, and a tower built with `mlp_impl="torch"` never reaches the
+alone, and a tower built with `impl="torch"` never reaches the
 kernel's branch. The launch plan and the kernel's indexing (one warp a
 row, one lane a 16-byte vector) are modelled in numpy; the benchmark's
 `e2_roofline.index` reader counts the launches one batch makes. The kernel
@@ -203,27 +203,25 @@ def norm_calls(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("attn_impl,mlp_impl", [
-    ("auto", "auto"), ("torch", "auto"), ("auto", "torch"),
-    ("torch", "torch")])
-def test_block_norms_follow_mlp_impl(norm_calls, attn_impl, mlp_impl):
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+def test_block_norms_follow_impl(norm_calls, impl):
     blk = layers.Block(64, 4, layers.quick_gelu).requires_grad_(False)
     for m in blk.modules():
         if isinstance(m, torch.nn.Linear):
             m.weight.data = m.weight.data.to(BF16)
     x = ln_cases.rows(10, 64, seed=4).reshape(2, 5, 64)
-    blk(x, None, BF16, attn_impl=attn_impl, mlp_impl=mlp_impl)
-    assert norm_calls == [(10, 64, mlp_impl)] * 2
+    blk(x, None, BF16, impl=impl)
+    assert norm_calls == [(10, 64, impl)] * 2
 
 
 @pytest.mark.parametrize("cfg", [VIT_TINY, SIGLIP_TINY],
                          ids=["clip", "siglip"])
-@pytest.mark.parametrize("mlp_impl", ["auto", "torch"])
-def test_image_tower_norms(norm_calls, cfg, mlp_impl):
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+def test_image_tower_norms(norm_calls, cfg, impl):
     """One batch: CLIP's ln_pre, two a block and ln_post over the CLS rows;
     SigLIP's two a block, ln_post over every token and the MAP head's
-    norm over one row an image. All follow `mlp_impl`: the plain tower
-    (attn_impl = mlp_impl = "torch") never reaches the kernel's branch."""
+    norm over one row an image. All follow `impl`: the plain tower
+    (impl="torch") never reaches the kernel's branch."""
     model = vit.VisionTransformer(cfg, torch.Generator().manual_seed(0))
     model = model.eval().requires_grad_(False)
     for m in model.modules():
@@ -233,14 +231,14 @@ def test_image_tower_norms(norm_calls, cfg, mlp_impl):
     images = torch.randn((b, s, s, 3),
                          generator=torch.Generator().manual_seed(1)).to(BF16)
     with torch.inference_mode():
-        model(images, attn_impl=mlp_impl, mlp_impl=mlp_impl)
+        model(images, impl=impl)
     w, t = cfg.width, cfg.seq_len
     if cfg.pool == "cls":
         want = [(b * t, w)] * (1 + 2 * cfg.layers) + [(b, w)]
     else:
         want = [(b * t, w)] * (2 * cfg.layers + 1) + [(b, w)]
     assert [c[:2] for c in norm_calls] == want
-    assert {c[2] for c in norm_calls} == {mlp_impl}
+    assert {c[2] for c in norm_calls} == {impl}
 
 
 def test_text_towers_norm_on_the_default_route(norm_calls):

@@ -17,8 +17,11 @@ from mmrs_tpu.ops import attention as j_attention
 from mmrs_tpu.ops import normalize as j_normalize
 from mmrs_tpu.ops import preprocess as j_preprocess
 from mmrs_tpu.ops import topk as j_topk
-from mmrs_tpu_torch.ops import (_cuda, attention, mlp_int8, normalize,
-                                preprocess, quant, quant4, topk)
+from mmrs_tpu_torch.index import ivf
+from mmrs_tpu_torch.models import layers
+from mmrs_tpu_torch.ops import (_cuda, allpairs, attention, decode_attention,
+                                dense_epilogue, layer_norm, mlp_int8,
+                                normalize, preprocess, quant, quant4, topk)
 
 torch.set_num_threads(2)
 
@@ -306,10 +309,82 @@ def test_quantized_kernel_paths_refuse_cpu_tensors():
                                 torch.zeros(64), "gelu")
 
 
-def test_unknown_impl_raises():
-    x = torch.zeros((2, 4))
-    with pytest.raises(ValueError, match="impl"):
-        topk.cosine_topk(x, x, 1, impl="pallas")
+def _route_cases():
+    """(entry point, its CPU arguments) for every op that takes `impl`, and
+    the float dense that hands the towers' `impl` to the epilogue."""
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dtype)
+
+    def unit(n, d):
+        x = rand(n, d)
+        return x / x.norm(dim=1, keepdim=True)
+
+    bf16 = torch.bfloat16
+    q, gal = unit(3, 16), unit(40, 16)
+    w1 = rand(64, 32).mul(20).round().clamp(-127, 127).to(torch.int8)
+    w2 = rand(32, 64).mul(20).round().clamp(-127, 127).to(torch.int8)
+    buckets, bucket_ids = rand(4, 6, 16, dtype=bf16), torch.arange(
+        24, dtype=torch.int32).reshape(4, 6)
+    bucket_ids[:, 4:] = -1
+    probe = torch.tensor([[0, 2], [3, 1]], dtype=torch.int32)
+    packed, scales = quant4.quantize_rows_int4(rand(24, 16))
+    lin = torch.nn.Linear(32, 16)
+    lin.weight.data = lin.weight.data.to(bf16)
+    lin.requires_grad_(False)
+    kv = rand(1, 2, 8, 16, dtype=bf16)
+    return {
+        "cosine_topk": (topk.cosine_topk, (q, gal, 5)),
+        "cosine_topk_quantized": (quant.cosine_topk_quantized,
+                                  (q, *quant.quantize_rows(gal), 5)),
+        "cosine_topk_int4": (quant4.cosine_topk_int4,
+                             (q, *quant4.quantize_rows_int4(gal), 5)),
+        "mha_short_seq": (attention.mha_short_seq,
+                          (*(rand(2, 7, 32, dtype=bf16) for _ in "qkv"), 4)),
+        "bias_act": (dense_epilogue.bias_act,
+                     (rand(5, 16), rand(16), "quick_gelu", bf16)),
+        "layer_norm": (layer_norm.layer_norm,
+                       (rand(5, 32, dtype=bf16), rand(32), rand(32), 1e-5)),
+        "mlp_int8_fused": (mlp_int8.mlp_int8_fused,
+                           (rand(4, 32, dtype=bf16), w1, rand(64).abs() / 50,
+                            rand(64), w2, rand(32).abs() / 50, rand(32),
+                            "gelu")),
+        "normalize_images": (preprocess.normalize_images,
+                             (torch.randint(0, 256, (2, 8, 8, 3), generator=g,
+                                            dtype=torch.uint8),)),
+        "first_match": (allpairs.first_match,
+                        (torch.cat([gal[:6], gal[:4]]),) * 2 + (0.9, True)),
+        "decode_attention": (decode_attention.decode_attention,
+                             (rand(1, 2, 2, 16, dtype=bf16), kv, None, kv,
+                              None, 5)),
+        "chunk_attention": (decode_attention.chunk_attention,
+                            (rand(1, 2, 2, 3, 16, dtype=bf16), kv, None, kv,
+                             None, 2)),
+        "probe_buckets": (ivf.probe_buckets,
+                          (rand(2, 16, dtype=bf16), probe, buckets,
+                           bucket_ids, None, 3)),
+        "probe_buckets_q4": (ivf.probe_buckets_q4,
+                             (*quant4.prep_queries(unit(2, 16)), probe,
+                              packed.reshape(4, 6, 8), bucket_ids,
+                              scales.reshape(4, 6), 3)),
+        "dense": (layers.dense, (rand(5, 32, dtype=bf16), lin, bf16,
+                                 layers.quick_gelu)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_route_cases()))
+def test_every_entry_point_takes_the_one_route_rule(name):
+    """_cuda.takes_kernel: an unknown `impl` raises before any work, and on
+    CPU tensors "auto" is the plain version, bit for bit."""
+    fn, args = _route_cases()[name]
+    with pytest.raises(ValueError, match="unknown impl"):
+        fn(*args, impl="pallas")
+    auto, plain = ([out] if isinstance(out, torch.Tensor) else list(out)
+                   for out in (fn(*args, impl=i) for i in ("auto", "torch")))
+    assert len(auto) == len(plain)
+    for a, p in zip(auto, plain):
+        assert a.dtype == p.dtype and torch.equal(a, p), name
 
 
 def test_kernel_build_is_keyed_by_source_hash():

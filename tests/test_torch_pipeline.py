@@ -169,3 +169,28 @@ def test_clip_tokenizer_ids_match_jax_copy():
     tok = t_tokenizer.CLIPTokenizer.synthetic(words)
     assert tok.decode(got[0]) == j_tokenizer.CLIPTokenizer.synthetic(
         words).decode(want[0])
+
+
+@pytest.mark.parametrize("image_tower,text_tower,pair,text", [
+    ("vit_b32", "clip_text", "CLIP", "CLIP_TEXT_B32"),
+    ("vit_l14", "clip_text", "CLIP", "CLIP_TEXT_L14"),
+    ("vit_tiny", "clip_text", "CLIP", "CLIP_TEXT_TINY"),
+    ("vit_l14", "taiyi_roberta", "TaiyiCLIP", "TAIYI_ROBERTA_LARGE"),
+    ("vit_tiny", "taiyi_roberta", "TaiyiCLIP", "TAIYI_TINY"),
+    ("siglip_so400m_384", "siglip_text_so400m", "SigLIP",
+     "SIGLIP_TEXT_SO400M"),
+])
+def test_pair_config_is_the_one_pair_rule(image_tower, text_tower, pair,
+                                          text):
+    """`build_towers` and `parity --int8-tower` take their pair from
+    `clip.pair_config`: the pair class, the image tower's preset and the
+    text tower's."""
+    from mmrs_tpu_torch.models import clip as t_clip
+    from mmrs_tpu_torch.models import configs as t_configs
+
+    make, ccfg = t_clip.pair_config(image_tower, text_tower)
+    assert make is getattr(t_clip, pair)
+    assert ccfg.vision is t_configs.IMAGE_TOWERS[image_tower]
+    assert ccfg.text is getattr(t_configs, text)
+    with pytest.raises(ValueError, match="unknown image tower"):
+        t_clip.pair_config("vit_h14", text_tower)
